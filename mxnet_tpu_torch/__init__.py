@@ -6,7 +6,8 @@ Entry points run on the card unless the caller passes ``device="cpu"``; with
 no card and no device given they raise. The hand-written CUDA kernels under
 ``csrc/`` are built with nvcc at first use into ``build/mxnet_tpu_torch/``.
 """
-from . import context, convert, gluon, initializer, ops, parallel, random
+from . import (context, convert, gluon, initializer, models, ops, parallel,
+               random)
 from .base import MXNetError, check
 from .context import cpu, gpu
 
@@ -15,4 +16,4 @@ init = initializer
 __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "check", "context", "convert", "cpu", "gpu", "gluon",
-           "init", "initializer", "ops", "parallel", "random"]
+           "init", "initializer", "models", "ops", "parallel", "random"]
