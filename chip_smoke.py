@@ -23,11 +23,15 @@ Phases, each printing JSON lines:
    launched 48 times per step. Step time, img/s and peak memory;
 5. one more step under ``torch.profiler``: device time by kernel family
    and the device's idle share of the step;
-6. the flash-attention forward kernel against its plain PyTorch version
-   at the transformer path's shape (B 8, T 2048, H 8, D 64, causal, bf16,
-   q/k/v as views of the qkv projection; timed, with SDPA as its
-   yardstick and the bound the larger of bytes / 3.35 TB/s and flops /
-   989 TFLOP/s) and at edge cases (ragged T, T under one tile, D 8 to 256,
+6. the flash-attention forward against its plain PyTorch version on both
+   of its routes (``flash_route``: the tensor-core kernel for bf16 with D
+   64 or 128 and aligned views, the SIMT kernel for the rest), each case at
+   its route's tolerance and with the route it took read from the launch
+   counters: the transformer path's shape (B 8, T 2048, H 8, D 64, causal,
+   bf16, q/k/v as views of the qkv projection; timed, with TFLOP/s, the
+   SIMT kernel on the same inputs, SDPA as the yardstick and the bound the
+   larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s), the same work at
+   D 128 (timed), and edge cases (ragged T, T under one tile, D 8 to 256,
    non-causal, f32, unaligned views);
 7. a small transformer LM card against host, f32, TF32 off: logits, loss
    and every parameter after one ``make_train_step`` step, with exactly
@@ -37,7 +41,7 @@ Phases, each printing JSON lines:
    bf16, batch 8 x T 2048; one timed ``forward`` (tokens/s), then K timed
    ``make_train_step`` steps (step ms, tokens/s, peak memory), counters
    zeroed just before each and read just after: 4 launches per forward
-   and per step;
+   and per step, every one on the tensor-core route;
 9. one more train step under ``torch.profiler``: device time of
    ``flash_fwd``, of the attention backward (the plain recompute), of
    matmuls and of the rest, and the device's idle share;
@@ -254,8 +258,9 @@ def reduction_scale(torch, tk, name, cs):
 def max_err(torch, tk, name, cs, got, want):
     """(max |kernel - plain|, whether it is within tolerance).
     Reductions: 1e-5 of the sum of magnitudes (f32 accumulation in another
-    order). Elementwise: the kernel rounds as the plain version does, so
-    both agree to one unit in the last place of the output type."""
+    order). bn_bwd_apply: bit-identical (it rounds operation by operation
+    as the plain version does). bn_apply: within one unit in the last
+    place of the output type."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     worst, ok = 0.0, True
@@ -264,6 +269,8 @@ def max_err(torch, tk, name, cs, got, want):
         worst = max(worst, float(d.max()))
         if name in ("bn_stats", "bn_bwd_stats"):
             tol = 1e-5 * reduction_scale(torch, tk, name, cs) + 1e-6
+        elif name == "bn_bwd_apply":
+            tol = 0.0
         else:
             ulp = 2.0 ** -7 if a.dtype == torch.bfloat16 else 2.0 ** -23
             tol = ulp * w.float().abs() + 1e-6
@@ -520,49 +527,85 @@ def flash_bound_ms(b, t, h, d, causal, itemsize):
         else "operations"
 
 
+def flash_tolerance(torch, route, want, v):
+    """Per-element tolerance of a flash_fwd output against _flash_plain.
+    SIMT route: 2e-5 absolute (randn inputs; the online softmax sums in
+    another order), plus one bf16 ulp of the plain output in bf16.
+    Tensor-core route: also 2^-8 max|v|, P's bf16 rounding (at most 2^-8
+    relative per element, so at most 2^-8 max|v| on the output)."""
+    tol = 2e-5 + (2.0 ** -7 * want.float().abs()
+                  if want.dtype == torch.bfloat16 else 0.0)
+    if route == "tc":
+        tol = tol + 2.0 ** -8 * float(v.float().abs().max())
+    return tol
+
+
 def flash_phase(torch, fa):
-    """Every case within tolerance of ``_flash_plain`` on the same inputs:
-    f32 within 2e-5 absolute (randn inputs; the online softmax sums in
-    another order), bf16 within one bf16 ulp of the plain output plus that
-    f32 allowance. The path's shape is timed."""
+    """Every case within its route's tolerance of ``_flash_plain`` on the
+    same inputs, on the route the case table expects (read from the launch
+    counters, which are zeroed before each call). The path's shape and the
+    same work at D 128 are timed."""
+    import ctypes
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     bf16, f32 = torch.bfloat16, torch.float32
-    # (B, T, H, D, causal, dtype, layout, timed)
-    cases = [(TF_BATCH, TF_T, 8, 64, True, bf16, "qkv", True),
-             (2, 1000, 4, 64, True, bf16, "qkv", False),
-             (2, 64, 4, 64, True, bf16, "dense", False),
-             (3, 37, 2, 64, False, bf16, "dense", False),
-             (2, 1000, 4, 32, False, bf16, "dense", False),
-             (2, 1000, 4, 128, False, bf16, "qkv", False),
-             (2, 1000, 4, 64, True, f32, "qkv", False),
-             (1, 300, 2, 256, True, f32, "dense", False),
-             (2, 129, 2, 64, False, f32, "offset", False),
-             (2, 128, 4, 8, True, f32, "dense", False)]
+    # (B, T, H, D, causal, dtype, layout, route, timed)
+    cases = [(TF_BATCH, TF_T, 8, 64, True, bf16, "qkv", "tc", True),
+             (TF_BATCH, TF_T, 4, 128, True, bf16, "qkv", "tc", True),
+             (2, 1000, 4, 64, True, bf16, "qkv", "tc", False),
+             (2, 64, 4, 64, True, bf16, "dense", "tc", False),
+             (3, 37, 2, 64, False, bf16, "dense", "tc", False),
+             (2, 129, 2, 64, True, bf16, "dense", "tc", False),
+             (2, 1000, 4, 128, False, bf16, "qkv", "tc", False),
+             (2, 300, 4, 128, True, bf16, "dense", "tc", False),
+             (2, 1000, 4, 32, False, bf16, "dense", "simt", False),
+             (2, 129, 2, 64, False, bf16, "offset", "simt", False),
+             (2, 1000, 4, 64, True, f32, "qkv", "simt", False),
+             (1, 300, 2, 256, True, f32, "dense", "simt", False),
+             (2, 129, 2, 64, False, f32, "offset", "simt", False),
+             (2, 128, 4, 8, True, f32, "dense", "simt", False)]
     result, worst, bad = None, 0.0, []
-    for b, t, h, d, causal, dtype, layout, timed in cases:
+    for b, t, h, d, causal, dtype, layout, route, timed in cases:
         q, k, v = flash_inputs(torch, b, t, h, d, dtype, layout, gen)
         scale = 1.0 / d ** 0.5
+        fa.reset_launches()
         got = fa.flash_fwd(q, k, v, causal, scale)
+        took = "tc" if fa.launches["flash_fwd_tc"] == 1 else "simt"
+        counted = fa.launches["flash_fwd"] == 1
         want = fa._flash_plain(q, k, v, causal, scale)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
-        tol = 2e-5 + (2.0 ** -7 * want.float().abs() if dtype == bf16
-                      else 0.0)
-        ok = bool(torch.isfinite(got).all()) and bool((diff <= tol).all())
+        tol = flash_tolerance(torch, took, want, v)
+        ok = (bool(torch.isfinite(got).all()) and bool((diff <= tol).all())
+              and took == route == fa.flash_route(q, k, v) and counted)
         err = float(diff.max())
         worst = max(worst, err)
         row = {"phase": "kernel", "kernel": "flash_fwd", "B": b, "T": t,
                "H": h, "D": d, "causal": causal, "dtype": str(dtype)[6:],
-               "layout": layout, "max_abs_err": err, "ok": ok}
+               "layout": layout, "route": took, "max_abs_err": err,
+               "worst_err_over_tol": float((diff / tol).max()), "ok": ok}
         if not ok:
             bad.append(row)
         if timed:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            o = torch.empty_like(q)
+            ts = (q, k, v, o)
+            strides = (ctypes.c_longlong * 12)(
+                *[st for x in ts for st in x.stride()[:3]])
+            lib = fa._lib()
+
+            def simt():   # the SIMT kernel on the same inputs, uncounted
+                if lib.mxt_flash_fwd(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), strides, b, t, h, d, scale,
+                        int(causal), 1, 1,
+                        torch.cuda.current_stream().cuda_stream):
+                    fail("the SIMT flash kernel did not launch")
             row["ms"] = time_ms(
                 torch, lambda: fa.flash_fwd(q, k, v, causal, scale), flush)
+            row["simt_ms"] = time_ms(torch, simt, flush)
             row["plain_ms"] = time_ms(
                 torch, lambda: fa._flash_plain(q, k, v, causal, scale),
                 flush, iters=3)
@@ -571,12 +614,21 @@ def flash_phase(torch, fa):
                     qt, kt, vt, is_causal=causal, scale=scale), flush)
             row["bound_ms"], row["bound_by"] = flash_bound_ms(
                 b, t, h, d, causal, q.element_size())
-            result = dict(row)
+            flops = 4 * b * h * t * t * d / (2 if causal else 1)
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["library_tflops"] = flops / row["library_ms"] / 1e9
+            if result is None:
+                result = dict(row)
+            else:
+                result["d128"] = {key: row[key] for key in (
+                    "H", "D", "ms", "simt_ms", "library_ms", "tflops",
+                    "worst_err_over_tol")}
         emit(row)
         del q, k, v, got, want, diff
     torch.cuda.empty_cache()
     if bad:
-        fail(f"flash_fwd disagrees with its plain version: {bad}")
+        fail(f"flash_fwd disagrees with its plain version or took another "
+             f"route: {bad}")
     result["max_abs_err"] = worst
     return result
 
@@ -660,6 +712,7 @@ def transformer_main(torch, mt, card):
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t1
     fwd_launches = fa.launches["flash_fwd"]
+    fwd_tc = fa.launches["flash_fwd_tc"]
     fwd_finite = bool(torch.isfinite(logits).all())
     del logits
     step, _ = tf.make_train_step(cfg, lr=1e-3)
@@ -675,6 +728,7 @@ def transformer_main(torch, mt, card):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t2
     step_launches = fa.launches["flash_fwd"]
+    step_tc = fa.launches["flash_fwd_tc"]
     losses = losses.cpu()
     row = {"phase": "transformer_train", "model": "TransformerConfig() "
            "(vocab 32000, d_model 512, 8 heads, 4 layers, d_ff 2048), bf16",
@@ -686,7 +740,9 @@ def transformer_main(torch, mt, card):
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "setup_and_first_calls_s": setup_s,
            "flash_fwd_launches": {"forward": fwd_launches,
-                                  "train_steps": step_launches},
+                                  "train_steps": step_launches,
+                                  "forward_tc": fwd_tc,
+                                  "train_steps_tc": step_tc},
            "card": card}
     emit(row)
     if not (fwd_finite and torch.isfinite(losses).all()
@@ -700,6 +756,10 @@ def transformer_main(torch, mt, card):
         fail(f"expected {cfg.n_layers} flash_fwd launches per forward and "
              f"per step, got {fwd_launches} and {step_launches} in "
              f"{TF_K_STEPS} steps")
+    if (fwd_tc, step_tc) != (fwd_launches, step_launches):
+        fail(f"not every flash_fwd launch took the tensor-core route: "
+             f"{fwd_tc} of {fwd_launches} per forward, {step_tc} of "
+             f"{step_launches} in {TF_K_STEPS} steps")
     return step_launches, (step, params, tok, tgt)
 
 
@@ -1469,8 +1529,11 @@ def main():
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
+        "kernel_route": flash["route"], "tflops": flash["tflops"],
+        "simt_ms": flash["simt_ms"], "d128": flash["d128"],
         "per": f"one launch (B {TF_BATCH}, T {TF_T}, H 8, D 64, causal, "
-               f"bf16); launches over {TF_K_STEPS} train steps"})
+               f"bf16); launches over {TF_K_STEPS} train steps, all on "
+               "the tensor-core route"})
     for name, row in rtc_rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": "chip_smoke.py",

@@ -34,11 +34,15 @@
 // last chunk's loop stops at R, which is the masking the TPU kernel does
 // with _row_mask (including the product g*xhat in the backward).
 //
-// Elementwise kernels (bn_apply, bn_bwd_apply) are grid-stride loops over
-// 16-byte packs with per-channel coefficients broadcast from a tiny (k, C)
-// f32 table (cached in L1). Their arithmetic is written with explicit
-// round-to-nearest intrinsics so that it rounds exactly as the plain
-// PyTorch version does, operation by operation.
+// bn_apply is a grid-stride loop over 16-byte packs with per-channel
+// coefficients broadcast from a tiny (2, C) f32 table (cached in L1).
+// bn_bwd_apply is row-tiled like the reductions: the grid is (channel tiles)
+// x (row chunks), each thread owns one fixed pack of channels, loads that
+// pack's (5, pack) coefficients into registers once and walks its chunk's
+// rows, so there is no per-element table load and no index modulo. The
+// elementwise arithmetic is written with explicit round-to-nearest
+// intrinsics so that it rounds exactly as the plain PyTorch version does,
+// operation by operation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -242,38 +246,90 @@ __global__ void bn_apply(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
-// dx = coef[2] * (g - coef[3] - xhat * coef[4]) with g = dy where out > 0
-// and xhat = (x - coef[0]) * coef[1]; coef is (5, C). With RES the same
-// pass writes dres = g.
+// dx = coef[2] * (g - coef[3] - xhat * coef[4]) for one pack, with g = dy
+// where out > 0 and xhat = (x - coef[0]) * coef[1]; k holds the pack's
+// (5, VEC) coefficients. With RES it also writes dres = g.
+template <typename T, int VEC, bool RES>
+__device__ __forceinline__ void bwd_apply_pack(const Pack<T, VEC>& d,
+                                               const Pack<T, VEC>& o,
+                                               const Pack<T, VEC>& a,
+                                               const float (&k)[5][VEC],
+                                               T* dx, T* dres) {
+  Pack<T, VEC> gx, gr;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float g = to_f32(o.v[j]) > 0.f ? to_f32(d.v[j]) : 0.f;
+    const float xhat = __fmul_rn(__fsub_rn(to_f32(a.v[j]), k[0][j]), k[1][j]);
+    const float t = __fsub_rn(__fsub_rn(g, k[3][j]), __fmul_rn(xhat, k[4][j]));
+    gx.v[j] = from_f32<T>(__fmul_rn(k[2][j], t));
+    if (RES) gr.v[j] = from_f32<T>(g);
+  }
+  store_pack<T, VEC>(dx, gx);
+  if (RES) store_pack<T, VEC>(dres, gr);
+}
+
+constexpr int BWD_APPLY_UNROLL = 4;   // rows whose loads are in flight
+
+// The row-tiled pass of bn_bwd_apply; coef is (5, C). Thread (x, y) of
+// block (bx, by) owns channels col .. col + VEC - 1, col = (bx * blockDim.x
+// + x) * VEC, and rows r0 + y, r0 + y + blockDim.y, ... of the chunk
+// [r0, r1), r0 = by * rows_per_chunk, UNROLL rows at a time: 3 * UNROLL
+// pack loads are issued before the first is used, and the rows left over
+// go as one more guarded group.
 template <typename T, int VEC, bool RES>
 __global__ void bn_bwd_apply(const T* __restrict__ dy,
                              const T* __restrict__ out,
                              const T* __restrict__ x,
                              const float* __restrict__ coef,
                              T* __restrict__ dx, T* __restrict__ dres,
-                             int64_t nvec, int C) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nvec;
-       i += stride) {
-    const int64_t e = i * VEC;
-    const int c = (int)(e % C);
-    const Pack<T, VEC> d = load_pack<T, VEC>(dy + e);
-    const Pack<T, VEC> o = load_pack<T, VEC>(out + e);
-    const Pack<T, VEC> a = load_pack<T, VEC>(x + e);
-    Pack<T, VEC> gx, gr;
+                             int64_t R, int C, int64_t rows_per_chunk) {
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (col >= C) return;
+  float k[5][VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const int cj = c + j;
-      const float g = to_f32(o.v[j]) > 0.f ? to_f32(d.v[j]) : 0.f;
-      const float xhat = __fmul_rn(__fsub_rn(to_f32(a.v[j]), __ldg(coef + cj)),
-                                   __ldg(coef + C + cj));
-      const float t = __fsub_rn(__fsub_rn(g, __ldg(coef + 3 * C + cj)),
-                                __fmul_rn(xhat, __ldg(coef + 4 * C + cj)));
-      gx.v[j] = from_f32<T>(__fmul_rn(__ldg(coef + 2 * C + cj), t));
-      if (RES) gr.v[j] = from_f32<T>(g);
+  for (int i = 0; i < 5; ++i)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) k[i][j] = coef[i * C + col + j];
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_chunk;
+  const int64_t r1 = r0 + rows_per_chunk < R ? r0 + rows_per_chunk : R;
+  const int64_t step = blockDim.y;
+  int64_t r = r0 + threadIdx.y;
+  for (; r + (BWD_APPLY_UNROLL - 1) * step < r1;
+       r += BWD_APPLY_UNROLL * step) {
+    Pack<T, VEC> d[BWD_APPLY_UNROLL], o[BWD_APPLY_UNROLL],
+        a[BWD_APPLY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BWD_APPLY_UNROLL; ++u) {
+      const int64_t off = (r + u * step) * C + col;
+      d[u] = load_pack<T, VEC>(dy + off);
+      o[u] = load_pack<T, VEC>(out + off);
+      a[u] = load_pack<T, VEC>(x + off);
     }
-    store_pack<T, VEC>(dx + e, gx);
-    if (RES) store_pack<T, VEC>(dres + e, gr);
+#pragma unroll
+    for (int u = 0; u < BWD_APPLY_UNROLL; ++u) {
+      const int64_t off = (r + u * step) * C + col;
+      bwd_apply_pack<T, VEC, RES>(d[u], o[u], a[u], k, dx + off,
+                                  RES ? dres + off : nullptr);
+    }
+  }
+  // the last rows (fewer than UNROLL), their loads also issued together
+  constexpr int TAIL = BWD_APPLY_UNROLL - 1;
+  Pack<T, VEC> d[TAIL], o[TAIL], a[TAIL];
+#pragma unroll
+  for (int u = 0; u < TAIL; ++u) {
+    const int64_t off = (r + u * step) * C + col;
+    if (r + u * step < r1) {
+      d[u] = load_pack<T, VEC>(dy + off);
+      o[u] = load_pack<T, VEC>(out + off);
+      a[u] = load_pack<T, VEC>(x + off);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < TAIL; ++u) {
+    const int64_t off = (r + u * step) * C + col;
+    if (r + u * step < r1)
+      bwd_apply_pack<T, VEC, RES>(d[u], o[u], a[u], k, dx + off,
+                                  RES ? dres + off : nullptr);
   }
 }
 
@@ -325,18 +381,21 @@ void launch_apply(const void* x, const void* res, const float* coef,
 template <typename T, int VEC>
 void launch_bwd_apply(const void* dy, const void* out, const void* x,
                       const float* coef, void* dx, void* dres, int64_t R,
-                      int C, int blocks, cudaStream_t stream) {
-  const int64_t nvec = R * C / VEC;
+                      int C, int tx, int ty, int chunks,
+                      int64_t rows_per_chunk, cudaStream_t stream) {
+  const int width = tx * VEC;
+  dim3 grid((C + width - 1) / width, chunks);
+  dim3 block(tx, ty);
   if (dres != nullptr)
-    bn_bwd_apply<T, VEC, true><<<blocks, 256, 0, stream>>>(
+    bn_bwd_apply<T, VEC, true><<<grid, block, 0, stream>>>(
         static_cast<const T*>(dy), static_cast<const T*>(out),
         static_cast<const T*>(x), coef, static_cast<T*>(dx),
-        static_cast<T*>(dres), nvec, C);
+        static_cast<T*>(dres), R, C, rows_per_chunk);
   else
-    bn_bwd_apply<T, VEC, false><<<blocks, 256, 0, stream>>>(
+    bn_bwd_apply<T, VEC, false><<<grid, block, 0, stream>>>(
         static_cast<const T*>(dy), static_cast<const T*>(out),
-        static_cast<const T*>(x), coef, static_cast<T*>(dx), nullptr, nvec,
-        C);
+        static_cast<const T*>(x), coef, static_cast<T*>(dx), nullptr, R, C,
+        rows_per_chunk);
 }
 
 }  // namespace
@@ -388,9 +447,10 @@ int mxt_bn_bwd_stats(const void* dy, const void* out, const void* x,
 
 int mxt_bn_bwd_apply(const void* dy, const void* out, const void* x,
                      const float* coef, void* dx, void* dres, long long R,
-                     int C, int dtype, int wide, int blocks, void* stream) {
+                     int C, int dtype, int wide, int tx, int ty, int chunks,
+                     long long rows_per_chunk, void* stream) {
   MXT_DISPATCH(dtype, wide, launch_bwd_apply, dy, out, x, coef, dx, dres, R,
-               C, blocks, (cudaStream_t)stream);
+               C, tx, ty, chunks, rows_per_chunk, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

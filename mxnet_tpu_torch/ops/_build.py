@@ -4,7 +4,8 @@ Each source ``mxnet_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/mxnet_tpu_torch/`` at the repository root (git-ignored), then
 loaded with ``ctypes``. A source may add flags of its own
-(``EXTRA_FLAGS``: the NVRTC shim links ``libnvrtc`` and ``libcuda``). The
+(``EXTRA_FLAGS``: the NVRTC shim links ``libnvrtc`` and ``libcuda``, the
+flash-attention source ``libcuda`` for its TMA tensor maps). The
 build happens at first use; the library's file name carries a hash of its
 source and its flags, so an edited source or flag is rebuilt and a
 finished build is reused. Nothing here runs at import time.
@@ -30,7 +31,8 @@ SOURCES = ("fused_bn_act", "flash_attention", "rtc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 #: per-source flags after NVCC_FLAGS; they enter the library's hash
-EXTRA_FLAGS = {"rtc": ("-lnvrtc", "-lcuda")}
+EXTRA_FLAGS = {"rtc": ("-lnvrtc", "-lcuda"),
+               "flash_attention": ("-lcuda",)}
 
 _lock = threading.Lock()
 _loaded: dict = {}

@@ -2,16 +2,21 @@
 JAX package's ``ops/pallas_kernels.py`` ``_build_flash`` and
 ``flash_attention``).
 
-The forward is the hand-written CUDA kernel in ``csrc/flash_attention.cu``
-(online softmax over K/V tiles, f32 arithmetic). The backward is not a
-kernel, as in the JAX package: it recomputes through the plain
-``parallel.ring_attention.attention`` with torch autograd, as the JAX
-``custom_vjp`` recomputes through its plain attention.
+The forward is one of two hand-written CUDA kernels in
+``csrc/flash_attention.cu``, chosen by shape (``flash_route``): a
+tensor-core kernel (wgmma, TMA, P in bf16) for bf16 with D 64 or 128 and
+16-byte aligned views, and an online-softmax kernel in f32 arithmetic for
+every other call. The backward is not a kernel, as in the JAX package: it
+recomputes through the plain ``parallel.ring_attention.attention`` with
+torch autograd, as the JAX ``custom_vjp`` recomputes through its plain
+attention.
 
-Device rule: ``flash_fwd`` runs the kernel for CUDA tensors and its plain
+Device rule: ``flash_fwd`` runs a kernel for CUDA tensors and its plain
 PyTorch version ``_flash_plain`` for CPU tensors; any other device raises.
-Nothing falls back from the kernel to the plain version. The wrapper adds
-one to ``launches["flash_fwd"]`` when it launches the kernel.
+Nothing falls back from a kernel to the plain version or to the other
+kernel. The wrapper adds one to ``launches["flash_fwd"]`` for every kernel
+launch and one to ``launches["flash_fwd_tc"]`` when it is the tensor-core
+kernel.
 """
 from __future__ import annotations
 
@@ -24,13 +29,16 @@ from ..base import MXNetError, check
 from ..parallel.ring_attention import attention
 from . import _build
 
-__all__ = ["flash_attention", "flash_fwd", "launches", "reset_launches"]
+__all__ = ["flash_attention", "flash_fwd", "flash_route", "launches",
+           "reset_launches"]
 
-#: launches of the kernel since the last reset_launches()
-launches = {"flash_fwd": 0}
+#: kernel launches since the last reset_launches(): every launch, and those
+#: of the tensor-core route
+launches = {"flash_fwd": 0, "flash_fwd_tc": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
+_TC_D = (64, 128)
 _bound = False
 
 
@@ -60,6 +68,9 @@ def _lib():
         lib.mxt_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i,
                                       ctypes.c_float, i, i, i, p]
         lib.mxt_flash_fwd.restype = ctypes.c_int
+        lib.mxt_flash_fwd_tc.argtypes = [p, p, p, p, p, i, i, i, i,
+                                         ctypes.c_float, i, p]
+        lib.mxt_flash_fwd_tc.restype = ctypes.c_int
         _bound = True
     return lib
 
@@ -87,10 +98,36 @@ def _check(q, k, v):
     return q.device.type
 
 
+def _aligned(ts) -> bool:
+    """Every pointer and every (b, t, h) stride 16-byte aligned."""
+    size = ts[0].element_size()
+    return (all(x.data_ptr() % 16 == 0 for x in ts)
+            and all(s * size % 16 == 0 for x in ts for s in x.stride()[:3]))
+
+
+def flash_route(q, k, v) -> str:
+    """The kernel a call takes, by shape: ``"tc"`` (the tensor-core kernel)
+    for bf16 with D 64 or 128 whose pointers and (b, t, h) strides are all
+    16-byte aligned, else ``"simt"`` (the f32-arithmetic kernel)."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in _TC_D \
+            and _aligned((q, k, v)):
+        return "tc"
+    return "simt"
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float):
-    """softmax(q k^T * scale [causal -1e30 mask]) v over (B, T, H, D), f32
-    math, output in q's dtype (ref: pallas_kernels.py
-    _build_flash)."""
+    """softmax(q k^T * scale [causal -1e30 mask]) v over (B, T, H, D),
+    output in q's dtype (ref: pallas_kernels.py _build_flash).
+
+    Route rule (``flash_route``, dispatch by shape, never a fallback):
+    bf16 with D 64 or 128 and 16-byte aligned pointers and (b, t, h)
+    strides goes to the tensor-core kernel, whose products run in bf16 with
+    f32 accumulation and P rounded to bf16; an element of its output is
+    within ``2e-5 + 2^-7 |want| + 2^-8 max|v|`` of ``_flash_plain``'s
+    ``want`` (P's bf16 rounding moves the output by at most 2^-8 max|v|).
+    Everything else (f32, other D, unaligned views) goes to the SIMT kernel
+    in f32 arithmetic, within the plain version's f32 tolerance. A failed
+    build or launch on either route raises ``MXNetError``."""
     if _check(q, k, v) == "cpu":
         return _flash_plain(q, k, v, causal, scale)
     b, t, h, d = q.shape
@@ -98,19 +135,24 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     ts = (q, k, v, o)
     strides = (ctypes.c_longlong * 12)(
         *[s for x in ts for s in x.stride()[:3]])
-    size = q.element_size()
-    vec = int(all(x.data_ptr() % 16 == 0 for x in ts)
-              and all(s * size % 16 == 0 for x in ts for s in x.stride()[:3]))
+    route = flash_route(q, k, v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _lib().mxt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
-            b, t, h, d, float(scale), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], vec,
-            torch.cuda.current_stream(q.device).cuda_stream)
+        if route == "tc":
+            err = _lib().mxt_flash_fwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                strides, b, t, h, d, float(scale), int(bool(causal)), stream)
+        else:
+            err = _lib().mxt_flash_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                strides, b, t, h, d, float(scale), int(bool(causal)),
+                _DTYPE_CODE[q.dtype], int(_aligned(ts)), stream)
     if err != 0:
-        raise MXNetError(f"flash_fwd: CUDA kernel launch failed "
-                         f"(cudaError {err})")
+        raise MXNetError(f"flash_fwd: CUDA kernel launch failed on the "
+                         f"{route} route (cudaError {err})")
     launches["flash_fwd"] += 1
+    if route == "tc":
+        launches["flash_fwd_tc"] += 1
     return o
 
 

@@ -94,7 +94,8 @@ def _lib():
                 (lib.mxt_bn_apply, [p, p, p, p, ll, i, i, i, i, p]),
                 (lib.mxt_bn_bwd_stats,
                  [p, p, p, p, p, p, ll, i, i, i, i, i, i, ll, p]),
-                (lib.mxt_bn_bwd_apply, [p, p, p, p, p, p, ll, i, i, i, i, p])):
+                (lib.mxt_bn_bwd_apply,
+                 [p, p, p, p, p, p, ll, i, i, i, i, i, i, ll, p])):
             fn.argtypes = args
             fn.restype = ctypes.c_int
         _bound = True
@@ -136,9 +137,10 @@ def _wide(*ts) -> int:
 
 
 def _reduce_config(r, c, wide, dtype):
-    """(tx, ty, chunks, rows_per_chunk) of a split-R column reduction:
-    tx threads across C (each one pack), ty rows in flight, and enough row
-    chunks to fill the card."""
+    """(tx, ty, chunks, rows_per_chunk) of a split-R column reduction, and
+    of the row-tiled bn_bwd_apply: tx threads across C (each one pack), ty
+    rows in flight, at least 4 rows per thread (bn_bwd_apply's unroll), and
+    enough row chunks to fill the card."""
     pack = _PACK[dtype] if wide else 1
     cols = -(-c // pack)
     tx = min(32, cols)
@@ -242,13 +244,13 @@ def bn_bwd_apply(dy2d, out2d, x2d, coef, has_res):
     dres = torch.empty_like(x2d) if has_res else None
     outs = (dx,) if dres is None else (dx, dres)
     wide = _wide(x2d, dy2d, out2d, *outs)
+    tx, ty, chunks, rpc = _reduce_config(r, c, wide, x2d.dtype)
     with torch.cuda.device(x2d.device):
         err = _lib().mxt_bn_bwd_apply(
             dy2d.data_ptr(), out2d.data_ptr(), x2d.data_ptr(),
             coef.data_ptr(), dx.data_ptr(),
             None if dres is None else dres.data_ptr(), r, c,
-            _DTYPE_CODE[x2d.dtype], wide,
-            _elemwise_blocks(r, c, wide, x2d.dtype), _stream(x2d))
+            _DTYPE_CODE[x2d.dtype], wide, tx, ty, chunks, rpc, _stream(x2d))
     _ok("bn_bwd_apply", err)
     launches["bn_bwd_apply"] += 1
     return (dx, dres) if has_res else dx

@@ -7,8 +7,11 @@ On the CPU the port's ``flash_fwd`` runs its kernel's plain PyTorch version
 chip_smoke.py). The JAX side runs its Pallas kernel in interpret mode, as
 tests/test_pallas_ops.py does. Same numpy inputs for both. Tolerances are
 test_pallas_ops.py's: 2e-3 forward and 5e-3 gradients in f32; 2e-2 in bf16
-(test_fused_epilogue.py's bf16 tolerance).
+(test_fused_epilogue.py's bf16 tolerance). The tensor-core route's own
+algorithm (P rounded to bf16) is emulated tile by tile in plain torch here
+and held to the JAX kernel at that route's tolerance.
 """
+import math
 import os
 
 import numpy as np
@@ -114,7 +117,89 @@ def test_plain_version_takes_strided_views_and_counts_no_launch():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(got, tattention(q, k, v, True, 0.25),
                                rtol=2e-5, atol=2e-5)
-    assert fa.launches == {"flash_fwd": 0}
+    assert fa.launches == {"flash_fwd": 0, "flash_fwd_tc": 0}
+
+
+def _offset_view(b, t, h, d, dtype):
+    """A contiguous (B, T, H, D) view one element off 16-byte alignment."""
+    buf = torch.zeros(b * t * h * d + 1, dtype=dtype)
+    return buf[1:].view(b, t, h, d)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("bf16_d64", "tc"), ("bf16_d128", "tc"), ("bf16_d64_qkv_views", "tc"),
+    ("f32_d64", "simt"), ("bf16_d8", "simt"), ("bf16_d32", "simt"),
+    ("bf16_d256", "simt"), ("bf16_d64_offset_view", "simt")])
+def test_route_rule_dispatches_by_shape(case, route):
+    """bf16 with D 64 or 128 and 16-byte aligned pointers and (b, t, h)
+    strides takes the tensor-core kernel; everything else the SIMT one."""
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+    d = int(case.split("_d")[1].split("_")[0])
+    if case.endswith("qkv_views"):
+        qkv = torch.zeros(2, 40, 3 * 2 * d, dtype=dtype)
+        q, k, v = (z.reshape(2, 40, 2, d)
+                   for z in qkv.split(2 * d, dim=-1))
+    elif case.endswith("offset_view"):
+        q = k = v = _offset_view(2, 40, 2, d, dtype)
+    else:
+        q = k = v = torch.zeros(2, 40, 2, d, dtype=dtype)
+    assert fa.flash_route(q, k, v) == route
+
+
+def _tc_emulation(q, k, v, causal, scale):
+    """The tensor-core kernel's algorithm in plain torch: 128-row query
+    tiles, 128-row K/V tiles (causal: up to the diagonal tile), f32 scores
+    of the bf16 inputs, a running max m and sum l in base 2 with the scale
+    folded into log2(e), P rounded to bf16 for the P V product (f32
+    accumulation), O / l in q's dtype at the end."""
+    b, t, h, d = q.shape
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    c = scale * math.log2(math.e)
+    out = torch.empty(b, h, t, d)
+    for q0 in range(0, t, 128):
+        rows = torch.arange(q0, min(q0 + 128, t))
+        qi = qf[:, :, q0:q0 + 128]
+        m = torch.full(qi.shape[:3], -math.inf)
+        l = torch.zeros(qi.shape[:3])
+        o = torch.zeros(qi.shape)
+        k_end = min(q0 + 128, t) if causal else t
+        for k0 in range(0, k_end, 128):
+            cols = torch.arange(k0, min(k0 + 128, t))
+            x = qi @ kf[:, :, k0:k0 + 128].transpose(-1, -2) * c
+            if causal:
+                x = torch.where(cols[None, :] > rows[:, None], -1e30, x)
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + \
+                p.bfloat16().float() @ vf[:, :, k0:k0 + 128]
+            m = m_new
+        out[:, :, q0:q0 + 128] = o / l[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tensor_core_algorithm_is_within_its_tolerance_of_pallas(causal, d):
+    """The tile-wise emulation of the tensor-core route against the JAX
+    Pallas kernel (interpret mode) on bf16 inputs, ragged T 200, within the
+    route's stated tolerance: |got - want| <= 2e-5 + 2^-7 |want| + 2^-8
+    max|v| (P in bf16 moves the output by at most 2^-8 max|v|)."""
+    from mxnet_tpu.ops.pallas_kernels import flash_attention as jflash
+    q, k, v = _qkv(2, 200, 2, d, 8)
+    scale = 1.0 / math.sqrt(d)
+    want = _np(jflash(*(_jax(a, "bfloat16") for a in (q, k, v)),
+                      causal=causal, scale=scale))
+    tq, tk, tv = (_torch(a, "bfloat16") for a in (q, k, v))
+    got = _np(_tc_emulation(tq, tk, tv, causal, scale))
+    assert np.isfinite(got).all()
+    tol = 2e-5 + 2.0 ** -7 * np.abs(want) + 2.0 ** -8 * float(
+        tv.float().abs().max())
+    assert (np.abs(got - want) <= tol).all()
+    # the emulation is the algorithm, not the plain version renamed
+    assert not np.array_equal(got, _np(fa.flash_fwd(tq, tk, tv, causal,
+                                                    scale)))
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rank", "d_not_8", "d_too_big",
@@ -146,5 +231,10 @@ def test_build_rule_names_the_flash_source():
     src = open(os.path.join(ROOT, "mxnet_tpu_torch", "csrc",
                             "flash_attention.cu")).read()
     assert "int mxt_flash_fwd(" in src and "_build_flash" in src
-    assert "mxt_flash_fwd" in open(fa.__file__).read()
+    assert "int mxt_flash_fwd_tc(" in src and "wgmma.mma_async" in src
+    wrapper = open(fa.__file__).read()
+    assert "mxt_flash_fwd" in wrapper and "mxt_flash_fwd_tc" in wrapper
     assert "atomicAdd" not in src and "cudaMalloc" not in src
+    # TMA tensor maps come from the driver API
+    assert "-lcuda" in _build.EXTRA_FLAGS["flash_attention"]
+    assert "2^-8 max|v|" in fa.flash_fwd.__doc__

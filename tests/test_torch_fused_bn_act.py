@@ -8,6 +8,7 @@ mode, as tests/test_fused_epilogue.py does. Same numpy inputs for both.
 Tolerances are test_fused_epilogue.py's: 2e-5 in f32, 2e-2 in bf16.
 """
 import ast
+import importlib.util
 import os
 
 import numpy as np
@@ -138,6 +139,50 @@ def test_each_plain_kernel_matches_its_pallas_kernel(kernel, dtype):
         tol = _tol(dtype) if g.shape[0] == r else \
             dict(rtol=_tol(dtype)["rtol"], atol=_tol(dtype)["atol"] * r)
         np.testing.assert_allclose(_np(g), _np(w), **tol)
+
+
+def _path_sites():
+    """chip_smoke.py's ResNet-50 epilogue sites (R, C): the shapes the main
+    path gives bn_bwd_apply."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return [(r, c, "bfloat16") for r, c, _, _ in mod.path_sites()]
+
+
+BWD_APPLY_SITES = _path_sites() + [(100003, 512, "bfloat16"),
+                                   (1001, 9, "bfloat16"),
+                                   (25088, 256, "float32")]
+
+
+@pytest.mark.parametrize("r,c,dtype", BWD_APPLY_SITES,
+                         ids=[f"{r}x{c}_{d}" for r, c, d in BWD_APPLY_SITES])
+def test_bwd_apply_grid_covers_each_row_and_pack_once(r, c, dtype):
+    """The row-tiled bn_bwd_apply's grid, as launch_bwd_apply builds it
+    from ``_reduce_config``: block (bx, by) thread (x, y) owns the pack
+    at column (bx * tx + x) * pack and the rows r0 + y, r0 + y + ty, ...
+    of its chunk [by * rows_per_chunk, min(... + rows_per_chunk, R)).
+    Every (row, pack) is covered exactly once, wide (16-byte packs) and
+    narrow (VEC = 1, the unaligned or C-not-a-multiple path)."""
+    dt = getattr(torch, dtype)
+    for wide in ((1, 0) if c % tk._PACK[dt] == 0 else (0,)):
+        tx, ty, chunks, rpc = tk._reduce_config(r, c, wide, dt)
+        pack = tk._PACK[dt] if wide else 1
+        assert tx >= 1 and ty >= 1 and tx * ty <= 256
+        assert 1 <= chunks <= 65535 and (chunks - 1) * rpc < r
+        grid_x = -(-c // (tx * pack))
+        cols = (np.arange(grid_x)[:, None] * tx
+                + np.arange(tx)[None, :]).ravel() * pack
+        cols = cols[cols < c]
+        assert np.array_equal(np.sort(cols), np.arange(0, c, pack))
+        hits = np.zeros(r, np.int32)
+        for by in range(chunks):
+            r0 = by * rpc
+            r1 = min(r0 + rpc, r)
+            for y in range(ty):
+                hits[r0 + y:r1:ty] += 1
+        assert (hits == 1).all()
 
 
 def test_cpu_tensors_use_plain_versions_and_count_no_launch():
