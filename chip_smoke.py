@@ -12,7 +12,12 @@ Phases, each printing JSON lines:
    C that takes the scalar path, and an f32 case): maximum error, the
    kernel's time, the plain version's time, a one-call PyTorch yardstick
    (``library_ms``, never used by the port) and the bound (the larger of
-   bytes / 3.35 TB/s and flops / 67 TFLOP/s, H100 SXM peaks);
+   bytes / 3.35 TB/s and flops / 67 TFLOP/s, H100 SXM peaks) with its
+   share of the kernel's time (``bound_share``), and the time the same
+   method gives an empty kernel (the floor under every row); then the
+   reductions' ticket counters: each reduction twice back to back, at
+   shapes with other grids without a sync, and on two streams at once,
+   every result against the plain version and the repeats bit for bit;
 3. correctness of the path: a small channel-last ResNetV1 trained one step
    on the card (kernels) and on the host (plain versions) from the same
    weights, f32, TF32 off; logits, loss and every updated tensor compared;
@@ -22,7 +27,8 @@ Phases, each printing JSON lines:
    before the measured call and read just after; every kernel must have
    launched 48 times per step. Step time, img/s and peak memory;
 5. one more step under ``torch.profiler``: device time by kernel family
-   and the device's idle share of the step;
+   and the device's idle share of the step; the one-launch reductions
+   must show 48 device launches each (one per wrapper call);
 6. the flash-attention forward against its plain PyTorch version on both
    of its routes (``flash_route``: the tensor-core kernel for bf16 with D
    64 or 128 and aligned views, the SIMT kernel for the rest), each case at
@@ -309,6 +315,10 @@ def kernel_phase(torch, tk):
     totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                       max_abs_err=0.0, bound_by=set()) for n in KERNELS}
     bad = []
+    # what time_ms gives an empty kernel: the floor under every row below
+    emit({"phase": "kernel", "kernel": "empty (torch.cuda._sleep(0))",
+          "timing_floor_ms": time_ms(torch, lambda: torch.cuda._sleep(0),
+                                     flush, iters=20)})
     # the path's own shapes (timed), then edge cases (checked only)
     cases = [(r, c, res, mult, torch.bfloat16, True)
              for r, c, res, mult in path_sites()]
@@ -335,6 +345,7 @@ def kernel_phase(torch, tk):
                 row["library_ms"] = time_ms(torch, lib, flush)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     name, r, c, cs["x"].element_size(), has_res)
+                row["bound_share"] = row["bound_ms"] / row["ms"]
                 row["sites_per_step"] = mult
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                     t[key] += mult * row[key]
@@ -345,6 +356,52 @@ def kernel_phase(torch, tk):
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     return totals
+
+
+def reduction_counter_check(torch, tk):
+    """The one-launch reductions leave their ticket counters at 0: each
+    reduction called twice back to back at one shape, then at two shapes
+    with other grids without a sync between them, then on two side streams
+    at once (each stream has counters of its own). Every result is held
+    against the plain version, and the repeated calls against each other
+    bit for bit (the finishing order does not depend on which block
+    arrives last)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    shapes = ((25088, 256), (401408, 64), (6272, 2048))
+    cases = [make_case(torch, tk, r, c, False, torch.bfloat16, gen)
+             for r, c in shapes]
+    run = {"bn_stats": lambda cs: tk.bn_stats(cs["x"]),
+           "bn_bwd_stats": lambda cs: tk.bn_bwd_stats(
+               cs["dy"], cs["out"], cs["x"], cs["coef_b"])}
+    plain = {"bn_stats": lambda cs: tk._bn_stats_plain(cs["x"]),
+             "bn_bwd_stats": lambda cs: cs["bsums"]}
+    torch.cuda.synchronize()
+    got = []
+    for name, fn in run.items():
+        got += [(name, 0, fn(cases[0])), (name, 0, fn(cases[0]))]
+        got += [(name, i, fn(cases[i])) for i in (1, 2)]
+    side = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in side:
+        s.wait_stream(torch.cuda.current_stream())
+    for s, name in zip(side, run):
+        with torch.cuda.stream(s):
+            got += [(name, i, run[name](cases[i])) for i in (0, 1, 2, 0)]
+    torch.cuda.synchronize()
+    bad, worst, first = [], 0.0, {}
+    for name, i, out in got:
+        err, ok = max_err(torch, tk, name, cases[i], out,
+                          plain[name](cases[i]))
+        worst = max(worst, err)
+        ref = first.setdefault((name, i), out)
+        if not (ok and torch.equal(out, ref)):
+            bad.append((name, shapes[i], err))
+    left = {str(k): int(v.abs().sum()) for k, v in tk._tickets.items()}
+    row = {"phase": "reduction_counters", "calls": len(got),
+           "max_abs_err": worst, "tickets_left": left, "ok": not bad}
+    emit(row)
+    if bad or any(left.values()):
+        fail(f"reductions after repeated or concurrent calls: {row} {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -452,8 +509,11 @@ def main_path(torch, mt, card):
     return launched, trainer, data, label
 
 
-_EPILOGUE_KERNELS = ("bn_stats_partial", "sum_partials", "bn_apply<",
-                     "bn_bwd_stats_partial", "bn_bwd_apply<")
+# device kernels of the one-launch reductions: one per wrapper call
+_REDUCTION_KERNELS = {"bn_stats": "bn_stats_reduce<",
+                      "bn_bwd_stats": "bn_bwd_stats_reduce<"}
+_EPILOGUE_KERNELS = (*_REDUCTION_KERNELS.values(), "bn_apply<",
+                     "bn_bwd_apply<")
 _CONV_KERNELS = ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90_",
                  "wgrad", "dgrad", "fprop")
 
@@ -472,11 +532,15 @@ def profile_step(torch, trainer, data, label):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fam = {"epilogue_kernels": 0.0, "convolution_kernels": 0.0, "other": 0.0}
     top = []
+    reductions = {k: 0 for k in _REDUCTION_KERNELS}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key
+        for k, kernel in _REDUCTION_KERNELS.items():
+            if kernel in name:
+                reductions[k] += e.count
         if any(k in name for k in _EPILOGUE_KERNELS):
             fam["epilogue_kernels"] += ms
         elif any(k in name.lower() for k in _CONV_KERNELS):
@@ -490,10 +554,13 @@ def profile_step(torch, trainer, data, label):
            f"{B}, bf16, under torch.profiler", "wall_ms": wall_ms,
            "device_busy_ms": busy,
            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
-           "by_family_ms": fam,
+           "by_family_ms": fam, "reduction_kernel_launches": reductions,
            "top_kernels": [[round(ms, 4), n, name] for ms, n, name
                            in top[:12]]}
     emit(row)
+    if any(n != 48 for n in reductions.values()):
+        fail(f"expected 48 device launches of each reduction kernel in one "
+             f"step (one per wrapper call), got {reductions}")
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +682,7 @@ def flash_phase(torch, fa):
             row["bound_ms"], row["bound_by"] = flash_bound_ms(
                 b, t, h, d, causal, q.element_size())
             flops = 4 * b * h * t * t * d / (2 if causal else 1)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             row["tflops"] = flops / row["ms"] / 1e9
             row["library_tflops"] = flops / row["library_ms"] / 1e9
             if result is None:
@@ -1080,6 +1148,7 @@ def rtc_phase(torch, mt):
             row["plain_ms"] = time_ms(torch, plain, flush)
             row["library_ms"] = time_ms(torch, lib, flush)
             row["bound_ms"], row["bound_by"] = rtc_bound_ms(moved, flops)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             rows[name] = row
         emit(row)
     if bad:
@@ -1486,6 +1555,7 @@ def main():
           "device": torch.cuda.get_device_name(0)})
 
     totals = kernel_phase(torch, tk)
+    reduction_counter_check(torch, tk)
     small_reference(torch, mt)
     launched, trainer, data, label = main_path(torch, mt, card)
     profile_step(torch, trainer, data, label)
@@ -1518,6 +1588,7 @@ def main():
             "replaces": replaces.split(" ")[0], "launches": launched[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_share": t["bound_ms"] / t["ms"],
             "bound_by": "bytes" if t["bound_by"] == {"bytes"}
             else "operations", "library_ms": t["library_ms"],
             "library": LIBRARY[name],
@@ -1527,6 +1598,7 @@ def main():
         "replaces": FLASH_REPLACES, "launches": flash_launches,
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_share": flash["bound_share"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "kernel_route": flash["route"], "tflops": flash["tflops"],
@@ -1540,7 +1612,8 @@ def main():
             "via": RTC_VIA, "replaces": RTC_REPLACES,
             "launches": row["launches"], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_ms": row["bound_ms"], "bound_share": row["bound_share"],
+            "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library": RTC_LIBRARY[name],
             "per": f"one launch ({row['size']}); launches in the rtc "
                    "phase's driven run"})
@@ -1549,6 +1622,7 @@ def main():
         "via": RTC_VIA, "replaces": RTC_REPLACES, "launches": sgd_launches,
         "max_abs_err": sgd["max_abs_err"], "ms": sgd["ms"],
         "plain_ms": sgd["plain_ms"], "bound_ms": sgd["bound_ms"],
+        "bound_share": sgd["bound_ms"] / sgd["ms"],
         "bound_by": sgd["bound_by"], "library_ms": sgd["library_ms"],
         "library": RTC_LIBRARY["sgd_mom"],
         "per": f"one imperative step (4 launches, batch {MLP_FULL[0]}, "

@@ -25,14 +25,35 @@
 // once; the ReLU mask is re-derived from the saved output so no masked
 // cotangent is ever stored.
 //
-// Reductions (bn_stats, bn_bwd_stats) are a split-R column reduction: the
-// grid is (channel tiles) x (row chunks); each block walks its chunk with
-// blockDim.y rows in flight, reduces across its rows in shared memory, and
-// writes one (2, C) partial per chunk to a scratch buffer the wrapper
-// allocates. A second tiny kernel sums the partials in a fixed order, so the
-// result is deterministic (no float atomics). Rows >= R are never read: the
-// last chunk's loop stops at R, which is the masking the TPU kernel does
-// with _row_mask (including the product g*xhat in the backward).
+// Reductions (bn_stats, bn_bwd_stats) are one launch each: a split-R
+// column reduction that finishes itself. The grid is (channel tiles) x
+// (row chunks). Thread (x, y) owns one pack of channels and walks rows
+// r0 + y, r0 + y + blockDim.y, ... of its chunk UNROLL rows at a time
+// (8 in bn_stats, 4 in bn_bwd_stats, which loads three tensors): all of a
+// group's pack loads are issued before the first is used, and the rows left
+// over go as one guarded group, so each thread keeps UNROLL loads in flight
+// where a plain row loop keeps one. Sums stay in f32 registers. The block
+// adds its blockDim.y row slots in order of y into its (2, width) tile in
+// shared memory. Blocks of CLUSTER consecutive chunks form a thread-block
+// cluster (Hopper): after a cluster barrier the first block adds the
+// others' tiles in order of rank, reading their shared memory directly,
+// and writes one partial per cluster. Then each cluster's first block
+// takes a ticket (atomicAdd on an unsigned counter, after __threadfence),
+// and the last to arrive for a column tile sums that tile's partials in
+// cluster order; that sum splits its range of partials into blockDim.y
+// contiguous pieces, one per row of threads, and adds the pieces in order.
+// So the order of every addition is fixed by the grid alone: the result
+// does not depend on which block arrives last, and no float atomics are
+// used. The last arrival sets its counter back to 0, so the counters (an
+// int32 workspace per stream, zeroed once by the wrapper) are left zeroed
+// by every launch and need no memset per call. The cluster step cuts the
+// partials that go through L2 and that the last block reads by CLUSTER;
+// the serial tail after the last block's rows (cluster step, ticket, last
+// sum) still costs about 4 us on the card, which is what a small site pays
+// on top of its rows. Rows >= R are never read: the last chunk's walk
+// stops at R (chunks past R, which fill the last cluster, read nothing),
+// which is the masking the TPU kernel does with _row_mask (including the
+// product g*xhat in the backward).
 //
 // bn_apply is a grid-stride loop over 16-byte packs with per-channel
 // coefficients broadcast from a tiny (2, C) f32 table (cached in L1).
@@ -44,6 +65,7 @@
 // intrinsics so that it rounds exactly as the plain PyTorch version does,
 // operation by operation.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,142 +105,307 @@ __device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& v) {
 // NaN-propagating ReLU, as torch.relu / jnp.maximum(y, 0).
 __device__ __forceinline__ float relu(float y) { return y < 0.f ? 0.f : y; }
 
-// Sum the per-row-slot accumulators of one block (shared memory laid out
-// [2][blockDim.y][width]) and write this chunk's (2, C) partial.
-__device__ __forceinline__ void block_partial_out(float* smem, int width,
-                                                  int col0, int C,
-                                                  float* partial_chunk) {
+constexpr int STATS_UNROLL = 8;       // bn_stats: rows whose loads are in flight
+constexpr int BWD_STATS_UNROLL = 4;   // bn_bwd_stats: three loads a row
+constexpr int CLUSTER = 8;            // blocks along R that combine on chip
+
+// Thread (x, y) holds sums a, b for its pack; add them over y = 0 ..
+// blockDim.y - 1 in order (smem laid out [2][blockDim.y][width]) into the
+// block's (2, width) column tile red[0 .. 2 * width).
+template <int VEC>
+__device__ __forceinline__ void block_sum(float* smem, const float (&a)[VEC],
+                                          const float (&b)[VEC], float* red) {
+  const int width = blockDim.x * VEC;
+  float* sa = smem + threadIdx.y * width + threadIdx.x * VEC;
+  float* sb = sa + blockDim.y * width;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    sa[j] = a[j];
+    sb[j] = b[j];
+  }
   __syncthreads();
   const int nthreads = blockDim.x * blockDim.y;
   const int t = threadIdx.y * blockDim.x + threadIdx.x;
   for (int k = t; k < 2 * width; k += nthreads) {
     const int s = k / width;
-    const int w = k - s * width;
-    const float* src = smem + s * blockDim.y * width + w;
+    const float* src = smem + s * blockDim.y * width + (k - s * width);
     float acc = 0.f;
+#pragma unroll 8
     for (int y = 0; y < (int)blockDim.y; ++y) acc += src[y * width];
-    const int c = col0 + w;
-    if (c < C) partial_chunk[s * C + c] = acc;
+    red[k] = acc;
+  }
+  __syncthreads();
+}
+
+// The tile red[0 .. 2 * width) into the block's columns of dst, (2, C).
+template <int VEC>
+__device__ __forceinline__ void store_tile(const float* red, int C,
+                                           float* dst) {
+  const int width = blockDim.x * VEC;
+  const int col0 = blockIdx.x * width;
+  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int k = t; k < 2 * width; k += blockDim.x * blockDim.y) {
+    const int s = k / width;
+    const int w = k - s * width;
+    if (col0 + w < C) dst[s * C + col0 + w] = red[k];
   }
 }
 
-// Pass 1 of bn_stats: one (2, C) partial [sum x, sum x^2] per row chunk.
-template <typename T, int VEC>
-__global__ void bn_stats_partial(const T* __restrict__ x,
-                                 float* __restrict__ partial, int64_t R,
-                                 int C, int64_t rows_per_chunk) {
-  extern __shared__ float smem[];
+// VEC floats read through L2 (ld.global.cg), so that partials another
+// block wrote in this launch are never served from a stale L1 line.
+template <int VEC>
+__device__ __forceinline__ void load_cg(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) {
+      const float4 t = __ldcg(reinterpret_cast<const float4*>(p + j));
+      v[j] = t.x;
+      v[j + 1] = t.y;
+      v[j + 2] = t.z;
+      v[j + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = __ldcg(p + j);
+  }
+}
+
+// Sum n (2, C) partials src[0 .. n) over the block's column tile into
+// dst: row y of threads adds entries [y * per, min(n, (y + 1) * per)),
+// per = ceil(n / blockDim.y), in order, F of them loaded at a time, and
+// block_sum adds the rows in order of y.
+template <int VEC>
+__device__ void sum_partials_block(float* smem, float* red, const float* src,
+                                   int n, int C, float* dst) {
+  constexpr int F = 32 / VEC;   // 64 floats in flight per thread
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  const int64_t pc = 2 * (int64_t)C;
+  float a[VEC], b[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) a[j] = b[j] = 0.f;
+  if (col < C) {
+    const int per = (n + blockDim.y - 1) / blockDim.y;
+    int i = threadIdx.y * per;
+    const int end = min(n, i + per);
+    for (; i + F <= end; i += F) {
+      float pa[F][VEC], pb[F][VEC];
+#pragma unroll
+      for (int u = 0; u < F; ++u) {
+        load_cg<VEC>(src + (i + u) * pc + col, pa[u]);
+        load_cg<VEC>(src + (i + u) * pc + C + col, pb[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < F; ++u)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          a[j] += pa[u][j];
+          b[j] += pb[u][j];
+        }
+    }
+    for (; i < end; ++i) {
+      float pa[VEC], pb[VEC];
+      load_cg<VEC>(src + i * pc + col, pa);
+      load_cg<VEC>(src + i * pc + C + col, pb);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        a[j] += pa[j];
+        b[j] += pb[j];
+      }
+    }
+  }
+  block_sum<VEC>(smem, a, b, red);
+  store_tile<VEC>(red, C, dst);
+}
+
+// The ticket of one block at a counter that n blocks reach in this launch:
+// true in the last block to arrive, which sets the counter back to 0. The
+// fence before the ticket makes this block's writes visible on the card
+// before its ticket is counted; the fence after it orders the last block's
+// reads of the others' writes after their tickets.
+__device__ __forceinline__ bool last_arrival(unsigned* counter, int n) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    last = atomicAdd(counter, 1u) == (unsigned)(n - 1);
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// What every block of a reduction does after its rows. The block adds its
+// row slots into its tile (shared memory). The CLUSTER blocks of a cluster
+// (consecutive chunks of one column tile) meet at a cluster barrier, and
+// the first of them adds the others' tiles in order of rank, read straight
+// from their shared memory, and writes the cluster's partial; a second
+// barrier keeps the others' shared memory alive until it has read them.
+// Then the cluster leaders take tickets, and the last leader of the column
+// tile sums the tile's cluster partials in order. partial is
+// [clusters][2][C]; tickets has one counter per column tile. A single
+// cluster writes sums directly.
+template <int VEC>
+__device__ void finish_reduction(float* smem, const float (&a)[VEC],
+                                 const float (&b)[VEC], float* partial,
+                                 float* sums, unsigned* tickets, int C) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   const int width = blockDim.x * VEC;
-  const int col0 = blockIdx.x * width;
-  const int col = col0 + threadIdx.x * VEC;
+  float* red = smem + 2 * blockDim.y * width;
+  block_sum<VEC>(smem, a, b, red);
+  cluster.sync();
+  const int clusters = gridDim.y / CLUSTER;
+  const bool leader = cluster.block_rank() == 0;
+  float* dst = clusters == 1
+                   ? sums
+                   : partial + (blockIdx.y / CLUSTER) * 2 * (int64_t)C;
+  if (leader) {
+    const float* peer[CLUSTER];
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) peer[q] = cluster.map_shared_rank(red, q);
+    const int col0 = blockIdx.x * width;
+    const int t = threadIdx.y * blockDim.x + threadIdx.x;
+    for (int k = t; k < 2 * width; k += blockDim.x * blockDim.y) {
+      float v[CLUSTER];
+#pragma unroll
+      for (int q = 0; q < CLUSTER; ++q) v[q] = peer[q][k];
+      float acc = v[0];
+#pragma unroll
+      for (int q = 1; q < CLUSTER; ++q) acc += v[q];
+      const int s = k / width;
+      const int w = k - s * width;
+      if (col0 + w < C) dst[s * C + col0 + w] = acc;
+    }
+  }
+  cluster.sync();
+  if (!leader || clusters == 1) return;
+  if (!last_arrival(tickets + blockIdx.x, clusters)) return;
+  sum_partials_block<VEC>(smem, red, partial, clusters, C, sums);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void stats_add(const Pack<T, VEC>& a,
+                                          float (&s)[VEC], float (&q)[VEC]) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float v = to_f32(a.v[j]);
+    s[j] += v;
+    q[j] += v * v;
+  }
+}
+
+// bn_stats: sums = [sum x, sum x^2] over the rows, (2, C) f32. Thread
+// (x, y) of block (bx, by) owns channels col .. col + VEC - 1, col = (bx *
+// blockDim.x + x) * VEC, and rows r0 + y, r0 + y + blockDim.y, ... of the
+// chunk [r0, r1), r0 = by * rows_per_chunk, STATS_UNROLL rows at a time.
+template <typename T, int VEC>
+__global__ void __cluster_dims__(1, CLUSTER, 1) __launch_bounds__(256, 2)
+    bn_stats_reduce(const T* __restrict__ x, float* __restrict__ partial,
+                    float* __restrict__ sums, unsigned* __restrict__ tickets,
+                    int64_t R, int C, int64_t rows_per_chunk) {
+  extern __shared__ float smem[];
+  constexpr int U = STATS_UNROLL;
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
   const int64_t r0 = (int64_t)blockIdx.y * rows_per_chunk;
   const int64_t r1 = r0 + rows_per_chunk < R ? r0 + rows_per_chunk : R;
   float s[VEC], q[VEC];
 #pragma unroll
   for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
   if (col < C) {
-    for (int64_t r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const Pack<T, VEC> a = load_pack<T, VEC>(x + r * C + col);
+    const int64_t step = blockDim.y;
+    int64_t r = r0 + threadIdx.y;
+    for (; r + (U - 1) * step < r1; r += U * step) {
+      Pack<T, VEC> a[U];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float v = to_f32(a.v[j]);
-        s[j] += v;
-        q[j] += v * v;
-      }
+      for (int u = 0; u < U; ++u)
+        a[u] = load_pack<T, VEC>(x + (r + u * step) * C + col);
+#pragma unroll
+      for (int u = 0; u < U; ++u) stats_add<T, VEC>(a[u], s, q);
     }
-  }
-  float* ss = smem + threadIdx.y * width + threadIdx.x * VEC;
-  float* sq = ss + blockDim.y * width;
+    // the last rows (fewer than U), their loads also issued together
+    Pack<T, VEC> a[U - 1];
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    ss[j] = s[j];
-    sq[j] = q[j];
+    for (int u = 0; u < U - 1; ++u)
+      if (r + u * step < r1)
+        a[u] = load_pack<T, VEC>(x + (r + u * step) * C + col);
+#pragma unroll
+    for (int u = 0; u < U - 1; ++u)
+      if (r + u * step < r1) stats_add<T, VEC>(a[u], s, q);
   }
-  block_partial_out(smem, width, col0, C,
-                    partial + (int64_t)blockIdx.y * 2 * C);
+  finish_reduction<VEC>(smem, s, q, partial, sums, tickets, C);
 }
 
-// Pass 1 of bn_bwd_stats: partial [sum g, sum g*xhat] with g = dy where
-// out > 0 else 0, xhat = (x - mean) * inv; coef is [mean; inv], (2, C).
+// g = dy where out > 0 else 0, xhat = (x - mean) * inv; adds g and g * xhat.
 template <typename T, int VEC>
-__global__ void bn_bwd_stats_partial(const T* __restrict__ dy,
-                                     const T* __restrict__ out,
-                                     const T* __restrict__ x,
-                                     const float* __restrict__ coef,
-                                     float* __restrict__ partial, int64_t R,
-                                     int C, int64_t rows_per_chunk) {
+__device__ __forceinline__ void bwd_stats_add(
+    const Pack<T, VEC>& d, const Pack<T, VEC>& o, const Pack<T, VEC>& a,
+    const float (&mean)[VEC], const float (&inv)[VEC], float (&sg)[VEC],
+    float (&sgx)[VEC]) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float g = to_f32(o.v[j]) > 0.f ? to_f32(d.v[j]) : 0.f;
+    const float xhat = (to_f32(a.v[j]) - mean[j]) * inv[j];
+    sg[j] += g;
+    sgx[j] += g * xhat;
+  }
+}
+
+// bn_bwd_stats: sums = [sum g, sum g*xhat], coef = [mean; inv], (2, C);
+// the same walk as bn_stats_reduce, BWD_STATS_UNROLL rows at a time.
+template <typename T, int VEC>
+__global__ void __cluster_dims__(1, CLUSTER, 1) __launch_bounds__(256, 2)
+    bn_bwd_stats_reduce(const T* __restrict__ dy, const T* __restrict__ out,
+                        const T* __restrict__ x,
+                        const float* __restrict__ coef,
+                        float* __restrict__ partial, float* __restrict__ sums,
+                        unsigned* __restrict__ tickets, int64_t R, int C,
+                        int64_t rows_per_chunk) {
   extern __shared__ float smem[];
-  const int width = blockDim.x * VEC;
-  const int col0 = blockIdx.x * width;
-  const int col = col0 + threadIdx.x * VEC;
+  constexpr int U = BWD_STATS_UNROLL;
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
   const int64_t r0 = (int64_t)blockIdx.y * rows_per_chunk;
   const int64_t r1 = r0 + rows_per_chunk < R ? r0 + rows_per_chunk : R;
   float sg[VEC], sgx[VEC], mean[VEC], inv[VEC];
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    sg[j] = sgx[j] = 0.f;
-    mean[j] = inv[j] = 0.f;
-  }
+  for (int j = 0; j < VEC; ++j) sg[j] = sgx[j] = 0.f;
   if (col < C) {
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       mean[j] = coef[col + j];
       inv[j] = coef[C + col + j];
     }
-    for (int64_t r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const int64_t off = r * C + col;
-      const Pack<T, VEC> d = load_pack<T, VEC>(dy + off);
-      const Pack<T, VEC> o = load_pack<T, VEC>(out + off);
-      const Pack<T, VEC> a = load_pack<T, VEC>(x + off);
+    const int64_t step = blockDim.y;
+    int64_t r = r0 + threadIdx.y;
+    for (; r + (U - 1) * step < r1; r += U * step) {
+      Pack<T, VEC> d[U], o[U], a[U];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float g = to_f32(o.v[j]) > 0.f ? to_f32(d.v[j]) : 0.f;
-        const float xhat = (to_f32(a.v[j]) - mean[j]) * inv[j];
-        sg[j] += g;
-        sgx[j] += g * xhat;
+      for (int u = 0; u < U; ++u) {
+        const int64_t off = (r + u * step) * C + col;
+        d[u] = load_pack<T, VEC>(dy + off);
+        o[u] = load_pack<T, VEC>(out + off);
+        a[u] = load_pack<T, VEC>(x + off);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        bwd_stats_add<T, VEC>(d[u], o[u], a[u], mean, inv, sg, sgx);
+    }
+    Pack<T, VEC> d[U - 1], o[U - 1], a[U - 1];
+#pragma unroll
+    for (int u = 0; u < U - 1; ++u) {
+      const int64_t off = (r + u * step) * C + col;
+      if (r + u * step < r1) {
+        d[u] = load_pack<T, VEC>(dy + off);
+        o[u] = load_pack<T, VEC>(out + off);
+        a[u] = load_pack<T, VEC>(x + off);
       }
     }
-  }
-  float* ss = smem + threadIdx.y * width + threadIdx.x * VEC;
-  float* sq = ss + blockDim.y * width;
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    ss[j] = sg[j];
-    sq[j] = sgx[j];
+    for (int u = 0; u < U - 1; ++u)
+      if (r + u * step < r1)
+        bwd_stats_add<T, VEC>(d[u], o[u], a[u], mean, inv, sg, sgx);
   }
-  block_partial_out(smem, width, col0, C,
-                    partial + (int64_t)blockIdx.y * 2 * C);
-}
-
-// Pass 2 of both reductions: out[k] = sum over chunks of partial[chunk][k],
-// k in [0, 2C), summed in a fixed order. Block (32, 32): 32 columns, each
-// summed by 32 threads over a strided share of the chunks with four
-// independent accumulators (loads in flight), then across the 32 in shared
-// memory.
-__global__ void sum_partials(const float* __restrict__ partial,
-                             float* __restrict__ out, int chunks, int C) {
-  __shared__ float buf[32][33];
-  const int k = blockIdx.x * 32 + threadIdx.x;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  if (k < 2 * C) {
-    const int64_t step = (int64_t)2 * C;
-    int ch = threadIdx.y;
-    for (; ch + 96 < chunks; ch += 128) {
-      a0 += partial[ch * step + k];
-      a1 += partial[(ch + 32) * step + k];
-      a2 += partial[(ch + 64) * step + k];
-      a3 += partial[(ch + 96) * step + k];
-    }
-    for (; ch < chunks; ch += 32) a0 += partial[ch * step + k];
-  }
-  buf[threadIdx.y][threadIdx.x] = (a0 + a1) + (a2 + a3);
-  __syncthreads();
-  if (threadIdx.y == 0 && k < 2 * C) {
-    float t = 0.f;
-#pragma unroll
-    for (int y = 0; y < 32; ++y) t += buf[y][threadIdx.x];
-    out[k] = t;
-  }
+  finish_reduction<VEC>(smem, sg, sgx, partial, sums, tickets, C);
 }
 
 // out = relu(x * coef[0] + coef[1] [+ res]) in x's dtype; coef is (2, C).
@@ -334,33 +521,31 @@ __global__ void bn_bwd_apply(const T* __restrict__ dy,
 }
 
 template <typename T, int VEC>
-void launch_stats(const void* x, float* partial, float* sums, int64_t R,
-                  int C, int tx, int ty, int chunks, int64_t rows_per_chunk,
-                  cudaStream_t stream) {
+void launch_stats(const void* x, float* partial, float* sums,
+                  unsigned* tickets, int64_t R, int C, int tx, int ty,
+                  int chunks, int64_t rows_per_chunk, cudaStream_t stream) {
   const int width = tx * VEC;
   dim3 grid((C + width - 1) / width, chunks);
   dim3 block(tx, ty);
-  const size_t smem = 2 * (size_t)ty * width * sizeof(float);
-  bn_stats_partial<T, VEC><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), partial, R, C, rows_per_chunk);
-  sum_partials<<<(2 * C + 31) / 32, dim3(32, 32), 0, stream>>>(partial, sums,
-                                                              chunks, C);
+  const size_t smem = 2 * (size_t)(ty + 1) * width * sizeof(float);
+  bn_stats_reduce<T, VEC><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(x), partial, sums, tickets, R, C, rows_per_chunk);
 }
 
 template <typename T, int VEC>
 void launch_bwd_stats(const void* dy, const void* out, const void* x,
                       const float* coef, float* partial, float* sums,
-                      int64_t R, int C, int tx, int ty, int chunks,
-                      int64_t rows_per_chunk, cudaStream_t stream) {
+                      unsigned* tickets, int64_t R, int C, int tx, int ty,
+                      int chunks, int64_t rows_per_chunk,
+                      cudaStream_t stream) {
   const int width = tx * VEC;
   dim3 grid((C + width - 1) / width, chunks);
   dim3 block(tx, ty);
-  const size_t smem = 2 * (size_t)ty * width * sizeof(float);
-  bn_bwd_stats_partial<T, VEC><<<grid, block, smem, stream>>>(
+  const size_t smem = 2 * (size_t)(ty + 1) * width * sizeof(float);
+  bn_bwd_stats_reduce<T, VEC><<<grid, block, smem, stream>>>(
       static_cast<const T*>(dy), static_cast<const T*>(out),
-      static_cast<const T*>(x), coef, partial, R, C, rows_per_chunk);
-  sum_partials<<<(2 * C + 31) / 32, dim3(32, 32), 0, stream>>>(partial, sums,
-                                                              chunks, C);
+      static_cast<const T*>(x), coef, partial, sums, tickets, R, C,
+      rows_per_chunk);
 }
 
 template <typename T, int VEC>
@@ -419,11 +604,12 @@ void launch_bwd_apply(const void* dy, const void* out, const void* x,
 
 extern "C" {
 
-int mxt_bn_stats(const void* x, float* partial, float* sums, long long R,
-                 int C, int dtype, int wide, int tx, int ty, int chunks,
-                 long long rows_per_chunk, void* stream) {
-  MXT_DISPATCH(dtype, wide, launch_stats, x, partial, sums, R, C, tx, ty,
-               chunks, rows_per_chunk, (cudaStream_t)stream);
+int mxt_bn_stats(const void* x, float* partial, float* sums,
+                 unsigned* tickets, long long R, int C, int dtype, int wide,
+                 int tx, int ty, int chunks, long long rows_per_chunk,
+                 void* stream) {
+  MXT_DISPATCH(dtype, wide, launch_stats, x, partial, sums, tickets, R, C,
+               tx, ty, chunks, rows_per_chunk, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -437,10 +623,11 @@ int mxt_bn_apply(const void* x, const void* res, const float* coef,
 
 int mxt_bn_bwd_stats(const void* dy, const void* out, const void* x,
                      const float* coef, float* partial, float* sums,
-                     long long R, int C, int dtype, int wide, int tx, int ty,
-                     int chunks, long long rows_per_chunk, void* stream) {
+                     unsigned* tickets, long long R, int C, int dtype,
+                     int wide, int tx, int ty, int chunks,
+                     long long rows_per_chunk, void* stream) {
   MXT_DISPATCH(dtype, wide, launch_bwd_stats, dy, out, x, coef, partial,
-               sums, R, C, tx, ty, chunks, rows_per_chunk,
+               sums, tickets, R, C, tx, ty, chunks, rows_per_chunk,
                (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,16 @@ Two passes each way over the (R, C) view of the conv output (R = N*H*W):
 with g the ReLU-masked cotangent re-derived from the saved output, so it is
 never stored. The kernels are hand-written CUDA in ``csrc/fused_bn_act.cu``.
 
+The two reductions are one launch each. Blocks of a (channel tiles) x (row
+chunks) grid sum their rows; each thread-block cluster of ``_CLUSTER``
+consecutive chunks adds its blocks' sums through shared memory and writes
+one (2, C) partial, and a ticket counter per column tile lets the last
+cluster to arrive sum the partials in a fixed order, so the sums do not
+depend on which block finishes last. The counters live in an int32
+workspace per (device, stream), zeroed when it is allocated; every launch
+leaves them at 0, so no memset runs per call, and reductions launched on
+different streams never share a counter.
+
 Device rule: each wrapper runs its kernel for CUDA tensors and its plain
 PyTorch version (``_bn_stats_plain`` ...) for CPU tensors; any other device
 raises. Nothing falls back from the kernel to the plain version. Each
@@ -36,10 +46,14 @@ launches = {"bn_stats": 0, "bn_apply": 0, "bn_bwd_stats": 0,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PACK = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16 bytes
-_SMS = 132                # H100 SXM streaming multiprocessors
-_TARGET_BLOCKS = 8 * _SMS  # reduction blocks to have in flight (256 threads)
-_ELEMWISE_BLOCKS = 16 * _SMS
+_H100_SXM_SMS = 132
+_BWD_APPLY_BLOCKS_PER_SM = 8   # bn_bwd_apply blocks in flight (256 threads)
+_ELEMWISE_BLOCKS_PER_SM = 16
+_STATS_BLOCKS_PER_SM = 1       # blocks of a reduction (256 threads each)
+_CLUSTER = 8                   # chunks per thread-block cluster (CLUSTER)
 _bound = False
+_sms: dict = {}                # device index -> streaming multiprocessors
+_tickets: dict = {}            # (device index, stream) -> int32 counters
 
 
 def reset_launches() -> None:
@@ -90,10 +104,11 @@ def _lib():
     if not _bound:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn, args in (
-                (lib.mxt_bn_stats, [p, p, p, ll, i, i, i, i, i, i, ll, p]),
+                (lib.mxt_bn_stats,
+                 [p, p, p, p, ll, i, i, i, i, i, i, ll, p]),
                 (lib.mxt_bn_apply, [p, p, p, p, ll, i, i, i, i, p]),
                 (lib.mxt_bn_bwd_stats,
-                 [p, p, p, p, p, p, ll, i, i, i, i, i, i, ll, p]),
+                 [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, ll, p]),
                 (lib.mxt_bn_bwd_apply,
                  [p, p, p, p, p, p, ll, i, i, i, i, i, i, ll, p])):
             fn.argtypes = args
@@ -136,25 +151,54 @@ def _wide(*ts) -> int:
                and all(t.data_ptr() % 16 == 0 for t in ts))
 
 
-def _reduce_config(r, c, wide, dtype):
-    """(tx, ty, chunks, rows_per_chunk) of a split-R column reduction, and
-    of the row-tiled bn_bwd_apply: tx threads across C (each one pack), ty
-    rows in flight, at least 4 rows per thread (bn_bwd_apply's unroll), and
-    enough row chunks to fill the card."""
+def _device_sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device."""
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _reduce_config(r, c, wide, dtype, sms=_H100_SXM_SMS):
+    """(tx, ty, chunks, rows_per_chunk) of the row-tiled bn_bwd_apply: tx
+    threads across C (each one pack), ty rows in flight, at least 4 rows
+    per thread (its unroll), and enough row chunks to fill the card."""
     pack = _PACK[dtype] if wide else 1
     cols = -(-c // pack)
     tx = min(32, cols)
     ty = max(1, 256 // tx)
     grid_x = -(-cols // tx)
-    chunks = max(1, min(-(-r // (4 * ty)), -(-_TARGET_BLOCKS // grid_x)))
+    target = _BWD_APPLY_BLOCKS_PER_SM * sms
+    chunks = max(1, min(-(-r // (4 * ty)), -(-target // grid_x)))
     rows_per_chunk = -(-r // chunks)
     chunks = -(-r // rows_per_chunk)
     return tx, ty, chunks, rows_per_chunk
 
 
-def _elemwise_blocks(r, c, wide, dtype):
+def _reduce_stats_config(r, c, wide, dtype, sms):
+    """(tx, ty, chunks, rows_per_chunk) of a one-launch reduction: tx
+    threads across C (each one pack), ty row slots, chunks of a multiple
+    of ty rows (every row slot of a full chunk walks as many rows), about
+    ``_STATS_BLOCKS_PER_SM`` blocks per SM in all, and a multiple of
+    ``_CLUSTER`` chunks (the chunks past R that fill the last cluster read
+    no rows)."""
     pack = _PACK[dtype] if wide else 1
-    return max(1, min(-(-(r * c // pack) // 256), _ELEMWISE_BLOCKS))
+    cols = -(-c // pack)
+    tx = min(32, cols)
+    ty = max(1, 256 // tx)
+    grid_x = -(-cols // tx)
+    target = _STATS_BLOCKS_PER_SM * sms
+    chunks = max(1, min(-(-r // ty), -(-target // grid_x)))
+    rows_per_chunk = -(-r // (chunks * ty)) * ty
+    chunks = -(-r // rows_per_chunk)
+    return tx, ty, -(-chunks // _CLUSTER) * _CLUSTER, rows_per_chunk
+
+
+def _elemwise_blocks(r, c, wide, dtype, sms=_H100_SXM_SMS):
+    pack = _PACK[dtype] if wide else 1
+    return max(1, min(-(-(r * c // pack) // 256),
+                      _ELEMWISE_BLOCKS_PER_SM * sms))
 
 
 def _stream(x):
@@ -167,21 +211,42 @@ def _ok(name, err):
                          f"(cudaError {err})")
 
 
+def _reduction_args(*rows):
+    """The arguments of one reduction launch over the (R, C) tensors
+    ``rows`` after its input pointers: partial, sums, tickets, R, C, dtype,
+    wide, tx, ty, chunks, rows_per_chunk and the stream. The ticket
+    counters (one per column tile) belong to the device and its current
+    stream; they are zeroed when allocated and every launch leaves them
+    at 0."""
+    x2d = rows[0]
+    r, c = x2d.shape
+    wide = _wide(*rows)
+    tx, ty, chunks, rpc = _reduce_stats_config(
+        r, c, wide, x2d.dtype, _device_sms(x2d.device))
+    partial = torch.empty((chunks // _CLUSTER, 2, c), dtype=torch.float32,
+                          device=x2d.device)
+    sums = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
+    stream = _stream(x2d)
+    need = -(-c // (tx * (_PACK[x2d.dtype] if wide else 1)))
+    key = (x2d.device.index, stream.value)
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < need:
+        tickets = _tickets[key] = torch.zeros(max(need, 64),
+                                              dtype=torch.int32,
+                                              device=x2d.device)
+    return sums, (partial.data_ptr(), sums.data_ptr(), tickets.data_ptr(),
+                  r, c, _DTYPE_CODE[x2d.dtype], wide, tx, ty, chunks, rpc,
+                  stream)
+
+
 def bn_stats(x2d):
     """(R, C) -> (2, C) f32 per-channel [sum x, sum x^2]
     (ref: pallas_kernels.py _bn_stats_call)."""
     if _check_rows("bn_stats", x2d) == "cpu":
         return _bn_stats_plain(x2d)
-    r, c = x2d.shape
-    wide = _wide(x2d)
-    tx, ty, chunks, rpc = _reduce_config(r, c, wide, x2d.dtype)
-    partial = torch.empty((chunks, 2, c), dtype=torch.float32,
-                          device=x2d.device)
-    sums = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
     with torch.cuda.device(x2d.device):
-        err = _lib().mxt_bn_stats(
-            x2d.data_ptr(), partial.data_ptr(), sums.data_ptr(), r, c,
-            _DTYPE_CODE[x2d.dtype], wide, tx, ty, chunks, rpc, _stream(x2d))
+        sums, args = _reduction_args(x2d)
+        err = _lib().mxt_bn_stats(x2d.data_ptr(), *args)
     _ok("bn_stats", err)
     launches["bn_stats"] += 1
     return sums
@@ -202,7 +267,8 @@ def bn_apply(x2d, res2d, coef):
         err = _lib().mxt_bn_apply(
             x2d.data_ptr(), None if res2d is None else res2d.data_ptr(),
             coef.data_ptr(), out.data_ptr(), r, c, _DTYPE_CODE[x2d.dtype],
-            wide, _elemwise_blocks(r, c, wide, x2d.dtype), _stream(x2d))
+            wide, _elemwise_blocks(r, c, wide, x2d.dtype,
+                                   _device_sms(x2d.device)), _stream(x2d))
     _ok("bn_apply", err)
     launches["bn_apply"] += 1
     return out
@@ -215,17 +281,10 @@ def bn_bwd_stats(dy2d, out2d, x2d, coef):
     _check_coef("bn_bwd_stats", coef, 2, x2d)
     if kind == "cpu":
         return _bn_bwd_stats_plain(dy2d, out2d, x2d, coef)
-    r, c = x2d.shape
-    wide = _wide(x2d, dy2d, out2d)
-    tx, ty, chunks, rpc = _reduce_config(r, c, wide, x2d.dtype)
-    partial = torch.empty((chunks, 2, c), dtype=torch.float32,
-                          device=x2d.device)
-    sums = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
     with torch.cuda.device(x2d.device):
-        err = _lib().mxt_bn_bwd_stats(
-            dy2d.data_ptr(), out2d.data_ptr(), x2d.data_ptr(),
-            coef.data_ptr(), partial.data_ptr(), sums.data_ptr(), r, c,
-            _DTYPE_CODE[x2d.dtype], wide, tx, ty, chunks, rpc, _stream(x2d))
+        sums, args = _reduction_args(x2d, dy2d, out2d)
+        err = _lib().mxt_bn_bwd_stats(dy2d.data_ptr(), out2d.data_ptr(),
+                                      x2d.data_ptr(), coef.data_ptr(), *args)
     _ok("bn_bwd_stats", err)
     launches["bn_bwd_stats"] += 1
     return sums
@@ -244,7 +303,8 @@ def bn_bwd_apply(dy2d, out2d, x2d, coef, has_res):
     dres = torch.empty_like(x2d) if has_res else None
     outs = (dx,) if dres is None else (dx, dres)
     wide = _wide(x2d, dy2d, out2d, *outs)
-    tx, ty, chunks, rpc = _reduce_config(r, c, wide, x2d.dtype)
+    tx, ty, chunks, rpc = _reduce_config(r, c, wide, x2d.dtype,
+                                         _device_sms(x2d.device))
     with torch.cuda.device(x2d.device):
         err = _lib().mxt_bn_bwd_apply(
             dy2d.data_ptr(), out2d.data_ptr(), x2d.data_ptr(),

@@ -10,6 +10,7 @@ Tolerances are test_fused_epilogue.py's: 2e-5 in f32, 2e-2 in bf16.
 import ast
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -185,6 +186,186 @@ def test_bwd_apply_grid_covers_each_row_and_pack_once(r, c, dtype):
         assert (hits == 1).all()
 
 
+def _walk(r0, r1, y, ty, unroll):
+    """The rows thread row y of a reduction block reads in its chunk [r0,
+    r1), as the kernel's loop reads them: whole groups of ``unroll`` rows
+    (all loads issued before the first is used), then one guarded group of
+    the rows left over. Returns (groups, tail)."""
+    r = r0 + y
+    groups = []
+    while r + (unroll - 1) * ty < r1:
+        groups.append([r + u * ty for u in range(unroll)])
+        r += unroll * ty
+    return groups, [r + u * ty for u in range(unroll - 1) if r + u * ty < r1]
+
+
+def _finish_ranges(n, ty):
+    """The pieces [y * per, min(n, (y + 1) * per)) of the last block's sum
+    over n cluster partials, one per row of threads, per = ceil(n / ty)."""
+    per = -(-n // ty)
+    return [range(y * per, min(n, (y + 1) * per)) for y in range(ty)]
+
+
+def _unroll(kernel):
+    """Rows a reduction thread loads at a time, read from the source."""
+    name = {"bn_stats": "STATS_UNROLL", "bn_bwd_stats": "BWD_STATS_UNROLL"}
+    src = open(os.path.join(ROOT, "mxnet_tpu_torch", "csrc",
+                            "fused_bn_act.cu")).read()
+    return int(re.search(rf"constexpr int {name[kernel]} = (\d+);",
+                         src).group(1))
+
+
+STATS_SITES = [(r, c, d, k) for r, c, d in BWD_APPLY_SITES
+               for k in ("bn_stats", "bn_bwd_stats")]
+
+
+@pytest.mark.parametrize("r,c,dtype,kernel", STATS_SITES,
+                         ids=[f"{k}_{r}x{c}_{d}"
+                              for r, c, d, k in STATS_SITES])
+def test_stats_grid_covers_each_row_and_pack_once(r, c, dtype, kernel):
+    """The one-launch reductions' grid, as ``_reduce_stats_config`` sizes it
+    for a 132-SM card: every (row, pack) is read exactly once, the groups of
+    ``unroll`` rows and the guarded tail together cover each chunk, every
+    row slot of a full chunk walks as many rows, the chunks fill whole
+    clusters with only the
+    last cluster holding chunks past R, and the last block's split of the
+    cluster partials over its rows of threads covers each partial once.
+    Wide (16-byte packs) and narrow (VEC = 1)."""
+    dt = getattr(torch, dtype)
+    unroll = _unroll(kernel)
+    for wide in ((1, 0) if c % tk._PACK[dt] == 0 else (0,)):
+        tx, ty, chunks, rpc = tk._reduce_stats_config(r, c, wide, dt, 132)
+        pack = tk._PACK[dt] if wide else 1
+        assert tx >= 1 and ty >= 1 and tx * ty <= 256
+        assert 1 <= chunks <= 65535 and chunks % tk._CLUSTER == 0
+        assert (chunks - tk._CLUSTER) * rpc < r
+        assert rpc % ty == 0
+        grid_x = -(-c // (tx * pack))
+        cols = (np.arange(grid_x)[:, None] * tx
+                + np.arange(tx)[None, :]).ravel() * pack
+        cols = cols[cols < c]
+        assert np.array_equal(np.sort(cols), np.arange(0, c, pack))
+        hits = np.zeros(r, np.int32)
+        for by in range(chunks):
+            r0 = by * rpc
+            r1 = min(r0 + rpc, r)
+            for y in range(ty):
+                groups, tail = _walk(r0, r1, y, ty, unroll)
+                assert len(tail) < unroll
+                if r1 == r0 + rpc:                 # a full chunk
+                    assert unroll * len(groups) + len(tail) == rpc // ty
+                for rows in groups + [tail]:
+                    hits[np.asarray(rows, np.int64)] += 1
+        assert (hits == 1).all()
+        clusters = chunks // tk._CLUSTER
+        seen = np.zeros(clusters, np.int32)
+        for piece in _finish_ranges(clusters, ty):
+            seen[np.asarray(list(piece), np.int64)] += 1
+        assert (seen == 1).all()
+
+
+def _kernel_order_sums(terms, r, cfg, unroll):
+    """The one-launch kernels' order of addition, in plain torch. ``terms``
+    is (2, rows, C) f32 with rows >= r; a row is added only if a thread's
+    walk reads it, so rows past r never enter (the kernels never read
+    them). Each thread adds its rows in the order of its walk; the block
+    adds its ty row slots in order of y; each cluster adds its blocks in
+    order of rank (chunk order); the last block adds the pieces of the
+    cluster partials in order, each piece in order. f32 throughout; the
+    kernel may fuse x * x + acc into one rounding, which this does not."""
+    _, ty, chunks, rpc = cfg
+    c = terms.shape[2]
+    seqs = []
+    for ch in range(chunks):
+        r0 = ch * rpc
+        r1 = min(r0 + rpc, r)
+        for y in range(ty):
+            groups, tail = _walk(r0, r1, y, ty, unroll)
+            seqs.append([row for g in groups for row in g] + tail)
+    width = max(1, max(len(q) for q in seqs))
+    idx = torch.full((len(seqs), width), -1, dtype=torch.int64)
+    for i, q in enumerate(seqs):
+        idx[i, :len(q)] = torch.tensor(q, dtype=torch.int64)
+    vals = terms[:, idx.clamp(min=0)]                  # (2, threads, L, C)
+    vals = torch.where((idx >= 0)[None, :, :, None], vals,
+                       torch.zeros((), dtype=torch.float32))
+    acc = torch.zeros((2, len(seqs), c))
+    for k in range(width):
+        acc = acc + vals[:, :, k]
+    acc = acc.view(2, chunks, ty, c)
+    block = torch.zeros((2, chunks, c))
+    for y in range(ty):
+        block = block + acc[:, :, y]
+    block = block.view(2, chunks // tk._CLUSTER, tk._CLUSTER, c)
+    part = block[:, :, 0]
+    for q in range(1, tk._CLUSTER):
+        part = part + block[:, :, q]
+    if part.shape[1] == 1:
+        return part[:, 0]
+    pieces = []
+    for piece in _finish_ranges(part.shape[1], ty):
+        s = torch.zeros((2, c))
+        for i in piece:
+            s = s + part[:, i]
+        pieces.append(s)
+    out = torch.zeros((2, c))
+    for s in pieces:
+        out = out + s
+    return out
+
+
+ORDER_CASES = [(60000, 24, "float32"), (60000, 24, "bfloat16"),
+               (1001, 9, "bfloat16"), (3001, 40, "float32"),
+               (7, 64, "bfloat16")]
+
+
+@pytest.mark.parametrize("kernel", ["bn_stats", "bn_bwd_stats"])
+@pytest.mark.parametrize("r,c,dtype,pad_inf",
+                         [case + (False,) for case in ORDER_CASES]
+                         + [(60000, 24, "bfloat16", True)],
+                         ids=[f"{r}x{c}_{d}" for r, c, d in ORDER_CASES]
+                         + ["60000x24_bfloat16_inf_past_R"])
+def test_kernel_summation_order_matches_pallas(kernel, r, c, dtype,
+                                               pad_inf):
+    """The reductions' order of addition (per-thread walk, the block's row
+    slots, the cluster's blocks in rank order, the chunk-ordered last sum
+    over cluster partials, and a single cluster) against the Pallas kernel
+    it replaces, in interpret mode, within 1e-5 of the sum of magnitudes
+    plus 1e-6, the reductions' tolerance on the card. With ``pad_inf`` the
+    buffer holds 37 rows past R with x = dy = Inf and out = 0: 0 * Inf
+    would be NaN, so a finite, matching result shows that no row past R
+    enters a sum (the product mask)."""
+    import jax.numpy as jnp
+    from mxnet_tpu.ops import pallas_kernels as pk
+    rs = np.random.RandomState(5)
+    rows = r + (37 if pad_inf else 0)
+    x, dy, out = (rs.randn(rows, c).astype(np.float32) for _ in range(3))
+    out = np.maximum(out, 0)
+    if pad_inf:
+        x[r:] = dy[r:] = np.inf
+        out[r:] = 0
+    coef = np.stack([rs.randn(c), rs.rand(c) + 0.5]).astype(np.float32)
+    xt, dyt, outt = (_torch(a, dtype) for a in (x, dy, out))
+    j = lambda a: _jax(a[:r], dtype)        # noqa: E731
+    dt = getattr(torch, dtype)
+    cfg = tk._reduce_stats_config(r, c, tk._wide(xt), dt, 132)
+    xf = xt.float()
+    if kernel == "bn_stats":
+        terms = torch.stack([xf, xf * xf])
+        want = pk._bn_stats_call(j(x), True)
+    else:
+        g, xhat = tk._masked_g_xhat(dyt, outt, xt, torch.from_numpy(coef))
+        terms = torch.stack([g, g * xhat])
+        want = pk._bn_bwd_stats_call(j(dy), j(out), j(x), jnp.asarray(coef),
+                                     True)
+    got = _kernel_order_sums(terms, r, cfg, _unroll(kernel))
+    scale = terms[:, :r].double().abs().sum(1)
+    assert torch.isfinite(got).all()
+    diff = (got.double() - torch.from_numpy(np.asarray(want, np.float64)))
+    assert (diff.abs() <= 1e-5 * scale + 1e-6).all(), \
+        float((diff.abs() / (scale + 1e-6)).max())
+
+
 def test_cpu_tensors_use_plain_versions_and_count_no_launch():
     tk.reset_launches()
     x = torch.randn(6, 8)
@@ -227,7 +408,15 @@ def test_build_rule_points_at_the_cuda_source():
                     ("mxt_bn_bwd_apply", "_bn_bwd_apply_call")):
         assert f"int {fn}(" in src and tpu in src
         assert fn in open(tk.__file__).read()
-    assert "atomicAdd" not in src            # deterministic reductions
+    # deterministic reductions: the one atomic is the unsigned ticket, no
+    # float atomics, and each reduction is one kernel launch
+    assert re.findall(r"atomic\w*\(", src) == ["atomicAdd("]
+    assert "atomicAdd(counter, 1u)" in src
+    # the wrapper's grid arithmetic uses the source's cluster size
+    assert f"constexpr int CLUSTER = {tk._CLUSTER};" in src
+    for fn in ("launch_stats", "launch_bwd_stats"):
+        body = src[src.index(f"void {fn}("):]
+        assert body[:body.index("\n}\n")].count("<<<") == 1, fn
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert _build.BUILD_DIR.startswith(os.path.join(ROOT, "build"))
 
