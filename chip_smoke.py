@@ -20,15 +20,31 @@ Phases, each printing JSON lines:
    every result against the plain version and the repeats bit for bit;
 3. correctness of the path: a small channel-last ResNetV1 trained one step
    on the card (kernels) and on the host (plain versions) from the same
-   weights, f32, TF32 off; logits, loss and every updated tensor compared;
+   weights, f32, TF32 off; logits (training mode, from
+   ``autograd.train_mode()``), loss and every updated tensor compared;
+   then ``graph``: the same small model from one start state through
+   ``SPMDTrainer.run_steps`` twice (the first call runs its K steps
+   eagerly and captures them as one CUDA graph, the second replays it)
+   and through 2 K eager ``step()`` calls, for SGD momentum and for Adam:
+   losses, weights, optimizer state and running statistics bit for bit,
+   or within 1e-3 of each tensor's largest value where cuDNN picked
+   other algorithms under capture (the row says which); a third call on
+   new data whose replayed losses must follow the eager ones (a stale
+   input buffer would not); no wrapper called during a replay, and every
+   BN ticket counter back at 0;
 4. the main path: full-width ResNet-50 v1, NHWC, space-to-depth stem,
    224x224, bf16 compute with f32 masters, SGD momentum 0.9 lr 0.05,
-   ``SPMDTrainer.run_steps`` of K steps. Launch counters are zeroed just
-   before the measured call and read just after; every kernel must have
-   launched 48 times per step. Step time, img/s and peak memory;
-5. one more step under ``torch.profiler``: device time by kernel family
-   and the device's idle share of the step; the one-launch reductions
-   must show 48 device launches each (one per wrapper call);
+   ``SPMDTrainer.run_steps`` of K steps. The first call runs K eager steps
+   (48 wrapper launches of every kernel per step) and captures the
+   graph; the timed call is one replay, which calls no wrapper. Step
+   time, img/s and peak memory (the graph's private pool included);
+5. ``profile``: one eager ``step()`` and one ``run_steps`` replay under
+   ``torch.profiler``: wall ms, device busy ms and the device's idle share
+   of each, device time by kernel family, and PyTorch's own kernels split
+   into bf16 casts, copies, the ``_foreach`` update, the plain stem and
+   downsample BatchNorm and the rest. The device counts of the four BN
+   kernels are the path's launches: 48 in the eager step and 48 x K in
+   the replay, which the summary line reports;
 6. the flash-attention forward against its plain PyTorch version on both
    of its routes (``flash_route``: the tensor-core kernel for bf16 with D
    64 or 128 and aligned views, the SIMT kernel for the rest), each case at
@@ -408,19 +424,24 @@ def reduction_counter_check(torch, tk):
 # phase 3: the path on a small model, card against host
 # ---------------------------------------------------------------------------
 
+SMALL_SPEC = ([1, 1, 1, 1], [8, 16, 32, 64, 128])
+
+
+def small_net(mt, device):
+    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        BottleneckV1, ResNetV1)
+    return ResNetV1(BottleneckV1, *SMALL_SPEC, classes=10, layout="NHWC",
+                    stem_s2d=True, device=device)
+
+
 def small_reference(torch, mt):
     from mxnet_tpu_torch.convert import from_mxnet_tpu_params
     from mxnet_tpu_torch.gluon import loss as gloss
-    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
-        BottleneckV1, ResNetV1)
     from mxnet_tpu_torch.ops import fused_bn_act as tk
-    spec = ([1, 1, 1, 1], [8, 16, 32, 64, 128])
-    nets = {dev: ResNetV1(BottleneckV1, *spec, classes=10, layout="NHWC",
-                          stem_s2d=True, device=dev)
-            for dev in ("cpu", "cuda")}
+    nets = {dev: small_net(mt, dev) for dev in ("cpu", "cuda")}
     nets["cpu"].initialize(generator=torch.Generator().manual_seed(0))
     from_mxnet_tpu_params(nets["cuda"], {
-        k: p.data().detach().numpy()
+        k: p.data().asnumpy()
         for k, p in nets["cpu"].collect_params().items()},
         prefix=nets["cpu"].prefix)
     gen = torch.Generator().manual_seed(1)
@@ -429,13 +450,14 @@ def small_reference(torch, mt):
     res = {}
     tk.reset_launches()
     for dev, net in nets.items():
-        net.train()
-        logits = net(data[0].to(dev)).detach().cpu()
+        # training-mode logits: the mode comes from autograd
+        with mt.autograd.train_mode():
+            logits = net(data[0].to(dev)).detach().cpu()
         tr = mt.parallel.SPMDTrainer(
             net, gloss.SoftmaxCrossEntropyLoss(),
             optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
         loss = tr.run_steps(data.to(dev), label.to(dev)).cpu()
-        params = {k: p.data().detach().cpu()
+        params = {k: p.tensor.detach().cpu()
                   for k, p in net.collect_params().items()}
         res[dev] = (logits, loss, params)
     launched = dict(tk.launches)
@@ -459,10 +481,122 @@ def small_reference(torch, mt):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the K-step CUDA graph against eager steps
+# ---------------------------------------------------------------------------
+
+GRAPH_K = 2
+GRAPH_OPTS = (("sgd", {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}),
+              ("adam", {"learning_rate": 1e-3, "wd": 1e-4}))
+
+
+def _trainer_state(tr, net):
+    """Every weight, running statistic and optimizer buffer, by name."""
+    strip = len(net.prefix)
+    out = {f"param/{k[strip:]}": p.tensor.detach().clone()
+           for k, p in net.collect_params().items()}
+    for k, s in tr.optimizer_state.items():
+        for i, t in enumerate(s if isinstance(s, tuple) else (s,)):
+            out[f"opt{i}/{k[strip:]}"] = t.detach().clone()
+    if tr._t is not None:
+        out["t"] = tr._t.detach().clone()
+    return out
+
+
+def _agreement(torch, got, want):
+    """('bit for bit' | 'within 1e-3', worst error as a fraction of each
+    tensor's largest value) or None when they disagree."""
+    if all(torch.equal(got[k], want[k]) for k in want):
+        return "bit for bit", 0.0
+    worst = max(float((got[k].float() - want[k].float()).abs().max())
+                / max(float(want[k].float().abs().max()), 1e-6)
+                for k in want)
+    return ("within 1e-3", worst) if worst <= 1e-3 else (None, worst)
+
+
+def graph_phase(torch, mt):
+    """One start state of the small ResNet through (a) ``run_steps`` twice
+    (the first call eager, then a replay of its graph) and (b) 2 K eager
+    ``step()`` calls, for SGD and Adam: losses, weights, optimizer state,
+    ``t`` and running statistics must agree. Then new data: the replay's
+    losses must follow it (a stale input buffer would not). A replay
+    calls no wrapper (their counts stay put), and every ticket counter
+    reads 0 after the replays."""
+    from mxnet_tpu_torch.convert import from_mxnet_tpu_params
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    src = small_net(mt, "cpu")
+    src.initialize(generator=torch.Generator().manual_seed(3))
+    weights = {k: p.data().asnumpy()
+               for k, p in src.collect_params().items()}
+    # deterministic cuDNN algorithms, so graph and eager can agree to the
+    # bit; restored after the phase
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gen = torch.Generator().manual_seed(4)
+    batches = [(torch.rand((GRAPH_K, 4, 64, 64, 3), generator=gen).cuda(),
+                torch.randint(0, 10, (GRAPH_K, 4), generator=gen).float()
+                .cuda()) for _ in range(3)]
+    for opt, params in GRAPH_OPTS:
+        runs = {}
+        for how in ("graph", "eager"):
+            net = small_net(mt, "cuda")
+            from_mxnet_tpu_params(net, weights, prefix=src.prefix)
+            tr = mt.parallel.SPMDTrainer(
+                net, gloss.SoftmaxCrossEntropyLoss(), optimizer=opt,
+                optimizer_params=params)
+            losses, replay_launches = [], []
+            for i, (d, lab) in enumerate(batches):
+                before = dict(tk.launches)
+                if how == "graph":
+                    losses.append(tr.run_steps(d, lab))
+                else:
+                    losses.append(torch.stack(
+                        [tr.step(d[k], lab[k]) for k in range(GRAPH_K)]))
+                torch.cuda.synchronize()
+                if how == "graph" and i > 0:
+                    replay_launches.append(
+                        sum(tk.launches[k] - before[k] for k in before))
+                if i == 1:
+                    state = _trainer_state(tr, net)
+            runs[how] = (torch.stack(losses).cpu(), state, replay_launches,
+                         len(tr._graphs))
+        (lg, sg, rl, n_graphs), (le, se, _, _) = runs["graph"], runs["eager"]
+        agree, worst = _agreement(torch, {**sg, "losses": lg[:2]},
+                                  {**se, "losses": le[:2]})
+        new_agree, new_worst = _agreement(torch, {"l": lg[2]}, {"l": le[2]})
+        left = {str(k): int(v.abs().sum()) for k, v in tk._tickets.items()}
+        left.update({f"retired{i}": int(v.abs().sum())
+                     for i, v in enumerate(tk._retired)})
+        row = {"phase": "graph", "optimizer": opt, "k_steps": GRAPH_K,
+               "model": "ResNetV1 [1,1,1,1] [8,16,32,64,128] NHWC s2d "
+                        "64x64 batch 4, f32, TF32 off",
+               "agreement": agree, "worst_err_of_max": worst,
+               "new_data_agreement": new_agree,
+               "new_data_worst_err_of_max": new_worst,
+               "losses_graph": lg.tolist(), "losses_eager": le.tolist(),
+               "graphs": n_graphs, "wrapper_launches_in_replays": rl,
+               "tickets_left": left}
+        emit(row)
+        if agree is None:
+            fail(f"graph replay and eager steps disagree: {row}")
+        if new_agree is None:
+            fail(f"the replay's losses did not follow new data: {row}")
+        if n_graphs != 1 or any(rl):
+            fail(f"the replays did not run as one graph: {row}")
+        if any(left.values()):
+            fail(f"ticket counters left non-zero after replays: {row}")
+    torch.backends.cudnn.deterministic = prev_det
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
 def main_path(torch, mt, card):
+    """The timed ``run_steps`` is one replay of the K-step graph, captured
+    by the first call (which runs its K steps eagerly first). A replay
+    calls no wrapper, so its launches are read on the device by the
+    profile phase that follows."""
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.ops import fused_bn_act as tk
@@ -478,8 +612,14 @@ def main_path(torch, mt, card):
                       device="cuda")
     label = torch.randint(0, 1000, (K_STEPS, B), generator=gen,
                           device="cuda").float()
+    gib = 2.0 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
     warm = trainer.run_steps(data, label).cpu()
+    warm_launches = dict(tk.launches)
     setup_s = time.perf_counter() - t0
+    first_peak = torch.cuda.max_memory_allocated() / gib
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tk.reset_launches()
@@ -487,81 +627,197 @@ def main_path(torch, mt, card):
     losses = trainer.run_steps(data, label)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    launched = dict(tk.launches)
+    wrapper = dict(tk.launches)
     losses = losses.cpu()
+    # the graph's private pool is reserved, not allocated, between replays
+    replay_mem = {"peak_allocated_gib": torch.cuda.max_memory_allocated()
+                  / gib, "reserved_gib": torch.cuda.memory_reserved() / gib}
+    # the eager step in the same call: one untimed, then K timed
+    trainer.step(data[0], label[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    eager = [trainer.step(data[k], label[k]) for k in range(K_STEPS)]
+    torch.cuda.synchronize()
+    eager_dt = time.perf_counter() - t2
     row = {"phase": "train", "model": "resnet50_v1 NHWC stem_s2d",
            "batch": B, "image": IMG, "k_steps": K_STEPS,
            "dtype": "bfloat16 compute, f32 masters",
+           "how": "one replay of the K-step CUDA graph",
            "warmup_losses": warm.tolist(), "losses": losses.tolist(),
            "step_ms": 1e3 * dt / K_STEPS, "img_per_s": B * K_STEPS / dt,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "setup_and_first_call_s": setup_s, "launches": launched,
-           "card": card}
+           "peak_mem_gib": replay_mem["reserved_gib"],
+           "replay_memory": replay_mem,
+           "first_call_peak_allocated_gib": first_peak,
+           "eager_step_ms": 1e3 * eager_dt / K_STEPS,
+           "eager_img_per_s": B * K_STEPS / eager_dt,
+           "eager_peak_allocated_gib": torch.cuda.max_memory_allocated()
+           / gib,
+           "eager_losses": [float(v) for v in eager],
+           "setup_and_first_call_s": setup_s,
+           "first_call_wrapper_launches": warm_launches,
+           "replay_wrapper_launches": wrapper, "card": card}
     emit(row)
-    if not (torch.isfinite(losses).all() and torch.isfinite(warm).all()):
+    if not (torch.isfinite(losses).all() and torch.isfinite(warm).all()
+            and all(torch.isfinite(v) for v in eager)):
         fail("non-finite loss")
     if not 0.0 < float(warm[0]) < 20.0:
         fail(f"first loss {float(warm[0])} is not that of a fresh "
              "1000-class model")
-    want = 48 * K_STEPS
-    if any(v != want for v in launched.values()):
-        fail(f"expected {want} launches of every kernel, got {launched}")
-    return launched, trainer, data, label
+    if any(v != 48 * K_STEPS for v in warm_launches.values()):
+        fail(f"the first (eager) call should launch every kernel "
+             f"{48 * K_STEPS} times: {warm_launches}")
+    if any(wrapper.values()):
+        fail(f"the timed call ran wrappers, not a graph replay: {wrapper}")
+    if len(trainer._graphs) != 1:
+        fail(f"expected one captured graph, got {len(trainer._graphs)}")
+    return trainer, data, label
 
 
-# device kernels of the one-launch reductions: one per wrapper call
-_REDUCTION_KERNELS = {"bn_stats": "bn_stats_reduce<",
-                      "bn_bwd_stats": "bn_bwd_stats_reduce<"}
-_EPILOGUE_KERNELS = (*_REDUCTION_KERNELS.values(), "bn_apply<",
-                     "bn_bwd_apply<")
+# device kernels of the four BN epilogue kernels: one per launch
+_KERNEL_NAMES = {"bn_stats": "bn_stats_reduce<", "bn_apply": "bn_apply<",
+                 "bn_bwd_stats": "bn_bwd_stats_reduce<",
+                 "bn_bwd_apply": "bn_bwd_apply<"}
+_EPILOGUE_KERNELS = tuple(_KERNEL_NAMES.values())
 _CONV_KERNELS = ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90_",
                  "wgrad", "dgrad", "fprop")
+_GLUE = ("bf16_casts", "copies", "foreach_update", "plain_batchnorm",
+         "rest")
 
 
-def profile_step(torch, trainer, data, label):
-    """One more training step under torch.profiler: device time by kernel
-    family and the device's idle share of the step's wall time."""
-    from torch.autograd import DeviceType
+def _glue_category(e):
+    """Where a PyTorch kernel of the eager step comes from, by the op that
+    launched it and that op's ancestors: the plain BatchNorm of the stem
+    and the downsample branches (``_BatchNormCore``, forward and
+    backward), the optimizer's ``_foreach`` update, dtype casts
+    (``_to_copy``: every f32 master to bf16 and the gradients back, the
+    data; the label's cast is a few µs), ``.contiguous()`` and other
+    copies, or the rest."""
+    names = []
+    while e is not None:
+        names.append(e.name)
+        e = e.cpu_parent
+    if any("_BatchNormCore" in n for n in names):
+        return "plain_batchnorm"
+    if any(n.startswith("aten::_foreach") for n in names):
+        return "foreach_update"
+    if "aten::_to_copy" in names:
+        return "bf16_casts"
+    if any(n in ("aten::contiguous", "aten::clone", "aten::copy_")
+           for n in names):
+        return "copies"
+    return "rest"
+
+
+def _family(name):
+    if any(k in name for k in _EPILOGUE_KERNELS):
+        return "epilogue_kernels"
+    if any(k in name.lower() for k in _CONV_KERNELS):
+        return "convolution_kernels"
+    return "other"
+
+
+def _profiled(torch, fn):
     from torch.profiler import ProfilerActivity, profile
+    fn()                         # once unprofiled, so the pools are warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.step(data[0], label[0])
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    fam = {"epilogue_kernels": 0.0, "convolution_kernels": 0.0, "other": 0.0}
-    top = []
-    reductions = {k: 0 for k in _REDUCTION_KERNELS}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = e.self_device_time_total / 1e3
-        name = e.key
-        for k, kernel in _REDUCTION_KERNELS.items():
-            if kernel in name:
-                reductions[k] += e.count
-        if any(k in name for k in _EPILOGUE_KERNELS):
-            fam["epilogue_kernels"] += ms
-        elif any(k in name.lower() for k in _CONV_KERNELS):
-            fam["convolution_kernels"] += ms
-        else:
-            fam["other"] += ms
-        top.append((ms, e.count, name[:90]))
-    busy = sum(fam.values())
-    top.sort(reverse=True)
-    row = {"phase": "profile", "what": "one SPMDTrainer.step, batch "
-           f"{B}, bf16, under torch.profiler", "wall_ms": wall_ms,
-           "device_busy_ms": busy,
-           "device_idle_share": 1.0 - busy / wall_ms if busy else None,
-           "by_family_ms": fam, "reduction_kernel_launches": reductions,
-           "top_kernels": [[round(ms, 4), n, name] for ms, n, name
-                           in top[:12]]}
-    emit(row)
-    if any(n != 48 for n in reductions.values()):
-        fail(f"expected 48 device launches of each reduction kernel in one "
-             f"step (one per wrapper call), got {reductions}")
+    return prof, wall_ms
 
+
+def _device_kernels(prof):
+    """{kernel name: [device ms, count]} of one profiled run."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key] = [e.self_device_time_total / 1e3, e.count]
+    return out
+
+
+def _summary(what, kernels, wall_ms, glue):
+    fam = {"epilogue_kernels": 0.0, "convolution_kernels": 0.0,
+           "other": 0.0}
+    counts = {k: 0 for k in _KERNEL_NAMES}
+    for name, (ms, n) in kernels.items():
+        fam[_family(name)] += ms
+        for k, pat in _KERNEL_NAMES.items():
+            if pat in name:
+                counts[k] += n
+    busy = sum(fam.values())
+    top = sorted(((ms, n, name[:90]) for name, (ms, n) in kernels.items()),
+                 reverse=True)
+    return {"phase": "profile", "what": what, "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+            "by_family_ms": fam, "other_split_ms": glue,
+            "epilogue_device_launches": counts,
+            "top_kernels": [[round(ms, 4), n, name] for ms, n, name
+                            in top[:12]]}
+
+
+def profile_phase(torch, trainer, data, label):
+    """One eager ``step()`` and one ``run_steps`` replay under
+    torch.profiler, in this order, each run once unprofiled just before
+    (warm pools): wall ms, device busy ms and idle share
+    of each, device time by family, and the family of PyTorch's own
+    kernels ('other') split into bf16 casts, copies, the ``_foreach``
+    update, the plain stem / downsample BatchNorm and the rest. In the
+    eager step each kernel's category is its launching op's
+    (``_glue_category``); a replay launches its kernels without ops, so
+    each kernel name's replay time is split in the shares that name had
+    across the categories in the eager step. The replay's device counts
+    of the four BN kernels are the main path's launches: 48 x K each."""
+    prof, wall = _profiled(torch, lambda: trainer.step(data[0], label[0]))
+    eager = _device_kernels(prof)
+    from torch.autograd import DeviceType
+    shares = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        cat = _glue_category(e)
+        for kern in e.kernels:
+            s = shares.setdefault(kern.name, dict.fromkeys(_GLUE, 0.0))
+            s[cat] += kern.duration / 1e3
+
+    def split(kernels):
+        glue = dict.fromkeys(_GLUE, 0.0)
+        for name, (ms, _) in kernels.items():
+            if _family(name) != "other":
+                continue
+            s = shares.get(name)
+            tot = sum(s.values()) if s else 0.0
+            if not tot:
+                glue["copies" if name.startswith("Memcpy") else "rest"] += ms
+                continue
+            for cat, v in s.items():
+                glue[cat] += ms * v / tot
+        return glue
+
+    rows = [_summary(f"one eager SPMDTrainer.step, batch {B}, bf16",
+                     eager, wall, split(eager))]
+    prof, wall = _profiled(torch, lambda: trainer.run_steps(data, label))
+    replay = _device_kernels(prof)
+    rows.append(_summary(f"one run_steps replay of the {K_STEPS}-step "
+                         f"graph, batch {B}, bf16", replay, wall,
+                         split(replay)))
+    rows[1]["per_step_device_busy_ms"] = rows[1]["device_busy_ms"] / K_STEPS
+    rows[1]["per_step_wall_ms"] = rows[1]["wall_ms"] / K_STEPS
+    for row in rows:
+        emit(row)
+    if any(n != 48 for n in rows[0]["epilogue_device_launches"].values()):
+        fail("expected 48 device launches of each BN kernel in one eager "
+             f"step, got {rows[0]['epilogue_device_launches']}")
+    launched = rows[1]["epilogue_device_launches"]
+    if any(n != 48 * K_STEPS for n in launched.values()):
+        fail(f"expected {48 * K_STEPS} device launches of each BN kernel "
+             f"in one replay, got {launched}")
+    return launched
 
 # ---------------------------------------------------------------------------
 # phase 6: the flash-attention kernel against its plain version
@@ -1557,8 +1813,9 @@ def main():
     totals = kernel_phase(torch, tk)
     reduction_counter_check(torch, tk)
     small_reference(torch, mt)
-    launched, trainer, data, label = main_path(torch, mt, card)
-    profile_step(torch, trainer, data, label)
+    graph_phase(torch, mt)
+    trainer, data, label = main_path(torch, mt, card)
+    launched = profile_phase(torch, trainer, data, label)
     del trainer, data, label
     torch.cuda.empty_cache()
 
@@ -1592,7 +1849,9 @@ def main():
             "bound_by": "bytes" if t["bound_by"] == {"bytes"}
             else "operations", "library_ms": t["library_ms"],
             "library": LIBRARY[name],
-            "per": f"one training step (48 sites, batch {B}, bf16)"})
+            "per": f"one training step (48 sites, batch {B}, bf16); "
+                   f"launches: device count over one replay of the "
+                   f"{K_STEPS}-step graph"})
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,

@@ -92,35 +92,49 @@ def predict_mode() -> _RecordingStateScope:
     return _RecordingStateScope(None, False)
 
 
-def _deliver(grad_buf, grad_req: str):
-    """The hook that hands a leaf's accumulated gradient to ``grad_buf``."""
+def _deliver(var):
+    """The hook that hands a leaf's accumulated gradient to ``var``'s
+    gradient buffer by ``var``'s grad_req, both read when it fires."""
     def hook(leaf: torch.Tensor) -> None:
         g, leaf.grad = leaf.grad, None
-        if g is None or grad_req == "null":
+        buf, req = var._grad, var._grad_req
+        if g is None or buf is None or req == "null":
             return
         with torch.no_grad():
-            if grad_req == "add":
-                grad_buf._data.add_(g)
+            if req == "add":
+                buf._data.add_(g)
             else:
-                grad_buf._data.copy_(g)
+                buf._data.copy_(g)
     return hook
 
 
 def mark_variables(variables: Sequence, gradients: Sequence,
                    grad_reqs="write") -> None:
     """Make each array a variable whose gradients land in the matching
-    buffer (ref: MXAutogradMarkVariables)."""
+    buffer (ref: MXAutogradMarkVariables).
+
+    An array whose tensor is already a leaf that requires grad (a Gluon
+    block's ``nn.Parameter``, or an array marked before) keeps that
+    tensor: the delivery hook goes onto it, replacing any earlier one, so
+    the array and whatever else holds the tensor (the block, a captured
+    CUDA graph) stay one tensor. Any other array is rebound to a detached
+    leaf of its values."""
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     for var, g, req in zip(variables, gradients, grad_reqs):
         check(req in ("write", "add", "null"),
               f"grad_req must be write, add or null, not {req!r}")
-        check(var._data.is_floating_point(),
+        leaf = var._data
+        check(leaf.is_floating_point(),
               f"only floating-point arrays take gradients, not "
-              f"{var._data.dtype}")
-        leaf = var._data.detach().requires_grad_(True)
-        leaf.register_post_accumulate_grad_hook(_deliver(g, req))
-        var._data = leaf
+              f"{leaf.dtype}")
+        if not (leaf.is_leaf and leaf.requires_grad):
+            leaf = var._data = leaf.detach().requires_grad_(True)
+        old = getattr(leaf, "_mxt_deliver", None)
+        if old is not None:
+            old.remove()
+        leaf._mxt_deliver = leaf.register_post_accumulate_grad_hook(
+            _deliver(var))
         var._grad = g
         var._grad_req = req
 

@@ -1,18 +1,21 @@
-"""Framework error type and the CHECK() analog (ref: python/mxnet/base.py).
+"""Framework error type, the CHECK() analog and the environment-variable
+registry (ref: python/mxnet/base.py).
 
 A copy of what the port needs from ``mxnet_tpu/base.py``: the port imports
-nothing of the JAX package.
+nothing of the JAX package. Every environment variable the port reads goes
+through :data:`env`; no other module reads ``os.environ``.
 """
 from __future__ import annotations
 
 import ast
-from typing import Any, Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "check", "coerce_param", "hashable_params",
-           "torch_dtype", "numpy_dtype"]
+__all__ = ["MXNetError", "check", "EnvRegistry", "env", "coerce_param",
+           "hashable_params", "torch_dtype", "numpy_dtype"]
 
 
 class MXNetError(RuntimeError):
@@ -23,6 +26,67 @@ def check(cond: bool, msg: str = "check failed") -> None:
     """CHECK() analog: raise :class:`MXNetError` when ``cond`` is false."""
     if not cond:
         raise MXNetError(msg)
+
+
+class EnvRegistry:
+    """Typed registry of MXNET_* environment variables (ref: the JAX
+    package's ``base.EnvRegistry``; docs/faq/env_var.md): each knob is
+    declared once with its type, default and doc."""
+
+    def __init__(self) -> None:
+        self._defaults: Dict[str, Tuple[type, Any, str]] = {}
+
+    def declare(self, name: str, typ: type, default: Any,
+                doc: str = "") -> None:
+        self._defaults[name] = (typ, default, doc)
+
+    def get(self, name: str, default: Any = None) -> Any:
+        """The variable's value coerced to its declared type; a bool is
+        false only for "0", "false", "False" and "". Unset: ``default``,
+        else the declared default."""
+        if name in self._defaults:
+            typ, decl_default, _ = self._defaults[name]
+            raw = os.environ.get(name)
+            if raw is None:
+                return decl_default if default is None else default
+            if typ is bool:
+                return raw not in ("0", "false", "False", "")
+            return typ(raw)
+        raw = os.environ.get(name)
+        return raw if raw is not None else default
+
+    def raw(self, name: str) -> Optional[str]:
+        """Uncoerced read: the environment string, or None when unset. For
+        variables that are not the framework's to declare (``CUDA_HOME``)."""
+        return os.environ.get(name)
+
+    def default_for(self, name: str) -> Any:
+        """The declared default (None for an undeclared name)."""
+        decl = self._defaults.get(name)
+        return decl[1] if decl is not None else None
+
+    def items(self):
+        for name, (typ, default, doc) in sorted(self._defaults.items()):
+            yield name, typ, self.get(name), doc
+
+
+env = EnvRegistry()
+
+# the flags the port reads, with the JAX package's types, defaults and docs
+env.declare("MXNET_SAFE_ACCUMULATION", bool, False,
+            "Accumulate f16/bf16 reductions (sum/mean/prod/norm) in f32.")
+env.declare("MXNET_RESID_DTYPE", str, "",
+            "Store backward activation residuals 8-bit (fp8|e4m3|e5m2). "
+            "Conv dx stays exact (needs only weights); conv dW, BN "
+            "grads/dx (via fp8 xhat) and ReLU masks see small zero-mean "
+            "rounding (ops/resid8.py). Not ported yet: the port raises "
+            "when it is set.")
+env.declare("MXTPU_FUSED_EPILOGUE", bool, True,
+            "Route the fused conv-epilogue ops (BatchNorm(+add)+ReLU) "
+            "through the hand-written CUDA kernels (their plain PyTorch "
+            "versions on the CPU). Set 0 to fall back to the composed "
+            "unfused lowering. Read at every call; a CUDA graph keeps the "
+            "value it read at capture.")
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ the port net's own.
 Layouts: MXNet's channel-last convolutions keep their weight as OHWI, and
 so does the port's parameter (it becomes the OIHW ``channels_last`` view
 the convolution wants at the call, without a copy), so arrays are copied
-as they are. A missing, extra or mis-shaped name raises.
+as they are. A missing, extra or mis-shaped name raises. Values are
+written in place into each block's tensor (``Parameter.set_data``), so a
+CUDA graph the trainer captured over the net stays valid.
 
 ``from_transformer_params(params, config, device=None)`` takes the JAX
 ``models.transformer.init_params`` pytree as numpy arrays and returns the

@@ -8,9 +8,19 @@ the parent's prefix in front. Parameter names are ``prefix + short name``,
 so a port model built in the same order as a JAX model carries the same
 names (up to the top-level counter).
 
-``hybridize()`` is a no-op: PyTorch runs the forward eagerly and the port
-has no graph-capture path yet (a CUDA graph of the training step is later
-work). It is kept so MXNet-style code runs unchanged.
+Calling a block with ``NDArray``s (the imperative loop: ``record()``,
+``net(x)``, ``backward()``) unwraps them, runs ``forward`` on their
+tensors and wraps the outputs; torch records a graph only while
+``autograd.is_recording()``. Called with tensors (children inside a
+forward, ``functional_call``, the trainer), a block is a plain
+``nn.Module`` call and pays nothing extra. Layers whose behaviour depends
+on the mode (BatchNorm) read ``autograd.is_training()``, never
+``nn.Module.training``.
+
+``hybridize()`` is a no-op: PyTorch runs the forward eagerly, and the
+trainer's CUDA graph (``parallel/spmd.py run_steps``) is the port's
+counterpart of a compiled program. It is kept so MXNet-style code runs
+unchanged.
 """
 from __future__ import annotations
 
@@ -20,10 +30,12 @@ import threading
 import torch
 from torch import nn
 
+from .. import autograd
 from ..base import check
 from ..context import resolve_device
 from .. import initializer as init_mod
 from .. import random as _random
+from ..ndarray.ndarray import NDArray, _own
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["HybridBlock", "name_scope"]
@@ -131,7 +143,7 @@ class HybridBlock(nn.Module):
         for p in self.collect_params().values():
             if p.initialized:
                 continue
-            arr = p.data()
+            arr = p.tensor
             gen = generator
             if gen is None:
                 gen = gens.get(arr.device)
@@ -141,6 +153,24 @@ class HybridBlock(nn.Module):
                 else default
             initializer(p.name, arr.data, gen)
             p.initialized = True
+
+    def __call__(self, *args, **kwargs):
+        """NDArrays in, NDArrays out (see the module docstring); tensors
+        in, tensors out."""
+        if not any(isinstance(a, NDArray) for a in (*args,
+                                                      *kwargs.values())):
+            return super().__call__(*args, **kwargs)
+        args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
+        kwargs = {k: v._data if isinstance(v, NDArray) else v
+                  for k, v in kwargs.items()}
+        inputs = [t for t in (*args, *kwargs.values())
+                  if isinstance(t, torch.Tensor)]
+        with torch.enable_grad() if autograd.is_recording() \
+                else torch.no_grad():
+            out = super().__call__(*args, **kwargs)
+        if isinstance(out, torch.Tensor):
+            return NDArray(_own(out, inputs))
+        return type(out)(NDArray(_own(o, inputs)) for o in out)
 
     def hybridize(self, active: bool = True, **kwargs) -> None:
         """No-op (see the module docstring)."""

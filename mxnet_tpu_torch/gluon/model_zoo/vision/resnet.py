@@ -6,11 +6,14 @@ so weights carry across by name (:mod:`mxnet_tpu_torch.convert`).
 Channel-last blocks use the fused BN(+add)+ReLU epilogues. Unlike the JAX
 package every layer is built with its input width known (the port has no
 deferred initialisation); the image has 3 channels. V2 is not ported yet.
+Called with ``NDArray``s (the imperative loop) the model returns
+``NDArray``s (``HybridBlock.__call__``).
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ....ops import nn as ops
 from ...block import HybridBlock
 from ... import nn
 
@@ -53,7 +56,7 @@ class _ResidualV1(HybridBlock):
             for child in kids[:-1]:
                 x = child(x)
             return kids[-1](x, residual)
-        return F.relu(self.body(x) + residual)
+        return ops.relu(self.body(x) + residual)
 
 
 class BasicBlockV1(_ResidualV1):

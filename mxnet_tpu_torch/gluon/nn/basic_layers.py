@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import autograd
 from ...base import MXNetError
 from ...ops import nn as F
 from ..block import HybridBlock
@@ -83,7 +84,13 @@ class BatchNorm(HybridBlock):
     """(ref: nn.BatchNorm). gamma/beta are trained; running_mean /
     running_var are f32 buffers (aux states) blended in training mode as
     ``running * momentum + batch * (1 - momentum)`` with the BIASED batch
-    variance — MXNet's rule, not PyTorch's. ``in_channels`` must be given."""
+    variance — MXNet's rule, not PyTorch's. ``in_channels`` must be given.
+
+    The mode is ``autograd.is_training()`` (``record()``,
+    ``train_mode()``; the trainer sets it around its forward), as the JAX
+    package passes ``_training``; ``nn.Module.training`` decides nothing.
+    Training normalises by the batch statistics and blends them into the
+    running ones; otherwise the running statistics normalise and stay."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -105,10 +112,11 @@ class BatchNorm(HybridBlock):
         self._new_param("running_var", c, "null",
                         running_variance_initializer)
 
-    def _update_running_stats(self, mean, var) -> None:
-        """Momentum-blend the batch stats into the running buffers
-        (training mode only; ref: basic_layers.py _update_running_stats)."""
-        if self.training and not self._use_global_stats:
+    def _update_running_stats(self, training, mean, var) -> None:
+        """Momentum-blend the batch stats into the running buffers, in
+        place (training mode only; ref: basic_layers.py
+        _update_running_stats)."""
+        if training and not self._use_global_stats:
             m = self._momentum
             with torch.no_grad():
                 self.running_mean.copy_(self.running_mean * m
@@ -116,12 +124,13 @@ class BatchNorm(HybridBlock):
                 self.running_var.copy_(self.running_var * m + var * (1 - m))
 
     def forward(self, x):
+        training = autograd.is_training()
         out, mean, var = F.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
             eps=self._epsilon, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
-            training=self.training)
-        self._update_running_stats(mean, var)
+            training=training)
+        self._update_running_stats(training, mean, var)
         return out
 
     def extra_repr(self):

@@ -3,10 +3,12 @@
 
 Channel-last training goes through the fused CUDA kernels
 (ops/fused_bn_act.py); other axes take the composed lowering. Both
-subclass :class:`BatchNorm` and hold exactly its parameters.
+subclass :class:`BatchNorm` and hold exactly its parameters; the mode is
+``autograd.is_training()``, as for BatchNorm.
 """
 from __future__ import annotations
 
+from ... import autograd
 from ...ops import nn as F
 from .basic_layers import BatchNorm
 
@@ -20,12 +22,13 @@ class FusedBatchNormReLU(BatchNorm):
         return self._fused(x, None)
 
     def _fused(self, x, residual):
+        training = autograd.is_training()
         out, mean, var = F.fused_bn_act_impl(
             x, residual, self.gamma, self.beta, self.running_mean,
             self.running_var, eps=self._epsilon, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
-            training=self.training)
-        self._update_running_stats(mean, var)
+            training=training)
+        self._update_running_stats(training, mean, var)
         return out
 
 

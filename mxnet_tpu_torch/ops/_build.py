@@ -20,7 +20,7 @@ import subprocess
 import threading
 import time
 
-from ..base import MXNetError
+from ..base import MXNetError, env
 
 __all__ = ["SOURCES", "build", "load"]
 
@@ -43,7 +43,7 @@ build_seconds: dict = {}
 
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                 os.path.join(env.raw("CUDA_HOME") or "/usr/local/cuda",
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand

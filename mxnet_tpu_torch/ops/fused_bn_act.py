@@ -27,6 +27,19 @@ Device rule: each wrapper runs its kernel for CUDA tensors and its plain
 PyTorch version (``_bn_stats_plain`` ...) for CPU tensors; any other device
 raises. Nothing falls back from the kernel to the plain version. Each
 wrapper adds one to ``launches[<name>]`` when it launches its kernel.
+
+Under CUDA-graph capture (``SPMDTrainer.run_steps``). A wrapper called
+while its stream captures records its kernel into the graph and launches
+nothing, so it counts nothing; a replay launches the kernels without
+calling the wrappers, so replays add nothing to ``launches`` either. What
+a graph launched is read on the device (``torch.profiler``'s kernel
+counts). A graph keeps the ticket counters of the stream it was captured
+on. They must exist before capture begins (the wrapper raises rather than
+allocate them into the graph's private pool), so the same calls run once
+eagerly on that stream first; replays of one graph must not overlap on
+two streams (the trainer replays each graph on its own stream). Counters
+that a larger C replaces are kept alive, since a graph may hold them. A
+launch error during capture raises like any other.
 """
 from __future__ import annotations
 
@@ -54,6 +67,7 @@ _CLUSTER = 8                   # chunks per thread-block cluster (CLUSTER)
 _bound = False
 _sms: dict = {}                # device index -> streaming multiprocessors
 _tickets: dict = {}            # (device index, stream) -> int32 counters
+_retired: list = []            # replaced counters a graph may still hold
 
 
 def reset_launches() -> None:
@@ -206,9 +220,13 @@ def _stream(x):
 
 
 def _ok(name, err):
+    """Raise on a failed launch; count a launch that ran (not one
+    recorded into a CUDA graph)."""
     if err != 0:
         raise MXNetError(f"{name}: CUDA kernel launch failed "
                          f"(cudaError {err})")
+    if not torch.cuda.is_current_stream_capturing():
+        launches[name] += 1
 
 
 def _reduction_args(*rows):
@@ -231,6 +249,13 @@ def _reduction_args(*rows):
     key = (x2d.device.index, stream.value)
     tickets = _tickets.get(key)
     if tickets is None or tickets.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise MXNetError(
+                "BN reduction under CUDA-graph capture: the capturing "
+                "stream has no ticket counters for this shape yet; run the "
+                "same calls once on that stream before capture")
+        if tickets is not None:
+            _retired.append(tickets)
         tickets = _tickets[key] = torch.zeros(max(need, 64),
                                               dtype=torch.int32,
                                               device=x2d.device)
@@ -247,8 +272,7 @@ def bn_stats(x2d):
     with torch.cuda.device(x2d.device):
         sums, args = _reduction_args(x2d)
         err = _lib().mxt_bn_stats(x2d.data_ptr(), *args)
-    _ok("bn_stats", err)
-    launches["bn_stats"] += 1
+        _ok("bn_stats", err)
     return sums
 
 
@@ -269,8 +293,7 @@ def bn_apply(x2d, res2d, coef):
             coef.data_ptr(), out.data_ptr(), r, c, _DTYPE_CODE[x2d.dtype],
             wide, _elemwise_blocks(r, c, wide, x2d.dtype,
                                    _device_sms(x2d.device)), _stream(x2d))
-    _ok("bn_apply", err)
-    launches["bn_apply"] += 1
+        _ok("bn_apply", err)
     return out
 
 
@@ -285,8 +308,7 @@ def bn_bwd_stats(dy2d, out2d, x2d, coef):
         sums, args = _reduction_args(x2d, dy2d, out2d)
         err = _lib().mxt_bn_bwd_stats(dy2d.data_ptr(), out2d.data_ptr(),
                                       x2d.data_ptr(), coef.data_ptr(), *args)
-    _ok("bn_bwd_stats", err)
-    launches["bn_bwd_stats"] += 1
+        _ok("bn_bwd_stats", err)
     return sums
 
 
@@ -311,8 +333,7 @@ def bn_bwd_apply(dy2d, out2d, x2d, coef, has_res):
             coef.data_ptr(), dx.data_ptr(),
             None if dres is None else dres.data_ptr(), r, c,
             _DTYPE_CODE[x2d.dtype], wide, tx, ty, chunks, rpc, _stream(x2d))
-    _ok("bn_bwd_apply", err)
-    launches["bn_bwd_apply"] += 1
+        _ok("bn_bwd_apply", err)
     return (dx, dres) if has_res else dx
 
 

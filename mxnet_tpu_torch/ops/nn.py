@@ -6,13 +6,20 @@ at every public function; inside, the convolution and pooling run on the
 ``channels_last`` NCHW view of the same memory, so no copy is made.
 BatchNorm returns ``(out, mean, var)``; the running-stat update is the
 calling layer's (gluon/nn/basic_layers.py).
+
+Flags (``base.env``): ``MXTPU_FUSED_EPILOGUE=0`` sends the fused epilogue
+op down the composed BatchNorm -> (add) -> ReLU chain, as in the JAX
+package. ``MXNET_RESID_DTYPE`` (8-bit saved residuals) is not ported: every
+op that reads it in the JAX package (convolution, training BatchNorm, the
+composed epilogue, ReLU) raises on float data while it is set, rather than
+compute something else.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError, check
+from ..base import MXNetError, check, env
 from .fused_bn_act import fused_bn_act
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
@@ -40,6 +47,15 @@ def _from_nchw(x, layout):
     return x.permute(0, 2, 3, 1) if layout == "NHWC" else x
 
 
+def _no_resid8(data, op):
+    """Raise while MXNET_RESID_DTYPE asks for the JAX package's 8-bit
+    residual lowering of ``op`` (ref: ops/resid8.py), which is not ported."""
+    rdt = env.get("MXNET_RESID_DTYPE")
+    if rdt and data.is_floating_point():
+        raise MXNetError(f"{op}: MXNET_RESID_DTYPE={rdt!r} (8-bit saved "
+                         "residuals) is not ported yet; unset it")
+
+
 def fully_connected(data, weight, bias=None, flatten=True):
     """(ref: FullyConnected) ``data @ weight.T [+ bias]``."""
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 \
@@ -56,6 +72,7 @@ def convolution(data, weight, bias=None, stride=1, pad=0, dilate=1,
     layout = _layout(layout)
     check(data.dim() == 4 and weight.dim() == 4,
           "convolution: 4-d data and weight expected")
+    _no_resid8(data, "convolution")
     w = weight.permute(0, 3, 1, 2) if layout == "NHWC" else weight
     out = F.conv2d(_to_nchw(data, layout), w, None, _pair(stride),
                    _pair(pad), _pair(dilate), num_group)
@@ -69,7 +86,8 @@ def convolution(data, weight, bias=None, stride=1, pad=0, dilate=1,
 def pooling(data, kernel=(1, 1), pool_type="max", global_pool=False,
             stride=None, pad=0, layout=None):
     """(ref: Pooling, "valid" convention) the two the path uses: windowed
-    max and global average."""
+    max and global average. The stride defaults to 1, as the reference's
+    does."""
     layout = _layout(layout)
     if global_pool and pool_type == "avg":
         axes = (1, 2) if layout == "NHWC" else (2, 3)
@@ -80,14 +98,17 @@ def pooling(data, kernel=(1, 1), pool_type="max", global_pool=False,
     if global_pool or pool_type != "max":
         raise MXNetError(f"pooling {pool_type!r} (global={global_pool}) is "
                          "not ported yet")
-    stride = _pair(stride if stride else kernel)
+    stride = _pair(stride if stride else 1)
     out = F.max_pool2d(_to_nchw(data, layout), _pair(kernel), stride,
                        _pair(pad))
     return _from_nchw(out, layout)
 
 
 def relu(data):
-    return torch.relu(data)
+    """(ref: Activation relu, ``jnp.maximum(data, 0)``) as ``maximum``, whose
+    gradient splits an exact tie at 0 in halves as JAX's does."""
+    _no_resid8(data, "relu")
+    return torch.maximum(data, data.new_zeros(()))
 
 
 def log_softmax(data, axis=-1):
@@ -176,6 +197,7 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     g32 = _gamma32(gamma, fix_gamma)
     b32 = beta.float()
     if training and not use_global_stats:
+        _no_resid8(data, "batch_norm")
         return _BatchNormCore.apply(data, g32, b32, axis, float(eps))
     out, mean, var = _inference_norm(data, g32, b32, moving_mean,
                                      moving_var, eps, axis)
@@ -188,13 +210,17 @@ def fused_bn_act_impl(data, residual, gamma, beta, moving_mean, moving_var,
     """``relu(BatchNorm(data) [+ residual])`` as one op (ref:
     ``_fused_bn_act_impl`` behind _contrib_fused_bn_relu /
     _contrib_fused_bn_add_relu). Training with channel-last float data
-    goes through the fused kernels; another axis takes the composed
-    BatchNorm -> add -> ReLU chain; inference uses the moving stats."""
+    goes through the fused kernels while ``MXTPU_FUSED_EPILOGUE`` is on;
+    another axis, or the flag off, takes the composed BatchNorm -> (add)
+    -> ReLU chain (ref: ops/nn.py:390-417); inference uses the moving
+    stats."""
     g32 = _gamma32(gamma, fix_gamma)
     b32 = beta.float()
     if training and not use_global_stats:
-        if axis % data.dim() == data.dim() - 1 and data.is_floating_point():
+        if axis % data.dim() == data.dim() - 1 and data.is_floating_point() \
+                and env.get("MXTPU_FUSED_EPILOGUE"):
             return fused_bn_act(data, residual, g32, b32, float(eps))
+        _no_resid8(data, "fused_bn_act (composed)")
         out, mean, var = _BatchNormCore.apply(data, g32, b32, axis,
                                               float(eps))
         if residual is not None:

@@ -4,10 +4,9 @@ None for all), ``keepdims`` and ``exclude`` (reduce every axis but those)
 src/operator/tensor/broadcast_reduce_op_value.cc)."""
 from __future__ import annotations
 
-import os
-
 import torch
 
+from ..base import env
 from .registry import register
 
 
@@ -27,9 +26,8 @@ def _safe_acc(x):
     """MXNET_SAFE_ACCUMULATION: accumulate float16/bfloat16 reductions in
     float32 (ref: broadcast_reduce-inl.h AType promotion behind the same
     flag). Returns (maybe-upcast x, dtype to cast the result back to)."""
-    on = os.environ.get("MXNET_SAFE_ACCUMULATION", "0").strip().lower() \
-        in ("1", "true")
-    if on and x.dtype in (torch.float16, torch.bfloat16):
+    if env.get("MXNET_SAFE_ACCUMULATION") and \
+            x.dtype in (torch.float16, torch.bfloat16):
         return x.float(), x.dtype
     return x, None
 

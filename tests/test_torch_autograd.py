@@ -80,6 +80,29 @@ def test_pause_and_recording_state():
     np.testing.assert_allclose(g, 3 * np.exp(X), rtol=1e-5)
 
 
+def test_mode_scopes_match_jax():
+    """(is_recording, is_training) through record(train_mode=...),
+    pause(train_mode=...), train_mode(), predict_mode() and set_training,
+    nested, as the JAX package reports them: BatchNorm's only source of
+    its mode."""
+    def trace(ag):
+        seen = [(ag.is_recording(), ag.is_training())]
+        with ag.record(train_mode=False):
+            seen.append((ag.is_recording(), ag.is_training()))
+            with ag.train_mode():
+                seen.append((ag.is_recording(), ag.is_training()))
+                with ag.pause(train_mode=True):
+                    seen.append((ag.is_recording(), ag.is_training()))
+                seen.append((ag.is_recording(), ag.is_training()))
+            with ag.predict_mode():
+                seen.append((ag.is_recording(), ag.is_training()))
+        seen.append(ag.set_training(True))
+        seen.append(ag.set_training(False))
+        seen.append((ag.is_recording(), ag.is_training()))
+        return seen
+    assert trace(tag) == trace(jag)
+
+
 def test_ops_outside_record_are_not_recorded():
     for nd, ag, err in ((jnd, jag, JaxMXNetError), (tnd, tag, MXNetError)):
         x = nd.array(X)

@@ -158,8 +158,8 @@ def test_batch_norm_layer_running_stats_match_jax(fused):
     for _ in range(2):
         with autograd.record():
             jy = jl(*args_j)
-        tl.train()
-        ty = tl(*args_t)
+        with mt.autograd.record():
+            ty = tl(*args_t)
         np.testing.assert_allclose(_np(ty), jy.asnumpy(), rtol=2e-5,
                                    atol=2e-5)
     np.testing.assert_allclose(_np(tl.running_mean),
@@ -168,9 +168,140 @@ def test_batch_norm_layer_running_stats_match_jax(fused):
     np.testing.assert_allclose(_np(tl.running_var),
                                jl.running_var.data().asnumpy(), rtol=1e-6,
                                atol=1e-6)
-    tl.eval()
     np.testing.assert_allclose(_np(tl(*args_t)), jl(*args_j).asnumpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+_MODES = {"outside_record": (lambda ag: ag.pause(), False),
+          "record": (lambda ag: ag.record(), True),
+          "record_predict": (lambda ag: ag.record(train_mode=False), False)}
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("kind", ["BatchNorm", "FusedBatchNormReLU",
+                                  "FusedBatchNormAddReLU"])
+def test_batch_norm_mode_comes_from_autograd(kind, mode):
+    """A fresh layer (nn.Module's training flag left as built) follows
+    autograd's mode, as the JAX package's does: outside record() and under
+    record(train_mode=False) it normalises by the moving statistics and
+    keeps them; under record() it uses the batch statistics and blends
+    them into the running ones."""
+    rs = np.random.RandomState(21)
+    c = 5
+    x = (rs.randn(3, 4, 4, c) * 3 + 1).astype(np.float32)
+    res = rs.randn(3, 4, 4, c).astype(np.float32)
+    mm = rs.randn(c).astype(np.float32)
+    mv = (rs.rand(c) + 0.5).astype(np.float32)
+    jl = getattr(jnn, kind)(axis=-1, in_channels=c)
+    jl.initialize()
+    jl.running_mean.set_data(nd.array(mm))
+    jl.running_var.set_data(nd.array(mv))
+    tl = getattr(tnn, kind)(axis=-1, in_channels=c, device="cpu")
+    tl.initialize()
+    tp = tl.collect_params()
+    tp[tl.prefix + "running_mean"].set_data(mm)
+    tp[tl.prefix + "running_var"].set_data(mv)
+    add = kind == "FusedBatchNormAddReLU"
+    scope, moves = _MODES[mode]
+    with scope(autograd):
+        jy = jl(nd.array(x), nd.array(res)) if add else jl(nd.array(x))
+    targs = [mt.nd.array(a, ctx=mt.cpu()) for a in ((x, res) if add
+                                                   else (x,))]
+    with scope(mt.autograd):
+        ty = tl(*targs)
+    assert isinstance(ty, mt.nd.NDArray) and tl.training
+    np.testing.assert_allclose(ty.asnumpy(), jy.asnumpy(), rtol=2e-5,
+                               atol=2e-5)
+    for name, start in (("running_mean", mm), ("running_var", mv)):
+        got = tp[tl.prefix + name].data().asnumpy()
+        np.testing.assert_allclose(
+            got, getattr(jl, name).data().asnumpy(), rtol=1e-6, atol=1e-6)
+        assert (not np.array_equal(got, start)) == moves, name
+
+
+@pytest.mark.parametrize("kernel,pad", [((3, 3), (0, 0)), ((3, 3), (1, 1)),
+                                        ((2, 2), (0, 0)), ((2, 3), (1, 0))])
+def test_pooling_stride_defaults_to_one(kernel, pad):
+    """C2: no stride given means stride 1, as in the JAX package."""
+    import jax.numpy as jnp
+    x = np.random.RandomState(22).randn(1, 6, 6, 2).astype(np.float32)
+    jout = jops._pooling(jnp.asarray(x), kernel=kernel, pool_type="max",
+                         pad=pad, layout="NHWC")
+    tout = tops.pooling(torch.from_numpy(x), kernel=kernel, pool_type="max",
+                        pad=pad, layout="NHWC")
+    assert tout.shape == tuple(jout.shape)
+    np.testing.assert_allclose(_np(tout), _np(jout), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_fused_epilogue_flag_off_takes_the_composed_chain(
+        monkeypatch, residual, dtype):
+    """MXTPU_FUSED_EPILOGUE=0 in both packages: the fused op lowers to
+    BatchNorm -> (add) -> ReLU; forward and gradients (dx, dres, dgamma,
+    dbeta) against the JAX package, and the fused kernels are not
+    called."""
+    import jax
+    from mxnet_tpu_torch.ops import nn as tops_mod
+    monkeypatch.setenv("MXTPU_FUSED_EPILOGUE", "0")
+
+    def no_kernels(*a, **k):
+        raise AssertionError("the fused kernels ran with the flag off")
+    monkeypatch.setattr(tops_mod, "fused_bn_act", no_kernels)
+    rs = np.random.RandomState(23)
+    c = 6
+    x = (rs.randn(2, 5, 3, c) * 2 + 1).astype(np.float32)
+    r = rs.randn(2, 5, 3, c).astype(np.float32)
+    g = (rs.rand(c) + 0.5).astype(np.float32)
+    b = rs.randn(c).astype(np.float32)
+    mm, mv = np.zeros(c, np.float32), np.ones(c, np.float32)
+    (jx, tx), (jr, tr), (jg, tg), (jb, tb) = (
+        _both(x, dtype), _both(r, dtype), _both(g, "float32"),
+        _both(b, "float32"))
+
+    def jf(a, rr, gg, bb):
+        return jops._fused_bn_act_impl(a, rr if residual else None, gg, bb,
+                                       mm, mv, 1e-5, False, False, -1, True)
+
+    (jo, jm, jv), vjp = jax.vjp(jf, jx, jr, jg, jb)
+    to, tm, tv = tops.fused_bn_act_impl(
+        tx, tr if residual else None, tg, tb, torch.from_numpy(mm),
+        torch.from_numpy(mv), eps=1e-5, axis=-1, training=True)
+    tol = _tol(dtype)
+    for mine, ref in ((to, jo), (tm, jm), (tv, jv)):
+        np.testing.assert_allclose(_np(mine), _np(ref), **tol)
+    dy = rs.randn(*x.shape).astype(np.float32)
+    jdy, tdy = _both(dy, dtype, grad=False)
+    jgrads = vjp((jdy, 0 * jm, 0 * jv))
+    to.backward(tdy)
+    names = ("dx", "dres", "dgamma", "dbeta")
+    for name, mine, ref in zip(names, (tx.grad, tr.grad, tg.grad, tb.grad),
+                               jgrads):
+        if name == "dres" and not residual:
+            assert mine is None
+            continue
+        np.testing.assert_allclose(_np(mine), _np(ref), err_msg=name, **tol)
+
+
+def test_resid8_flag_raises_rather_than_compute_something_else(monkeypatch):
+    """MXNET_RESID_DTYPE (8-bit saved residuals) is not ported: every op
+    that reads it in the JAX package raises on float data."""
+    monkeypatch.setenv("MXNET_RESID_DTYPE", "fp8")
+    x = torch.ones(1, 4, 4, 2)
+    w = torch.ones(3, 1, 1, 2)
+    g, b = torch.ones(2), torch.zeros(2)
+    calls = [lambda: tops.convolution(x, w, layout="NHWC"),
+             lambda: tops.relu(x),
+             lambda: tops.batch_norm(x, g, b, g, g, axis=-1,
+                                     training=True)]
+    monkeypatch.setenv("MXTPU_FUSED_EPILOGUE", "0")
+    calls.append(lambda: tops.fused_bn_act_impl(x, None, g, b, b, g,
+                                                training=True))
+    for call in calls:
+        with pytest.raises(MXNetError, match="not ported yet"):
+            call()
+    monkeypatch.delenv("MXNET_RESID_DTYPE")
+    assert tops.relu(x).shape == x.shape
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -278,10 +409,10 @@ def test_small_resnet_forward_matches_jax(layout):
         want_eval = jnet(nd.array(x)).asnumpy()
     with autograd.record():
         want_train = jnet(nd.array(x)).asnumpy()
-    tnet.eval()
-    got_eval = _np(tnet(torch.from_numpy(x)))
-    tnet.train()
-    got_train = _np(tnet(torch.from_numpy(x)))
+    with mt.autograd.pause():
+        got_eval = _np(tnet(torch.from_numpy(x)))
+    with mt.autograd.record():
+        got_train = _np(tnet(torch.from_numpy(x)))
     np.testing.assert_allclose(got_eval, want_eval, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got_train, want_train, rtol=1e-4, atol=1e-4)
     n_fused = sum(isinstance(m, tnn.FusedBatchNormReLU)
