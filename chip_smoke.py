@@ -8,7 +8,8 @@ Phases, each printing JSON lines:
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (nvcc, sm_90a);
 2. each kernel of the training path against its plain PyTorch version on
-   the card, at every shape the ResNet-50 step gives it (plus a ragged R, a
+   the card, at every shape the ResNet-50 v1 step gives it and at the
+   seven no-residual shapes only the v2 step gives it (plus a ragged R, a
    C that takes the scalar path, and an f32 case): maximum error, the
    kernel's time, the plain version's time, a one-call PyTorch yardstick
    (``library_ms``, never used by the port) and the bound (the larger of
@@ -44,7 +45,8 @@ Phases, each printing JSON lines:
    into bf16 casts, copies, the ``_foreach`` update, the plain stem and
    downsample BatchNorm and the rest. The device counts of the four BN
    kernels are the path's launches: 48 in the eager step and 48 x K in
-   the replay, which the summary line reports;
+   the replay, which the summary line reports, with 16 x K residual
+   ``bn_apply`` launches;
 6. the flash-attention forward against its plain PyTorch version on both
    of its routes (``flash_route``: the tensor-core kernel for bf16 with D
    64 or 128 and aligned views, the SIMT kernel for the rest), each case at
@@ -70,7 +72,10 @@ Phases, each printing JSON lines:
 10. ``nd_ops``: every op of the imperative front end (``mx.nd``) that has
     a case in ``tests/op_cases.py``, card against host at the case's
     rtol/atol, and its gradients through ``autograd.record()`` /
-    ``backward()`` where the case has them (f32, TF32 off);
+    ``backward()`` where the case has them (f32, TF32 off); then
+    ``mx.nd._contrib_fused_bn_relu`` / ``_contrib_fused_bn_add_relu``
+    under ``record()``, card against host, each kernel launched once per
+    op on the card and never on the host;
 11. ``rtc``: user kernels compiled at run time by ``mx.rtc.CudaModule``
     (NVRTC; the shim ``csrc/rtc.cu`` is built with the other sources):
     ``axpy`` and ``scale2`` over 2^26 f32 elements, ``rowscale`` over an
@@ -100,8 +105,30 @@ Phases, each printing JSON lines:
     microseconds per op against the same forward in plain torch; 800
     ``sgd_mom`` launches, counts zeroed just before and read just after;
     then 20 steps under ``torch.profiler`` for the device's idle share;
-15. the ``{"kernels": [...]}`` summary (the BN kernels' times are per
-    ResNet training step, the sum over the 48 call sites; flash_fwd's per
+14b. then the ResNet-50 v2 path (every pre-activation BN+ReLU a fused
+    block, the no-residual branch only), last so the phases above run as
+    they did before it: ``resnet_v2_reference``, a small v2
+    (``resnet18_v2`` and a thin ``BottleneckV2`` net, NHWC, f32, TF32 off,
+    deferred init resolved on the host and carried to the card by
+    ``convert``) one step card against host (loss and running statistics
+    within 1e-3 of each tensor's largest value, weights too for the thin
+    net, ``resnet18_v2``'s weight updates within 5e-2 of their L2 norm;
+    one launch of each kernel per fused site on the card, none on the
+    host); ``v2_graph``, full-width ``resnet50_v2`` replay against eager
+    steps as in ``graph``; ``train_v2``,
+    ``get_model("resnet50_v2", layout="NHWC")`` with deferred init,
+    ``initialize(Xavier)``, batch 128, bf16 with f32 masters, SGD
+    momentum 0.9 lr 0.05, ``run_steps`` of K (the first call probes, runs
+    K eager steps and captures; the timed call is one replay);
+    ``profile_v2``, as ``profile`` (48 x K device launches of each kernel
+    per replay, no residual ``bn_apply``); and ``v2_plain_batchnorm``,
+    the device time of the plain BatchNorm at its three v2 sites (the
+    input BN at C 3, the stem, the final BN);
+15. the wall seconds of every phase (a ``wall`` line after each, a
+    ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
+    (the BN kernels' times are per ResNet-50 v1 training step, the sum
+    over the 48 call sites, with the v2 step's sums and launches under
+    ``v2``; flash_fwd's per
     launch at the path's shape; the rtc kernels' per launch at the sizes
     above, sgd_mom's per imperative step, the sum over its 4 launches)
     and, last, the device line.
@@ -211,6 +238,24 @@ def path_sites():
         sites.append((r, out, True, blocks))
     assert sum(s[3] for s in sites) == 48
     return sites
+
+
+def v2_path_sites():
+    """Distinct (R, C) epilogue sites of one ResNet-50 v2 step at batch B
+    with their multiplicity (48 sites, none with a residual): each
+    BottleneckV2 has three pre-activation BN+ReLUs, bn1 on the block's
+    input (R_in, C_in), bn2 on conv1's output (R_in, mid) and bn3 on the
+    strided conv2's output (R_out, mid)."""
+    sites = {}
+    c_in, hw_in = STAGES[0][1], STAGES[0][0]
+    for hw, mid, out, blocks in STAGES:
+        for _ in range(blocks):
+            r_in, r_out = B * hw_in * hw_in, B * hw * hw
+            for key in ((r_in, c_in), (r_in, mid), (r_out, mid)):
+                sites[key] = sites.get(key, 0) + 1
+            c_in, hw_in = out, hw
+    assert sum(sites.values()) == 48
+    return [(r, c, False, n) for (r, c), n in sites.items()]
 
 
 def make_case(torch, tk, r, c, has_res, dtype, gen):
@@ -325,23 +370,34 @@ def bound_ms(name, r, c, itemsize, has_res):
 
 
 def kernel_phase(torch, tk):
+    """Every kernel at every (R, C) site of a ResNet-50 v1 step and of a
+    v2 step (v2 adds seven no-residual sites v1 never gives the kernels),
+    then edge cases; per-step sums for v1 (``totals``) and v2
+    (``totals_v2``)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                      max_abs_err=0.0, bound_by=set()) for n in KERNELS}
+
+    def zero():
+        return {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                        max_abs_err=0.0, bound_by=set()) for n in KERNELS}
+
+    totals, totals_v2 = zero(), zero()
     bad = []
     # what time_ms gives an empty kernel: the floor under every row below
     emit({"phase": "kernel", "kernel": "empty (torch.cuda._sleep(0))",
           "timing_floor_ms": time_ms(torch, lambda: torch.cuda._sleep(0),
                                      flush, iters=20)})
     # the path's own shapes (timed), then edge cases (checked only)
-    cases = [(r, c, res, mult, torch.bfloat16, True)
-             for r, c, res, mult in path_sites()]
-    cases += [(100003, 512, True, 0, torch.bfloat16, False),
-              (1001, 9, True, 0, torch.bfloat16, False),
-              (25088, 256, True, 0, torch.float32, False)]
-    for r, c, has_res, mult, dtype, timed in cases:
+    mults = {(r, c, res): [n, 0] for r, c, res, n in path_sites()}
+    for r, c, res, n in v2_path_sites():
+        mults.setdefault((r, c, res), [0, 0])[1] = n
+    cases = [(r, c, res, m, torch.bfloat16, True)
+             for (r, c, res), m in mults.items()]
+    cases += [(100003, 512, True, (0, 0), torch.bfloat16, False),
+              (1001, 9, True, (0, 0), torch.bfloat16, False),
+              (25088, 256, True, (0, 0), torch.float32, False)]
+    for r, c, has_res, (mult, mult_v2), dtype, timed in cases:
         cs = make_case(torch, tk, r, c, has_res, dtype, gen)
         for name, (kern, plain, lib) in calls(torch, tk, cs).items():
             got = kern()
@@ -353,8 +409,9 @@ def kernel_phase(torch, tk):
                    "max_abs_err": err, "ok": ok}
             if not ok:
                 bad.append(row)
-            t = totals[name]
-            t["max_abs_err"] = max(t["max_abs_err"], err)
+            for t, m in ((totals[name], mult), (totals_v2[name], mult_v2)):
+                if m or not timed:
+                    t["max_abs_err"] = max(t["max_abs_err"], err)
             if timed:
                 row["ms"] = time_ms(torch, kern, flush)
                 row["plain_ms"] = time_ms(torch, plain, flush)
@@ -363,15 +420,19 @@ def kernel_phase(torch, tk):
                     name, r, c, cs["x"].element_size(), has_res)
                 row["bound_share"] = row["bound_ms"] / row["ms"]
                 row["sites_per_step"] = mult
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                    t[key] += mult * row[key]
-                t["bound_by"].add(row["bound_by"])
+                row["sites_per_v2_step"] = mult_v2
+                for t, m in ((totals[name], mult), (totals_v2[name],
+                                                     mult_v2)):
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                        t[key] += m * row[key]
+                    if m:
+                        t["bound_by"].add(row["bound_by"])
             emit(row)
         del cs
     torch.cuda.empty_cache()
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
-    return totals
+    return totals, totals_v2
 
 
 def reduction_counter_check(torch, tk):
@@ -709,6 +770,13 @@ def _glue_category(e):
     return "rest"
 
 
+def _residual_variant(name):
+    """Whether a ``bn_apply<T, VEC, RES>`` device kernel is the residual
+    variant (its last template argument)."""
+    args = name.split(_KERNEL_NAMES["bn_apply"], 1)[1].split(">", 1)[0]
+    return args.split(",")[-1].strip() == "true"
+
+
 def _family(name):
     if any(k in name for k in _EPILOGUE_KERNELS):
         return "epilogue_kernels"
@@ -744,11 +812,14 @@ def _summary(what, kernels, wall_ms, glue):
     fam = {"epilogue_kernels": 0.0, "convolution_kernels": 0.0,
            "other": 0.0}
     counts = {k: 0 for k in _KERNEL_NAMES}
+    with_residual = 0
     for name, (ms, n) in kernels.items():
         fam[_family(name)] += ms
         for k, pat in _KERNEL_NAMES.items():
             if pat in name:
                 counts[k] += n
+        if _KERNEL_NAMES["bn_apply"] in name and _residual_variant(name):
+            with_residual += n
     busy = sum(fam.values())
     top = sorted(((ms, n, name[:90]) for name, (ms, n) in kernels.items()),
                  reverse=True)
@@ -757,11 +828,12 @@ def _summary(what, kernels, wall_ms, glue):
             "device_idle_share": 1.0 - busy / wall_ms if busy else None,
             "by_family_ms": fam, "other_split_ms": glue,
             "epilogue_device_launches": counts,
+            "bn_apply_with_residual_launches": with_residual,
             "top_kernels": [[round(ms, 4), n, name] for ms, n, name
                             in top[:12]]}
 
 
-def profile_phase(torch, trainer, data, label):
+def profile_phase(torch, trainer, data, label, model="resnet50_v1"):
     """One eager ``step()`` and one ``run_steps`` replay under
     torch.profiler, in this order, each run once unprofiled just before
     (warm pools): wall ms, device busy ms and idle share
@@ -799,13 +871,13 @@ def profile_phase(torch, trainer, data, label):
                 glue[cat] += ms * v / tot
         return glue
 
-    rows = [_summary(f"one eager SPMDTrainer.step, batch {B}, bf16",
-                     eager, wall, split(eager))]
+    rows = [_summary(f"{model}: one eager SPMDTrainer.step, batch {B}, "
+                     "bf16", eager, wall, split(eager))]
     prof, wall = _profiled(torch, lambda: trainer.run_steps(data, label))
     replay = _device_kernels(prof)
-    rows.append(_summary(f"one run_steps replay of the {K_STEPS}-step "
-                         f"graph, batch {B}, bf16", replay, wall,
-                         split(replay)))
+    rows.append(_summary(f"{model}: one run_steps replay of the "
+                         f"{K_STEPS}-step graph, batch {B}, bf16", replay,
+                         wall, split(replay)))
     rows[1]["per_step_device_busy_ms"] = rows[1]["device_busy_ms"] / K_STEPS
     rows[1]["per_step_wall_ms"] = rows[1]["wall_ms"] / K_STEPS
     for row in rows:
@@ -817,7 +889,282 @@ def profile_phase(torch, trainer, data, label):
     if any(n != 48 * K_STEPS for n in launched.values()):
         fail(f"expected {48 * K_STEPS} device launches of each BN kernel "
              f"in one replay, got {launched}")
+    # v1: one block tail with the residual add per bottleneck (16); v2:
+    # every fused site is a pre-activation, none with a residual
+    residual = (16 if model == "resnet50_v1" else 0) * K_STEPS
+    got = rows[1]["bn_apply_with_residual_launches"]
+    if got != residual:
+        fail(f"expected {residual} residual bn_apply launches in one "
+             f"{model} replay, got {got}")
     return launched
+
+# ---------------------------------------------------------------------------
+# the ResNet-50 v2 path: every pre-activation BN+ReLU a fused block
+# ---------------------------------------------------------------------------
+
+V2_SMALL = {"resnet18_v2": 16, "bottleneck_v2_thin": 12}   # fused sites
+
+
+def small_v2(mt, which, device):
+    """resnet18_v2 or the thin BottleneckV2 net, NHWC, built with deferred
+    initialisation (no input widths given)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    if which == "resnet18_v2":
+        return vision.resnet18_v2(classes=10, layout="NHWC", device=device)
+    return vision.ResNetV2(vision.BottleneckV2, *SMALL_SPEC, classes=10,
+                           layout="NHWC", device=device)
+
+
+def resnet_v2_reference(torch, mt):
+    """A small v2 trained one step on the card (kernels) and on the host
+    (plain versions) from the same numpy weights, f32, TF32 off,
+    deterministic cuDNN: the host net's deferred widths are resolved by a
+    forward, and ``convert`` creates the card net's tensors from its
+    weights. The loss and the running statistics (functions of the
+    forward) within 1e-3 of each tensor's largest value; each kernel
+    launched once per fused site on the card, never on the host. Weights:
+    the thin net's within 1e-3 of each tensor's largest value;
+    ``resnet18_v2``'s update (the weight's change in the step) within
+    5e-2 of its L2 norm. In ``resnet18_v2`` at this size some ReLU inputs
+    lie within rounding of 0, and where card and host round one to
+    opposite sides, that channel's gradient moves by a few percent of a
+    tensor's largest value (2.2 % on an H100 80GB HBM3); a per-element
+    bound cannot tell that from a fault, an L2 bound on the update
+    can."""
+    from mxnet_tpu_torch.convert import from_mxnet_tpu_params
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gen = torch.Generator().manual_seed(5)
+    data = torch.rand((1, 4, 64, 64, 3), generator=gen)
+    label = torch.randint(0, 10, (1, 4), generator=gen).float()
+    for which, sites in V2_SMALL.items():
+        host = small_v2(mt, which, "cpu")
+        host.initialize(mt.init.Xavier(),
+                        generator=torch.Generator().manual_seed(0))
+        with mt.autograd.pause():
+            host(data[0])
+        card = small_v2(mt, which, "cuda")
+        deferred = sum(p.tensor is None
+                       for p in card.collect_params().values())
+        start = {k: p.tensor.detach().clone()
+                 for k, p in host.collect_params().items()}
+        from_mxnet_tpu_params(card, {k: v.numpy() for k, v in start.items()},
+                              prefix=host.prefix)
+        start = {k[len(host.prefix):]: v for k, v in start.items()}
+        res = {}
+        for dev, net in (("cpu", host), ("cuda", card)):
+            tr = mt.parallel.SPMDTrainer(
+                net, gloss.SoftmaxCrossEntropyLoss(),
+                optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
+            tk.reset_launches()
+            loss = tr.run_steps(data.to(dev), label.to(dev)).cpu()
+            torch.cuda.synchronize()
+            params = {k[len(net.prefix):]: p.tensor.detach().cpu()
+                      for k, p in net.collect_params().items()}
+            res[dev] = (loss, params, dict(tk.launches))
+        (loss_c, p_c, l_c), (loss_g, p_g, l_g) = res["cpu"], res["cuda"]
+        errs = {k: float((p_g[k] - p_c[k]).abs().max())
+                / max(float(p_c[k].abs().max()), 1e-6) for k in p_c}
+        worst = max(errs, key=errs.get)
+        stats = [k for k in p_c if k.endswith(("running_mean",
+                                               "running_var"))]
+        update_l2 = {k: float((p_g[k] - p_c[k]).norm())
+                     / max(float((p_c[k] - start[k]).norm()), 1e-12)
+                     for k in p_c if k not in stats}
+        worst_l2 = max(update_l2, key=update_l2.get)
+        bad = [k for k in stats if errs[k] > 1e-3]
+        if which == "resnet18_v2":
+            bad += [k for k, e in update_l2.items() if e > 5e-2]
+        else:
+            bad += [k for k in p_c if errs[k] > 1e-3]
+        loss_err = float((loss_g - loss_c).abs().max()) \
+            / float(loss_c.abs().max())
+        row = {"phase": "resnet_v2_reference", "model": f"{which} NHWC "
+               "64x64 batch 4, f32, TF32 off, deferred init",
+               "deferred_params_before_convert": deferred,
+               "loss_card": float(loss_g[0]), "loss_host": float(loss_c[0]),
+               "loss_err_of_max": loss_err,
+               "worst_state_err_of_max": errs[worst], "worst_tensor": worst,
+               "worst_stat_err_of_max": max(errs[k] for k in stats),
+               "worst_update_err_of_l2": update_l2[worst_l2],
+               "worst_update_tensor": worst_l2,
+               "launches_card": l_g, "launches_host": l_c,
+               "fused_sites": sites, "failed": bad}
+        emit(row)
+        if not deferred:
+            fail(f"{which}: nothing was deferred: {row}")
+        if loss_err > 1e-3 or bad:
+            fail(f"card and host disagree on the small v2 model: {row}")
+        if any(n != sites for n in l_g.values()) or any(l_c.values()):
+            fail(f"the small v2 model's launches are not one per fused "
+                 f"site on the card and none on the host: {row}")
+    torch.backends.cudnn.deterministic = prev_det
+
+
+def v2_net_and_trainer(torch, mt):
+    """Full-width ResNet-50 v2 from ``get_model`` with deferred init and
+    ``initialize(Xavier)``, and its bf16 SGD-momentum trainer."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    net = get_model("resnet50_v2", layout="NHWC")
+    net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+    trainer = mt.parallel.SPMDTrainer(
+        net, gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+        dtype=torch.bfloat16)
+    return net, trainer
+
+
+def v2_batches(torch, mt, n):
+    gen = mt.random.seed(1)
+    return [(torch.rand((K_STEPS, B, IMG, IMG, 3), generator=gen,
+                        device="cuda"),
+             torch.randint(0, 1000, (K_STEPS, B), generator=gen,
+                           device="cuda").float()) for _ in range(n)]
+
+
+def v2_graph_phase(torch, mt):
+    """Full-width v2 from one start state (two nets, the same generator)
+    through ``run_steps`` twice (the first call resolves the deferred
+    widths with the probe, runs K eager steps and captures; the second,
+    on new data, replays) and through 2 K eager ``step()`` calls, with
+    deterministic cuDNN: losses, weights, momenta and running statistics
+    bit for bit, or within 1e-3 of each tensor's largest value."""
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    batches = v2_batches(torch, mt, 2)
+    runs = {}
+    for how in ("graph", "eager"):
+        net, tr = v2_net_and_trainer(torch, mt)
+        losses = []
+        for d, lab in batches:
+            if how == "graph":
+                losses.append(tr.run_steps(d, lab))
+            else:
+                losses.append(torch.stack(
+                    [tr.step(d[k], lab[k]) for k in range(K_STEPS)]))
+        torch.cuda.synchronize()
+        runs[how] = (torch.stack(losses).cpu(), _trainer_state(tr, net),
+                     len(tr._graphs))
+        del net, tr
+    (lg, sg, n_graphs), (le, se, _) = runs["graph"], runs["eager"]
+    agree, worst = _agreement(torch, {**sg, "losses": lg},
+                              {**se, "losses": le})
+    row = {"phase": "v2_graph", "model": "resnet50_v2 NHWC, batch "
+           f"{B}, bf16, K {K_STEPS}, deterministic cuDNN",
+           "agreement": agree, "worst_err_of_max": worst,
+           "losses_graph": lg.tolist(), "losses_eager": le.tolist(),
+           "graphs": n_graphs}
+    emit(row)
+    torch.backends.cudnn.deterministic = prev_det
+    torch.cuda.empty_cache()
+    if agree is None or n_graphs != 1:
+        fail(f"v2 graph replay and eager steps disagree: {row}")
+
+
+def main_path_v2(torch, mt, card):
+    """The v2 path at full width, timed as the v1 path: the first
+    ``run_steps`` call resolves the deferred widths (probe), runs K eager
+    steps (48 wrapper launches of every kernel per step) and captures;
+    the timed call is one replay."""
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    t0 = time.perf_counter()
+    net, trainer = v2_net_and_trainer(torch, mt)
+    deferred = sum(p.tensor is None for p in net.collect_params().values())
+    (data, label), = v2_batches(torch, mt, 1)
+    gib = 2.0 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    warm = trainer.run_steps(data, label).cpu()
+    warm_launches = dict(tk.launches)
+    setup_s = time.perf_counter() - t0
+    first_peak = torch.cuda.max_memory_allocated() / gib
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    t1 = time.perf_counter()
+    losses = trainer.run_steps(data, label)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    wrapper = dict(tk.launches)
+    losses = losses.cpu()
+    row = {"phase": "train_v2", "model": "resnet50_v2 NHWC (get_model, "
+           "deferred init)", "batch": B, "image": IMG, "k_steps": K_STEPS,
+           "dtype": "bfloat16 compute, f32 masters",
+           "how": "one replay of the K-step CUDA graph",
+           "deferred_params_at_build": deferred,
+           "warmup_losses": warm.tolist(), "losses": losses.tolist(),
+           "step_ms": 1e3 * dt / K_STEPS, "img_per_s": B * K_STEPS / dt,
+           "peak_mem_gib": torch.cuda.memory_reserved() / gib,
+           "replay_peak_allocated_gib": torch.cuda.max_memory_allocated()
+           / gib, "first_call_peak_allocated_gib": first_peak,
+           "setup_probe_and_first_call_s": setup_s,
+           "first_call_wrapper_launches": warm_launches,
+           "replay_wrapper_launches": wrapper, "card": card}
+    emit(row)
+    if not deferred:
+        fail("resnet50_v2 built without deferred parameters")
+    if not (torch.isfinite(losses).all() and torch.isfinite(warm).all()):
+        fail("v2: non-finite loss")
+    if not 0.0 < float(warm[0]) < 20.0:
+        fail(f"v2: first loss {float(warm[0])} is not that of a fresh "
+             "1000-class model")
+    if any(v != 48 * K_STEPS for v in warm_launches.values()):
+        fail(f"v2: the first (eager) call should launch every kernel "
+             f"{48 * K_STEPS} times: {warm_launches}")
+    if any(wrapper.values()) or len(trainer._graphs) != 1:
+        fail(f"v2: the timed call was not one graph replay: {wrapper}")
+    return trainer, data, label
+
+
+# the plain BatchNorms of the v2 step (R, C): the input BN (C 3, which v1
+# does not have), the stem BN after the 7x7 convolution, the final BN
+V2_PLAIN_BN = {"input": (B * IMG * IMG, 3),
+               "stem": (B * (IMG // 2) ** 2, 64),
+               "final": (B * (IMG // 32) ** 2, 2048)}
+
+
+def v2_plain_bn_sites(torch, mt):
+    """Device ms of the plain (composed) training BatchNorm, forward and
+    backward, at each of the v2 step's three plain sites, bf16, channel
+    last, as the step runs it (``ops.nn.batch_norm``)."""
+    from mxnet_tpu_torch.ops import nn as ops
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    out = {}
+    for site, (r, c) in V2_PLAIN_BN.items():
+        x = torch.randn((r, c), generator=gen, device="cuda") \
+            .to(torch.bfloat16).requires_grad_(True)
+        g = torch.ones(c, device="cuda", requires_grad=True)
+        b = torch.zeros(c, device="cuda", requires_grad=True)
+        dy = torch.randn((r, c), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        stats = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+
+        def fwd():
+            return ops.batch_norm(x, g, b, *stats, eps=1e-5, fix_gamma=False,
+                                  axis=-1, _training=True)[0]
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), (x, g, b), dy)
+
+        f_ms = time_ms(torch, fwd, flush)
+        fb_ms = time_ms(torch, fwd_bwd, flush)
+        out[site] = {"R": r, "C": c, "forward_ms": f_ms,
+                     "forward_backward_ms": fb_ms}
+        del x, dy
+    row = {"phase": "v2_plain_batchnorm", "sites": out,
+           "sum_forward_backward_ms": sum(v["forward_backward_ms"]
+                                          for v in out.values()),
+           "what": "plain training BatchNorm (ops.nn.batch_norm), bf16, "
+                   "channel last, L2 dirtied before each launch"}
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
 
 # ---------------------------------------------------------------------------
 # phase 6: the flash-attention kernel against its plain version
@@ -1220,8 +1567,61 @@ def nd_ops_phase(torch, mt, here):
            "what": "card vs host at each op_cases.py case's rtol/atol, "
                    "f32, TF32 off"}
     emit(row)
-    if bad or len(ops) < 170:
+    if bad or len(ops) < 200:
         fail(f"mx.nd ops disagree between card and host: {row}")
+    nd_fused_ops(torch, mt, np)
+
+
+def nd_fused_ops(torch, mt, np):
+    """``mx.nd._contrib_fused_bn_relu`` / ``_contrib_fused_bn_add_relu``
+    under ``autograd.record()`` (so ``_training`` comes from autograd),
+    card against host: (out, mean, var) and the gradients of data,
+    residual, gamma and beta, f32; each kernel launched once per op on
+    the card, never on the host."""
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    rs = np.random.RandomState(12)
+    c = 64
+    x = (rs.randn(4, 14, 14, c) * 2 + 1).astype(np.float32)
+    res = rs.randn(4, 14, 14, c).astype(np.float32)
+    g = (rs.rand(c) + 0.5).astype(np.float32)
+    b = rs.randn(c).astype(np.float32)
+    mm, mv = np.zeros(c, np.float32), np.ones(c, np.float32)
+    cot = rs.randn(*x.shape).astype(np.float32)
+    rows = []
+    for name in ("_contrib_fused_bn_relu", "_contrib_fused_bn_add_relu"):
+        ins = [x] + ([res] if "add" in name else []) + [g, b, mm, mv]
+        diff = range(len(ins) - 2)
+
+        def run(ctx):
+            with ctx:
+                arrs = [mt.nd.array(a) for a in ins]
+                for i in diff:
+                    arrs[i].attach_grad()
+                with mt.autograd.record():
+                    outs = getattr(mt.nd._internal, name)(*arrs)
+                outs[0].backward(mt.nd.array(cot))
+                return [o.asnumpy() for o in outs] + \
+                    [arrs[i].grad.asnumpy() for i in diff]
+
+        tk.reset_launches()
+        host = run(mt.cpu())
+        host_l = dict(tk.launches)
+        tk.reset_launches()
+        card = run(mt.gpu(0))
+        torch.cuda.synchronize()
+        card_l = dict(tk.launches)
+        worst = max(float(np.abs(a - h).max()) for a, h in zip(card, host))
+        ok = all(np.allclose(a, h, rtol=1e-4, atol=1e-4)
+                 for a, h in zip(card, host))
+        row = {"phase": "nd_fused_ops", "op": name, "shape": list(x.shape),
+               "max_abs_err": worst, "ok": ok, "launches_card": card_l,
+               "launches_host": host_l}
+        emit(row)
+        rows.append(row)
+        if not ok or any(n != 1 for n in card_l.values()) \
+                or any(host_l.values()):
+            fail(f"mx.nd fused epilogue op, card against host: {row}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1801,41 +2201,75 @@ def main():
 
     card = card_line()
     print(card, flush=True)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        emit({"phase": "wall", "of": name, "seconds": walls[name]})
+        return out
+
     t0 = time.perf_counter()
     paths = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    walls["build"] = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": walls["build"],
           "nvcc_s": dict(_build.build_seconds),
           "libraries": {k: os.path.relpath(v, here)
                         for k, v in paths.items()},
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
-    totals = kernel_phase(torch, tk)
-    reduction_counter_check(torch, tk)
-    small_reference(torch, mt)
-    graph_phase(torch, mt)
-    trainer, data, label = main_path(torch, mt, card)
-    launched = profile_phase(torch, trainer, data, label)
+    totals, totals_v2 = timed("kernel", kernel_phase, torch, tk)
+    timed("reduction_counters", reduction_counter_check, torch, tk)
+    timed("reference", small_reference, torch, mt)
+    timed("graph", graph_phase, torch, mt)
+    trainer, data, label = timed("train", main_path, torch, mt, card)
+    launched = timed("profile", profile_phase, torch, trainer, data, label)
     del trainer, data, label
     torch.cuda.empty_cache()
 
-    flash = flash_phase(torch, fa)
-    transformer_reference(torch, mt)
-    flash_launches, run = transformer_main(torch, mt, card)
-    profile_transformer_step(torch, *run)
+    flash = timed("flash", flash_phase, torch, fa)
+    timed("transformer_reference", transformer_reference, torch, mt)
+    flash_launches, run = timed("transformer_train", transformer_main,
+                                torch, mt, card)
+    timed("transformer_profile", profile_transformer_step, torch, *run)
     del run
     torch.cuda.empty_cache()
 
-    nd_ops_phase(torch, mt, here)
-    mod, ks, rtc_rows = rtc_phase(torch, mt)
+    timed("nd_ops", nd_ops_phase, torch, mt, here)
+    mod, ks, rtc_rows = timed("rtc", rtc_phase, torch, mt)
     torch.cuda.empty_cache()
-    imperative_reference(torch, mt, ks["sgd_mom"])
-    sgd_launches, state = imperative_train(torch, mt, ks["sgd_mom"], card)
-    profile_imperative_step(torch, mt, ks["sgd_mom"], *state)
-    example_launches = imperative_example(torch, mt, ks["sgd_mom"], here,
-                                          card)
+    timed("imperative_reference", imperative_reference, torch, mt,
+          ks["sgd_mom"])
+    sgd_launches, state = timed("imperative_train", imperative_train, torch,
+                                mt, ks["sgd_mom"], card)
+    timed("imperative_profile", profile_imperative_step, torch, mt,
+          ks["sgd_mom"], *state)
+    example_launches = timed("imperative_example", imperative_example,
+                             torch, mt, ks["sgd_mom"], here, card)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    sgd = sgd_mom_timing(torch, mt, ks["sgd_mom"], *state[:2], flush)
+    sgd = timed("sgd_mom_timing", sgd_mom_timing, torch, mt, ks["sgd_mom"],
+                *state[:2], flush)
+    del state, flush
+    torch.cuda.empty_cache()
+
+    # the v2 path last, so the earlier phases run as they did before it
+    timed("resnet_v2_reference", resnet_v2_reference, torch, mt)
+    timed("v2_graph", v2_graph_phase, torch, mt)
+    trainer, data, label = timed("train_v2", main_path_v2, torch, mt, card)
+    launched_v2 = timed("profile_v2", profile_phase, torch, trainer, data,
+                        label, "resnet50_v2")
+    del trainer, data, label
+    torch.cuda.empty_cache()
+    timed("v2_plain_batchnorm", v2_plain_bn_sites, torch, mt)
+    new = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
+           "v2_plain_batchnorm")
+    emit({"phase": "walls", "seconds": walls,
+          "total_s": sum(walls.values()),
+          "earlier_phases_s": sum(v for k, v in walls.items()
+                                  if k not in new),
+          "v2_phases_s": sum(walls[k] for k in new)})
 
     kernels = []
     for name, (replaces, _) in KERNELS.items():
@@ -1851,7 +2285,15 @@ def main():
             "library": LIBRARY[name],
             "per": f"one training step (48 sites, batch {B}, bf16); "
                    f"launches: device count over one replay of the "
-                   f"{K_STEPS}-step graph"})
+                   f"{K_STEPS}-step graph",
+            "v2": {"launches": launched_v2[name],
+                   "max_abs_err": totals_v2[name]["max_abs_err"],
+                   "ms": totals_v2[name]["ms"],
+                   "plain_ms": totals_v2[name]["plain_ms"],
+                   "bound_ms": totals_v2[name]["bound_ms"],
+                   "library_ms": totals_v2[name]["library_ms"],
+                   "per": "one resnet50_v2 step (48 no-residual sites); "
+                          "launches over one replay"}})
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,

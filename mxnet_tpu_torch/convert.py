@@ -10,9 +10,11 @@ the port net's own.
 Layouts: MXNet's channel-last convolutions keep their weight as OHWI, and
 so does the port's parameter (it becomes the OIHW ``channels_last`` view
 the convolution wants at the call, without a copy), so arrays are copied
-as they are. A missing, extra or mis-shaped name raises. Values are
-written in place into each block's tensor (``Parameter.set_data``), so a
-CUDA graph the trainer captured over the net stays valid.
+as they are. A missing, extra or mis-shaped name raises; a deferred
+parameter (a 0 in its shape) takes the array's extent there and its
+tensor is created from it. Values are written in place into each block's
+tensor (``Parameter.set_data``), so a CUDA graph the trainer captured over
+the net stays valid.
 
 ``from_transformer_params(params, config, device=None)`` takes the JAX
 ``models.transformer.init_params`` pytree as numpy arrays and returns the
@@ -51,7 +53,8 @@ def from_mxnet_tpu_params(net, params, prefix=None) -> None:
                          f"extra {extra[:5]}")
     for name, p in ours.items():
         arr = np.asarray(params[name], dtype=np.float32)
-        if tuple(arr.shape) != p.shape:
+        if arr.ndim != len(p.shape) or any(
+                s not in (0, a) for s, a in zip(p.shape, arr.shape)):
             raise MXNetError(f"parameter {name}: shape {tuple(arr.shape)} "
                              f"does not match {p.shape}")
         p.set_data(arr)

@@ -17,6 +17,14 @@ forward, ``functional_call``, the trainer), a block is a plain
 on the mode (BatchNorm) read ``autograd.is_training()``, never
 ``nn.Module.training``.
 
+Deferred initialisation (ref: the JAX package's ``block.py:211-301``). A
+layer built without its input width (``in_units=0``, ``in_channels=0``)
+holds parameters whose tensors do not exist yet. On its first call the
+block reads the width from its input (``infer_shape_from_inputs``, each
+layer's rule as in the JAX package), creates those tensors once on its
+device and initialises them with what ``initialize()`` recorded. A block
+with nothing deferred pays one attribute test per call.
+
 ``hybridize()`` is a no-op: PyTorch runs the forward eagerly, and the
 trainer's CUDA graph (``parallel/spmd.py run_steps``) is the port's
 counterpart of a compiled program. It is kept so MXNet-style code runs
@@ -36,7 +44,7 @@ from ..context import resolve_device
 from .. import initializer as init_mod
 from .. import random as _random
 from ..ndarray.ndarray import NDArray, _own
-from .parameter import Parameter, ParameterDict
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["HybridBlock", "name_scope"]
 
@@ -86,6 +94,7 @@ class HybridBlock(nn.Module):
             else _names.next_prefix(_hint(type(self).__name__))
         self._params = ParameterDict(self._prefix)
         self._device = None if device is None else torch.device(device)
+        self._deferred = []      # own parameters whose shape is not known
 
     # -- naming ---------------------------------------------------------
     @property
@@ -101,24 +110,47 @@ class HybridBlock(nn.Module):
 
     # -- parameters -----------------------------------------------------
     def _new_param(self, name, shape, grad_req="write", init=None,
-                   dtype=torch.float32) -> Parameter:
-        """Allocate ``self.<name>`` on this block's device: an
+                   dtype=torch.float32, allow_deferred_init=False
+                   ) -> Parameter:
+        """Declare ``self.<name>`` on this block's device: an
         ``nn.Parameter`` if trained, a buffer if ``grad_req == 'null'``.
-        Values are set by :meth:`initialize` or by weight conversion."""
+        A shape with a 0 (allowed with ``allow_deferred_init``) leaves the
+        attribute ``None`` until the first forward knows it. Values are set
+        by :meth:`initialize` or by weight conversion."""
         shape = tuple(int(s) for s in shape)
-        check(all(s > 0 for s in shape),
+        known = all(s > 0 for s in shape)
+        check(known or allow_deferred_init,
               f"{self._prefix}{name}: shape {shape} must be fully known "
-              "(the port has no deferred initialisation; pass in_channels "
-              "/ in_units)")
-        t = torch.empty(shape, dtype=dtype,
-                        device=resolve_device(self._device))
+              "(this layer cannot defer it)")
+        device = resolve_device(self._device)
+        t = torch.empty(shape, dtype=dtype, device=device) if known \
+            else None
         if grad_req == "null":
             self.register_buffer(name, t)
         else:
-            self.register_parameter(name, nn.Parameter(t))
-        p = Parameter(self._prefix + name, self, name, grad_req, init)
+            self.register_parameter(name, None if t is None
+                                    else nn.Parameter(t))
+        p = Parameter(self._prefix + name, self, name, shape, grad_req, init,
+                      dtype, device)
         self._params[p.name] = p
+        if not known:
+            self._deferred.append(p)
         return p
+
+    def infer_shape_from_inputs(self, *args, **kwargs) -> None:
+        """Fill the deferred parameters' shapes from the inputs (each
+        layer's rule; ref: the JAX package's block.py)."""
+        raise DeferredInitializationError(
+            f"{type(self).__name__} has uninitialized-shape parameters and "
+            "no shape inference rule; initialize with explicit shapes")
+
+    def _finish_deferred(self, *args, **kwargs) -> None:
+        with torch.no_grad():
+            self.infer_shape_from_inputs(*args, **kwargs)
+        for p in self._deferred:
+            if p.tensor is None:
+                p._finish_deferred()
+        self._deferred = []
 
     def register_child(self, block, name=None) -> None:
         self.add_module(name or str(len(self._modules)), block)
@@ -134,24 +166,27 @@ class HybridBlock(nn.Module):
 
     def initialize(self, init=None, generator=None) -> None:
         """Fill every parameter not yet set: a parameter's own initializer
-        when it has one, else ``init`` (default ``Xavier()``); names decide
-        the bias / gamma / beta / running-stat values as in MXNet. Random
-        draws use ``generator`` (default: one seeded with 0 per device)."""
-        default = init_mod.create(init) if init is not None \
-            else init_mod.Xavier()
+        when it has one, else ``init`` (default ``Uniform(0.07)``, MXNet's);
+        names decide the bias / gamma / beta / running-stat values as in
+        MXNet. Random draws use ``generator`` (default: one seeded with 0
+        per device). A deferred parameter keeps the initializer and the
+        generator for its block's first forward."""
+        default = init_mod.create(init)
         gens = {}
         for p in self.collect_params().values():
             if p.initialized:
                 continue
-            arr = p.tensor
             gen = generator
             if gen is None:
-                gen = gens.get(arr.device)
+                gen = gens.get(p.device)
                 if gen is None:
-                    gen = gens[arr.device] = _random.seed(0, arr.device)
+                    gen = gens[p.device] = _random.seed(0, p.device)
             initializer = init_mod.create(p.init) if p.init is not None \
                 else default
-            initializer(p.name, arr.data, gen)
+            if p.tensor is None:
+                p._deferred_init = (initializer, gen)
+                continue
+            initializer(p.name, p.tensor.data, gen)
             p.initialized = True
 
     def __call__(self, *args, **kwargs):
@@ -159,6 +194,8 @@ class HybridBlock(nn.Module):
         in, tensors out."""
         if not any(isinstance(a, NDArray) for a in (*args,
                                                       *kwargs.values())):
+            if self._deferred:
+                self._finish_deferred(*args, **kwargs)
             return super().__call__(*args, **kwargs)
         args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
         kwargs = {k: v._data if isinstance(v, NDArray) else v
@@ -167,7 +204,7 @@ class HybridBlock(nn.Module):
                   if isinstance(t, torch.Tensor)]
         with torch.enable_grad() if autograd.is_recording() \
                 else torch.no_grad():
-            out = super().__call__(*args, **kwargs)
+            out = self(*args, **kwargs)
         if isinstance(out, torch.Tensor):
             return NDArray(_own(out, inputs))
         return type(out)(NDArray(_own(o, inputs)) for o in out)

@@ -1,12 +1,14 @@
-"""ResNet v1 (ref: the JAX package's gluon/model_zoo/vision/resnet.py;
-He et al. 1512.03385).
+"""ResNet v1 and v2 (ref: the JAX package's
+gluon/model_zoo/vision/resnet.py; He et al. 1512.03385, 1603.05027).
 
 Built in the same order, with the same blocks and names, as the JAX model,
 so weights carry across by name (:mod:`mxnet_tpu_torch.convert`).
-Channel-last blocks use the fused BN(+add)+ReLU epilogues. Unlike the JAX
-package every layer is built with its input width known (the port has no
-deferred initialisation); the image has 3 channels. V2 is not ported yet.
-Called with ``NDArray``s (the imperative loop) the model returns
+Channel-last blocks use the fused BN(+add)+ReLU epilogues: in v1 each
+block's tail, in v2 every pre-activation BN+ReLU (``_bn_relu``). V1 is
+built with every input width given; v2, as in the JAX package, leaves the
+image's channels and each bottleneck's ``conv1`` / ``conv3`` input
+(``in_channels=0``) to deferred initialisation, resolved by the first
+forward. Called with ``NDArray``s (the imperative loop) the model returns
 ``NDArray``s (``HybridBlock.__call__``).
 """
 from __future__ import annotations
@@ -17,9 +19,11 @@ from ....ops import nn as ops
 from ...block import HybridBlock
 from ... import nn
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "SpaceToDepthStem",
-           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
-           "resnet152_v1", "get_resnet"]
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "SpaceToDepthStem", "resnet18_v1",
+           "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
+           "resnet18_v2", "resnet34_v2", "resnet50_v2", "resnet101_v2",
+           "resnet152_v2", "get_resnet"]
 
 _IMAGE_CHANNELS = 3
 
@@ -198,6 +202,111 @@ class ResNetV1(HybridBlock):
         return self.output(self.features(x))
 
 
+def _bn_relu(ax, fused, device):
+    """Pre-activation BN+ReLU: one fused block channel-last, a plain
+    BatchNorm otherwise (the caller applies the relu itself)."""
+    return nn.FusedBatchNormReLU(axis=ax, device=device) if fused \
+        else nn.BatchNorm(axis=ax, device=device)
+
+
+class _ResidualV2(HybridBlock):
+    def _pre(self, bn, x):
+        x = bn(x)
+        return x if self._fused else ops.relu(x)
+
+
+class BasicBlockV2(_ResidualV2):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", prefix=None, device=None):
+        super().__init__(prefix=prefix, device=device)
+        ax = _bn_axis(layout)
+        self._fused = _fuse_epilogue(layout)
+        self.bn1 = _bn_relu(ax, self._fused, device)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout, device)
+        self.bn2 = _bn_relu(ax, self._fused, device)
+        self.conv2 = _conv3x3(channels, 1, channels, layout, device)
+        self.downsample = nn.Conv2D(
+            channels, 1, stride, use_bias=False, in_channels=in_channels,
+            layout=layout, device=device) if downsample else None
+
+    def forward(self, x):
+        residual = x
+        x = self._pre(self.bn1, x)
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv2(self._pre(self.bn2, self.conv1(x)))
+        return x + residual
+
+
+class BottleneckV2(_ResidualV2):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", prefix=None, device=None):
+        super().__init__(prefix=prefix, device=device)
+        ax = _bn_axis(layout)
+        self._fused = _fuse_epilogue(layout)
+        self.bn1 = _bn_relu(ax, self._fused, device)
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout, device=device)
+        self.bn2 = _bn_relu(ax, self._fused, device)
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, layout,
+                              device)
+        self.bn3 = _bn_relu(ax, self._fused, device)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout, device=device)
+        self.downsample = nn.Conv2D(
+            channels, 1, stride, use_bias=False, in_channels=in_channels,
+            layout=layout, device=device) if downsample else None
+
+    def forward(self, x):
+        residual = x
+        x = self._pre(self.bn1, x)
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv2(self._pre(self.bn2, self.conv1(x)))
+        x = self.conv3(self._pre(self.bn3, x))
+        return x + residual
+
+
+class ResNetV2(HybridBlock):
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, layout="NCHW", prefix=None, device=None):
+        super().__init__(prefix=prefix, device=device)
+        assert len(layers) == len(channels) - 1
+        ax = _bn_axis(layout)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="", device=device)
+            self.features.add(nn.BatchNorm(scale=False, center=False,
+                                           axis=ax, device=device))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout,
+                                           device))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout,
+                                            device=device))
+                self.features.add(nn.BatchNorm(axis=ax, device=device))
+                self.features.add(nn.Activation("relu", device=device))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout,
+                                               device=device))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(ResNetV1._make_layer(
+                    block, num_layer, channels[i + 1], stride,
+                    in_channels=in_channels, layout=layout, device=device))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm(axis=ax, device=device))
+            self.features.add(nn.Activation("relu", device=device))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout,
+                                                 device=device))
+            self.features.add(nn.Flatten(device=device))
+            self.output = nn.Dense(classes, in_units=in_channels,
+                                   device=device)
+
+    def forward(self, x):
+        return self.output(self.features(x))
+
+
 _RESNET_SPEC = {
     18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
     34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
@@ -206,17 +315,18 @@ _RESNET_SPEC = {
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
 
-_BLOCKS_V1 = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+_BLOCKS = {1: (ResNetV1, {"basic_block": BasicBlockV1,
+                          "bottle_neck": BottleneckV1}),
+           2: (ResNetV2, {"basic_block": BasicBlockV2,
+                          "bottle_neck": BottleneckV2})}
 
 
 def get_resnet(version, num_layers, device=None, **kwargs):
-    """ResNet ``num_layers`` of ``version`` 1 on ``device`` (default: the
-    card)."""
-    if version != 1:
-        raise NotImplementedError("ResNet V2 is not ported yet")
+    """ResNet ``num_layers`` of ``version`` 1 or 2 on ``device`` (default:
+    the card)."""
     block_type, layers, channels = _RESNET_SPEC[num_layers]
-    return ResNetV1(_BLOCKS_V1[block_type], layers, channels, device=device,
-                    **kwargs)
+    net, blocks = _BLOCKS[version]
+    return net(blocks[block_type], layers, channels, device=device, **kwargs)
 
 
 def resnet18_v1(**kw): return get_resnet(1, 18, **kw)
@@ -224,3 +334,8 @@ def resnet34_v1(**kw): return get_resnet(1, 34, **kw)
 def resnet50_v1(**kw): return get_resnet(1, 50, **kw)
 def resnet101_v1(**kw): return get_resnet(1, 101, **kw)
 def resnet152_v1(**kw): return get_resnet(1, 152, **kw)
+def resnet18_v2(**kw): return get_resnet(2, 18, **kw)
+def resnet34_v2(**kw): return get_resnet(2, 34, **kw)
+def resnet50_v2(**kw): return get_resnet(2, 50, **kw)
+def resnet101_v2(**kw): return get_resnet(2, 101, **kw)
+def resnet152_v2(**kw): return get_resnet(2, 152, **kw)

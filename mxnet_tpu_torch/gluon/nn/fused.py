@@ -3,7 +3,9 @@
 
 Channel-last training goes through the fused CUDA kernels
 (ops/fused_bn_act.py); other axes take the composed lowering. Both
-subclass :class:`BatchNorm` and hold exactly its parameters; the mode is
+subclass :class:`BatchNorm` and hold exactly its parameters, deferred
+channels included (``in_channels=0`` is read from ``x``, ref: the JAX
+package's ``gluon/nn/fused.py:60``); the mode is
 ``autograd.is_training()``, as for BatchNorm.
 """
 from __future__ import annotations
@@ -27,7 +29,7 @@ class FusedBatchNormReLU(BatchNorm):
             x, residual, self.gamma, self.beta, self.running_mean,
             self.running_var, eps=self._epsilon, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
-            training=training)
+            _training=training)
         self._update_running_stats(training, mean, var)
         return out
 

@@ -2,10 +2,10 @@
 
 The tensor of a parameter is an attribute of its block: an ``nn.Parameter``
 when it is trained (grad_req 'write' or 'add') and a buffer when it is an
-aux state (BatchNorm's running statistics, grad_req 'null'). A
-:class:`Parameter` here is the MXNet-side record that names that tensor —
-full prefixed name, grad_req, initializer — so that names, trainer
-bookkeeping and weight conversion follow the JAX package.
+aux state or frozen (grad_req 'null'). A :class:`Parameter` here is the
+MXNet-side record that names that tensor — full prefixed name, grad_req,
+initializer — so that names, trainer bookkeeping and weight conversion
+follow the JAX package.
 
 ``data()`` and ``grad()`` return ``NDArray``s, as the JAX package's do.
 ``data()`` wraps the block's tensor itself, so a write through it (outside
@@ -15,8 +15,16 @@ parameter's gradient buffer is filled by ``autograd.backward`` through a
 hook on the block's ``nn.Parameter``. Code of the framework (the trainer,
 ``convert``, ``initialize``) reads the tensor through :attr:`tensor`.
 
-The port has no deferred initialisation: every shape is known when the
-block is built.
+Deferred initialisation (ref: the JAX package's ``gluon/parameter.py``).
+A shape with a 0 (``Dense(in_units=0)``, ``Conv2D(in_channels=0)``) is
+allowed where the layer says so (``allow_deferred_init`` of the block's
+``_new_param``): the block's attribute is ``None`` until the shape is
+known. ``initialize()`` then only records the initializer and its
+generator; the block's first forward fills the 0s from its input
+(``shape_hint``), creates the tensor once on the block's device and
+initialises it (``_finish_deferred``). ``set_data`` on such a parameter
+creates it from the value's shape. ``data()`` before that raises
+:class:`DeferredInitializationError`.
 """
 from __future__ import annotations
 
@@ -27,22 +35,34 @@ import torch
 from torch import nn
 
 from .. import autograd
-from ..base import check
+from ..base import MXNetError, check
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["Parameter", "ParameterDict"]
+__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter's shape is not known yet: the first forward resolves it
+    (ref: parameter.py)."""
 
 
 class Parameter:
-    """Names one tensor of a block (``getattr(block, attr)``)."""
+    """Names one tensor of a block (``getattr(block, attr)``, ``None``
+    while its initialisation is deferred)."""
 
-    def __init__(self, name, block, attr, grad_req="write", init=None):
+    def __init__(self, name, block, attr, shape, grad_req="write", init=None,
+                 dtype=torch.float32, device=None):
         self.name = name
         self.init = init
         self._block = block
         self._attr = attr
+        self._shape = tuple(shape)
+        self._dtype = dtype
+        self._device = device
+        self._trained = grad_req != "null"
         self._grad_req = "null"
         self._nd = None
+        self._deferred_init = None     # (initializer, generator)
         self.initialized = False
         self.grad_req = grad_req
 
@@ -55,17 +75,25 @@ class Parameter:
         return self._block
 
     @property
-    def tensor(self) -> torch.Tensor:
-        """The block's tensor itself (for the framework's own code)."""
+    def tensor(self):
+        """The block's tensor itself (for the framework's own code);
+        ``None`` while the initialisation is deferred."""
         return getattr(self._block, self._attr)
 
     @property
     def shape(self):
-        return tuple(self.tensor.shape)
+        """The tensor's shape; while deferred, the declared one with 0 for
+        each unknown extent."""
+        t = self.tensor
+        return self._shape if t is None else tuple(t.shape)
 
     @property
     def dtype(self):
-        return self.tensor.dtype
+        return self._dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     @property
     def grad_req(self) -> str:
@@ -79,9 +107,9 @@ class Parameter:
         check(req in ("write", "add", "null"),
               f"parameter {self.name}: grad_req must be write, add or null, "
               f"not {req!r}")
-        if not isinstance(self.tensor, nn.Parameter):
-            req = "null"
-        self._grad_req = req
+        self._grad_req = req if self._trained else "null"
+        if self.tensor is None:
+            return
         if self._nd is not None and self._nd._data is self.tensor:
             self._attach(self._nd)
         else:
@@ -94,11 +122,47 @@ class Parameter:
         grad = NDArray(torch.zeros_like(self.tensor.detach()))
         autograd.mark_variables([nd_], [grad], self._grad_req)
 
+    # -- deferred initialisation ------------------------------------------
+    def shape_hint(self, shape) -> None:
+        """Fill the unknown (0) extents from ``shape``."""
+        self._shape = tuple(s if s > 0 else int(h)
+                            for s, h in zip(self._shape, shape))
+
+    def _create(self, shape) -> torch.Tensor:
+        """Create the block's tensor, once (a deferred parameter only)."""
+        t = torch.empty(tuple(shape), dtype=self._dtype, device=self._device)
+        if self._trained:
+            self._block.register_parameter(self._attr, nn.Parameter(t))
+        else:
+            self._block.register_buffer(self._attr, t)
+        self._shape = tuple(shape)
+        self.grad_req = self._grad_req       # attaches the gradient buffer
+        return self.tensor
+
+    def _finish_deferred(self) -> None:
+        """Create and initialise the tensor now that its shape is known."""
+        if self._deferred_init is None:
+            raise MXNetError(f"parameter {self.name!r} is not initialized; "
+                             "call initialize()")
+        check(all(s > 0 for s in self._shape),
+              f"deferred init of {self.name!r}: shape {self._shape} still "
+              "unknown")
+        initializer, generator = self._deferred_init
+        initializer(self.name, self._create(self._shape).data, generator)
+        self._deferred_init = None
+        self.initialized = True
+
+    # -- access -----------------------------------------------------------
     def data(self, ctx=None) -> NDArray:
         """The parameter as an ``NDArray`` over the block's tensor (shared
         storage, not a copy). If the block's tensor was replaced, a new
         array and a zeroed gradient buffer follow it."""
         t = self.tensor
+        if t is None:
+            raise DeferredInitializationError(
+                f"parameter {self.name!r} has deferred initialization "
+                f"(shape {self._shape}); run a forward pass or give full "
+                "shapes first")
         if self._nd is None or self._nd._data is not t:
             self._nd = NDArray(t)
             self._attach(self._nd)
@@ -120,14 +184,22 @@ class Parameter:
 
     def set_data(self, value) -> None:
         """Copy ``value`` (NDArray, tensor or array of this shape) into the
-        block's tensor, in place."""
-        dst = self.tensor
+        block's tensor, in place; a deferred parameter's tensor is created
+        from the value's shape."""
         if isinstance(value, NDArray):
             src = value._data
         elif isinstance(value, torch.Tensor):
             src = value
         else:
             src = torch.from_numpy(np.array(value, copy=True))
+        dst = self.tensor
+        if dst is None:
+            check(len(src.shape) == len(self._shape) and all(
+                s in (0, v) for s, v in zip(self._shape, src.shape)),
+                f"parameter {self.name}: shape {tuple(src.shape)} does not "
+                f"match {self._shape}")
+            dst = self._create(src.shape)
+            self._deferred_init = None
         check(tuple(src.shape) == tuple(dst.shape),
               f"parameter {self.name}: shape {tuple(src.shape)} does not "
               f"match {tuple(dst.shape)}")
@@ -138,6 +210,8 @@ class Parameter:
     def zero_grad(self) -> None:
         """Zero the gradient buffer in place (ref: parameter.py
         zero_grad)."""
+        if self.tensor is None:
+            return
         g = self.data()._grad
         if g is not None:
             with torch.no_grad():

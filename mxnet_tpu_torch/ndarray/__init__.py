@@ -3,9 +3,10 @@
 
 The NDArray type, creation functions, save/load, and one generated
 function per registered op, with the ``_internal`` and ``op``
-sub-namespaces. ``random``, ``linalg``, ``contrib``, ``image`` and
-``sparse`` hold nothing ported yet: any name asked of them, or of
-``mx.nd`` itself, that the port lacks raises ``NotPortedError``.
+sub-namespaces; ``contrib`` holds the ``_contrib_`` ops (the fused
+epilogues). ``random``, ``linalg``, ``image`` and ``sparse`` hold nothing
+ported yet: any name asked of them, or of ``mx.nd`` itself, that the port
+lacks raises ``NotPortedError``.
 """
 import sys
 import types
@@ -15,6 +16,7 @@ from ..base import MXNetError
 from ..ops import broadcast as _broadcast  # noqa: F401
 from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import matrix as _matrix  # noqa: F401
+from ..ops import nn as _nn  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from . import register as _register
 from .ndarray import (NDArray, arange, array, concatenate, empty, eye,  # noqa

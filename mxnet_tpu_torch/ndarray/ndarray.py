@@ -423,7 +423,7 @@ class NDArray:
 
 
 # unary / reduce method forms (the JAX package's list; softmax and
-# log_softmax are ops/nn.py ops, not ported yet: they raise when called)
+# log_softmax are the ops of ops/nn.py)
 _UNARY_METHODS = [
     "abs", "sign", "exp", "log", "log2", "log10", "log1p", "expm1", "sqrt",
     "rsqrt", "cbrt", "square", "reciprocal", "sin", "cos", "tan", "arcsin",

@@ -4,28 +4,44 @@
 One front-end function per registered op: NDArray inputs positional
 (numbers and numpy arrays become arrays on the first NDArray input's
 context), op parameters as keywords, ``out=`` to write into given arrays
-and ``ctx=`` to move the result. Names starting with ``_`` go to
-``mx.nd._internal``; every op is also in ``mx.nd.op``. A name the port
-does not have raises :class:`~mxnet_tpu_torch.ops.registry.NotPortedError`
-(an MXNetError) instead of being silently missing.
+and ``ctx=`` to move the result. An op that takes ``_training`` (BatchNorm,
+the fused epilogues, Dropout) gets ``autograd.is_training()`` unless the
+caller passes it. Names starting with ``_`` go to ``mx.nd._internal``,
+``_contrib_<name>`` also to ``mx.nd.contrib.<name>``; every op is also in
+``mx.nd.op``. A name the port does not have raises
+:class:`~mxnet_tpu_torch.ops.registry.NotPortedError` (an MXNetError)
+instead of being silently missing.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict
 
 import numpy as _np
 
+from .. import autograd
 from ..base import MXNetError
 from ..context import Context
 from ..ops import registry as _reg
 from . import ndarray as _nd
 
 
+def _takes_training(fn) -> bool:
+    try:
+        return "_training" in inspect.signature(fn).parameters
+    except ValueError:          # a torch builtin registered as it is
+        return False
+
+
 def make_nd_function(name: str, opdef):
+    takes_training = _takes_training(opdef.fn)
+
     def generic(*args, **kwargs):
         out = kwargs.pop("out", None)
         kwargs.pop("name", None)
         ctx = kwargs.pop("ctx", None)
+        if takes_training and "_training" not in kwargs:
+            kwargs["_training"] = autograd.is_training()
         home = next((a.context for a in args if isinstance(a, _nd.NDArray)),
                     None)
         inputs = []
@@ -67,7 +83,7 @@ def not_ported(namespace: str):
 
 def populate(target_module, submodules: Dict[str, Any]) -> None:
     """Build every front-end function and install it into ``mx.nd``,
-    ``mx.nd._internal`` and ``mx.nd.op``."""
+    ``mx.nd._internal``, ``mx.nd.contrib`` and ``mx.nd.op``."""
     made = {}
     for name in _reg.list_ops():
         opdef = _reg.get_op(name)
@@ -76,6 +92,8 @@ def populate(target_module, submodules: Dict[str, Any]) -> None:
             fn = make_nd_function(name, opdef)
             if opdef.name == name:
                 made[id(opdef)] = fn
+        if name.startswith("_contrib_"):
+            setattr(submodules["contrib"], name[len("_contrib_"):], fn)
         if name.startswith("_"):
             setattr(submodules["_internal"], name, fn)
         else:

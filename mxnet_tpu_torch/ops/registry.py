@@ -38,20 +38,27 @@ class OpDef:
     num_outputs : int, or ``(n_inputs, params) -> int``.
     differentiable : recorded by autograd.
     variadic : takes any number of array inputs.
+    rng : draws random numbers (from the ``generator`` it is given, else
+        the device's default generator; the JAX package's ops take a key).
+    aux_inputs : input slots that are auxiliary states (BatchNorm's
+        moving statistics; ref: OperatorProperty::ListAuxiliaryStates).
     """
 
     __slots__ = ("name", "fn", "num_outputs", "differentiable", "variadic",
-                 "doc")
+                 "doc", "rng", "aux_inputs")
 
     def __init__(self, name: str, fn: Callable, num_outputs=1,
                  differentiable: bool = True, variadic: bool = False,
-                 doc: str = ""):
+                 doc: str = "", rng: bool = False,
+                 aux_inputs: Sequence[int] = ()):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
         self.differentiable = differentiable
         self.variadic = variadic
         self.doc = doc or (fn.__doc__ or "")
+        self.rng = rng
+        self.aux_inputs = tuple(aux_inputs)
 
     def __repr__(self):
         return f"<OpDef {self.name}>"

@@ -46,6 +46,14 @@ static ``(K,)`` loss buffer and a CUDA stream of its own:
 - a failed capture raises ``MXNetError`` with its cause; nothing falls
   back to the eager loop.
 
+Deferred parameters (a layer built without its input width) are resolved
+before anything else, as in the JAX package: one probe forward on the
+first batch (``data[0]`` for ``run_steps``), in f32, on the parameters'
+device, under ``autograd.pause()`` and ``torch.no_grad()``. The mode is
+then inference, so BatchNorm's running statistics do not move. The
+optimizer state is allocated after the probe, and any graph is captured
+after it.
+
 Each call returns a clone of the static losses. On the CPU ``run_steps``
 is a loop over ``step``. Only ``mesh=None`` is ported.
 """
@@ -103,11 +111,14 @@ class SPMDTrainer:
         self._t = None           # adam: device step count (int32)
         self._graphs = {}        # signature -> _StepGraph
 
-    def _collect(self):
+    def _collect(self, sample):
         items = sorted(self.block.collect_params().items())
-        missing = [n for n, p in items if not p.initialized]
+        missing = [n for n, p in items
+                   if not p.initialized and p._deferred_init is None]
         check(not missing, f"SPMDTrainer: parameters not initialized: "
               f"{missing[:3]}... (call initialize() or convert weights)")
+        if any(not p.initialized for _, p in items):
+            self._probe(sample, items[0][1].device)
         # module paths, as functional_call names the tensors; aux states
         # (grad_req 'null') are updated in place by their blocks
         paths = {id(m): path for path, m in self.block.named_modules()}
@@ -127,6 +138,15 @@ class SPMDTrainer:
                                   device=weights[0].device)
         elif self.momentum != 0.0:
             self._state = [torch.zeros_like(w) for w in weights]
+
+    def _probe(self, sample, device):
+        """Resolve the deferred parameters with one inference forward (the
+        JAX package's ``_collect`` probe)."""
+        x = sample.to(device)
+        if x.is_floating_point():
+            x = x.float()
+        with autograd.pause(), torch.no_grad():
+            self.block(x)
 
     def _weights(self):
         return [p.tensor for _, p, _ in self._trainable]
@@ -200,18 +220,21 @@ class SPMDTrainer:
             self._update(weights, grads)
         return loss.detach()
 
-    def _inputs(self, data, label):
+    def _inputs(self, data, label, steps):
+        """``(data, label)`` as tensors; the first call also collects the
+        parameters (resolving deferred ones on the first batch)."""
+        data, label = (a._data if isinstance(a, NDArray)
+                       else a if isinstance(a, torch.Tensor)
+                       else torch.as_tensor(np.asarray(a))
+                       for a in (data, label))
         if self._trainable is None:
-            self._collect()
-        return tuple(a._data if isinstance(a, NDArray)
-                     else a if isinstance(a, torch.Tensor)
-                     else torch.as_tensor(np.asarray(a))
-                     for a in (data, label))
+            self._collect(data[0] if steps else data)
+        return data, label
 
     def step(self, data, label):
         """One training step, eager; returns the (device) scalar f32 loss.
         ``data`` / ``label`` may be tensors, NDArrays or numpy arrays."""
-        data, label = self._inputs(data, label)
+        data, label = self._inputs(data, label, steps=False)
         dev = self._trainable[0][1].tensor.device
         return self._step(data.to(dev, non_blocking=True),
                           label.to(dev, non_blocking=True))
@@ -224,7 +247,7 @@ class SPMDTrainer:
         ``(K, batch, ...)``; returns the ``(K,)`` losses on the device. On
         a CUDA device, one replay of the signature's CUDA graph (see the
         module docstring)."""
-        data, label = self._inputs(data, label)
+        data, label = self._inputs(data, label, steps=True)
         dev = self._trainable[0][1].tensor.device
         if dev.type != "cuda":
             return torch.stack([self._step(data[k].to(dev),

@@ -12,7 +12,7 @@ import torch
 
 from .context import resolve_device
 
-__all__ = ["seed"]
+__all__ = ["seed", "default_generator"]
 
 
 def seed(seed_state: int, device=None) -> torch.Generator:
@@ -21,3 +21,15 @@ def seed(seed_state: int, device=None) -> torch.Generator:
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed_state))
     return gen
+
+
+def default_generator(device) -> torch.Generator:
+    """PyTorch's default generator of ``device``: what a random op
+    (``Dropout``) draws from when its caller passes no generator. A CUDA
+    graph captures draws from it."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        idx = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        return torch.cuda.default_generators[idx]
+    return torch.default_generator

@@ -120,7 +120,7 @@ def test_batch_norm_train_and_inference_match_jax(axis, dtype):
     (jo, jm, jv), vjp = jax.vjp(jf, jx, jg, jb)
     to, tm, tv = tops.batch_norm(tx, tg, tb, torch.from_numpy(mm),
                                  torch.from_numpy(mv), eps=1e-5,
-                                 fix_gamma=False, axis=axis, training=True)
+                                 fix_gamma=False, axis=axis, _training=True)
     for mine, ref in ((to, jo), (tm, jm), (tv, jv)):
         np.testing.assert_allclose(_np(mine), _np(ref), **tol)
     dy = RS.randn(*x.shape).astype(np.float32)
@@ -135,7 +135,7 @@ def test_batch_norm_train_and_inference_match_jax(axis, dtype):
                                  fix_gamma=False, axis=axis, _training=False)
     to2, _, _ = tops.batch_norm(tx, tg, tb, torch.from_numpy(mm),
                                 torch.from_numpy(mv), eps=1e-5,
-                                fix_gamma=False, axis=axis, training=False)
+                                fix_gamma=False, axis=axis, _training=False)
     np.testing.assert_allclose(_np(to2), _np(jo2), **tol)
 
 
@@ -266,7 +266,7 @@ def test_fused_epilogue_flag_off_takes_the_composed_chain(
     (jo, jm, jv), vjp = jax.vjp(jf, jx, jr, jg, jb)
     to, tm, tv = tops.fused_bn_act_impl(
         tx, tr if residual else None, tg, tb, torch.from_numpy(mm),
-        torch.from_numpy(mv), eps=1e-5, axis=-1, training=True)
+        torch.from_numpy(mv), eps=1e-5, axis=-1, _training=True)
     tol = _tol(dtype)
     for mine, ref in ((to, jo), (tm, jm), (tv, jv)):
         np.testing.assert_allclose(_np(mine), _np(ref), **tol)
@@ -293,10 +293,10 @@ def test_resid8_flag_raises_rather_than_compute_something_else(monkeypatch):
     calls = [lambda: tops.convolution(x, w, layout="NHWC"),
              lambda: tops.relu(x),
              lambda: tops.batch_norm(x, g, b, g, g, axis=-1,
-                                     training=True)]
+                                     _training=True)]
     monkeypatch.setenv("MXTPU_FUSED_EPILOGUE", "0")
     calls.append(lambda: tops.fused_bn_act_impl(x, None, g, b, b, g,
-                                                training=True))
+                                                _training=True))
     for call in calls:
         with pytest.raises(MXNetError, match="not ported yet"):
             call()
