@@ -124,11 +124,34 @@ Phases, each printing JSON lines:
     per replay, no residual ``bn_apply``); and ``v2_plain_batchnorm``,
     the device time of the plain BatchNorm at its three v2 sites (the
     input BN at C 3, the stem, the final BN);
+14c. then the Gluon Trainer path, f32, TF32 off: ``trainer_reference``,
+    a thin ResNet-18 v1 NHWC (``[2,2,2,2]``, widths 8-64, 48x48, batch 4)
+    trained 3 steps with ``autograd.record()`` / ``backward()`` /
+    ``gluon.Trainer.step`` on the card and on the host from the same
+    weights (losses, weights, running statistics and momenta within 1e-3
+    of each tensor's largest value; 16 launches of each BN kernel a step
+    on the card, none on the host), and the six optimizer configurations
+    of ``tests/test_optimizer_aggregation.py`` plus its multi-precision
+    one on bare parameters, card against host, with aggregation 4 against
+    0 bit for bit on the card; ``optimizer_ops``, every dense optimizer op
+    card against host (each element no further from the op in float64
+    than the host's, plus 1e-6 + 1e-6 relative); ``gluon_train``,
+    ``get_model("resnet50_v1", layout="NHWC")``, ``initialize(Xavier)``,
+    ``gluon.Trainer(sgd, lr 0.05, momentum 0.9, kvstore="device")`` at
+    batch 32 as ``examples/gluon/image_classification.py`` runs it: one
+    untimed step and 10 timed (img/s, ms a step split into forward,
+    backward and ``trainer.step`` on the host and on the device, peak
+    memory; 48 launches of each BN kernel a step, counts zeroed just
+    before and read just after), a profiled step (idle share, 16 residual
+    ``bn_apply``) and a profiled ``trainer.step`` at aggregation 4 and 0
+    (update calls, device kernels, device and wall ms); ``kernel_f32``,
+    each BN kernel against its plain version in f32 at that path's 48
+    sites (as phase 2, summed per step);
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
     over the 48 call sites, with the v2 step's sums and launches under
-    ``v2``; flash_fwd's per
+    ``v2`` and the f32 Gluon step's under ``f32``; flash_fwd's per
     launch at the path's shape; the rtc kernels' per launch at the sizes
     above, sgd_mom's per imperative step, the sum over its 4 launches)
     and, last, the device line.
@@ -228,12 +251,12 @@ def time_ms(torch, fn, flush, iters=10):
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def path_sites():
+def path_sites(batch=B):
     """Distinct (R, C, residual) epilogue sites of one ResNet-50 step at
-    batch B with their multiplicity (48 sites in all)."""
+    ``batch`` with their multiplicity (48 sites in all)."""
     sites = []
     for hw, mid, out, blocks in STAGES:
-        r = B * hw * hw
+        r = batch * hw * hw
         sites.append((r, mid, False, 2 * blocks))
         sites.append((r, out, True, blocks))
     assert sum(s[3] for s in sites) == 48
@@ -2181,6 +2204,509 @@ def sgd_mom_timing(torch, mt, sgd, params, moms, flush):
 
 
 
+# ---------------------------------------------------------------------------
+# the Gluon Trainer path: gluon.Trainer over mx.optimizer, f32
+# ---------------------------------------------------------------------------
+
+GT_BATCH, GT_STEPS = 32, 10        # examples/gluon/image_classification.py
+GT_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+THIN18 = ([2, 2, 2, 2], [8, 8, 16, 32, 64])
+THIN_SIZE, THIN_BATCH, THIN_STEPS = 48, 4, 3
+# tests/test_optimizer_aggregation.py's six configurations, and its
+# multi-precision one (bf16 weights)
+TRAINER_OPTS = (
+    ("sgd", {"learning_rate": 0.1, "wd": 0.01}, "float32"),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 0.01}, "float32"),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9}, "float32"),
+    ("adam", {"learning_rate": 0.01, "wd": 0.001}, "float32"),
+    ("rmsprop", {"learning_rate": 0.01}, "float32"),
+    ("rmsprop", {"learning_rate": 0.01, "centered": True}, "float32"),
+    ("sgd", {"learning_rate": 0.05, "momentum": 0.9,
+             "multi_precision": True}, "bfloat16"),
+)
+
+
+def _state_tensors(trainer):
+    """Every optimizer state tensor of a gluon.Trainer, in index order."""
+    out = []
+    for _, s in sorted(trainer._updaters[0].states.items()):
+        stack = [s]
+        while stack:
+            x = stack.pop(0)
+            if isinstance(x, (tuple, list)):
+                stack = list(x) + stack
+            elif x is not None:
+                out.append(x.tensor)
+    return out
+
+
+def _close_of_max(torch, got, want, rel):
+    """Worst |got - want| as a fraction of each tensor's largest value."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        worst = max(worst, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-6))
+    return worst, worst <= rel
+
+
+def _bare_params(torch, mt, values, dtype, device):
+    holder = mt.gluon.HybridBlock(prefix="", device=device)
+    params = []
+    for j, w in enumerate(values):
+        p = holder._new_param(f"p{j}", w.shape, dtype=getattr(torch, dtype))
+        p.set_data(w)
+        params.append(p)
+    return holder, params
+
+
+def _opt_run(torch, mt, opt, kw, dtype, device, agg, seed=0):
+    """Three Trainer steps of six bare parameters (shapes (3, j + 2), the
+    aggregation test's) from numpy values; (weights, states, dispatches)."""
+    import numpy as np
+    os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = str(agg)
+    rs = np.random.RandomState(seed)
+    shapes = [(3, j + 2) for j in range(6)]
+    values = [rs.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[rs.randn(*s).astype(np.float32) for s in shapes]
+             for _ in range(3)]
+    _, params = _bare_params(torch, mt, values, dtype, device)
+    tr = mt.gluon.Trainer(params, opt, dict(kw), kvstore=None)
+    for step in range(3):
+        for p, g in zip(params, grads[step]):
+            p.grad()._data.copy_(torch.from_numpy(g))
+            p._fresh_grad = True
+        tr.step(4)
+    return ([p.tensor.detach().clone() for p in params],
+            [t.clone() for t in _state_tensors(tr)],
+            tr.last_update_dispatches)
+
+
+def _thin_run(torch, mt, weights, prefix, device, data, labels):
+    """THIN_STEPS imperative steps of the thin ResNet-18 v1 NHWC:
+    record(), forward, loss, backward(), Trainer.step; (losses, params,
+    states)."""
+    from mxnet_tpu_torch.convert import from_mxnet_tpu_params
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        BasicBlockV1, ResNetV1)
+    net = ResNetV1(BasicBlockV1, *THIN18, classes=10, layout="NHWC",
+                   device=device)
+    from_mxnet_tpu_params(net, weights, prefix=prefix)
+    tr = mt.gluon.Trainer(net.collect_params(), "sgd", dict(GT_OPT),
+                          kvstore="device")
+    lossfn = gloss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for x, y in zip(data, labels):
+        xd = mt.nd.from_torch(x.to(device))
+        yd = mt.nd.from_torch(y.to(device))
+        with mt.autograd.record():
+            loss = lossfn(net(xd), yd)
+        loss.backward()
+        tr.step(THIN_BATCH)
+        losses.append(loss.tensor.detach().cpu())
+    params = [p.tensor.detach().clone() for p in
+              net.collect_params().values()]
+    return torch.stack(losses), params, _state_tensors(tr)
+
+
+def trainer_reference(torch, mt):
+    """gluon.Trainer card against host: the thin ResNet-18 v1 NHWC for
+    THIN_STEPS steps from one set of weights and batches (losses, every
+    weight, running statistic and momentum within 1e-3 of each tensor's
+    largest value; one launch of each BN kernel per fused site and step on
+    the card, none on the host); then the seven TRAINER_OPTS on bare
+    parameters: card against host (weights and state within 1e-5 of each
+    tensor's largest value, bf16 weights within one bf16 ulp of it) and,
+    on the card, aggregation 4 against 0 bit for bit with 2 update calls
+    against 6."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        BasicBlockV1, ResNetV1)
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    agg_before = os.environ.get("MXTPU_OPTIMIZER_AGGREGATION")
+    src = ResNetV1(BasicBlockV1, *THIN18, classes=10, layout="NHWC",
+                   device="cpu")
+    src.initialize(mt.init.Xavier(), generator=torch.Generator()
+                   .manual_seed(5))
+    weights = {k: p.data().asnumpy()
+               for k, p in src.collect_params().items()}
+    gen = torch.Generator().manual_seed(6)
+    data = [torch.rand((THIN_BATCH, THIN_SIZE, THIN_SIZE, 3), generator=gen)
+            for _ in range(THIN_STEPS)]
+    labels = [torch.randint(0, 10, (THIN_BATCH,), generator=gen).float()
+              for _ in range(THIN_STEPS)]
+    tk.reset_launches()
+    host = _thin_run(torch, mt, weights, src.prefix, "cpu", data, labels)
+    host_launches = dict(tk.launches)
+    tk.reset_launches()
+    card = _thin_run(torch, mt, weights, src.prefix, "cuda", data, labels)
+    torch.cuda.synchronize()
+    card_launches = dict(tk.launches)
+    loss_ok = torch.allclose(card[0], host[0], rtol=1e-4, atol=1e-5)
+    worst_p, ok_p = _close_of_max(torch, card[1], host[1], 1e-3)
+    worst_s, ok_s = _close_of_max(torch, card[2], host[2], 1e-3)
+    sites = 16 * THIN_STEPS
+    row = {"phase": "trainer_reference",
+           "model": "thin ResNet-18 v1 NHWC [2,2,2,2] [8,8,16,32,64], "
+                    f"{THIN_SIZE}x{THIN_SIZE} batch {THIN_BATCH}, f32, "
+                    "TF32 off, gluon.Trainer sgd lr 0.05 momentum 0.9",
+           "losses_card": card[0].tolist(), "losses_host": host[0].tolist(),
+           "worst_param_err_of_max": worst_p,
+           "worst_state_err_of_max": worst_s,
+           "card_launches": card_launches, "host_launches": host_launches}
+    emit(row)
+    if not (loss_ok and ok_p and ok_s):
+        fail(f"gluon.Trainer: card and host disagree: {row}")
+    if any(v != sites for v in card_launches.values()) or \
+            any(host_launches.values()):
+        fail(f"the thin ResNet-18 did not launch each kernel {sites} times "
+             f"on the card and none on the host: {row}")
+    bad = []
+    for opt, kw, dtype in TRAINER_OPTS:
+        w4, s4, n4 = _opt_run(torch, mt, opt, kw, dtype, "cuda", 4)
+        w0, s0, n0 = _opt_run(torch, mt, opt, kw, dtype, "cuda", 0)
+        wh, sh, _ = _opt_run(torch, mt, opt, kw, dtype, "cpu", 4)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(w4 + s4, w0 + s0))
+        worst_w, ok_w = _close_of_max(
+            torch, w4, wh, 2.0 ** -7 if dtype == "bfloat16" else 1e-5)
+        worst_st, ok_st = _close_of_max(torch, s4, sh, 1e-5)
+        r = {"phase": "trainer_reference", "optimizer": opt,
+             "params": sorted(kw), "dtype": dtype,
+             "agg4_equals_agg0": same, "dispatches_agg4": n4,
+             "dispatches_agg0": n0, "worst_weight_err_of_max": worst_w,
+             "worst_state_err_of_max": worst_st,
+             "states": len(s4)}
+        emit(r)
+        if not (same and ok_w and ok_st and n4 == 2 and n0 == 6
+                and len(s4) == len(sh)):
+            bad.append(r)
+    if agg_before is None:
+        os.environ.pop("MXTPU_OPTIMIZER_AGGREGATION", None)
+    else:
+        os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = agg_before
+    if bad:
+        fail(f"gluon.Trainer configurations failed on the card: {bad}")
+
+
+# every dense optimizer op: input kinds and parameters
+OPT_OP_CASES = {
+    "sgd_update": (("w", "g"), dict(lr=0.1, wd=0.01)),
+    "sgd_mom_update": (("w", "g", "m"), dict(lr=0.1, momentum=0.9, wd=0.01)),
+    "mp_sgd_update": (("w", "g", "w32"), dict(lr=0.1, wd=0.01)),
+    "mp_sgd_mom_update": (("w", "g", "m", "w32"),
+                          dict(lr=0.1, momentum=0.9, wd=0.01)),
+    "nag_mom_update": (("w", "g", "m"), dict(lr=0.1, momentum=0.9, wd=0.01)),
+    "adam_update": (("w", "g", "m", "pos"),
+                    dict(lr=0.01, beta1=0.8, beta2=0.99, epsilon=1e-6,
+                         wd=0.01)),
+    "signsgd_update": (("w", "g"), dict(lr=0.1, wd=0.01)),
+    "signum_update": (("w", "g", "m"),
+                      dict(lr=0.1, momentum=0.9, wd=0.01, wd_lh=0.02)),
+    "rmsprop_update": (("w", "g", "pos"),
+                       dict(lr=0.01, gamma1=0.9, epsilon=1e-6, wd=0.01,
+                            clip_weights=0.9)),
+    "rmspropalex_update": (("w", "g", "pos", "small", "m"),
+                           dict(lr=0.01, gamma1=0.9, gamma2=0.8,
+                                epsilon=1e-6, wd=0.01)),
+    "ftrl_update": (("w", "g", "m", "pos"),
+                    dict(lr=0.1, lamda1=0.05, beta=1.5, wd=0.01)),
+    "ftml_update": (("w", "g", "pos", "pos", "m"),
+                    dict(lr=0.05, beta1=0.6, beta2=0.99, epsilon=1e-6, t=3,
+                         wd=0.01, clip_grad=0.8)),
+    "_adamw_update": (("w", "g", "m", "pos", "scale"),
+                      dict(lr=0.01, beta1=0.8, beta2=0.99, epsilon=1e-6,
+                           wd=0.01, eta=0.7)),
+    "_mp_adamw_update": (("w", "g", "m", "pos", "w32", "scale"),
+                         dict(lr=0.01, beta1=0.8, beta2=0.99, epsilon=1e-6,
+                              wd=0.01, eta=0.7)),
+    "_contrib_group_adagrad_update": (("w", "g", "rows"),
+                                      dict(lr=0.1, epsilon=1e-5)),
+    "multi_sgd_update": (("w", "g"), {}),
+    "multi_sgd_mom_update": (("w", "g", "m"), dict(momentum=0.9)),
+    "multi_mp_sgd_update": (("w", "g", "w32"), {}),
+    "multi_mp_sgd_mom_update": (("w", "g", "m", "w32"), dict(momentum=0.9)),
+    "multi_adam_update": (("w", "g", "m", "pos"),
+                          dict(beta1=0.8, beta2=0.99, epsilon=1e-6)),
+    "multi_nag_mom_update": (("w", "g", "m"), dict(momentum=0.9)),
+    "multi_rmsprop_update": (("w", "g", "pos"),
+                             dict(gamma1=0.9, epsilon=1e-6,
+                                  clip_weights=0.9)),
+}
+OPT_OP_SHAPES = ((512, 257), (1000,), (64, 3, 3, 32))
+
+
+def _op_inputs(np, kinds, shapes, rs):
+    arrays = []
+    for shape in shapes:
+        w = None
+        for k in kinds:
+            if k == "w32":
+                arrays.append(w.copy())
+            elif k == "rows":
+                arrays.append(rs.rand(shape[0]).astype(np.float32) + 0.5)
+            elif k == "pos":
+                arrays.append(rs.rand(*shape).astype(np.float32) + 0.5)
+            elif k == "small":
+                arrays.append(0.1 * rs.randn(*shape).astype(np.float32))
+            elif k == "scale":
+                arrays.append(np.array([0.5], np.float32))
+            else:
+                a = rs.randn(*shape).astype(np.float32)
+                w = a if k == "w" else w
+                arrays.append(a)
+    return arrays
+
+
+def optimizer_ops_phase(torch, mt):
+    """Every dense optimizer op of the registry (22; the sparse AdaGrad
+    raises), card against host on the same numpy inputs, with gradient
+    clipping, f32: each element of the card's result no further from the
+    op evaluated in float64 on the host than the host's f32 result is,
+    plus 1e-6 absolute and 1e-6 relative (Ftrl's z cancels: one rounding
+    apart in a term moves it by 4e-6 at values of 1e-2, on either
+    device). The one-tensor ops at (512, 257), the multi-tensor ops over
+    three shapes."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import registry as reg
+    bad, worst, n_out = [], 0.0, 0
+    for name, (kinds, params) in OPT_OP_CASES.items():
+        rs = np.random.RandomState(len(name))
+        params = dict(params)
+        if name.startswith("multi_"):
+            shapes = OPT_OP_SHAPES
+            params.update(lrs=(0.1, 0.05, 0.2), wds=(0.01, 0.0, 0.02),
+                          num_weights=3)
+        else:
+            shapes = OPT_OP_SHAPES[:1]
+            params.setdefault("lr", 0.1)
+        if name != "ftml_update" and "adamw" not in name:
+            params.update(rescale_grad=0.5, clip_gradient=0.8)
+        elif "adamw" in name:
+            params["clip_gradient"] = 0.8
+        else:
+            params["rescale_grad"] = 0.5
+        arrays = _op_inputs(np, kinds, shapes, rs)
+        fn = reg.get_op(name).fn
+        outs = {}
+        for dev, dt in (("cpu", torch.float32), ("cuda", torch.float32),
+                        ("f64", torch.float64)):
+            o = fn(*[torch.from_numpy(a).to("cpu" if dev == "f64" else dev,
+                                            dt) for a in arrays], **params)
+            outs[dev] = o if isinstance(o, tuple) else (o,)
+        torch.cuda.synchronize()
+        err, ok = 0.0, True
+        for a, b, ref in zip(outs["cuda"], outs["cpu"], outs["f64"]):
+            a, b = a.double().cpu(), b.double()
+            err = max(err, float((a - b).abs().max()))
+            ok = ok and bool(((a - ref).abs() <= (b - ref).abs() + 1e-6
+                              + 1e-6 * ref.abs()).all())
+            n_out += 1
+        worst = max(worst, err)
+        if not ok:
+            bad.append((name, err))
+    row = {"phase": "optimizer_ops", "ops": len(OPT_OP_CASES),
+           "outputs": n_out, "max_abs_err": worst, "ok": not bad,
+           "tolerance": "|card - f64| <= |host - f64| + 1e-6 + 1e-6 |f64|"}
+    emit(row)
+    if bad:
+        fail(f"optimizer ops: card and host disagree: {bad}")
+
+
+def kernel_f32_phase(torch, tk):
+    """Each BN kernel against its plain version in f32 at the Gluon path's
+    (R, C) sites (ResNet-50 v1 at batch GT_BATCH): bn_bwd_apply bit for
+    bit, bn_apply within one f32 ulp, the reductions within 1e-5 of the
+    sum of magnitudes; kernel, plain and library ms and the bound, summed
+    over the 48 sites of one step."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   max_abs_err=0.0, bound_by=set()) for n in KERNELS}
+    bad = []
+    for r, c, has_res, mult in path_sites(GT_BATCH):
+        cs = make_case(torch, tk, r, c, has_res, torch.float32, gen)
+        for name, (kern, plain, lib) in calls(torch, tk, cs).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err, ok = max_err(torch, tk, name, cs, got, want)
+            row = {"phase": "kernel_f32", "kernel": name, "R": r, "C": c,
+                   "residual": has_res, "dtype": "float32",
+                   "max_abs_err": err, "ok": ok,
+                   "ms": time_ms(torch, kern, flush),
+                   "plain_ms": time_ms(torch, plain, flush),
+                   "library_ms": time_ms(torch, lib, flush),
+                   "sites_per_step": mult}
+            row["bound_ms"], row["bound_by"] = bound_ms(name, r, c, 4,
+                                                        has_res)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            emit(row)
+            if not ok:
+                bad.append(row)
+            t = tot[name]
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                t[key] += mult * row[key]
+            t["bound_by"].add(row["bound_by"])
+        del cs
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"f32 kernel disagrees with its plain version: {bad}")
+    return tot
+
+
+def _host_top(torch, prof, n=12):
+    """The host's costliest ops of a profiled run: [self ms, calls,
+    name], by self time on the CPU."""
+    from torch.autograd import DeviceType
+    rows = [(e.self_cpu_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    return [[round(ms, 3), c, k[:60]] for ms, c, k in sorted(rows,
+                                                              reverse=True)[:n]]
+
+
+def _profile_update(torch, trainer, params, agg):
+    """One trainer.step (the same gradients again) under torch.profiler
+    at aggregation ``agg``: device kernels, device ms and wall ms."""
+    os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = str(agg)
+
+    def step():
+        for p in params:
+            p._fresh_grad = True
+        trainer.step(GT_BATCH)
+
+    prof, wall = _profiled(torch, step)
+    kernels = _device_kernels(prof)
+    return {"aggregation": agg, "host_top_ops": _host_top(torch, prof, 6),
+            "update_calls": trainer.last_update_dispatches,
+            "device_kernels": sum(n for _, n in kernels.values()),
+            "device_ms": sum(ms for ms, _ in kernels.values()),
+            "wall_ms": wall}
+
+
+def gluon_train(torch, mt, card):
+    """The Gluon path at full width, as examples/gluon/image_classification
+    .py runs it: get_model("resnet50_v1", layout="NHWC"),
+    initialize(Xavier), hybridize(), gluon.Trainer(sgd, lr 0.05, momentum
+    0.9, kvstore="device"), batch 32 of 224x224 in f32 (TF32 off),
+    MXTPU_OPTIMIZER_AGGREGATION 4. One untimed step, then GT_STEPS timed
+    (counts zeroed just before, read just after: 48 launches of each BN
+    kernel a step); host and device ms of forward, backward and
+    trainer.step (CUDA events; a device span includes the time the card
+    waited for the host); one profiled step for the device's idle share
+    and the residual bn_apply launches (16); one profiled trainer.step at
+    aggregation 4 and at 0."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    agg_before = os.environ.get("MXTPU_OPTIMIZER_AGGREGATION")
+    os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = "4"
+    t0 = time.perf_counter()
+    net = get_model("resnet50_v1", layout="NHWC")
+    net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+    net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", dict(GT_OPT),
+                               kvstore="device")
+    lossfn = gloss.SoftmaxCrossEntropyLoss()
+    gen = mt.random.seed(1)
+    batches = [(mt.nd.from_torch(torch.rand(
+                    (GT_BATCH, IMG, IMG, 3), generator=gen, device="cuda")),
+                mt.nd.from_torch(torch.randint(
+                    0, 1000, (GT_BATCH,), generator=gen,
+                    device="cuda").float())) for _ in range(2)]
+    live = [p for p in net.collect_params().values()
+            if p.grad_req != "null"]
+    marks = {}
+
+    def mark(key):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.setdefault(key, []).append((time.perf_counter(), e))
+
+    def step(i, timed=False):
+        x, y = batches[i % 2]
+        if timed:
+            mark("start")
+        with mt.autograd.record():
+            loss = lossfn(net(x), y)
+        if timed:
+            mark("forward")
+        loss.backward()
+        if timed:
+            mark("backward")
+        trainer.step(GT_BATCH)
+        if timed:
+            mark("step")
+        return loss
+
+    first = step(0).tensor.detach().clone()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gib = 2.0 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    t1 = time.perf_counter()
+    losses = [step(i + 1, timed=True) for i in range(GT_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = dict(tk.launches)
+    peak = torch.cuda.max_memory_allocated() / gib
+    losses = torch.stack([l.tensor.detach().mean() for l in losses]).cpu()
+    split = {}
+    order = ("start", "forward", "backward", "step")
+    for a, b in zip(order, order[1:]):
+        host = [hb - ha for (ha, _), (hb, _) in zip(marks[a], marks[b])]
+        dev = [ea.elapsed_time(eb) for (_, ea), (_, eb)
+               in zip(marks[a], marks[b])]
+        split[b] = {"host_ms": 1e3 * sum(host) / len(host),
+                    "device_ms": sum(dev) / len(dev)}
+    prof, wall = _profiled(torch, lambda: step(0))
+    summary = _summary(f"resnet50_v1 NHWC: one gluon.Trainer step, batch "
+                       f"{GT_BATCH}, f32", _device_kernels(prof), wall, {})
+    summary["host_top_ops"] = _host_top(torch, prof)
+    emit(summary)
+    updates = [_profile_update(torch, trainer, live, agg) for agg in (4, 0)]
+    for u in updates:
+        emit({"phase": "gluon_update", **u})
+    if agg_before is None:
+        os.environ.pop("MXTPU_OPTIMIZER_AGGREGATION", None)
+    else:
+        os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = agg_before
+    row = {"phase": "gluon_train", "model": 'get_model("resnet50_v1", '
+           'layout="NHWC")', "batch": GT_BATCH, "image": IMG,
+           "steps": GT_STEPS, "dtype": "float32, TF32 off",
+           "optimizer": "gluon.Trainer sgd lr 0.05 momentum 0.9, "
+                        "kvstore device, aggregation 4",
+           "parameters": len(live),
+           "first_loss": float(first.mean()), "losses": losses.tolist(),
+           "step_ms": 1e3 * dt / GT_STEPS, "img_per_s": GT_BATCH
+           * GT_STEPS / dt, "split": split,
+           "device_idle_share": summary["device_idle_share"],
+           "peak_allocated_gib": peak,
+           "launches": launches,
+           "launches_per_step": {k: v / GT_STEPS
+                                 for k, v in launches.items()},
+           "bn_apply_residual_per_step":
+               summary["bn_apply_with_residual_launches"],
+           "update_calls_per_step": updates[0]["update_calls"],
+           "setup_and_first_step_s": setup_s, "card": card}
+    emit(row)
+    if not (torch.isfinite(losses).all() and 0.0 < row["first_loss"] < 20.0):
+        fail(f"gluon_train: bad loss {row['first_loss']} {losses.tolist()}")
+    if any(v != 48 * GT_STEPS for v in launches.values()):
+        fail(f"gluon_train: expected {48 * GT_STEPS} launches of each BN "
+             f"kernel over {GT_STEPS} steps: {launches}")
+    if row["bn_apply_residual_per_step"] != 16 or any(
+            n != 48 for n in summary["epilogue_device_launches"].values()):
+        fail(f"gluon_train: the profiled step's BN launches: {summary}")
+    if not updates[0]["update_calls"] < updates[1]["update_calls"] or \
+            not updates[0]["device_kernels"] < updates[1]["device_kernels"]:
+        fail(f"gluon_train: aggregation 4 should take fewer calls and "
+             f"kernels than 0: {updates}")
+    return launches, row
+
+
 def main():
     try:
         import torch
@@ -2263,13 +2789,24 @@ def main():
     del trainer, data, label
     torch.cuda.empty_cache()
     timed("v2_plain_batchnorm", v2_plain_bn_sites, torch, mt)
-    new = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
-           "v2_plain_batchnorm")
+
+    # the Gluon Trainer path (gluon.Trainer over mx.optimizer, f32), after
+    # the v2 phases so every earlier row stays as it was
+    timed("trainer_reference", trainer_reference, torch, mt)
+    timed("optimizer_ops", optimizer_ops_phase, torch, mt)
+    gluon_launches, _ = timed("gluon_train", gluon_train, torch, mt, card)
+    torch.cuda.empty_cache()
+    totals_f32 = timed("kernel_f32", kernel_f32_phase, torch, tk)
+    v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
+          "v2_plain_batchnorm")
+    gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
+             "kernel_f32")
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
-                                  if k not in new),
-          "v2_phases_s": sum(walls[k] for k in new)})
+                                  if k not in v2 + gluon),
+          "v2_phases_s": sum(walls[k] for k in v2),
+          "gluon_trainer_phases_s": sum(walls[k] for k in gluon)})
 
     kernels = []
     for name, (replaces, _) in KERNELS.items():
@@ -2293,7 +2830,18 @@ def main():
                    "bound_ms": totals_v2[name]["bound_ms"],
                    "library_ms": totals_v2[name]["library_ms"],
                    "per": "one resnet50_v2 step (48 no-residual sites); "
-                          "launches over one replay"}})
+                          "launches over one replay"},
+            "f32": {"launches": gluon_launches[name],
+                    "max_abs_err": totals_f32[name]["max_abs_err"],
+                    "ms": totals_f32[name]["ms"],
+                    "plain_ms": totals_f32[name]["plain_ms"],
+                    "bound_ms": totals_f32[name]["bound_ms"],
+                    "bound_by": "bytes" if totals_f32[name]["bound_by"]
+                    == {"bytes"} else "operations",
+                    "library_ms": totals_f32[name]["library_ms"],
+                    "per": f"one gluon.Trainer ResNet-50 v1 step (48 "
+                           f"sites, batch {GT_BATCH}, f32); launches over "
+                           f"the {GT_STEPS} timed steps of gluon_train"}})
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,

@@ -9,17 +9,19 @@ The hand-written CUDA kernels under ``csrc/`` are built with nvcc at first
 use into ``build/mxnet_tpu_torch/``; ``rtc.CudaModule`` compiles user
 kernels with NVRTC through one of them.
 """
-from . import (autograd, context, convert, gluon, initializer, models,
-               ndarray, ops, parallel, random, rtc)
+from . import (autograd, context, convert, gluon, initializer, kvstore,
+               lr_scheduler, models, ndarray, optimizer, ops, parallel,
+               random, rtc)
 from .base import MXNetError, check
 from .context import Context, cpu, current_context, gpu, num_gpus
 
 init = initializer
+kv = kvstore
 nd = ndarray
 
 __version__ = "0.1.0"
 
 __all__ = ["Context", "MXNetError", "autograd", "check", "context", "convert",
            "cpu", "current_context", "gpu", "gluon", "init", "initializer",
-           "models", "nd", "ndarray", "num_gpus", "ops", "parallel",
-           "random", "rtc"]
+           "kv", "kvstore", "lr_scheduler", "models", "nd", "ndarray",
+           "num_gpus", "ops", "optimizer", "parallel", "random", "rtc"]

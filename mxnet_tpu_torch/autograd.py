@@ -8,7 +8,9 @@ autograd on (``ndarray.imperative_invoke``), outside it under
 ``torch.no_grad()``. A variable (``attach_grad`` / ``mark_variables``) is
 a leaf tensor that requires grad, with a hook that moves each gradient
 torch accumulates into the variable's own gradient buffer by its
-``grad_req``: ``write`` overwrites, ``add`` adds, ``null`` drops.
+``grad_req``: ``write`` overwrites, ``add`` adds, ``null`` drops; a
+delivered buffer is marked fresh (``_fresh_grad``) until an optimizer
+step consumes it.
 
 Not ported: ``capture`` and ``grad_ready_scope`` (hybridize and
 comm-overlap plumbing) and row-sparse gradients (ROADMAP).
@@ -105,6 +107,7 @@ def _deliver(var):
                 buf._data.add_(g)
             else:
                 buf._data.copy_(g)
+        buf._fresh_grad = True
     return hook
 
 

@@ -87,6 +87,33 @@ env.declare("MXTPU_FUSED_EPILOGUE", bool, True,
             "versions on the CPU). Set 0 to fall back to the composed "
             "unfused lowering. Read at every call; a CUDA graph keeps the "
             "value it read at capture.")
+env.declare("MXTPU_OPTIMIZER_AGGREGATION", int, 4,
+            "Multi-tensor optimizer aggregation: gluon.Trainer groups dense "
+            "parameters into dtype/device buckets of up to this many and "
+            "steps each bucket with one multi-tensor call (ref: the "
+            "reference's MXNET_OPTIMIZER_AGGREGATION_SIZE, default 4). 0 "
+            "disables (per-parameter updates).")
+env.declare("MXTPU_GRAD_BUCKET_MB", float, 25.0,
+            "Gradient-allreduce bucketing: same-dtype dense gradients in "
+            "flat buffers of at most this many MB, one push/pull each. "
+            "0: one push/pull per key. Flat buckets of several gradients "
+            "are not ported yet (raise); a single gradient takes its own "
+            "key.")
+env.declare("MXTPU_COMM_OVERLAP", str, "off",
+            "Overlap gradient communication with backward ('on'/'off'). "
+            "Not ported yet: 'on' raises in Trainer.overlap_scope. Unknown "
+            "values raise.")
+env.declare("MXTPU_MEGASTEP", str, "off",
+            "One-program training step ('on'/'off'). Not ported yet: 'on' "
+            "raises when a gluon.Trainer is built. Unknown values raise.")
+env.declare("MXTPU_ZERO", str, "off",
+            "ZeRO-1 sharded optimizer state ('on'/'off'). Not ported yet: "
+            "'on' raises when a gluon.Trainer is built. Unknown values "
+            "raise.")
+env.declare("MXTPU_NUMERICS", str, "",
+            "In-graph numerics observability plane ('on[,every=N]...'). "
+            "Not ported yet: a value other than empty/off raises when a "
+            "gluon.Trainer is built.")
 
 
 # ---------------------------------------------------------------------------

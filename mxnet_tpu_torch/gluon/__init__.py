@@ -2,6 +2,7 @@
 from . import loss, model_zoo, nn
 from .block import HybridBlock
 from .parameter import Parameter, ParameterDict
+from .trainer import Trainer
 
-__all__ = ["HybridBlock", "Parameter", "ParameterDict", "loss", "model_zoo",
-           "nn"]
+__all__ = ["HybridBlock", "Parameter", "ParameterDict", "Trainer", "loss",
+           "model_zoo", "nn"]

@@ -209,6 +209,12 @@ class HybridBlock(nn.Module):
             return NDArray(_own(out, inputs))
         return type(out)(NDArray(_own(o, inputs)) for o in out)
 
+    def cast(self, dtype) -> None:
+        """Cast every parameter of the block and its children to ``dtype``
+        in place (``Parameter.cast``)."""
+        for p in self.collect_params().values():
+            p.cast(dtype)
+
     def hybridize(self, active: bool = True, **kwargs) -> None:
         """No-op (see the module docstring)."""
 

@@ -12,7 +12,9 @@ follow the JAX package.
 ``autograd.record()``) is a write into the block, and the block's tensor
 is never rebound: a CUDA graph that captured it stays valid. A trained
 parameter's gradient buffer is filled by ``autograd.backward`` through a
-hook on the block's ``nn.Parameter``. Code of the framework (the trainer,
+hook on the block's ``nn.Parameter``, which also marks it fresh
+(``_fresh_grad``) until ``gluon.Trainer`` consumes it. ``cast`` swaps the
+tensor's storage in place. Code of the framework (the trainer,
 ``convert``, ``initialize``) reads the tensor through :attr:`tensor`.
 
 Deferred initialisation (ref: the JAX package's ``gluon/parameter.py``).
@@ -51,9 +53,11 @@ class Parameter:
     while its initialisation is deferred)."""
 
     def __init__(self, name, block, attr, shape, grad_req="write", init=None,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, lr_mult=1.0, wd_mult=1.0):
         self.name = name
         self.init = init
+        self.lr_mult = lr_mult       # scale the optimizer's lr / wd by these
+        self.wd_mult = wd_mult
         self._block = block
         self._attr = attr
         self._shape = tuple(shape)
@@ -209,13 +213,50 @@ class Parameter:
 
     def zero_grad(self) -> None:
         """Zero the gradient buffer in place (ref: parameter.py
-        zero_grad)."""
+        zero_grad); it is no longer fresh."""
         if self.tensor is None:
             return
         g = self.data()._grad
         if g is not None:
             with torch.no_grad():
                 g._data.zero_()
+            g._fresh_grad = False
+
+    @property
+    def _fresh_grad(self) -> bool:
+        """True while the gradient buffer holds a gradient that backward
+        wrote and no optimizer step has consumed (ref: parameter.py
+        _fresh_grad)."""
+        t = self.tensor
+        if t is None or self._grad_req == "null":
+            return False
+        g = self.data()._grad
+        return g is not None and g._fresh_grad
+
+    @_fresh_grad.setter
+    def _fresh_grad(self, fresh: bool) -> None:
+        if self.tensor is None or self._grad_req == "null":
+            return
+        g = self.data()._grad
+        if g is not None:
+            g._fresh_grad = bool(fresh)
+
+    def cast(self, dtype) -> None:
+        """Cast the parameter (and its gradient buffer) to ``dtype`` in
+        place: the block's tensor keeps its identity, only its storage is
+        swapped (``tensor.data = ...``). A deferred parameter is created
+        in ``dtype`` later."""
+        from ..base import torch_dtype
+        dtype = torch_dtype(dtype)
+        self._dtype = dtype
+        t = self.tensor
+        if t is None:
+            return
+        with torch.no_grad():
+            t.data = t.data.to(dtype)
+            g = self.data()._grad
+            if g is not None:
+                g._data = g._data.to(dtype)
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "

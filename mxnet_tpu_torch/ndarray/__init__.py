@@ -17,6 +17,7 @@ from ..ops import broadcast as _broadcast  # noqa: F401
 from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import matrix as _matrix  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
+from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from . import register as _register
 from .ndarray import (NDArray, arange, array, concatenate, empty, eye,  # noqa

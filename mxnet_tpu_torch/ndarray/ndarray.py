@@ -42,7 +42,7 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
 
 
 class NDArray:
-    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "_fresh_grad", "__weakref__")
 
     __array_priority__ = 100.0
 
@@ -50,6 +50,9 @@ class NDArray:
         self._data = data
         self._grad: Optional["NDArray"] = None
         self._grad_req: Optional[str] = None
+        # set on a gradient buffer when backward writes it, cleared by the
+        # optimizer step that consumes it (Trainer's stale-gradient check)
+        self._fresh_grad = False
 
     # ------------------------------------------------------------------
     # basic properties

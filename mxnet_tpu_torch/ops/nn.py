@@ -146,8 +146,20 @@ def convolution(data, weight, *maybe_bias, kernel=(), stride=(), dilate=(),
           f"convolution: {nd + 2}-d data and weight expected")
     layout = _conv_layout(layout, nd)
     _no_resid8(data, "convolution")
-    out = _CONV[nd](_to_cf(data, layout), _to_cf(weight, layout), None,
-                    _tuplify(stride, nd), _tuplify(pad if pad else 0, nd),
+    x, stride, pad = _to_cf(data, layout), _tuplify(stride, nd), \
+        _tuplify(pad if pad else 0, nd)
+    if x.device.type == "cpu" and layout[-1] == "C" and \
+            weight.shape[1:-1] == (1,) * nd and not any(pad) and \
+            any(s > 1 for s in stride):
+        # PyTorch's CPU (oneDNN) channels-last 1x1 strided convolution
+        # returns a wrong weight gradient, or crashes, at 8 threads for
+        # narrow inputs (e.g. (4, 8, 12, 12) -> 16 filters, stride 2).
+        # Without padding it is the stride-1 convolution of the input
+        # subsampled by the stride, which is right at every thread count.
+        x = x[(slice(None),) * 2 + tuple(slice(None, None, s)
+                                         for s in stride)]
+        stride = (1,) * nd
+    out = _CONV[nd](x, _to_cf(weight, layout), None, stride, pad,
                     _tuplify(dilate, nd), num_group)
     out = _from_cf(out, layout)
     bias = _bias(maybe_bias, no_bias)

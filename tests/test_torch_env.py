@@ -18,6 +18,13 @@ from mxnet_tpu_torch.ops import reduce as treduce
 
 PORTED = ("MXNET_SAFE_ACCUMULATION", "MXNET_RESID_DTYPE",
           "MXTPU_FUSED_EPILOGUE")
+# gluon.Trainer's flags, with values of their types
+TRAINER_FLAGS = {"MXTPU_OPTIMIZER_AGGREGATION": ["0", "1", "4", "64", None],
+                 "MXTPU_GRAD_BUCKET_MB": ["0", "0.0001", "25", None],
+                 "MXTPU_COMM_OVERLAP": ["on", "off", "", None],
+                 "MXTPU_MEGASTEP": ["on", "off", "", None],
+                 "MXTPU_ZERO": ["on", "off", "1", None],
+                 "MXTPU_NUMERICS": ["on,every=2", "off", "", None]}
 VALUES = ["on", "yes", "2", "1", "true", "0", "false", "False", "", None]
 
 
@@ -51,10 +58,18 @@ def test_safe_acc_upcast_decision_matches_jax(monkeypatch, value):
 
 
 def test_declarations_match_jax():
-    for name in PORTED:
+    for name in PORTED + tuple(TRAINER_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
-    assert {n for n, *_ in tbase.env.items()} == set(PORTED)
+    assert {n for n, *_ in tbase.env.items()} == \
+        set(PORTED) | set(TRAINER_FLAGS)
+
+
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, vs in TRAINER_FLAGS.items() for v in vs])
+def test_trainer_flag_get_matches_jax(monkeypatch, name, value):
+    _set(monkeypatch, name, value)
+    assert tbase.env.get(name) == jbase.env.get(name)
 
 
 def test_undeclared_names_read_raw(monkeypatch):

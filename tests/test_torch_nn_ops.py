@@ -164,6 +164,25 @@ def test_convolution_family_matches_jax(case):
             grad=dict(rtol=1e-4, atol=2e-4))
 
 
+@pytest.mark.parametrize("hw", [12, 16, 24])
+def test_strided_1x1_channel_last_convolution_at_8_threads(hw):
+    """A ResNet downsample convolution (1x1, stride 2, NHWC, 8 -> 16
+    channels, batch 4): at 8 intra-op threads PyTorch's CPU build alone
+    gives it a wrong weight gradient or crashes
+    (``tools/torch_cpu_strided_conv_probe.py``); the port's convolution
+    matches JAX at 8 threads."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        _parity("Convolution", (_n(4, hw, hw, 8, seed=hw),
+                                _n(16, 1, 1, 8, seed=hw + 1)),
+                {"kernel": (1, 1), "num_filter": 16, "no_bias": True,
+                 "stride": (2, 2), "layout": "NHWC"}, diff=(0, 1),
+                grad=dict(rtol=1e-4, atol=2e-4))
+    finally:
+        torch.set_num_threads(prev)
+
+
 def test_deconvolution_target_shape_must_be_the_output_extent():
     x, w = torch.zeros(1, 2, 4, 4), torch.zeros(2, 3, 3, 3)
     kw = {"kernel": (3, 3), "num_filter": 3, "stride": (2, 2)}
