@@ -147,6 +147,26 @@ Phases, each printing JSON lines:
     (update calls, device kernels, device and wall ms); ``kernel_f32``,
     each BN kernel against its plain version in f32 at that path's 48
     sites (as phase 2, summed per step);
+14d. then the FitLoop path (``fit``, ``fault``, ``io`` with on-card
+    staging, ``contrib.chaos``, the telemetry it reports through), f32,
+    TF32 off: ``fit_reference``, ``tests/test_chaos.py``'s MLP scenarios
+    through ``DeviceStagingIter`` and ``FitLoop`` with asynchronous
+    checkpoints, the fault-free run card against host (within 1e-4 of
+    each tensor's largest value), and on the card, bit for bit:
+    ``kill@10`` and resume against the fault-free run, a ``nan_grad`` step
+    leaving weights and momenta as they were, a corrupted latest
+    checkpoint quarantined and the fallback's replay; ``fit_train``,
+    ``gluon_train``'s ResNet-50 v1 NHWC at batch 32 driven by ``FitLoop``
+    over ``DeviceStagingIter(NDArrayIter(256 random images, seed 13))``
+    for 2 epochs with ``ckpt_every=4`` and asynchronous checkpoints, under
+    deterministic cuDNN: step ms against the bare loop on the same net and
+    against ``gluon_train``'s, the step breakdown's shares, the
+    checkpoint's ``save()`` and write ms and bytes, ``restore_latest`` ms,
+    the memory ledger against ``torch.cuda.memory_allocated()``, 48
+    launches of each BN kernel a step; then the same run killed at step
+    10 and relaunched, which restores ckpt-8 and must equal the fault-free
+    run bit for bit (losses, weights, momenta, running statistics). The
+    checkpoints live in a temporary directory the phase removes;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
@@ -2707,6 +2727,443 @@ def gluon_train(torch, mt, card):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# the FitLoop path: fit, fault, io staging, chaos, telemetry
+# ---------------------------------------------------------------------------
+
+FIT_IMAGES, FIT_EPOCHS, FIT_CKPT_EVERY, FIT_KILL = 256, 2, 4, 10
+FIT_STEPS = FIT_EPOCHS * FIT_IMAGES // 32
+FIT_REF_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+
+
+def _mse(p, y):
+    return ((p - y) ** 2).mean()
+
+
+def _fit_state(torch, net, trainer):
+    """Every parameter (running statistics included) by structural name and
+    every optimizer state tensor, cloned."""
+    out = {f"param:{k}": p.tensor.detach().clone()
+           for k, p in net._collect_params_with_prefix().items()}
+    for j, t in enumerate(_state_tensors(trainer)):
+        out[f"state:{j}"] = t.detach().clone()
+    return out
+
+
+def _not_bitwise(torch, got, want):
+    """Names of the tensors of ``want`` that ``got`` does not equal bit for
+    bit (a missing name counts)."""
+    return sorted(k for k in want
+                  if k not in got or not torch.equal(got[k], want[k]))
+
+
+def _await_ckpt(d, step, timeout=300.0):
+    """A killed run's writer thread may still be finishing ckpt-<step>."""
+    t = time.time()
+    while not os.path.exists(os.path.join(d, f"ckpt-{step}", "DONE")):
+        if time.time() - t > timeout:
+            fail(f"checkpoint {step} in {d} never completed")
+        time.sleep(0.01)
+
+
+def _mlp_loop(mt, ctx, ckpt_dir, **kw):
+    """tests/test_chaos.py's _build scenario on ``ctx``: Dense(8, relu),
+    Dense(1) from numpy weights (seed 0), SGD momentum 0.9 lr 0.05, batch 8
+    of 64 samples (seed 42) shuffled with seed 13, staged onto ``ctx``."""
+    import numpy as np
+    rs = np.random.RandomState(42)
+    X = rs.randn(64, 4).astype(np.float32)
+    w = rs.randn(4, 1).astype(np.float32)
+    Y = X @ w + 0.01 * rs.randn(64, 1).astype(np.float32)
+    init = np.random.RandomState(0)
+    with ctx:
+        net = mt.gluon.nn.HybridSequential()
+        net.add(mt.gluon.nn.Dense(8, in_units=4, activation="relu"),
+                mt.gluon.nn.Dense(1, in_units=8))
+        for _, p in sorted(net._collect_params_with_prefix().items()):
+            p.set_data(0.5 * init.randn(*p.shape).astype(np.float32))
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(FIT_REF_OPT), kvstore=None)
+        itr = mt.io.DeviceStagingIter(mt.io.NDArrayIter(
+            X, Y, batch_size=8, shuffle=True, seed=13))
+        loop = mt.fit.FitLoop(net, trainer, _mse, itr, ckpt_dir=ckpt_dir,
+                              heartbeat=False, **kw)
+    return net, trainer, loop
+
+
+def _mlp_fit(torch, mt, ctx, ckpt_dir, epochs, plan=None, **kw):
+    """One run of the MLP scenario: (result or None if killed, state)."""
+    from mxnet_tpu_torch.contrib import chaos
+    net, trainer, loop = _mlp_loop(mt, ctx, ckpt_dir, **kw)
+    if plan:
+        chaos.install(plan)
+    res = None
+    try:
+        with ctx:
+            res = loop.fit(epochs=epochs)
+    except chaos.ChaosKilled:
+        pass
+    finally:
+        chaos.uninstall()
+    return res, _fit_state(torch, net, trainer)
+
+
+def fit_reference(torch, mt, tmp):
+    """The FitLoop scenarios of tests/test_chaos.py on the MLP, f32, TF32
+    off, staged through DeviceStagingIter, asynchronous checkpoints: the
+    fault-free run card against host (losses and every weight and momentum
+    within 1e-4 of each tensor's largest value); then on the card, bit for
+    bit: kill@10 and resume against the fault-free run (losses, weights,
+    momenta), a nan_grad step skipped (weights and momenta equal to those
+    before the step, the loss scale backed off), a corrupted latest
+    checkpoint quarantined with the fallback's replay equal to the
+    fault-free run."""
+    host, card = mt.cpu(), mt.gpu(0)
+    d = lambda name: os.path.join(tmp, name)  # noqa: E731
+    rh, sh = _mlp_fit(torch, mt, host, d("ff_host"), 2, ckpt_every=2)
+    rc, sc = _mlp_fit(torch, mt, card, d("ff_card"), 2, ckpt_every=2)
+    loss_err, loss_ok = _close_of_max(
+        torch, [torch.tensor(rc.losses)], [torch.tensor(rh.losses)], 1e-4)
+    state_err, state_ok = _close_of_max(
+        torch, [sc[k] for k in sh], [sh[k] for k in sh], 1e-4)
+    # kill@10, relaunch with fresh objects: resumes from ckpt-10
+    killed, _ = _mlp_fit(torch, mt, card, d("kill"), 2, plan="kill@10",
+                         ckpt_every=2)
+    _await_ckpt(d("kill"), 10)
+    rk, sk = _mlp_fit(torch, mt, card, d("kill"), 2, ckpt_every=2)
+    kill_bad = _not_bitwise(torch, sk, sc)
+    # nan_grad@3: the state after the skipped step is the state before it
+    _, before = _mlp_fit(torch, mt, card, None, 1, plan="kill@3")
+    _, after = _mlp_fit(torch, mt, card, None, 1, plan="nan_grad@3,kill@4")
+    rn, _ = _mlp_fit(torch, mt, card, None, 1, plan="nan_grad@3",
+                     loss_scale=2.0)
+    nan_bad = _not_bitwise(torch, after, before)
+    # ckpt_corrupt@8: quarantined, the relaunch falls back to ckpt-4
+    r1, s1 = _mlp_fit(torch, mt, card, d("ff1"), 1, ckpt_every=4)
+    _mlp_fit(torch, mt, card, d("corrupt"), 1, plan="ckpt_corrupt@8",
+             ckpt_every=4)
+    rf, sf = _mlp_fit(torch, mt, card, d("corrupt"), 1, ckpt_every=4)
+    corrupt_bad = _not_bitwise(torch, sf, s1)
+    row = {"phase": "fit_reference",
+           "model": "MLP 4 -> 8 (ReLU) -> 1, batch 8 of 64, SGD momentum "
+                    "0.9, f32, TF32 off, DeviceStagingIter, async ckpt",
+           "card_vs_host": {"loss_err_of_max": loss_err,
+                            "state_err_of_max": state_err,
+                            "losses_card": rc.losses,
+                            "losses_host": rh.losses},
+           "kill_resume": {"killed": killed is None,
+                           "resumed_from": rk.resumed_from,
+                           "losses_bitwise": rk.losses == rc.losses[10:],
+                           "state_not_bitwise": kill_bad},
+           "nan_skip": {"skipped_steps": rn.skipped_steps,
+                        "loss_scale": rn.loss_scale,
+                        "state_not_bitwise": nan_bad},
+           "corrupt_fallback": {
+               "resumed_from": rf.resumed_from,
+               "quarantined": os.path.isdir(os.path.join(d("corrupt"),
+                                                         "ckpt-8.bad")),
+               "losses_bitwise": rf.losses == r1.losses[4:],
+               "state_not_bitwise": corrupt_bad}}
+    emit(row)
+    if not (loss_ok and state_ok):
+        fail(f"fit_reference: card and host disagree: {row}")
+    if killed is not None or rk.resumed_from != 10 or \
+            row["kill_resume"]["losses_bitwise"] is not True or kill_bad:
+        fail(f"fit_reference: kill@10 + resume is not the fault-free run "
+             f"bit for bit: {row}")
+    if rn.skipped_steps != [3] or not rn.loss_scale < 2.0 or nan_bad:
+        fail(f"fit_reference: the nan_grad step was not a no-op: {row}")
+    if rf.resumed_from != 4 or not row["corrupt_fallback"]["quarantined"] \
+            or row["corrupt_fallback"]["losses_bitwise"] is not True or \
+            corrupt_bad:
+        fail(f"fit_reference: corrupt checkpoint fallback failed: {row}")
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _shares(records):
+    """Wall-clock shares of each segment over some per-step records."""
+    wall = sum(r["wall"] for r in records)
+    segs = {k for r in records for k in r if k != "wall"}
+    return {k: sum(r.get(k, 0.0) for r in records) / wall
+            for k in sorted(segs)}
+
+
+def fit_train(torch, mt, card, gluon_row, tmp):
+    """The FitLoop path at full width, as examples/gluon/resilient_fit.py
+    uses it: get_model("resnet50_v1", layout="NHWC"), initialize(Xavier)
+    from seed 0, gluon.Trainer(sgd, lr 0.05, momentum 0.9, kvstore
+    "device"), aggregation 4, f32 with TF32 off and deterministic cuDNN;
+    DeviceStagingIter(NDArrayIter(FIT_IMAGES random images and labels from
+    seed 1, batch 32, shuffled with seed 13)); FitLoop(ckpt_every 4,
+    async_ckpt) for 2 epochs (16 steps). Then the same run killed at step
+    10 (chaos kill@10) and relaunched with fresh objects: it restores
+    ckpt-8 and replays steps 8-15, and its losses, weights, momenta and
+    running statistics must equal the fault-free run's bit for bit. The
+    BN kernels launch 48 times a step (wrapper counts, zeroed just before
+    each fit and read just after). Reported: step ms (FitLoop against the
+    bare record / backward / trainer.step loop on the same net, with and
+    without the loss fetched to the host each step, and gluon_train's;
+    one epoch each of the loop without checkpoints, without staging and
+    without the sentinel, and one profiled epoch for the card's idle
+    share), the breakdown's shares, the checkpoint's save() (loop
+    thread) and write (writer thread: files, SHA-256, rename) ms and
+    bytes, restore_latest ms with verify, and the memory ledger by
+    category against torch.cuda.memory_allocated() after step 5."""
+    import gc
+    import numpy as np
+    from mxnet_tpu_torch.contrib import chaos
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    from mxnet_tpu_torch.telemetry import memory as tmem
+    agg_before = os.environ.get("MXTPU_OPTIMIZER_AGGREGATION")
+    os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = "4"
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    X = rng.random((FIT_IMAGES, IMG, IMG, 3), dtype=np.float32)
+    Y = rng.integers(0, 1000, FIT_IMAGES).astype(np.float32)
+    data_s = time.perf_counter() - t0
+    lossfn = gloss.SoftmaxCrossEntropyLoss()
+    mid = {}
+
+    def at_step_end(step, loss):
+        if step == 5:
+            torch.cuda.synchronize()
+            mid.update(ledger=tmem.ledger().snapshot(),
+                       reconcile=tmem.reconcile(),
+                       allocated=torch.cuda.memory_allocated())
+
+    def build(d, on_step_end=None):
+        net = get_model("resnet50_v1", layout="NHWC")
+        net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(GT_OPT), kvstore="device")
+        itr = mt.io.DeviceStagingIter(mt.io.NDArrayIter(
+            X, Y, batch_size=GT_BATCH, shuffle=True, seed=13))
+        loop = mt.fit.FitLoop(net, trainer, lossfn, itr, ckpt_dir=d,
+                              ckpt_every=FIT_CKPT_EVERY, async_ckpt=True,
+                              on_step_end=on_step_end)
+        return net, trainer, loop
+
+    def run(loop, plan=None):
+        if plan:
+            chaos.install(plan)
+        tk.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            res = loop.fit(epochs=FIT_EPOCHS)
+        except chaos.ChaosKilled:
+            res = None
+        finally:
+            chaos.uninstall()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, dict(tk.launches)
+
+    dir_a, dir_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    base = tmem.ledger().snapshot()
+    net, trainer, loop = build(dir_a, at_step_end)
+    torch.cuda.reset_peak_memory_stats()
+    res_a, wall_a, launches = run(loop)
+    peak = torch.cuda.max_memory_allocated()
+    state_a = _fit_state(torch, net, trainer)
+    bd = res_a.step_breakdown
+    walls = [r["wall"] for r in bd["per_step"]]
+    steady = bd["per_step"][1:]
+    saves = FIT_STEPS // FIT_CKPT_EVERY
+    # the bare loop on the same net and batches, same call
+    xb = [mt.nd.array(X[i * GT_BATCH:(i + 1) * GT_BATCH]) for i in (0, 1)]
+    yb = [mt.nd.array(Y[i * GT_BATCH:(i + 1) * GT_BATCH]) for i in (0, 1)]
+
+    def bare(i, sync):
+        with mt.autograd.record():
+            loss = lossfn(net(xb[i % 2]), yb[i % 2])
+        loss.backward()
+        trainer.step(GT_BATCH)
+        if sync:                   # the loss to the host, as FitLoop does
+            loss.mean().asscalar()
+
+    bare_ms = {}
+    for sync in (False, True):
+        bare(0, sync)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(GT_STEPS):
+            bare(i + 1, sync)
+        torch.cuda.synchronize()
+        bare_ms[sync] = 1e3 * (time.perf_counter() - t) / GT_STEPS
+    # where the FitLoop's extra time goes: one epoch of each variant on
+    # the same net (medians and means of steps 1-7), and one profiled
+    # epoch of the loop without checkpoints for the card's idle share
+    def loop_for(staged=True, ckpt=None, **kw):
+        src = mt.io.NDArrayIter(X, Y, batch_size=GT_BATCH, shuffle=True,
+                                seed=13)
+        return mt.fit.FitLoop(
+            net, trainer, lossfn,
+            mt.io.DeviceStagingIter(src) if staged else src, ckpt_dir=ckpt,
+            ckpt_every=FIT_CKPT_EVERY, async_ckpt=True, **kw)
+
+    def epoch_ms(loop):
+        res = loop.fit(epochs=1, resume=False)
+        torch.cuda.synchronize()
+        w = [1e3 * r["wall"] for r in res.step_breakdown["per_step"][1:]]
+        return {"median": float(np.median(w)), "mean": float(np.mean(w))}
+
+    variants = {
+        "fitloop": epoch_ms(loop_for(ckpt=os.path.join(tmp, "v"))),
+        "no_checkpoints": epoch_ms(loop_for()),
+        "no_checkpoints_unstaged": epoch_ms(loop_for(staged=False)),
+        "no_checkpoints_no_sentinel": epoch_ms(
+            loop_for(skip_nonfinite=False))}
+    prof, prof_wall = _profiled(
+        torch, lambda: loop_for().fit(epochs=1, resume=False))
+    fit_profile = _summary("one FitLoop epoch (8 steps), no checkpoints",
+                           _device_kernels(prof), prof_wall, {})
+    fit_profile["host_top_ops"] = _host_top(torch, prof)
+    emit(fit_profile)
+    # the checkpoint alone: save() on this thread, the write on the
+    # writer thread, twice; then restore_latest (verify included)
+    ck = os.path.join(tmp, "w")
+    cm = mt.fault.CheckpointManager(ck, async_write=True)
+    save_ms, wait_ms = [], []
+    for step in (1, 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cm.save(step, net=net, trainer=trainer)
+        save_ms.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        cm.wait()
+        wait_ms.append(1e3 * (time.perf_counter() - t))
+    ckpt_bytes = _dir_bytes(os.path.join(dir_a, "ckpt-16"))
+    t = time.perf_counter()
+    mt.fault.CheckpointManager(dir_a).verify(16)
+    verify_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    restored = mt.fault.CheckpointManager(dir_a).restore_latest(
+        net=net, trainer=trainer)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t)
+    after_restore = _not_bitwise(torch, _fit_state(torch, net, trainer),
+                                 state_a)
+    del net, trainer, loop, xb, yb, restored
+    gc.collect()
+    # killed at step 10, relaunched with fresh objects
+    net, trainer, loop = build(dir_b)
+    killed, _, _ = run(loop, plan=f"kill@{FIT_KILL}")
+    del net, trainer, loop
+    gc.collect()
+    resume_from = FIT_KILL // FIT_CKPT_EVERY * FIT_CKPT_EVERY
+    _await_ckpt(dir_b, resume_from)
+    net, trainer, loop = build(dir_b)
+    res_b, wall_b, launches_b = run(loop)
+    state_b = _fit_state(torch, net, trainer)
+    kill_bad = _not_bitwise(torch, state_b, state_a)
+    del net, trainer, loop, state_a, state_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = prev_det
+    if agg_before is None:
+        os.environ.pop("MXTPU_OPTIMIZER_AGGREGATION", None)
+    else:
+        os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = agg_before
+    gib = 2.0 ** 30
+    row = {"phase": "fit_train",
+           "model": 'get_model("resnet50_v1", layout="NHWC")',
+           "batch": GT_BATCH, "image": IMG, "images": FIT_IMAGES,
+           "epochs": FIT_EPOCHS, "steps": res_a.step,
+           "dtype": "float32, TF32 off, deterministic cuDNN",
+           "loop": "FitLoop(ckpt_every 4, async_ckpt) over DeviceStagingIter"
+                   "(NDArrayIter(shuffle, seed 13)), gluon.Trainer sgd lr "
+                   "0.05 momentum 0.9, kvstore device, aggregation 4",
+           "data_s": data_s, "wall_s": wall_a,
+           "step_ms_first": 1e3 * walls[0],
+           "step_ms_median": 1e3 * float(np.median(walls[1:])),
+           "step_ms_mean_after_first": 1e3 * float(np.mean(walls[1:])),
+           "img_per_s_median": GT_BATCH / float(np.median(walls[1:])),
+           "bare_loop_step_ms": bare_ms[False],
+           "bare_loop_synced_step_ms": bare_ms[True],
+           "gluon_train_step_ms": gluon_row["step_ms"],
+           "variants_step_ms": variants,
+           "device_idle_share_no_checkpoints":
+               fit_profile["device_idle_share"],
+           "shares": bd["shares"], "shares_after_first": _shares(steady),
+           "accounted_frac": bd["accounted_frac"],
+           "diagnoses": bd["diagnoses"][:3],
+           "checkpoint": {
+               "saves": saves,
+               "save_ms_in_loop": 1e3 * bd["seconds"].get("checkpoint", 0.0)
+               / saves,
+               "save_ms": save_ms, "write_wait_ms": wait_ms,
+               "write_ms_writer_thread": [1e3 * s for s in cm.write_seconds],
+               "bytes": ckpt_bytes, "verify_ms": verify_ms,
+               "restore_latest_ms": restore_ms,
+               "restore_not_bitwise": after_restore},
+           "memory": {"ledger_after_step_5": mid.get("ledger"),
+                      "ledger_before_build": base,
+                      "reconcile_after_step_5": mid.get("reconcile"),
+                      "allocated_after_step_5": mid.get("allocated"),
+                      "peak_allocated_gib": peak / gib,
+                      "fit_result": {k: v for k, v in res_a.memory.items()
+                                     if k != "per_step"}},
+           "launches": launches,
+           "launches_per_step": {k: v / res_a.step
+                                 for k, v in launches.items()},
+           "kill_resume": {"killed_at": FIT_KILL, "killed": killed is None,
+                           "resumed_from": res_b.resumed_from,
+                           "resumed_steps": len(res_b.losses),
+                           "resume_wall_s": wall_b,
+                           "launches": launches_b,
+                           "losses_bitwise":
+                               res_b.losses == res_a.losses[resume_from:],
+                           "state_not_bitwise": kill_bad},
+           "losses": res_a.losses, "card": card}
+    emit(row)
+    if not (np.all(np.isfinite(res_a.losses)) and
+            0.0 < res_a.losses[0] < 20.0) or res_a.step != FIT_STEPS:
+        fail(f"fit_train: bad run {res_a.losses}")
+    if any(v != 48 * res_a.step for v in launches.values()) or \
+            any(v != 48 * len(res_b.losses) for v in launches_b.values()):
+        fail(f"fit_train: expected 48 launches of each BN kernel a step: "
+             f"{launches} {launches_b}")
+    if killed is not None or res_b.resumed_from != resume_from or \
+            row["kill_resume"]["losses_bitwise"] is not True or kill_bad:
+        fail(f"fit_train: the killed-then-resumed run is not the "
+             f"fault-free run bit for bit: {row['kill_resume']}")
+    if after_restore:
+        fail(f"fit_train: restore_latest did not give back the final "
+             f"state: {after_restore[:5]}")
+    # the ledger is process-wide (host tensors of earlier phases too): hold
+    # what this run added against the card's allocation
+    if not mid or sum(mid["ledger"].values()) - sum(base.values()) > \
+            mid["allocated"]:
+        fail(f"fit_train: the memory ledger exceeds the allocator's count: "
+             f"{row['memory']}")
+    return launches, row
+
+
+def fit_phases(torch, mt, card, gluon_row, timed):
+    """fit_reference then fit_train, their checkpoints in one temporary
+    directory removed afterwards."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="mxt_fit_")
+    try:
+        timed("fit_reference", fit_reference, torch, mt, tmp)
+        launches, _ = timed("fit_train", fit_train, torch, mt, card,
+                            gluon_row, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2794,19 +3251,24 @@ def main():
     # the v2 phases so every earlier row stays as it was
     timed("trainer_reference", trainer_reference, torch, mt)
     timed("optimizer_ops", optimizer_ops_phase, torch, mt)
-    gluon_launches, _ = timed("gluon_train", gluon_train, torch, mt, card)
+    gluon_launches, gluon_row = timed("gluon_train", gluon_train, torch, mt,
+                                      card)
     torch.cuda.empty_cache()
     totals_f32 = timed("kernel_f32", kernel_f32_phase, torch, tk)
+    # the FitLoop path, after every earlier phase
+    fit_launches = fit_phases(torch, mt, card, gluon_row, timed)
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
              "kernel_f32")
+    fits = ("fit_reference", "fit_train")
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
-                                  if k not in v2 + gluon),
+                                  if k not in v2 + gluon + fits),
           "v2_phases_s": sum(walls[k] for k in v2),
-          "gluon_trainer_phases_s": sum(walls[k] for k in gluon)})
+          "gluon_trainer_phases_s": sum(walls[k] for k in gluon),
+          "fit_phases_s": sum(walls[k] for k in fits)})
 
     kernels = []
     for name, (replaces, _) in KERNELS.items():
@@ -2841,7 +3303,12 @@ def main():
                     "library_ms": totals_f32[name]["library_ms"],
                     "per": f"one gluon.Trainer ResNet-50 v1 step (48 "
                            f"sites, batch {GT_BATCH}, f32); launches over "
-                           f"the {GT_STEPS} timed steps of gluon_train"}})
+                           f"the {GT_STEPS} timed steps of gluon_train"},
+            "fit": {"launches": fit_launches[name],
+                    "launches_per_step": fit_launches[name] / FIT_STEPS,
+                    "per": "the f32 block's kernel at the same sites; "
+                           f"launches over the {FIT_STEPS} steps of "
+                           "fit_train's fault-free FitLoop run"}})
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,

@@ -12,8 +12,9 @@ torch accumulates into the variable's own gradient buffer by its
 delivered buffer is marked fresh (``_fresh_grad``) until an optimizer
 step consumes it.
 
-Not ported: ``capture`` and ``grad_ready_scope`` (hybridize and
-comm-overlap plumbing) and row-sparse gradients (ROADMAP).
+Not ported: ``capture`` (hybridize, ROADMAP A8), ``grad_ready_scope``
+(comm overlap, A10), ``get_symbol`` (symbol, A14) and row-sparse
+gradients (A11).
 """
 from __future__ import annotations
 

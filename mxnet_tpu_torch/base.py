@@ -14,7 +14,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "check", "EnvRegistry", "env", "coerce_param",
+__all__ = ["MXNetError", "check", "EnvRegistry", "env", "env_switch",
+           "coerce_param",
            "hashable_params", "torch_dtype", "numpy_dtype"]
 
 
@@ -114,6 +115,89 @@ env.declare("MXTPU_NUMERICS", str, "",
             "In-graph numerics observability plane ('on[,every=N]...'). "
             "Not ported yet: a value other than empty/off raises when a "
             "gluon.Trainer is built.")
+env.declare("MXNET_IS_RECOVERY", bool, False,
+            "Set by the relauncher on restarted nodes; read by "
+            "mx.fault.is_recovery().")
+env.declare("DMLC_RANK", int, 0,
+            "Launcher-assigned rank; names this worker's heartbeat file "
+            "in mx.fault.")
+env.declare("MXTPU_WORKER_ID", int, 0,
+            "This process's rank; stamps telemetry trace events.")
+env.declare("MXTPU_CHAOS", str, "",
+            "Deterministic fault-injection plan for resilience testing, "
+            "e.g. 'nan_grad@12,kill@40,ckpt_corrupt@latest,kv_flake:0.2' "
+            "(contrib/chaos.py grammar; hooks in trainer/kvstore/fault).")
+env.declare("MXTPU_CHAOS_SEED", int, 0,
+            "Seed for the chaos plan's RNG (kv_flake rolls) so injected "
+            "failure sequences replay identically.")
+env.declare("MXNET_KV_RETRY_MAX", int, 3,
+            "Bounded retries (exponential backoff) around kvstore "
+            "push/pull on TransientKVError before giving up.")
+env.declare("MXNET_KV_RETRY_BASE_MS", float, 50.0,
+            "Backoff base for kvstore push/pull retries: attempt n sleeps "
+            "base * 2**(n-1) milliseconds.")
+env.declare("MXTPU_RESUMABLE_EXIT_CODE", int, 75,
+            "Exit code FitLoop uses after a SIGTERM/SIGINT-triggered final "
+            "checkpoint (default 75 = EX_TEMPFAIL), so the relauncher can "
+            "tell 'resume me' from a real failure.")
+env.declare("MXTPU_PROFILE", str, "",
+            "Telemetry tracer spec, applied at import: comma-separated "
+            "tokens 'on'|'off'|'ring=N'|'cat=a|b'|'file=PATH' (see "
+            "telemetry.tracer). Empty = tracing off.")
+env.declare("MXTPU_PROFILE_BOUND_FRAC", float, 0.4,
+            "Step-breakdown detector threshold: any non-compute segment "
+            "whose share of wall-clock step time reaches this fraction "
+            "logs a one-line input-bound/comm-bound diagnosis. <=0 "
+            "disables the detector.")
+env.declare("MXTPU_MEM_BUDGET", int, 0,
+            "Device-memory budget in bytes for the live-byte ledger "
+            "(telemetry/memory.py). When > 0, fit.FitLoop checks the "
+            "per-step ledger watermark against it and writes a ranked "
+            "memory-forensics dump on the first step that exceeds it. 0 "
+            "disables the budget check.")
+env.declare("MXTPU_MEM_DUMP_DIR", str, "",
+            "Directory memory-forensics dumps are written to "
+            "(mem_forensics_<pid>_<n>.json). Empty = the current working "
+            "directory.")
+env.declare("MXTPU_EFFICIENCY", str, "",
+            "Efficiency/goodput plane ('on'/'off'). Not ported yet: 'on' "
+            "raises when FitLoop.fit starts. Unknown tokens raise.")
+env.declare("MXTPU_AUTOTUNE", str, "off",
+            "Telemetry-driven knob autotuner. Not ported yet: a spec that "
+            "turns it on raises when FitLoop.fit starts.")
+env.declare("MXTPU_RUN_REPORT_DIR", str, "",
+            "Directory for FitLoop's persistent run report. Not ported "
+            "yet: a non-empty value raises when FitLoop.fit starts.")
+env.declare("MXTPU_COLL_HEALTH", int, 0,
+            "Cross-rank comm-health cadence in steps. Not ported yet: a "
+            "value > 0 raises when FitLoop.fit starts; unparseable values "
+            "raise.")
+env.declare("MXTPU_COLL_TIMEOUT_S", float, 0.0,
+            "Hung-collective watchdog timeout in seconds. Not ported yet: "
+            "a value > 0 raises when FitLoop.fit starts; unparseable values "
+            "raise.")
+env.declare("MXTPU_ZERO_WORLD", int, 0,
+            "Simulated ZeRO-1 world size. Not ported yet: a value > 1 "
+            "raises where the topology is read (parallel/elastic.py).")
+env.declare("MXTPU_ELASTIC", str, "off",
+            "Elastic world-size resume ('on'/'off'): a checkpoint whose "
+            "recorded world differs from this process's raises "
+            "elastic.TopologyMismatchError with 'off'; with 'on' the "
+            "resize needs a process group, which is not ported yet "
+            "(raises). Unknown values raise.")
+
+
+def env_switch(name: str) -> bool:
+    """A strict on/off flag, parsed as the JAX package parses its switches
+    (``MXTPU_ZERO``, ``MXTPU_MEGASTEP``, ``MXTPU_ELASTIC`` ...): unset,
+    "", "0", "off", "false" are off, "1", "on", "true" on, anything else
+    raises."""
+    raw = str(env.get(name) or "").strip().lower()
+    if raw in ("", "0", "off", "false"):
+        return False
+    if raw in ("1", "on", "true"):
+        return True
+    raise MXNetError(f"{name}: unknown value {raw!r} (known: on, off)")
 
 
 # ---------------------------------------------------------------------------

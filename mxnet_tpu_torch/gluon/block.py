@@ -164,6 +164,20 @@ class HybridBlock(nn.Module):
                 ret.update(child.collect_params())
         return ret
 
+    def _collect_params_with_prefix(self, prefix: str = "") -> dict:
+        """Parameters under structural names (``"0.weight"``,
+        ``"features.3.body.1.gamma"``: child attribute names and the
+        parameter's short name), which do not depend on the name counters
+        (ref: the JAX package's ``block.py``; the checkpoint format)."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k[len(self._prefix):]: v
+               for k, v in self._params.items()}
+        for name, child in self.named_children():
+            if isinstance(child, HybridBlock):
+                ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
     def initialize(self, init=None, generator=None) -> None:
         """Fill every parameter not yet set: a parameter's own initializer
         when it has one, else ``init`` (default ``Uniform(0.07)``, MXNet's);

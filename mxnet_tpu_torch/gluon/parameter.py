@@ -27,6 +27,10 @@ generator; the block's first forward fills the 0s from its input
 initialises it (``_finish_deferred``). ``set_data`` on such a parameter
 creates it from the value's shape. ``data()`` before that raises
 :class:`DeferredInitializationError`.
+
+Each tensor and gradient buffer is registered with the memory ledger
+(``telemetry/memory.py``, categories ``params`` and ``grads``) where it
+is created, resized or dropped, as the JAX package's parameters do.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from torch import nn
 from .. import autograd
 from ..base import MXNetError, check
 from ..ndarray.ndarray import NDArray
+from ..telemetry import memory as _memory
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
 
@@ -69,6 +74,7 @@ class Parameter:
         self._deferred_init = None     # (initializer, generator)
         self.initialized = False
         self.grad_req = grad_req
+        _memory.track_param_data(self)
 
     @property
     def attr(self) -> str:
@@ -122,9 +128,11 @@ class Parameter:
     def _attach(self, nd_) -> None:
         if self._grad_req == "null":
             nd_._grad, nd_._grad_req = None, None
+            _memory.drop_param_grad(self)
             return
         grad = NDArray(torch.zeros_like(self.tensor.detach()))
         autograd.mark_variables([nd_], [grad], self._grad_req)
+        _memory.track_param_grad(self, grad)
 
     # -- deferred initialisation ------------------------------------------
     def shape_hint(self, shape) -> None:
@@ -140,6 +148,7 @@ class Parameter:
         else:
             self._block.register_buffer(self._attr, t)
         self._shape = tuple(shape)
+        _memory.track_param_data(self)
         self.grad_req = self._grad_req       # attaches the gradient buffer
         return self.tensor
 
@@ -257,6 +266,8 @@ class Parameter:
             g = self.data()._grad
             if g is not None:
                 g._data = g._data.to(dtype)
+        _memory.track_param_data(self)
+        _memory.track_param_grad(self, g)
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "

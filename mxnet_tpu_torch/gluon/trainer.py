@@ -22,6 +22,11 @@ ones). ``update_with_sentinel`` guards the update with one on-device
 all-finite flag and returns it; ``rollback_step`` undoes the host-side
 effects of a skipped step.
 
+An installed chaos plan (``contrib/chaos.py``, e.g. from
+``MXTPU_CHAOS``) gets its step clock from ``step()`` (``_chaos_step``),
+which also lets it poison a gradient (``nan_grad@N`` / ``inf_grad@N``);
+``fit.FitLoop`` drives the clock itself and never calls ``step()``.
+
 A kvstore named by a string (``"device"``, the default, or ``"local"``)
 is created and dropped, since one device and one worker add nothing over
 direct updates (``trainer.py:240-244`` of the JAX package); a store
@@ -32,8 +37,7 @@ Not ported, each raising ``NotPortedError`` when asked for, by argument
 or by environment flag: ``MXTPU_COMM_OVERLAP=on`` (``overlap_scope``)
 and flat gradient buckets (``MXTPU_GRAD_BUCKET_MB`` with a store
 object), ``compression_params``, ``MXTPU_ZERO`` (ROADMAP A10);
-``megastep_plan`` / ``MXTPU_MEGASTEP`` (A8); ``MXTPU_NUMERICS`` (A9);
-chaos plans (``overlap_scope(chaos_step=...)``, A6).
+``megastep_plan`` / ``MXTPU_MEGASTEP`` (A8); ``MXTPU_NUMERICS`` (A9).
 """
 from __future__ import annotations
 
@@ -42,9 +46,11 @@ import re
 from typing import List
 
 from ..base import MXNetError, check, env
+from ..base import env_switch as _switch
 from .. import optimizer as opt_mod
 from ..ops.registry import NotPortedError
 from ..optimizer import grouped as _grouped
+from ..telemetry import memory as _memory
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -57,17 +63,6 @@ def _natural_key(name: str):
     right ones)."""
     return [(1, int(t)) if t.isdigit() else (0, t)
             for t in re.split(r"(\d+)", name)]
-
-
-def _switch(name: str) -> bool:
-    """A strict on/off environment flag (typos raise, as in the JAX
-    package)."""
-    raw = str(env.get(name) or "").strip().lower()
-    if raw in ("", "0", "off", "false"):
-        return False
-    if raw in ("1", "on", "true"):
-        return True
-    raise MXNetError(f"{name}: unknown value {raw!r} (known: on, off)")
 
 
 def _not_ported(what: str, item: str) -> NotPortedError:
@@ -107,6 +102,7 @@ class Trainer:
         self._kvstore_arg = kvstore
         self._kvstore = None
         self._kv_initialized = False
+        self._chaos_step = 0  # step clock for env-driven chaos plans
         self.last_update_dispatches = 0
         self.last_allreduce_collectives = 0
         self._last_fused_indices: List[int] = []
@@ -155,11 +151,11 @@ class Trainer:
     def overlap_scope(self, chaos_step=None):
         """A context for one ``backward``. With ``MXTPU_COMM_OVERLAP`` off
         it does nothing, so ``with trainer.overlap_scope():
-        loss.backward()`` runs anywhere; overlapped communication and
-        chaos plans are not ported."""
-        if chaos_step is not None:
-            raise _not_ported("chaos plans (overlap_scope(chaos_step=))",
-                              "A6")
+        loss.backward()`` runs anywhere. ``chaos_step`` is the chaos
+        clock the coming step runs under (``fit.FitLoop`` passes its
+        step counter); it matters only to the overlapped scope, which
+        goes inactive for a step the plan will poison. Overlapped
+        communication is not ported."""
         if _switch("MXTPU_COMM_OVERLAP"):
             raise _not_ported("overlapping gradient communication with "
                               "backward (MXTPU_COMM_OVERLAP)", "A10")
@@ -209,6 +205,14 @@ class Trainer:
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        from ..contrib import chaos
+        plan = chaos.active()
+        if plan is not None:
+            # drive the plan's step clock for classic backward + step
+            # loops (FitLoop drives it itself and never calls step())
+            plan.begin_step(self._chaos_step)
+            self._chaos_step += 1
+            plan.poison_grads(self._params)
         self.allreduce_grads()
         self._update(ignore_stale_grad)
 
@@ -235,6 +239,7 @@ class Trainer:
         for i in self._last_fused_created:
             self._updaters[0].states.pop(i, None)
             self._updaters[0].states_synced.pop(i, None)
+            _memory.drop_optimizer_state(self._updaters[0], i)
         self._last_fused_indices = []
         self._last_fused_created = []
 

@@ -15,20 +15,67 @@ The port runs on one card in one process: ``num_devices`` and
 a name and updates directly. Not ported, each raising
 ``NotPortedError``: the ``dist_*`` stores and gradient compression
 (ROADMAP A10), ``row_sparse_pull`` (A11).
+
+Each key's push or pull runs under a bounded retry: a
+:class:`TransientKVError` is retried with exponential backoff
+(``MXNET_KV_RETRY_MAX``, ``MXNET_KV_RETRY_BASE_MS``), anything else
+propagates. An installed chaos plan (``contrib/chaos.py``) may fail an
+attempt (``kv_flake``) or delay it (``kv_slow``) at that entry, before the
+key's store is touched, so a retry never applies an update twice.
 """
 from __future__ import annotations
 
 import pickle
+import time
 from typing import Any, Dict, List
 
 import torch
 
-from .base import MXNetError, check
+from .base import MXNetError, check, env
 from .ndarray import ndarray as _nd
 from .ops.registry import NotPortedError
 
 __all__ = ["KVStore", "KVStoreBase", "KVStoreLocal", "KVStoreDevice",
-           "create"]
+           "TransientKVError", "create"]
+
+
+class TransientKVError(MXNetError):
+    """A push/pull failed in a way that is safe to retry (a network flake,
+    a peer mid-rejoin). push/pull retry with exponential backoff up to
+    ``MXNET_KV_RETRY_MAX`` attempts before giving up."""
+
+
+def _retry_op(what: str, fn):
+    """Bounded retry with exponential backoff around one key's push or
+    pull. Only :class:`TransientKVError` is retried; the failure points
+    precede that key's store mutation, so a retry never applies an
+    update twice."""
+    max_retries = int(env.get("MXNET_KV_RETRY_MAX"))
+    base = float(env.get("MXNET_KV_RETRY_BASE_MS")) / 1000.0
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except TransientKVError as e:
+            attempt += 1
+            if attempt > max_retries:
+                raise MXNetError(
+                    f"kvstore {what} still failing after {max_retries} "
+                    f"retries: {e}") from e
+            time.sleep(base * (2 ** (attempt - 1)))
+
+
+def _chaos_kv(op: str, key) -> None:
+    """The chaos plan's kvstore entry: kv_flake may raise, kv_slow
+    sleeps (the flake first, so a failed attempt costs only the
+    backoff)."""
+    from .contrib import chaos
+    plan = chaos.active()
+    if plan is not None:
+        plan.kv_maybe_fail(op, key)
+        delay = plan.kv_delay_s()
+        if delay > 0.0:
+            time.sleep(delay)
 
 
 def _group(keys, values):
@@ -101,29 +148,37 @@ class KVStoreBase:
 
     def push(self, key, value, priority: int = 0) -> None:
         for k, vals in _group(key, value):
-            check(k in self._store, f"kvstore key {k} not initialized")
-            for v in vals:
-                if getattr(v, "stype", "default") != "default":
-                    raise NotPortedError(
-                        "row-sparse pushes are not ported yet (ROADMAP.md, "
-                        "queue A11)")
-            merged = self._merge(vals)
-            store = self._store[k]
-            if self._updater is not None:
-                self._updater(_key_int(k), merged, store)
-            else:
-                with torch.no_grad():
-                    store._data.copy_(merged._data.to(store._data.device))
+            _retry_op("push", lambda k=k, vals=vals: self._push_one(k, vals))
+
+    def _push_one(self, k, vals) -> None:
+        _chaos_kv("push", k)
+        check(k in self._store, f"kvstore key {k} not initialized")
+        for v in vals:
+            if getattr(v, "stype", "default") != "default":
+                raise NotPortedError(
+                    "row-sparse pushes are not ported yet (ROADMAP.md, "
+                    "queue A11)")
+        merged = self._merge(vals)
+        store = self._store[k]
+        if self._updater is not None:
+            self._updater(_key_int(k), merged, store)
+        else:
+            with torch.no_grad():
+                store._data.copy_(merged._data.to(store._data.device))
 
     def pull(self, key, out=None, priority: int = 0,
              ignore_sparse: bool = True) -> None:
         check(out is not None, "pull requires out=")
         for k, outs in _group(key, out):
-            check(k in self._store, f"kvstore key {k} not initialized")
-            src = self._store[k]._data
-            for o in outs:
-                with torch.no_grad():
-                    o._data.copy_(src.to(o._data.device))
+            _retry_op("pull", lambda k=k, outs=outs: self._pull_one(k, outs))
+
+    def _pull_one(self, k, outs) -> None:
+        _chaos_kv("pull", k)
+        check(k in self._store, f"kvstore key {k} not initialized")
+        src = self._store[k]._data
+        for o in outs:
+            with torch.no_grad():
+                o._data.copy_(src.to(o._data.device))
 
     def pushpull(self, key, value, out=None, priority: int = 0) -> None:
         self.push(key, value, priority)

@@ -38,6 +38,7 @@ import torch
 from ..base import MXNetError, check, env
 from ..ops import optimizer_ops as _ops
 from ..ops.registry import NotPortedError
+from ..telemetry import memory as _memory
 from .optimizer import adam_lr
 
 __all__ = ["aggregation_size", "eligible", "grouped_update",
@@ -271,6 +272,8 @@ def prepare_update(updater, items):
         if i not in updater.states:
             updater.states[i] = opt.create_state_multi_precision(i, p.data())
             created.append(i)
+            _memory.track_optimizer_state(updater, i, updater.states[i],
+                                          param=p)
         opt._update_count(i)
     prepared = []
     for i, p in items:

@@ -31,6 +31,7 @@ from ..ndarray import ndarray as _nd
 from ..ops import optimizer_ops as _ops
 from ..ops.registry import NotPortedError
 from .. import random as _random
+from ..telemetry import memory as _memory
 
 __all__ = ["Optimizer", "SGD", "Adam", "NAG", "RMSProp", "AdaGrad",
            "AdaDelta", "Ftrl", "FTML", "Signum", "SignSGD", "LBSGD",
@@ -607,6 +608,8 @@ class Updater:
         if index not in self.states:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
+            _memory.track_optimizer_state(self, index, self.states[index],
+                                          weight=weight)
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
 
@@ -617,9 +620,10 @@ class Updater:
     COUNTS_KEY = "__index_update_counts__"
     NUM_UPDATE_KEY = "__num_update__"
 
-    def get_states(self, dump_optimizer=False, indices=None):
-        """The pickled state dict (NDArrays travel as numpy arrays), with
-        the step counters; ``indices`` restricts it to those slots."""
+    def states_payload(self, indices=None) -> dict:
+        """What :meth:`get_states` pickles: the state dict (its arrays
+        themselves, not copies) and copies of the step counters;
+        ``indices`` restricts it to those slots."""
         states = self.states if indices is None else \
             {i: s for i, s in self.states.items() if i in indices}
         counts = self.optimizer._index_update_count
@@ -628,6 +632,12 @@ class Updater:
         payload = dict(states)
         payload[self.COUNTS_KEY] = dict(counts)
         payload[self.NUM_UPDATE_KEY] = int(self.optimizer.num_update)
+        return payload
+
+    def get_states(self, dump_optimizer=False, indices=None):
+        """The pickled state dict (NDArrays travel as numpy arrays), with
+        the step counters; ``indices`` restricts it to those slots."""
+        payload = self.states_payload(indices)
         return pickle.dumps((payload, self.optimizer)
                             if dump_optimizer else payload)
 
@@ -658,6 +668,11 @@ class Updater:
         if keep is not None:
             self.states = {i: s for i, s in self.states.items()
                            if i in keep}
+        # the restored dict replaces the old one wholesale: drop the old
+        # entries, then ledger every restored state
+        _memory.drop_updater_states(self)
+        for index, state in self.states.items():
+            _memory.track_optimizer_state(self, index, state)
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -25,6 +25,27 @@ TRAINER_FLAGS = {"MXTPU_OPTIMIZER_AGGREGATION": ["0", "1", "4", "64", None],
                  "MXTPU_MEGASTEP": ["on", "off", "", None],
                  "MXTPU_ZERO": ["on", "off", "1", None],
                  "MXTPU_NUMERICS": ["on,every=2", "off", "", None]}
+# the FitLoop path's flags (fit, fault, chaos, kvstore retry, telemetry,
+# elastic), with values of their types
+FIT_FLAGS = {"MXNET_IS_RECOVERY": ["1", "0", "False", "", None],
+             "DMLC_RANK": ["0", "3", None],
+             "MXTPU_WORKER_ID": ["0", "2", None],
+             "MXTPU_CHAOS": ["kill@3", "", None],
+             "MXTPU_CHAOS_SEED": ["0", "11", None],
+             "MXNET_KV_RETRY_MAX": ["0", "5", None],
+             "MXNET_KV_RETRY_BASE_MS": ["0.5", "50", None],
+             "MXTPU_RESUMABLE_EXIT_CODE": ["75", "3", None],
+             "MXTPU_PROFILE": ["on,ring=8", "off", None],
+             "MXTPU_PROFILE_BOUND_FRAC": ["0", "0.4", None],
+             "MXTPU_MEM_BUDGET": ["0", "1048576", None],
+             "MXTPU_MEM_DUMP_DIR": ["dumps", "", None],
+             "MXTPU_EFFICIENCY": ["on", "off", "", None],
+             "MXTPU_AUTOTUNE": ["on", "off", None],
+             "MXTPU_RUN_REPORT_DIR": ["reports", "", None],
+             "MXTPU_COLL_HEALTH": ["0", "4", None],
+             "MXTPU_COLL_TIMEOUT_S": ["0", "2.5", None],
+             "MXTPU_ZERO_WORLD": ["0", "2", None],
+             "MXTPU_ELASTIC": ["on", "off", None]}
 VALUES = ["on", "yes", "2", "1", "true", "0", "false", "False", "", None]
 
 
@@ -58,16 +79,23 @@ def test_safe_acc_upcast_decision_matches_jax(monkeypatch, value):
 
 
 def test_declarations_match_jax():
-    for name in PORTED + tuple(TRAINER_FLAGS):
+    for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
     assert {n for n, *_ in tbase.env.items()} == \
-        set(PORTED) | set(TRAINER_FLAGS)
+        set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS)
 
 
 @pytest.mark.parametrize("name,value", [
     (n, v) for n, vs in TRAINER_FLAGS.items() for v in vs])
 def test_trainer_flag_get_matches_jax(monkeypatch, name, value):
+    _set(monkeypatch, name, value)
+    assert tbase.env.get(name) == jbase.env.get(name)
+
+
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, vs in FIT_FLAGS.items() for v in vs])
+def test_fit_flag_get_matches_jax(monkeypatch, name, value):
     _set(monkeypatch, name, value)
     assert tbase.env.get(name) == jbase.env.get(name)
 
