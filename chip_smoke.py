@@ -165,13 +165,25 @@ Phases, each printing JSON lines:
     the memory ledger against ``torch.cuda.memory_allocated()``, 48
     launches of each BN kernel a step; then the same run killed at step
     10 and relaunched, which restores ckpt-8 and must equal the fault-free
-    run bit for bit (losses, weights, momenta, running statistics). The
+    run bit for bit (losses, weights, momenta, running statistics);
+    ``megastep_train``, the same workload under ``MXTPU_MEGASTEP=on``
+    (the step as one CUDA graph replay per signature) against the
+    composed path, from fresh objects: bit for bit without checkpoints
+    and with ``ckpt_every=4``, loss scale 128 and ``nan_grad@5`` (skipped
+    inside the graph), one cache miss and no wrapper call after the first
+    step, the megastep run killed at 10 and resumed bit for bit; median
+    step against the composed and bare loops, the idle share of a
+    profiled epoch of each (48 device launches of each BN kernel a step
+    in the replays), the capture's ms, peak and reserved memory; the six
+    ``tests/test_zero.py`` optimizer configurations on a small MLP card
+    against host and a Dropout MLP drawing new masks on each replay. The
     checkpoints live in a temporary directory the phase removes;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
     over the 48 call sites, with the v2 step's sums and launches under
-    ``v2`` and the f32 Gluon step's under ``f32``; flash_fwd's per
+    ``v2``, the f32 Gluon step's under ``f32``, the FitLoop's under
+    ``fit`` and the megastep's replays under ``megastep``; flash_fwd's per
     launch at the path's shape; the rtc kernels' per launch at the sizes
     above, sgd_mom's per imperative step, the sum over its 4 launches)
     and, last, the device line.
@@ -3149,19 +3161,340 @@ def fit_train(torch, mt, card, gluon_row, tmp):
     return launches, row
 
 
+# the megastep's card-vs-host MLP: tests/test_zero.py's six OPTS
+MEGA_OPTS = (
+    ("sgd", {"learning_rate": 0.1, "wd": 0.01}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 0.01}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 0.01, "wd": 0.001}),
+    ("rmsprop", {"learning_rate": 0.01}),
+    ("rmsprop", {"learning_rate": 0.01, "centered": True}),
+)
+MEGA_SKIP, MEGA_SCALE = 5, 128.0
+
+
+def _mega_mlp(torch, mt, ctx, opt, kw, mega, dropout=None, steps=4,
+              repeat=False):
+    """tests/test_megastep.py's MLP (Dense 16 ReLU, Dense 4, L2 loss,
+    batch 4) from numpy weights (seed 0) and data (seed 0) on ``ctx``,
+    ``steps`` FitLoop steps with the megastep on or off; ``dropout`` puts
+    a Dropout between the layers, ``repeat`` feeds one batch every step.
+    Returns (losses, every weight and optimizer state tensor)."""
+    import numpy as np
+    os.environ["MXTPU_MEGASTEP"] = "on" if mega else "off"
+    rs = np.random.RandomState(0)
+    X = rs.rand(4 if repeat else steps * 4, 16).astype(np.float32)
+    Y = rs.rand(4 if repeat else steps * 4, 4).astype(np.float32)
+    if repeat:
+        X, Y = np.tile(X, (steps, 1)), np.tile(Y, (steps, 1))
+    init = np.random.RandomState(0)
+    with ctx:
+        net = mt.gluon.nn.Sequential()
+        net.add(mt.gluon.nn.Dense(16, in_units=16, activation="relu"))
+        if dropout is not None:
+            net.add(mt.gluon.nn.Dropout(dropout))
+        net.add(mt.gluon.nn.Dense(4, in_units=16))
+        for _, p in sorted(net._collect_params_with_prefix().items()):
+            p.set_data(0.5 * init.randn(*p.shape).astype(np.float32))
+        tr = mt.gluon.Trainer(net.collect_params(), opt, dict(kw))
+        loop = mt.fit.FitLoop(net, tr, mt.gluon.loss.L2Loss(),
+                              mt.io.NDArrayIter(X, Y, batch_size=4),
+                              heartbeat=False)
+        res = loop.fit(epochs=1)
+    return res.losses, [p.tensor.detach().clone() for p in tr._params] + \
+        [t.clone() for t in _state_tensors(tr)]
+
+
+def megastep_train(torch, mt, card, fit_row, tmp):
+    """MXTPU_MEGASTEP=on: FitLoop's whole step (forward, backward, the
+    chaos poison site, the finiteness sentinel, the grouped update, the
+    loss mean) as one CUDA graph replay per input signature, on
+    fit_train's workload: get_model("resnet50_v1", layout="NHWC"),
+    Xavier from seed 0, gluon.Trainer(sgd, lr 0.05, momentum 0.9, kvstore
+    "device"), aggregation 4, f32, TF32 off, deterministic cuDNN,
+    DeviceStagingIter(NDArrayIter(FIT_IMAGES images and labels from seed
+    1, batch 32, shuffled with seed 13)), 2 epochs (16 steps). Two runs
+    of each of the megastep and the composed path, from fresh objects:
+    without checkpoints (losses, weights, momenta and running statistics
+    bit for bit; the BN wrappers launch 48 times each, all in the eager
+    first step (a capture records without counting, a replay calls no
+    wrapper), the signature cache one miss), and with checkpoints every 4 steps, loss
+    scale 128 and chaos nan_grad@5 (step 5 skipped inside the graph, the
+    scale backed off, bit for bit). Then the megastep run killed at step
+    10 and relaunched from ckpt-8, bit for bit the fault-free megastep
+    run. Timed: the median step of each run without checkpoints and of
+    the bare record / backward / trainer.step loop; one profiled epoch of
+    each (the card's idle share; 48 device launches of each BN kernel a
+    step in the megastep's replays); the capture's ms; peak allocation
+    and memory_reserved() of each run. Then the small MLP for each of
+    tests/test_zero.py's six optimizer configurations: the megastep on
+    the card against the port on the host within 1e-4 of each tensor's
+    largest value, and against the composed path on the card bit for
+    bit; and a Dropout MLP whose replays draw new masks."""
+    import gc
+    import numpy as np
+    from mxnet_tpu_torch import megastep as tms
+    from mxnet_tpu_torch.contrib import chaos
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    saved = {k: os.environ.get(k) for k in ("MXTPU_OPTIMIZER_AGGREGATION",
+                                           "MXTPU_MEGASTEP")}
+    os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = "4"
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(1)
+    X = rng.random((FIT_IMAGES, IMG, IMG, 3), dtype=np.float32)
+    Y = rng.integers(0, 1000, FIT_IMAGES).astype(np.float32)
+    lossfn = gloss.SoftmaxCrossEntropyLoss()
+    gib = 2.0 ** 30
+
+    def build(d=None, **kw):
+        net = get_model("resnet50_v1", layout="NHWC")
+        net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(GT_OPT), kvstore="device")
+        return net, trainer, loop_over(net, trainer, d, **kw)
+
+    def loop_over(net, trainer, d=None, **kw):
+        itr = mt.io.DeviceStagingIter(mt.io.NDArrayIter(
+            X, Y, batch_size=GT_BATCH, shuffle=True, seed=13))
+        return mt.fit.FitLoop(net, trainer, lossfn, itr, ckpt_dir=d,
+                              ckpt_every=FIT_CKPT_EVERY, async_ckpt=True,
+                              **kw)
+
+    def run(loop, mega, plan=None, epochs=FIT_EPOCHS):
+        os.environ["MXTPU_MEGASTEP"] = "on" if mega else "off"
+        if plan:
+            chaos.install(plan)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launches()
+        try:
+            res = loop.fit(epochs=epochs)
+        except chaos.ChaosKilled:
+            res = None
+        finally:
+            chaos.uninstall()
+        torch.cuda.synchronize()
+        return res, {"peak_allocated_gib":
+                     torch.cuda.max_memory_allocated() / gib,
+                     "reserved_gib": torch.cuda.memory_reserved() / gib}
+
+    def median_ms(res):
+        return 1e3 * float(np.median([r["wall"] for r in
+                                      res.step_breakdown["per_step"][1:]]))
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 1. without checkpoints: the composed path, then the megastep
+    net, trainer, loop = build()
+    res_c, mem_c = run(loop, False)
+    state_c = _fit_state(torch, net, trainer)
+    del net, trainer, loop
+    release()
+    net, trainer, loop = build(on_step_end=lambda s, l: per_step.append(
+        dict(tk.launches)))
+    per_step = []
+    res_m, mem_m = run(loop, True)
+    state_m = _fit_state(torch, net, trainer)
+    launches_run = dict(tk.launches)
+    info = tms.cache_info(net)
+    capture_ms = net._mxtpu_megastep_cache.snapshot_items()[0][1] \
+        .capture_ms
+    parity_bad = _not_bitwise(torch, state_m, state_c)
+    del state_m, state_c
+    # the bare loop on the same net and batches, same call
+    xb = [mt.nd.array(X[i * GT_BATCH:(i + 1) * GT_BATCH]) for i in (0, 1)]
+    yb = [mt.nd.array(Y[i * GT_BATCH:(i + 1) * GT_BATCH]) for i in (0, 1)]
+
+    def bare(i):
+        with mt.autograd.record():
+            loss = lossfn(net(xb[i % 2]), yb[i % 2])
+        loss.backward()
+        trainer.step(GT_BATCH)
+        loss.mean().asscalar()     # the loss to the host, as FitLoop does
+
+    bare(0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(GT_STEPS):
+        bare(i + 1)
+    torch.cuda.synchronize()
+    bare_ms = 1e3 * (time.perf_counter() - t) / GT_STEPS
+    # one profiled epoch of each on the same net (the megastep's replays
+    # reuse the captured graph: same net, same signature)
+    profiles = {}
+    for name, mega in (("megastep", True), ("composed", False)):
+        os.environ["MXTPU_MEGASTEP"] = "on" if mega else "off"
+        prof, wall = _profiled(torch, lambda: loop_over(net, trainer).fit(
+            epochs=1, resume=False))
+        profiles[name] = _summary(
+            f"one FitLoop epoch (8 steps), {name}, no checkpoints",
+            _device_kernels(prof), wall, {})
+        profiles[name]["host_top_ops"] = _host_top(torch, prof, 8)
+        emit(profiles[name])
+
+    def bare_epoch():
+        for i in range(FIT_IMAGES // GT_BATCH):
+            bare(i)
+
+    prof, wall = _profiled(torch, bare_epoch)
+    profiles["bare"] = _summary("the bare loop, 8 steps",
+                                _device_kernels(prof), wall, {})
+    emit(profiles["bare"])
+    del net, trainer, loop, xb, yb, prof
+    release()
+    # 2. checkpoints every 4, loss scale 128, nan_grad@5; then kill@10
+    plan = f"nan_grad@{MEGA_SKIP}"
+    dirs = {k: os.path.join(tmp, f"mega_{k}") for k in ("c", "m", "k")}
+    net, trainer, loop = build(dirs["c"], loss_scale=MEGA_SCALE)
+    res_cc, _ = run(loop, False, plan)
+    state_cc = _fit_state(torch, net, trainer)
+    del net, trainer, loop
+    release()
+    net, trainer, loop = build(dirs["m"], loss_scale=MEGA_SCALE)
+    res_mc, _ = run(loop, True, plan)
+    state_mc = _fit_state(torch, net, trainer)
+    del net, trainer, loop
+    release()
+    sentinel_bad = _not_bitwise(torch, state_mc, state_cc)
+    del state_cc
+    net, trainer, loop = build(dirs["k"], loss_scale=MEGA_SCALE)
+    killed, _ = run(loop, True, f"{plan},kill@{FIT_KILL}")
+    del net, trainer, loop
+    release()
+    resume_from = FIT_KILL // FIT_CKPT_EVERY * FIT_CKPT_EVERY
+    _await_ckpt(dirs["k"], resume_from)
+    net, trainer, loop = build(dirs["k"], loss_scale=MEGA_SCALE)
+    res_r, _ = run(loop, True)
+    kill_bad = _not_bitwise(torch, _fit_state(torch, net, trainer),
+                            state_mc)
+    del net, trainer, loop, state_mc
+    release()
+    # 3. the small MLP: card against host, card megastep against composed
+    mlp = {}
+    for opt, kw in MEGA_OPTS:
+        lh, th = _mega_mlp(torch, mt, mt.cpu(), opt, kw, True)
+        lc, tc = _mega_mlp(torch, mt, mt.gpu(0), opt, kw, True)
+        lo, to = _mega_mlp(torch, mt, mt.gpu(0), opt, kw, False)
+        loss_err, loss_ok = _close_of_max(
+            torch, [torch.tensor(lc)], [torch.tensor(lh)], 1e-4)
+        err, ok = _close_of_max(torch, tc, th, 1e-4)
+        mlp[f"{opt}{'-centered' if kw.get('centered') else ''}"
+            f"{'-momentum' if kw.get('momentum') else ''}"] = {
+            "loss_err_of_max": loss_err, "state_err_of_max": err,
+            "ok": loss_ok and ok, "card_bitwise_composed": lc == lo and all(
+                torch.equal(a, b) for a, b in zip(tc, to))}
+    drop, _ = _mega_mlp(torch, mt, mt.gpu(0), "sgd", {"learning_rate": 0.0},
+                        True, dropout=0.5, steps=5, repeat=True)
+    torch.backends.cudnn.deterministic = prev_det
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    warm_launches_moved = any(d != per_step[0] for d in per_step)
+    mega_launches = profiles["megastep"]["epilogue_device_launches"]
+    row = {"phase": "megastep_train",
+           "model": 'get_model("resnet50_v1", layout="NHWC")',
+           "batch": GT_BATCH, "image": IMG, "steps": res_m.step,
+           "dtype": "float32, TF32 off, deterministic cuDNN",
+           "loop": "FitLoop over DeviceStagingIter(NDArrayIter(shuffle, "
+                   "seed 13)), gluon.Trainer sgd lr 0.05 momentum 0.9, "
+                   "kvstore device, aggregation 4, MXTPU_MEGASTEP on / off",
+           "step_ms_median": {"megastep": median_ms(res_m),
+                              "composed": median_ms(res_c),
+                              "bare_loop": bare_ms,
+                              "fit_train_composed":
+                                  fit_row["step_ms_median"]},
+           "step_ms_first": {"megastep": 1e3 * res_m.step_breakdown[
+                                 "per_step"][0]["wall"],
+                             "composed": 1e3 * res_c.step_breakdown[
+                                 "per_step"][0]["wall"]},
+           "capture_ms": capture_ms,
+           "img_per_s_median": {"megastep": 1e3 * GT_BATCH
+                                / median_ms(res_m)},
+           "device_idle_share": {k: v["device_idle_share"]
+                                 for k, v in profiles.items()},
+           "device_busy_ms_per_step": {
+               k: v["device_busy_ms"] / (FIT_IMAGES // GT_BATCH)
+               for k, v in profiles.items()},
+           "memory": {"megastep": mem_m, "composed": mem_c},
+           "shares": res_m.step_breakdown["shares"],
+           "parity_not_bitwise": parity_bad,
+           "losses_bitwise": res_m.losses == res_c.losses,
+           "cache": info._asdict(),
+           "wrapper_launches_in_run": launches_run,
+           "wrapper_launches_moved_after_step_0": warm_launches_moved,
+           "device_launches_profiled_epoch": mega_launches,
+           "sentinel": {"plan": plan, "loss_scale_start": MEGA_SCALE,
+                        "skipped": {"megastep": res_mc.skipped_steps,
+                                    "composed": res_cc.skipped_steps},
+                        "loss_scale": {"megastep": res_mc.loss_scale,
+                                       "composed": res_cc.loss_scale},
+                        "losses_bitwise": res_mc.losses == res_cc.losses,
+                        "state_not_bitwise": sentinel_bad},
+           "kill_resume": {"killed_at": FIT_KILL, "killed": killed is None,
+                           "resumed_from": res_r.resumed_from,
+                           "losses_bitwise":
+                               res_r.losses == res_mc.losses[resume_from:],
+                           "state_not_bitwise": kill_bad},
+           "mlp_card_vs_host": mlp,
+           "dropout_replay_losses": drop,
+           "losses": res_m.losses, "card": card}
+    emit(row)
+    if not (np.all(np.isfinite(res_m.losses)) and
+            0.0 < res_m.losses[0] < 20.0) or res_m.step != FIT_STEPS:
+        fail(f"megastep_train: bad run {res_m.losses}")
+    if parity_bad or not row["losses_bitwise"]:
+        fail(f"megastep_train: megastep and composed differ: "
+             f"{parity_bad[:5]}")
+    if info.misses != 1 or info.hits != FIT_STEPS - 1 or \
+            warm_launches_moved or any(v != 48 for v in
+                                       launches_run.values()):
+        fail(f"megastep_train: warm steps are not one replay each: "
+             f"{row['cache']} {per_step[0]} {launches_run}")
+    if any(v != 48 * (FIT_IMAGES // GT_BATCH) for v in
+           mega_launches.values()):
+        fail(f"megastep_train: expected 48 launches of each BN kernel a "
+             f"step in the replays: {mega_launches}")
+    if res_mc.skipped_steps != [MEGA_SKIP] or \
+            res_cc.skipped_steps != [MEGA_SKIP] or \
+            res_mc.loss_scale != MEGA_SCALE / 2 or sentinel_bad or \
+            not row["sentinel"]["losses_bitwise"]:
+        fail(f"megastep_train: the nan_grad step: {row['sentinel']}")
+    if killed is not None or res_r.resumed_from != resume_from or \
+            row["kill_resume"]["losses_bitwise"] is not True or kill_bad:
+        fail(f"megastep_train: the killed-then-resumed run is not the "
+             f"fault-free run bit for bit: {row['kill_resume']}")
+    if not all(v["ok"] and v["card_bitwise_composed"]
+               for v in mlp.values()):
+        fail(f"megastep_train: the MLP card against host: {mlp}")
+    if len(set(drop[1:])) != len(drop) - 1:
+        fail(f"megastep_train: replays drew one dropout mask: {drop}")
+    return mega_launches, row
+
+
 def fit_phases(torch, mt, card, gluon_row, timed):
-    """fit_reference then fit_train, their checkpoints in one temporary
-    directory removed afterwards."""
+    """fit_reference, fit_train and megastep_train, their checkpoints in
+    one temporary directory removed afterwards; the BN kernels' launches
+    of fit_train's run and of the megastep's profiled epoch."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="mxt_fit_")
     try:
         timed("fit_reference", fit_reference, torch, mt, tmp)
-        launches, _ = timed("fit_train", fit_train, torch, mt, card,
-                            gluon_row, tmp)
+        launches, fit_row = timed("fit_train", fit_train, torch, mt, card,
+                                  gluon_row, tmp)
+        mega_launches, _ = timed("megastep_train", megastep_train, torch,
+                                 mt, card, fit_row, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches
+    return launches, mega_launches
 
 
 def main():
@@ -3256,12 +3589,13 @@ def main():
     torch.cuda.empty_cache()
     totals_f32 = timed("kernel_f32", kernel_f32_phase, torch, tk)
     # the FitLoop path, after every earlier phase
-    fit_launches = fit_phases(torch, mt, card, gluon_row, timed)
+    fit_launches, mega_launches = fit_phases(torch, mt, card, gluon_row,
+                                             timed)
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
              "kernel_f32")
-    fits = ("fit_reference", "fit_train")
+    fits = ("fit_reference", "fit_train", "megastep_train")
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
@@ -3308,7 +3642,13 @@ def main():
                     "launches_per_step": fit_launches[name] / FIT_STEPS,
                     "per": "the f32 block's kernel at the same sites; "
                            f"launches over the {FIT_STEPS} steps of "
-                           "fit_train's fault-free FitLoop run"}})
+                           "fit_train's fault-free FitLoop run"},
+            "megastep": {"launches": mega_launches[name],
+                         "launches_per_step": mega_launches[name]
+                         / (FIT_IMAGES // GT_BATCH),
+                         "per": "device launches in one profiled FitLoop "
+                                "epoch (8 steps) under MXTPU_MEGASTEP=on, "
+                                "every step one CUDA graph replay"}})
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,

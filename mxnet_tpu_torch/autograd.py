@@ -12,7 +12,8 @@ torch accumulates into the variable's own gradient buffer by its
 delivered buffer is marked fresh (``_fresh_grad``) until an optimizer
 step consumes it.
 
-Not ported: ``capture`` (hybridize, ROADMAP A8), ``grad_ready_scope``
+Not ported: ``capture`` (the free-variable probe of
+``contrib/control_flow.py``, ROADMAP A14), ``grad_ready_scope``
 (comm overlap, A10), ``get_symbol`` (symbol, A14) and row-sparse
 gradients (A11).
 """

@@ -105,8 +105,14 @@ env.declare("MXTPU_COMM_OVERLAP", str, "off",
             "Not ported yet: 'on' raises in Trainer.overlap_scope. Unknown "
             "values raise.")
 env.declare("MXTPU_MEGASTEP", str, "off",
-            "One-program training step ('on'/'off'). Not ported yet: 'on' "
-            "raises when a gluon.Trainer is built. Unknown values raise.")
+            "One-graph training step ('on'/'off'): FitLoop runs forward, "
+            "backward, sentinel and grouped update as one CUDA graph "
+            "replay per input signature (megastep.py). Unknown values "
+            "raise.")
+env.declare("MXTPU_CACHEDOP_CACHE_SIZE", int, 256,
+            "LRU bound on a per-signature cache of captured programs "
+            "(cached_op.SignatureLRU; the megastep's CUDA graphs). 0 = "
+            "unbounded.")
 env.declare("MXTPU_ZERO", str, "off",
             "ZeRO-1 sharded optimizer state ('on'/'off'). Not ported yet: "
             "'on' raises when a gluon.Trainer is built. Unknown values "

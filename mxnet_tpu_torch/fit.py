@@ -27,10 +27,14 @@ the detection half. This module owns the *survival* half end to end:
 
 In the port the finiteness flag and the loss come to the host in one
 device-to-host copy a step (the JAX package's ``jax.device_get((flag,
-loss))``). Not ported, each raising ``NotPortedError`` naming its
+loss))``). Under ``MXTPU_MEGASTEP=on`` the step (forward, backward,
+sentinel, grouped update) is one replay of a CUDA graph per input
+signature (``megastep.py``), timed as the breakdown's ``megastep``
+segment; the fetch, the rollback and the loss-scale backoff stay as
+they are. Not ported, each raising ``NotPortedError`` naming its
 ROADMAP item when its environment variable asks for it, at ``fit()``
 start — before any step runs and before the signal handlers install:
-``MXTPU_MEGASTEP`` (A8); ``MXTPU_AUTOTUNE``, ``MXTPU_EFFICIENCY``,
+``MXTPU_AUTOTUNE``, ``MXTPU_EFFICIENCY``,
 ``MXTPU_NUMERICS`` and ``MXTPU_RUN_REPORT_DIR`` (A9);
 ``MXTPU_COLL_HEALTH`` / ``MXTPU_COLL_TIMEOUT_S`` (the comm planes) and
 ``MXTPU_ZERO`` (A10).
@@ -50,6 +54,7 @@ from .base import MXNetError, check, env
 from .base import env_switch as _switch
 from .log import get_logger
 from . import fault
+from . import megastep as _megastep
 from .contrib import chaos as _chaos
 from .ops.registry import NotPortedError
 from .parallel import elastic as _elastic
@@ -83,8 +88,6 @@ def _refuse_unported_planes() -> None:
     package parses them (at fit start): a flag that asks for one raises
     ``NotPortedError`` naming its ROADMAP item, a malformed value raises
     ``MXNetError``; unset or off, nothing happens."""
-    if _switch("MXTPU_MEGASTEP"):
-        raise _not_ported("the one-program megastep (MXTPU_MEGASTEP)", "A8")
     auto = str(env.get("MXTPU_AUTOTUNE") or "").strip()
     if auto.lower() not in ("", "off", "0", "false"):
         raise _not_ported("the knob autotuner (MXTPU_AUTOTUNE)", "A9")
@@ -271,6 +274,44 @@ class FitLoop:
                                 loss_dev.to(torch.float64)]).tolist()
         return ok != 0.0, lval
 
+    def _composed_step(self, x, y, bs, plan, overlap_scope, step):
+        """Forward, backward, chaos poison, allreduce and (where the
+        grouped path covers every parameter) the guarded update; returns
+        ``(flag or None, loss_dev)``."""
+        from . import autograd
+        # the overlap scope goes inactive for a step whose grads the chaos
+        # plan will poison AFTER backward: pass OUR chaos clock (the
+        # trainer's step() counter never advances under FitLoop)
+        ov = overlap_scope(chaos_step=step) \
+            if overlap_scope is not None else contextlib.nullcontext()
+        with _segment("compute"):
+            with autograd.record():
+                out = self._net(x)
+                loss = self._loss_fn(out, y) \
+                    if y is not None else self._loss_fn(out)
+                scaled = loss * self._loss_scale \
+                    if self._loss_scale != 1.0 else loss
+            with ov:
+                scaled.backward()
+        if plan is not None:
+            plan.poison_grads(self._trainer._params)
+        with _segment("comm"):
+            self._trainer.allreduce_grads()
+        with _segment("compute"):
+            loss_dev = loss.mean()._data
+        fused_flag = None
+        if self._skip_nonfinite and \
+                hasattr(self._trainer, "update_with_sentinel"):
+            # aggregated fast path: one on-device finiteness flag, the
+            # update where-guarded on device; a non-finite step left
+            # params/state untouched and only the host counters need
+            # rolling back
+            with _segment("optimizer"):
+                fused_flag = self._trainer.update_with_sentinel(
+                    bs * self._loss_scale,
+                    ignore_stale_grad=self._ignore_stale_grad)
+        return fused_flag, loss_dev
+
     def _position_iter(self, epoch: int, skip_batches: int = 0) -> int:
         """Position the iterator at (epoch, skip_batches). Iterators
         with ``set_position`` (NDArrayIter) land there in O(1) — the
@@ -367,6 +408,14 @@ class FitLoop:
         # re-arms per fit
         _numerics.reset_run()
         _efficiency.reset_run()
+        # the megastep, constructed HERE so every knob it cannot compose
+        # with raises before any step runs and before the handlers install
+        megastep = None
+        if _megastep.megastep_requested():
+            megastep = _megastep.Megastep(
+                self._net, self._trainer, self._loss_fn,
+                skip_nonfinite=self._skip_nonfinite,
+                ignore_stale_grad=self._ignore_stale_grad)
         good_streak = 0
         hb = None
         if self._heartbeat and self._ckpt_dir is not None:
@@ -413,49 +462,24 @@ class FitLoop:
                         self._final_exit(cm, result, epoch, consumed)
                     x = batch.data[0]
                     y = batch.label[0] if batch.label else None
-                    from . import autograd
                     bs = batch_size if batch_size is not None \
                         else x.shape[0]
-                    # the overlap scope goes inactive for a step whose
-                    # grads the chaos plan will poison AFTER backward:
-                    # pass OUR chaos clock (the trainer's step() counter
-                    # never advances under FitLoop)
-                    ov = overlap_scope(chaos_step=result.step) \
-                        if overlap_scope is not None \
-                        else contextlib.nullcontext()
-                    with _segment("compute"):
-                        with autograd.record():
-                            out = self._net(x)
-                            loss = self._loss_fn(out, y) \
-                                if y is not None else self._loss_fn(out)
-                            scaled = loss * self._loss_scale \
-                                if self._loss_scale != 1.0 else loss
-                        with ov:
-                            scaled.backward()
-                    if plan is not None:
-                        plan.poison_grads(self._trainer._params)
-                    with _segment("comm"):
-                        self._trainer.allreduce_grads()
-                    with _segment("compute"):
-                        loss_dev = loss.mean()._data
-                    fused_flag = None
-                    if self._skip_nonfinite and \
-                            hasattr(self._trainer, "update_with_sentinel"):
-                        # aggregated fast path: one on-device finiteness
-                        # flag, the update where-guarded on device; a
-                        # non-finite step left params/state untouched and
-                        # only the host counters need rolling back
-                        with _segment("optimizer"):
-                            fused_flag = \
-                                self._trainer.update_with_sentinel(
-                                    bs * self._loss_scale,
-                                    ignore_stale_grad=self
-                                    ._ignore_stale_grad)
+                    if megastep is not None:
+                        # one graph: compute, comm and optimizer are one
+                        # segment
+                        with _segment("megastep"):
+                            fused_flag, loss_dev = megastep.run(
+                                x, y, bs, self._loss_scale, plan)
+                    else:
+                        fused_flag, loss_dev = self._composed_step(
+                            x, y, bs, plan, overlap_scope, result.step)
                     # the blocking fetch realizes the whole async step
-                    # (forward/backward dominate): charged to compute.
-                    # The flag and the loss come back in ONE transfer.
+                    # (forward/backward dominate): charged to compute, or
+                    # to the megastep's one segment. The flag and the
+                    # loss come back in ONE transfer.
                     if fused_flag is not None:
-                        with _segment("compute"):
+                        with _segment("megastep" if megastep is not None
+                                      else "compute"):
                             finite, loss_val = self._fetch(fused_flag,
                                                            loss_dev)
                         if not finite:

@@ -33,11 +33,15 @@ direct updates (``trainer.py:240-244`` of the JAX package); a store
 object passed in is kept, and ``allreduce_grads`` pushes and pulls each
 gradient through it.
 
+``megastep_plan`` is the host half of one megastep (``megastep.py``,
+``MXTPU_MEGASTEP=on``): the bookkeeping the guarded update does between
+its device calls, run outside the step's CUDA graph every step.
+
 Not ported, each raising ``NotPortedError`` when asked for, by argument
 or by environment flag: ``MXTPU_COMM_OVERLAP=on`` (``overlap_scope``)
 and flat gradient buckets (``MXTPU_GRAD_BUCKET_MB`` with a store
 object), ``compression_params``, ``MXTPU_ZERO`` (ROADMAP A10);
-``megastep_plan`` / ``MXTPU_MEGASTEP`` (A8); ``MXTPU_NUMERICS`` (A9).
+``MXTPU_NUMERICS`` (A9).
 """
 from __future__ import annotations
 
@@ -85,9 +89,6 @@ class Trainer:
         if _switch("MXTPU_ZERO"):
             raise _not_ported("ZeRO-1 sharded optimizer state (MXTPU_ZERO)",
                               "A10")
-        if _switch("MXTPU_MEGASTEP"):
-            raise _not_ported("the one-program megastep (MXTPU_MEGASTEP)",
-                              "A8")
         if str(env.get("MXTPU_NUMERICS") or "").strip().lower() not in (
                 "", "off", "0", "false"):
             raise _not_ported("the numerics plane (MXTPU_NUMERICS)", "A9")
@@ -244,7 +245,38 @@ class Trainer:
         self._last_fused_created = []
 
     def megastep_plan(self, batch_size):
-        raise _not_ported("the one-program megastep (megastep_plan)", "A8")
+        """HOST half of one megastep (``MXTPU_MEGASTEP=on``): what
+        ``update_with_sentinel`` does between its device calls (rescale,
+        :func:`grouped.prepare_update`'s count bumps, state creation and
+        lr / wd resolution, the chunking), for every live parameter, so
+        the megastep runs it outside its CUDA graph every step. Arms
+        ``_last_fused_indices`` / ``_last_fused_created`` so that
+        :meth:`rollback_step` undoes a skipped (or refused) step.
+
+        Returns ``(live, rank_chunks, lr_list, wd_list)``: ``rank_chunks``
+        holds one chunk list (one rank: the port has no ZeRO plane, A10),
+        and ``lr_list`` / ``wd_list`` flatten the per-item scalars in
+        chunk order (the graph reads them from one device vector: Adam's
+        bias-corrected lr changes every step)."""
+        self._optimizer.rescale_grad = self._scale / batch_size
+        live = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        rank_chunks, created, handled = [], [], []
+        lr_list, wd_list = [], []
+        if live:
+            prepared, created = _grouped.prepare_update(self._updaters[0],
+                                                        live)
+            chunks = _grouped.chunk_prepared(prepared,
+                                             _grouped.aggregation_size())
+            rank_chunks.append(chunks)
+            for chunk in chunks:
+                for e in chunk:
+                    handled.append(e[0])
+                    lr_list.append(e[4])
+                    wd_list.append(e[5])
+        self._last_fused_indices = handled
+        self._last_fused_created = created
+        return live, rank_chunks, lr_list, wd_list
 
     def _update(self, ignore_stale_grad=False, sentinel=False):
         updater = self._updaters[0]

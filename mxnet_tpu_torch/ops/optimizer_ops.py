@@ -9,6 +9,9 @@ tensors, with PyTorch's multi-tensor ``torch._foreach_*`` ops: a *rule*
 weights, gradients, the state tensors slot by slot (``states[k][i]`` is
 slot k of weight i) and per-weight learning rates and weight decays, and
 returns the new weights and the new state slots as new tensors. The
+per-step scalars (``lrs``, ``wds``, ``rescale``) are Python floats, or
+float32 device tensors (a vector and a 0-d tensor) where a CUDA graph
+replays the rule with new values each step; both round alike. The
 registered one-tensor op (``sgd_mom_update``) is the rule on lists of one,
 the ``multi_*`` op the rule on the whole group, and the optimizers
 (``optimizer/optimizer.py``) and the grouped update
@@ -65,13 +68,23 @@ def _round(v: float, dtype: torch.dtype) -> float:
     return float(x)
 
 
-def scalar(v, dtype: torch.dtype) -> float:
+def scalar(v, dtype: torch.dtype):
     """``v`` rounded to float32, then to ``dtype``: the value a JAX
-    weak-typed scalar takes in an op on ``dtype`` arrays."""
+    weak-typed scalar takes in an op on ``dtype`` arrays. ``v`` may also
+    be a 0-d float32 tensor on the device (a per-step input of a CUDA
+    graph, which must not freeze its value): it is cast to ``dtype``, the
+    same second rounding."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype)
     return _round(float(v), dtype)
 
 
 def _scalars(vs, dtype):
+    """Per-tensor scalars: a list of floats rounded as :func:`scalar`
+    rounds, or a 1-d float32 device tensor cast to ``dtype`` and split
+    into 0-d tensors."""
+    if isinstance(vs, torch.Tensor):
+        return list(vs.to(dtype).unbind())
     return [_round(float(v), dtype) for v in vs]
 
 

@@ -30,12 +30,13 @@ reuses it. Not ported:
 """
 from __future__ import annotations
 
-from collections import OrderedDict, namedtuple
+from collections import OrderedDict
 from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
 from ..base import MXNetError, check, env
+from ..cached_op import CacheInfo
 from ..ops import optimizer_ops as _ops
 from ..ops.registry import NotPortedError
 from ..telemetry import memory as _memory
@@ -182,8 +183,6 @@ def _state_handles(opt, p, state) -> Tuple[List, bool]:
 # Cache of bucket kernels
 # ---------------------------------------------------------------------------
 
-CacheInfo = namedtuple("CacheInfo",
-                       ["hits", "misses", "evictions", "currsize", "maxsize"])
 _CACHE: "OrderedDict[Tuple, Any]" = OrderedDict()
 _STATS = {"hits": 0, "misses": 0}
 
@@ -305,9 +304,13 @@ def chunk_prepared(prepared, agg_size: int):
 
 def apply_chunk(updater, rule, chunk, lrs, wds, rescale,
                 sentinel: bool = False, flag=None):
-    """Device half for ONE chunk: its bucket kernel (cached by rule) on the chunk's tensors, written in place, guarded by ``flag`` when
-    ``sentinel``. ``lrs`` / ``wds`` are the chunk's per-parameter floats.
-    Returns the handled indices."""
+    """Device half for ONE chunk: its bucket kernel (cached by rule) on
+    the chunk's tensors, written in place, guarded by ``flag`` when
+    ``sentinel``. ``lrs`` / ``wds`` are the chunk's per-parameter scalars
+    and ``rescale`` the gradient scale: Python floats, or (the megastep's
+    CUDA graph, whose inputs change every step) a float32 device vector
+    slice each and a 0-d float32 device tensor, which round alike
+    (``optimizer_ops.scalar``). Returns the handled indices."""
     opt = updater.optimizer
     ws = [e[1].tensor for e in chunk]
     gs = [_grad_nd(e[1])._data for e in chunk]
@@ -323,7 +326,9 @@ def apply_chunk(updater, rule, chunk, lrs, wds, rescale,
     kernel = _get_or_build((rule.name, rule.statics(opt), mp, has_state),
                            build)
     with torch.no_grad():
-        nw, ns = kernel(ws, gs, states, list(lrs), list(wds), float(rescale))
+        if not isinstance(rescale, torch.Tensor):
+            lrs, wds, rescale = list(lrs), list(wds), float(rescale)
+        nw, ns = kernel(ws, gs, states, lrs, wds, rescale)
         _ops.commit(ws + [s for slot in states for s in slot],
                     list(nw) + [s for slot in ns for s in slot],
                     flag if sentinel else None)

@@ -46,6 +46,8 @@ FIT_FLAGS = {"MXNET_IS_RECOVERY": ["1", "0", "False", "", None],
              "MXTPU_COLL_TIMEOUT_S": ["0", "2.5", None],
              "MXTPU_ZERO_WORLD": ["0", "2", None],
              "MXTPU_ELASTIC": ["on", "off", None]}
+# the megastep's signature cache (cached_op.SignatureLRU)
+MEGASTEP_FLAGS = {"MXTPU_CACHEDOP_CACHE_SIZE": ["0", "8", "256", None]}
 VALUES = ["on", "yes", "2", "1", "true", "0", "false", "False", "", None]
 
 
@@ -79,11 +81,20 @@ def test_safe_acc_upcast_decision_matches_jax(monkeypatch, value):
 
 
 def test_declarations_match_jax():
-    for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS):
+    for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS) + \
+            tuple(MEGASTEP_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
     assert {n for n, *_ in tbase.env.items()} == \
-        set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS)
+        set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS) | \
+        set(MEGASTEP_FLAGS)
+
+
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, vs in MEGASTEP_FLAGS.items() for v in vs])
+def test_megastep_flag_get_matches_jax(monkeypatch, name, value):
+    _set(monkeypatch, name, value)
+    assert tbase.env.get(name) == jbase.env.get(name)
 
 
 @pytest.mark.parametrize("name,value", [

@@ -19,6 +19,8 @@ The same numpy weights and gradients go into both packages' Trainers
 - ``save_states`` / ``load_states`` resume exactly;
 - ``learning_rate`` follows a scheduler as the JAX Trainer's does;
 - what is not ported raises ``NotPortedError``;
+- ``megastep_plan`` (the megastep's host half) returns the JAX
+  package's layout, f32 and multi-precision bf16;
 - a thin ResNet-18 v1 NHWC (the fused BN+ReLU blocks) trained 3 steps
   with ``autograd.record()`` / ``backward()`` / ``Trainer.step`` in both
   packages: losses at 1e-4 relative (``tests/test_torch_gluon.py``),
@@ -425,8 +427,7 @@ def test_not_ported_halves_raise(monkeypatch):
     params = _Port(ws, "float32").params
     with pytest.raises(NotPortedError, match="A10"):
         mt.gluon.Trainer(params, "sgd", compression_params={"type": "2bit"})
-    for flag, item in (("MXTPU_ZERO", "A10"), ("MXTPU_MEGASTEP", "A8"),
-                       ("MXTPU_NUMERICS", "A9")):
+    for flag, item in (("MXTPU_ZERO", "A10"), ("MXTPU_NUMERICS", "A9")):
         monkeypatch.setenv(flag, "on")
         with pytest.raises(NotPortedError, match=item):
             mt.gluon.Trainer(params, "sgd")
@@ -440,8 +441,6 @@ def test_not_ported_halves_raise(monkeypatch):
         pass
     with tr.overlap_scope(chaos_step=3):       # chaos clock: a no-op too
         pass
-    with pytest.raises(NotPortedError, match="A8"):
-        tr.megastep_plan(4)
     monkeypatch.setenv("MXTPU_COMM_OVERLAP", "on")
     with pytest.raises(NotPortedError, match="A10"):
         tr.overlap_scope()
@@ -451,6 +450,54 @@ def test_not_ported_halves_raise(monkeypatch):
         tgrouped.program_memory()
     with pytest.raises(NotPortedError, match="A11"):
         tgrouped.sparse_rows_update(None, None, (), None, None, None, 0, 0)
+
+
+def _megastep_plan(pkg, opt, kw, monkeypatch, dtype):
+    """Two megastep plans (step 1, then step 2 after a rollback of one)
+    of ``pkg``'s Trainer over the same six bare parameters, one frozen,
+    in the comparable layout: per chunk the indices, mp flags and state
+    handles' shapes, then the lr and wd lists."""
+    monkeypatch.setenv("MXTPU_OPTIMIZER_AGGREGATION", "4")
+    ws, _ = _values(0, 6, None, 1)
+    ps = (_Port if pkg == "port" else _Jax)(ws, dtype)
+    ps.params[2].grad_req = "null"
+    kw = dict(kw, multi_precision=dtype == "bfloat16")
+    tr = (mt.gluon.Trainer if pkg == "port" else gluon.Trainer)(
+        ps.params, opt, kw, kvstore=None)
+    plans = []
+    for _ in range(2):
+        live, rank_chunks, lrs, wds = tr.megastep_plan(4)
+        plans.append((
+            [i for i, _p in live],
+            [[[(e[0], e[3], [tuple(h.shape) for h in e[2]]) for e in chunk]
+              for chunk in chunks] for chunks in rank_chunks],
+            lrs, wds, list(tr._last_fused_indices),
+            sorted(tr._last_fused_created)))
+    tr.rollback_step()
+    plans.append(dict(tr._optimizer._index_update_count))
+    return plans
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("opt,kw", OPTS,
+                         ids=[f"{o}-{'-'.join(k)}" for o, k in OPTS])
+def test_megastep_plan_matches_jax(opt, kw, dtype, monkeypatch):
+    """``Trainer.megastep_plan``, the megastep's host half, returns the
+    JAX package's layout: live indices, chunks of at most the
+    aggregation size with their multi-precision flags and state
+    handles, the (Adam: bias-corrected) lr and wd lists in chunk order,
+    and the rollback arming (the second plan creates no state and
+    ``rollback_step`` takes its counts back)."""
+    port = _megastep_plan("port", opt, kw, monkeypatch, dtype)
+    jax_ = _megastep_plan("jax", opt, kw, monkeypatch, dtype)
+    assert port[0][0] == [0, 1, 3, 4, 5]
+    assert port[0][5] == [0, 1, 3, 4, 5] and port[1][5] == []
+    for got, want in zip(port[:2], jax_[:2]):
+        assert got[0] == want[0] and got[1] == want[1]
+        assert got[4] == want[4] and got[5] == want[5]
+        np.testing.assert_allclose(got[2], want[2], rtol=1e-12)
+        assert got[3] == want[3]
+    assert port[2] == jax_[2]
 
 
 def test_natural_key_orders_parameters_as_in_jax():

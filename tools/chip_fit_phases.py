@@ -4,10 +4,11 @@
     python3 tools/chip_fit_phases.py     # from the repository root
 
 Builds the port's kernels, runs ``gluon_train`` (whose step time
-``fit_train`` reports beside its own) and then ``fit_reference`` and
-``fit_train``, printing their JSON lines as ``chip_smoke.py`` does: a
-quick card check of the FitLoop path (about a minute) without the other
-phases. Any failure exits non-zero.
+``fit_train`` reports beside its own) and then ``fit_reference``,
+``fit_train`` and ``megastep_train``, printing their JSON lines as
+``chip_smoke.py`` does: a quick card check of the FitLoop path and its
+megastep (about two minutes) without the other phases. Any failure
+exits non-zero.
 """
 import os
 import sys
@@ -41,8 +42,9 @@ def main():
     _build.build()
     walls["build"] = time.perf_counter() - t
     _, gluon_row = timed("gluon_train", cs.gluon_train, torch, mt, card)
-    launches = cs.fit_phases(torch, mt, card, gluon_row, timed)
-    cs.emit({"phase": "walls", "seconds": walls, "fit_launches": launches})
+    launches, mega = cs.fit_phases(torch, mt, card, gluon_row, timed)
+    cs.emit({"phase": "walls", "seconds": walls, "fit_launches": launches,
+             "megastep_launches": mega})
 
 
 if __name__ == "__main__":
