@@ -10,7 +10,9 @@ Phases, each printing JSON lines:
 2. each kernel of the training path against its plain PyTorch version on
    the card, at every shape the ResNet-50 v1 step gives it and at the
    seven no-residual shapes only the v2 step gives it (plus a ragged R, a
-   C that takes the scalar path, and an f32 case): maximum error, the
+   C that takes the scalar path, and an f32 case; bn_apply and
+   bn_bwd_apply bit for bit, the reductions within 1e-5 of the sum of
+   magnitudes): maximum error, the
    kernel's time, the plain version's time, a one-call PyTorch yardstick
    (``library_ms``, never used by the port) and the bound (the larger of
    bytes / 3.35 TB/s and flops / 67 TFLOP/s, H100 SXM peaks) with its
@@ -48,15 +50,20 @@ Phases, each printing JSON lines:
    the replay, which the summary line reports, with 16 x K residual
    ``bn_apply`` launches;
 6. the flash-attention forward against its plain PyTorch version on both
-   of its routes (``flash_route``: the tensor-core kernel for bf16 with D
-   64 or 128 and aligned views, the SIMT kernel for the rest), each case at
-   its route's tolerance and with the route it took read from the launch
-   counters: the transformer path's shape (B 8, T 2048, H 8, D 64, causal,
-   bf16, q/k/v as views of the qkv projection; timed, with TFLOP/s, the
-   SIMT kernel on the same inputs, SDPA as the yardstick and the bound the
+   of its routes (``flash_route``: the tensor-core kernel for bf16 or f16
+   with D a multiple of 8 up to 256 and aligned views, the general kernel
+   (3xTF32 on the tensor cores) for the rest), each case at its route's
+   tolerance and with the route it took read from the launch counters:
+   the transformer path's shape (B 8, T 2048, H 8, D 64, causal, bf16,
+   q/k/v as views of the qkv projection; timed, with TFLOP/s, the general
+   kernel on the same inputs, SDPA as the yardstick and the bound the
    larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s), the same work at
-   D 128 (timed), and edge cases (ragged T, T under one tile, D 8 to 256,
-   non-causal, f32, unaligned views);
+   D 128, in f16, at D 80 (padded to 128) and at D 256 in f16 (64-key
+   tiles; all timed), the LM's default f32 shape on the general route (timed
+   against SDPA in f32, naming the kernels SDPA ran and the TF32 flags,
+   the bound as 3xTF32 and on f32 FMAs), and edge cases (ragged T, T under one tile, f16, D 8
+   to 256 with D 80, 96, 192 padded to a multiple of 64, f32 at D 1, 12,
+   100, 320 and 512, f16 and bf16 at D 100, unaligned views);
 7. a small transformer LM card against host, f32, TF32 off: logits, loss
    and every parameter after one ``make_train_step`` step, with exactly
    n_layers ``flash_fwd`` launches per forward on the card and none on the
@@ -68,7 +75,10 @@ Phases, each printing JSON lines:
    and per step, every one on the tensor-core route;
 9. one more train step under ``torch.profiler``: device time of
    ``flash_fwd``, of the attention backward (the plain recompute), of
-   matmuls and of the rest, and the device's idle share;
+   matmuls and of the rest, and the device's idle share; then
+   ``transformer_train_f32``: the default ``TransformerConfig()`` (f32),
+   batch 8 x T 2048, as phase 8 (TF32 off), every flash launch on the
+   general route, and one of its steps profiled as above;
 10. ``nd_ops``: every op of the imperative front end (``mx.nd``) that has
     a case in ``tests/op_cases.py``, card against host at the case's
     rtol/atol, and its gradients through ``autograd.record()`` /
@@ -178,13 +188,20 @@ Phases, each printing JSON lines:
     ``tests/test_zero.py`` optimizer configurations on a small MLP card
     against host and a Dropout MLP drawing new masks on each replay. The
     checkpoints live in a temporary directory the phase removes;
+14e. then ResNet-50 v1 in f16: ``kernel_f16``, each BN kernel against its
+    plain version in f16 at the v1 path's 48 sites (as phase 2, summed per
+    step); ``train_f16``, the main path with ``SPMDTrainer(dtype=
+    torch.float16)``, one timed replay of the K = 4 graph; ``profile_f16``,
+    48 x K device launches of each BN kernel in the replay;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
     over the 48 call sites, with the v2 step's sums and launches under
     ``v2``, the f32 Gluon step's under ``f32``, the FitLoop's under
-    ``fit`` and the megastep's replays under ``megastep``; flash_fwd's per
-    launch at the path's shape; the rtc kernels' per launch at the sizes
+    ``fit``, the megastep's replays under ``megastep`` and the f16 step's
+    under ``f16``; flash_fwd's (the tensor-core route) per launch at the
+    bf16 path's shape and flash_fwd_general's at the default f32 LM's,
+    with that LM's launches; the rtc kernels' per launch at the sizes
     above, sgd_mom's per imperative step, the sum over its 4 launches)
     and, last, the device line.
 
@@ -202,6 +219,7 @@ B, K_STEPS, IMG = 128, 4, 224
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 F32_FLOPS_PER_S = 67e12         # H100 SXM, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense bf16 tensor cores
+TF32_FLOPS_PER_S = 495e12       # H100 SXM, dense TF32 tensor cores
 TF_BATCH, TF_T, TF_K_STEPS = 8, 2048, 4
 FLASH_SOURCE = "mxnet_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "mxnet_tpu/ops/pallas_kernels.py:85"   # _build_flash
@@ -380,9 +398,8 @@ def reduction_scale(torch, tk, name, cs):
 def max_err(torch, tk, name, cs, got, want):
     """(max |kernel - plain|, whether it is within tolerance).
     Reductions: 1e-5 of the sum of magnitudes (f32 accumulation in another
-    order). bn_bwd_apply: bit-identical (it rounds operation by operation
-    as the plain version does). bn_apply: within one unit in the last
-    place of the output type."""
+    order). bn_apply and bn_bwd_apply: bit-identical (they round operation
+    by operation as the plain versions do), in f32, bf16 and f16."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     worst, ok = 0.0, True
@@ -391,12 +408,9 @@ def max_err(torch, tk, name, cs, got, want):
         worst = max(worst, float(d.max()))
         if name in ("bn_stats", "bn_bwd_stats"):
             tol = 1e-5 * reduction_scale(torch, tk, name, cs) + 1e-6
-        elif name == "bn_bwd_apply":
-            tol = 0.0
+            ok = ok and bool((d <= tol).all())
         else:
-            ulp = 2.0 ** -7 if a.dtype == torch.bfloat16 else 2.0 ** -23
-            tol = ulp * w.float().abs() + 1e-6
-        ok = ok and bool((d <= tol).all())
+            ok = ok and torch.equal(a, w)
     return worst, ok
 
 
@@ -708,11 +722,13 @@ def graph_phase(torch, mt):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(torch, mt, card):
+def main_path(torch, mt, card, dtype=None):
     """The timed ``run_steps`` is one replay of the K-step graph, captured
     by the first call (which runs its K steps eagerly first). A replay
     calls no wrapper, so its launches are read on the device by the
-    profile phase that follows."""
+    profile phase that follows. ``dtype``: the compute type (bf16 unless
+    given; f32 masters either way)."""
+    dtype = dtype or torch.bfloat16
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.ops import fused_bn_act as tk
@@ -722,7 +738,7 @@ def main_path(torch, mt, card):
     trainer = mt.parallel.SPMDTrainer(
         net, gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
         optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
-        dtype=torch.bfloat16)
+        dtype=dtype)
     gen = mt.random.seed(1)
     data = torch.rand((K_STEPS, B, IMG, IMG, 3), generator=gen,
                       device="cuda")
@@ -756,9 +772,10 @@ def main_path(torch, mt, card):
     eager = [trainer.step(data[k], label[k]) for k in range(K_STEPS)]
     torch.cuda.synchronize()
     eager_dt = time.perf_counter() - t2
-    row = {"phase": "train", "model": "resnet50_v1 NHWC stem_s2d",
+    row = {"phase": "train" if dtype == torch.bfloat16 else
+           f"train_{str(dtype)[6:]}", "model": "resnet50_v1 NHWC stem_s2d",
            "batch": B, "image": IMG, "k_steps": K_STEPS,
-           "dtype": "bfloat16 compute, f32 masters",
+           "dtype": f"{str(dtype)[6:]} compute, f32 masters",
            "how": "one replay of the K-step CUDA graph",
            "warmup_losses": warm.tolist(), "losses": losses.tolist(),
            "step_ms": 1e3 * dt / K_STEPS, "img_per_s": B * K_STEPS / dt,
@@ -888,7 +905,8 @@ def _summary(what, kernels, wall_ms, glue):
                             in top[:12]]}
 
 
-def profile_phase(torch, trainer, data, label, model="resnet50_v1"):
+def profile_phase(torch, trainer, data, label, model="resnet50_v1",
+                  dtype="bf16"):
     """One eager ``step()`` and one ``run_steps`` replay under
     torch.profiler, in this order, each run once unprofiled just before
     (warm pools): wall ms, device busy ms and idle share
@@ -927,11 +945,11 @@ def profile_phase(torch, trainer, data, label, model="resnet50_v1"):
         return glue
 
     rows = [_summary(f"{model}: one eager SPMDTrainer.step, batch {B}, "
-                     "bf16", eager, wall, split(eager))]
+                     f"{dtype}", eager, wall, split(eager))]
     prof, wall = _profiled(torch, lambda: trainer.run_steps(data, label))
     replay = _device_kernels(prof)
     rows.append(_summary(f"{model}: one run_steps replay of the "
-                         f"{K_STEPS}-step graph, batch {B}, bf16", replay,
+                         f"{K_STEPS}-step graph, batch {B}, {dtype}", replay,
                          wall, split(replay)))
     rows[1]["per_step_device_busy_ms"] = rows[1]["device_busy_ms"] / K_STEPS
     rows[1]["per_step_wall_ms"] = rows[1]["wall_ms"] / K_STEPS
@@ -1242,62 +1260,138 @@ def flash_inputs(torch, b, t, h, d, dtype, layout, gen):
     return out
 
 
+def flash_flops(b, t, h, d, causal):
+    """4*B*H*T^2*D, halved when causal."""
+    return 4 * b * h * t * t * d / (2 if causal else 1)
+
+
 def flash_bound_ms(b, t, h, d, causal, itemsize):
     """The larger of bytes / HBM rate (q, k, v read once, o written once)
-    and flops / bf16 tensor-core peak (4*B*H*T^2*D, halved when causal)."""
+    and flops / the tensor cores' peak for the inputs: 16-bit at 989
+    TFLOP/s; f32 as 3xTF32, three passes at 495 TFLOP/s (the least time
+    for f32-accurate products on this card; on f32 FMAs, 67 TFLOP/s, see
+    ``flash_f32_fma_bound_ms``)."""
     moved = 4 * b * t * h * d * itemsize
-    flops = 4 * b * h * t * t * d / (2 if causal else 1)
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    flops = flash_flops(b, t, h, d, causal)
+    t_ops = flops / BF16_FLOPS_PER_S if itemsize == 2 \
+        else 3 * flops / TF32_FLOPS_PER_S
+    t_bytes = moved / HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
 
+def flash_f32_fma_bound_ms(b, t, h, d, causal):
+    return 1e3 * max(4 * b * t * h * d * 4 / HBM_BYTES_PER_S,
+                     flash_flops(b, t, h, d, causal) / F32_FLOPS_PER_S)
+
+
 def flash_tolerance(torch, route, want, v):
     """Per-element tolerance of a flash_fwd output against _flash_plain.
-    SIMT route: 2e-5 absolute (randn inputs; the online softmax sums in
-    another order), plus one bf16 ulp of the plain output in bf16.
-    Tensor-core route: also 2^-8 max|v|, P's bf16 rounding (at most 2^-8
-    relative per element, so at most 2^-8 max|v| on the output)."""
-    tol = 2e-5 + (2.0 ** -7 * want.float().abs()
-                  if want.dtype == torch.bfloat16 else 0.0)
+    Both routes: 2e-5 absolute (randn inputs; the online softmax sums in
+    another order, and 3xTF32 drops about 2^-22 of each product), plus one
+    unit in the last place of a 16-bit output (2^-7 |want| in bf16,
+    2^-10 |want| in f16). Tensor-core route: also P's rounding to the input
+    type, at most 2^-8 max|v| in bf16 and 2^-11 max|v| in f16."""
+    ulp, p_round = {torch.bfloat16: (2.0 ** -7, 2.0 ** -8),
+                    torch.float16: (2.0 ** -10, 2.0 ** -11),
+                    torch.float32: (0.0, 0.0)}[want.dtype]
+    tol = 2e-5 + ulp * want.float().abs()
     if route == "tc":
-        tol = tol + 2.0 ** -8 * float(v.float().abs().max())
+        tol = tol + p_round * float(v.float().abs().max())
     return tol
+
+
+def _time_flash(torch, fa, row, q, k, v, causal, scale, flush, F):
+    """The route's time, the plain version's, SDPA's (the yardstick; its
+    backend read off the profiler's kernel names), the bound and rates."""
+    from torch.profiler import ProfilerActivity, profile
+    b, t, h, d = q.shape
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              scale=scale)
+    row["ms"] = time_ms(
+        torch, lambda: fa.flash_fwd(q, k, v, causal, scale), flush)
+    row["plain_ms"] = time_ms(
+        torch, lambda: fa._flash_plain(q, k, v, causal, scale), flush,
+        iters=3)
+    row["library_ms"] = time_ms(torch, sdpa, flush)
+    sdpa()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    row["library_kernels"] = sorted({e.key[:80] for e in prof.key_averages()
+                                     if e.device_type.name == "CUDA"})
+    row["bound_ms"], row["bound_by"] = flash_bound_ms(
+        b, t, h, d, causal, q.element_size())
+    flops = flash_flops(b, t, h, d, causal)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["library_tflops"] = flops / row["library_ms"] / 1e9
 
 
 def flash_phase(torch, fa):
     """Every case within its route's tolerance of ``_flash_plain`` on the
     same inputs, on the route the case table expects (read from the launch
-    counters, which are zeroed before each call). The path's shape and the
-    same work at D 128 are timed."""
+    counters, which are zeroed before each call). Timed: the LM path's bf16
+    shape and the same work at D 128 (tensor-core route, with the general
+    kernel on the same inputs beside it), and the LM's default f32 shape
+    (general route) against SDPA in f32."""
     import ctypes
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    tc, gn = "tc", "general"
     # (B, T, H, D, causal, dtype, layout, route, timed)
-    cases = [(TF_BATCH, TF_T, 8, 64, True, bf16, "qkv", "tc", True),
-             (TF_BATCH, TF_T, 4, 128, True, bf16, "qkv", "tc", True),
-             (2, 1000, 4, 64, True, bf16, "qkv", "tc", False),
-             (2, 64, 4, 64, True, bf16, "dense", "tc", False),
-             (3, 37, 2, 64, False, bf16, "dense", "tc", False),
-             (2, 129, 2, 64, True, bf16, "dense", "tc", False),
-             (2, 1000, 4, 128, False, bf16, "qkv", "tc", False),
-             (2, 300, 4, 128, True, bf16, "dense", "tc", False),
-             (2, 1000, 4, 32, False, bf16, "dense", "simt", False),
-             (2, 129, 2, 64, False, bf16, "offset", "simt", False),
-             (2, 1000, 4, 64, True, f32, "qkv", "simt", False),
-             (1, 300, 2, 256, True, f32, "dense", "simt", False),
-             (2, 129, 2, 64, False, f32, "offset", "simt", False),
-             (2, 128, 4, 8, True, f32, "dense", "simt", False)]
-    result, worst, bad = None, 0.0, []
+    cases = [(TF_BATCH, TF_T, 8, 64, True, bf16, "qkv", tc, True),
+             (TF_BATCH, TF_T, 4, 128, True, bf16, "qkv", tc, True),
+             (TF_BATCH, TF_T, 8, 64, True, f16, "qkv", tc, True),
+             (TF_BATCH, TF_T, 8, 80, True, bf16, "qkv", tc, True),
+             (TF_BATCH, TF_T, 2, 256, True, f16, "qkv", tc, True),
+             (TF_BATCH, TF_T, 8, 64, True, f32, "qkv", gn, True),
+             (2, 1000, 4, 64, True, bf16, "qkv", tc, False),
+             (2, 64, 4, 64, True, bf16, "dense", tc, False),
+             (3, 37, 2, 64, False, bf16, "dense", tc, False),
+             (2, 129, 2, 64, True, bf16, "dense", tc, False),
+             (2, 1000, 4, 128, False, bf16, "qkv", tc, False),
+             (2, 300, 4, 128, True, bf16, "dense", tc, False),
+             (2, 1000, 4, 32, False, bf16, "dense", tc, False),
+             (2, 128, 4, 8, True, bf16, "dense", tc, False),
+             (2, 1000, 4, 64, True, f16, "qkv", tc, False),
+             (2, 300, 4, 128, True, f16, "dense", tc, False),
+             (2, 1000, 4, 80, True, bf16, "qkv", tc, False),
+             (2, 300, 4, 80, False, f16, "dense", tc, False),
+             (2, 1000, 4, 96, True, f16, "qkv", tc, False),
+             (2, 300, 4, 96, False, bf16, "dense", tc, False),
+             (2, 1000, 4, 256, True, bf16, "dense", tc, False),
+             (2, 300, 4, 256, False, f16, "qkv", tc, False),
+             (1, 129, 2, 192, True, bf16, "dense", tc, False),
+             (2, 1000, 4, 64, True, f32, "qkv", gn, False),
+             (1, 300, 2, 256, True, f32, "dense", gn, False),
+             (2, 129, 2, 64, False, f32, "offset", gn, False),
+             (2, 128, 4, 8, True, f32, "dense", gn, False),
+             (2, 300, 2, 12, True, f32, "dense", gn, False),
+             (2, 300, 2, 100, False, f32, "qkv", gn, False),
+             (1, 300, 2, 320, True, f32, "dense", gn, False),
+             (1, 200, 2, 512, True, f32, "dense", gn, False),
+             (2, 300, 2, 100, True, f16, "dense", gn, False),
+             (2, 300, 2, 100, False, bf16, "qkv", gn, False),
+             (2, 129, 2, 64, True, f16, "offset", gn, False),
+             (2, 129, 2, 64, False, bf16, "offset", gn, False),
+             (2, 129, 2, 36, True, f16, "qkv", gn, False),
+             (1, 1, 1, 1, False, f32, "dense", gn, False)]
+    result, worst, bad = {}, 0.0, []
     for b, t, h, d, causal, dtype, layout, route, timed in cases:
         q, k, v = flash_inputs(torch, b, t, h, d, dtype, layout, gen)
         scale = 1.0 / d ** 0.5
         fa.reset_launches()
         got = fa.flash_fwd(q, k, v, causal, scale)
-        took = "tc" if fa.launches["flash_fwd_tc"] == 1 else "simt"
+        took = [r for r in (tc, gn) if fa.launches[f"flash_fwd_{r}"] == 1]
+        took = took[0] if len(took) == 1 else None
         counted = fa.launches["flash_fwd"] == 1
         want = fa._flash_plain(q, k, v, causal, scale)
         torch.cuda.synchronize()
@@ -1314,41 +1408,39 @@ def flash_phase(torch, fa):
         if not ok:
             bad.append(row)
         if timed:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            o = torch.empty_like(q)
-            ts = (q, k, v, o)
-            strides = (ctypes.c_longlong * 12)(
-                *[st for x in ts for st in x.stride()[:3]])
-            lib = fa._lib()
+            _time_flash(torch, fa, row, q, k, v, causal, scale, flush, F)
+            if route == tc:
+                o = torch.empty_like(q)
+                strides = (ctypes.c_longlong * 12)(
+                    *[st for x in (q, k, v, o) for st in x.stride()[:3]])
+                lib = fa._lib()
 
-            def simt():   # the SIMT kernel on the same inputs, uncounted
-                if lib.mxt_flash_fwd(
-                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), strides, b, t, h, d, scale,
-                        int(causal), 1, 1,
-                        torch.cuda.current_stream().cuda_stream):
-                    fail("the SIMT flash kernel did not launch")
-            row["ms"] = time_ms(
-                torch, lambda: fa.flash_fwd(q, k, v, causal, scale), flush)
-            row["simt_ms"] = time_ms(torch, simt, flush)
-            row["plain_ms"] = time_ms(
-                torch, lambda: fa._flash_plain(q, k, v, causal, scale),
-                flush, iters=3)
-            row["library_ms"] = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=scale), flush)
-            row["bound_ms"], row["bound_by"] = flash_bound_ms(
-                b, t, h, d, causal, q.element_size())
-            flops = 4 * b * h * t * t * d / (2 if causal else 1)
-            row["bound_share"] = row["bound_ms"] / row["ms"]
-            row["tflops"] = flops / row["ms"] / 1e9
-            row["library_tflops"] = flops / row["library_ms"] / 1e9
-            if result is None:
-                result = dict(row)
+                def general():   # the general kernel on the same inputs
+                    if lib.mxt_flash_fwd(
+                            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), strides, b, t, h, d, scale,
+                            int(causal), fa._DTYPE_CODE[dtype],
+                            fa._unit((q, k, v)),
+                            torch.cuda.current_stream().cuda_stream):
+                        fail("the general flash kernel did not launch")
+                row["general_ms"] = time_ms(torch, general, flush)
             else:
-                result["d128"] = {key: row[key] for key in (
-                    "H", "D", "ms", "simt_ms", "library_ms", "tflops",
-                    "worst_err_over_tol")}
+                row["bound_f32_fma_ms"] = flash_f32_fma_bound_ms(
+                    b, t, h, d, causal)
+                row["library_tf32"] = {
+                    "cuda.matmul.allow_tf32":
+                        torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+            if route == gn:
+                result["general"] = dict(row)
+            elif "tc" not in result:
+                result["tc"] = dict(row, other_shapes=[])
+            else:
+                keys = ("H", "D", "dtype", "ms", "general_ms", "plain_ms",
+                        "library_ms", "bound_ms", "bound_share", "tflops",
+                        "worst_err_over_tol")
+                result["tc"]["other_shapes"].append(
+                    {key: row[key] for key in keys})
         emit(row)
         del q, k, v, got, want, diff
     torch.cuda.empty_cache()
@@ -1417,12 +1509,17 @@ def transformer_reference(torch, mt):
 # phase 8: the transformer main path at full width
 # ---------------------------------------------------------------------------
 
-def transformer_main(torch, mt, card):
+def transformer_main(torch, mt, card, dtype=None):
+    """``TransformerConfig()`` at batch TF_BATCH x T TF_T: bf16 (``dtype``
+    torch.bfloat16), every flash launch on the tensor-core route; or the
+    default configuration itself (``dtype`` None: f32), every launch on
+    the general route."""
     import math
     from mxnet_tpu_torch.models import transformer as tf
     from mxnet_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
-    cfg = tf.TransformerConfig(dtype=torch.bfloat16)
+    cfg = tf.TransformerConfig(dtype=dtype)
+    route = "tc" if dtype == torch.bfloat16 else "general"
     params = tf.init_params(mt.random.seed(0), cfg)
     gen = mt.random.seed(1)
     tok = torch.randint(0, cfg.vocab_size, (TF_BATCH, TF_T), generator=gen,
@@ -1438,7 +1535,7 @@ def transformer_main(torch, mt, card):
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t1
     fwd_launches = fa.launches["flash_fwd"]
-    fwd_tc = fa.launches["flash_fwd_tc"]
+    fwd_tc = fa.launches[f"flash_fwd_{route}"]
     fwd_finite = bool(torch.isfinite(logits).all())
     del logits
     step, _ = tf.make_train_step(cfg, lr=1e-3)
@@ -1454,10 +1551,13 @@ def transformer_main(torch, mt, card):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t2
     step_launches = fa.launches["flash_fwd"]
-    step_tc = fa.launches["flash_fwd_tc"]
+    step_tc = fa.launches[f"flash_fwd_{route}"]
     losses = losses.cpu()
-    row = {"phase": "transformer_train", "model": "TransformerConfig() "
-           "(vocab 32000, d_model 512, 8 heads, 4 layers, d_ff 2048), bf16",
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    row = {"phase": "transformer_train" if route == "tc"
+           else "transformer_train_f32", "model": "TransformerConfig() "
+           f"(vocab 32000, d_model 512, 8 heads, 4 layers, d_ff 2048), "
+           f"{name}", "flash_route": route,
            "batch": TF_BATCH, "T": TF_T, "k_steps": TF_K_STEPS,
            "forward_ms": 1e3 * fwd_s, "forward_tokens_per_s": ntok / fwd_s,
            "warmup_loss": warm, "losses": losses.tolist(),
@@ -1467,8 +1567,8 @@ def transformer_main(torch, mt, card):
            "setup_and_first_calls_s": setup_s,
            "flash_fwd_launches": {"forward": fwd_launches,
                                   "train_steps": step_launches,
-                                  "forward_tc": fwd_tc,
-                                  "train_steps_tc": step_tc},
+                                  f"forward_{route}": fwd_tc,
+                                  f"train_steps_{route}": step_tc},
            "card": card}
     emit(row)
     if not (fwd_finite and torch.isfinite(losses).all()
@@ -1483,7 +1583,7 @@ def transformer_main(torch, mt, card):
              f"per step, got {fwd_launches} and {step_launches} in "
              f"{TF_K_STEPS} steps")
     if (fwd_tc, step_tc) != (fwd_launches, step_launches):
-        fail(f"not every flash_fwd launch took the tensor-core route: "
+        fail(f"not every flash_fwd launch took the {route} route: "
              f"{fwd_tc} of {fwd_launches} per forward, {step_tc} of "
              f"{step_launches} in {TF_K_STEPS} steps")
     return step_launches, (step, params, tok, tgt)
@@ -1493,7 +1593,7 @@ _MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 _FLASH_BWD_RANGE = "mxt::flash_attention_backward"
 
 
-def profile_transformer_step(torch, step, params, tok, tgt):
+def profile_transformer_step(torch, step, params, tok, tgt, dtype="bf16"):
     """One train step under torch.profiler. Each device kernel is charged
     to the first family it matches: flash_fwd by name; the attention
     backward when launched inside the backward's record_function range;
@@ -1541,8 +1641,10 @@ def profile_transformer_step(torch, step, params, tok, tgt):
                and e.key != _FLASH_BWD_RANGE) / 1e3
     ranked = sorted(((v[0], v[1], fam_, name) for (fam_, name), v
                      in top.items()), reverse=True)
-    row = {"phase": "transformer_profile", "what": "one make_train_step "
-           f"step, batch {TF_BATCH} x T {TF_T}, bf16, under torch.profiler",
+    row = {"phase": "transformer_profile" if dtype == "bf16" else
+           f"transformer_profile_{dtype}", "what": "one make_train_step "
+           f"step, batch {TF_BATCH} x T {TF_T}, {dtype}, under "
+           "torch.profiler",
            "wall_ms": wall_ms, "device_busy_ms": busy,
            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
            "by_family_ms": fam,
@@ -2545,33 +2647,33 @@ def optimizer_ops_phase(torch, mt):
         fail(f"optimizer ops: card and host disagree: {bad}")
 
 
-def kernel_f32_phase(torch, tk):
-    """Each BN kernel against its plain version in f32 at the Gluon path's
-    (R, C) sites (ResNet-50 v1 at batch GT_BATCH): bn_bwd_apply bit for
-    bit, bn_apply within one f32 ulp, the reductions within 1e-5 of the
-    sum of magnitudes; kernel, plain and library ms and the bound, summed
-    over the 48 sites of one step."""
+def kernel_dtype_phase(torch, tk, dtype, batch, phase, seed):
+    """Each BN kernel against its plain version in ``dtype`` at the
+    ResNet-50 v1 path's (R, C) sites at ``batch``: bn_apply and
+    bn_bwd_apply bit for bit, the reductions within 1e-5 of the sum of
+    magnitudes; kernel, plain and library ms and the bound, summed over
+    the 48 sites of one step."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(8)
+    gen.manual_seed(seed)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    max_abs_err=0.0, bound_by=set()) for n in KERNELS}
     bad = []
-    for r, c, has_res, mult in path_sites(GT_BATCH):
-        cs = make_case(torch, tk, r, c, has_res, torch.float32, gen)
+    for r, c, has_res, mult in path_sites(batch):
+        cs = make_case(torch, tk, r, c, has_res, dtype, gen)
         for name, (kern, plain, lib) in calls(torch, tk, cs).items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err, ok = max_err(torch, tk, name, cs, got, want)
-            row = {"phase": "kernel_f32", "kernel": name, "R": r, "C": c,
-                   "residual": has_res, "dtype": "float32",
+            row = {"phase": phase, "kernel": name, "R": r, "C": c,
+                   "residual": has_res, "dtype": str(dtype)[6:],
                    "max_abs_err": err, "ok": ok,
                    "ms": time_ms(torch, kern, flush),
                    "plain_ms": time_ms(torch, plain, flush),
                    "library_ms": time_ms(torch, lib, flush),
                    "sites_per_step": mult}
-            row["bound_ms"], row["bound_by"] = bound_ms(name, r, c, 4,
-                                                        has_res)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                name, r, c, cs["x"].element_size(), has_res)
             row["bound_share"] = row["bound_ms"] / row["ms"]
             emit(row)
             if not ok:
@@ -2584,8 +2686,19 @@ def kernel_f32_phase(torch, tk):
         del cs
     torch.cuda.empty_cache()
     if bad:
-        fail(f"f32 kernel disagrees with its plain version: {bad}")
+        fail(f"{phase}: kernel disagrees with its plain version: {bad}")
     return tot
+
+
+def kernel_f32_phase(torch, tk):
+    """The BN kernels in f32 at the Gluon path's sites (batch GT_BATCH)."""
+    return kernel_dtype_phase(torch, tk, torch.float32, GT_BATCH,
+                              "kernel_f32", 8)
+
+
+def kernel_f16_phase(torch, tk):
+    """The BN kernels in f16 at the v1 path's sites (batch B)."""
+    return kernel_dtype_phase(torch, tk, torch.float16, B, "kernel_f16", 11)
 
 
 def _host_top(torch, prof, n=12):
@@ -3548,8 +3661,15 @@ def main():
     flash = timed("flash", flash_phase, torch, fa)
     timed("transformer_reference", transformer_reference, torch, mt)
     flash_launches, run = timed("transformer_train", transformer_main,
-                                torch, mt, card)
+                                torch, mt, card, torch.bfloat16)
     timed("transformer_profile", profile_transformer_step, torch, *run)
+    del run
+    torch.cuda.empty_cache()
+    # the LM's default configuration (f32): the general flash route
+    general_launches, run = timed("transformer_train_f32", transformer_main,
+                                  torch, mt, card)
+    timed("transformer_profile_f32", profile_transformer_step, torch, *run,
+          "f32")
     del run
     torch.cuda.empty_cache()
 
@@ -3591,18 +3711,29 @@ def main():
     # the FitLoop path, after every earlier phase
     fit_launches, mega_launches = fit_phases(torch, mt, card, gluon_row,
                                              timed)
+    # ResNet-50 v1 in f16 (the BN kernels' f16 instances), after every
+    # earlier phase
+    totals_f16 = timed("kernel_f16", kernel_f16_phase, torch, tk)
+    trainer, data, label = timed("train_f16", main_path, torch, mt, card,
+                                 torch.float16)
+    launched_f16 = timed("profile_f16", profile_phase, torch, trainer, data,
+                         label, "resnet50_v1", "f16")
+    del trainer, data, label
+    torch.cuda.empty_cache()
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
              "kernel_f32")
     fits = ("fit_reference", "fit_train", "megastep_train")
+    f16 = ("kernel_f16", "train_f16", "profile_f16")
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
-                                  if k not in v2 + gluon + fits),
+                                  if k not in v2 + gluon + fits + f16),
           "v2_phases_s": sum(walls[k] for k in v2),
           "gluon_trainer_phases_s": sum(walls[k] for k in gluon),
-          "fit_phases_s": sum(walls[k] for k in fits)})
+          "fit_phases_s": sum(walls[k] for k in fits),
+          "f16_phases_s": sum(walls[k] for k in f16)})
 
     kernels = []
     for name, (replaces, _) in KERNELS.items():
@@ -3643,25 +3774,56 @@ def main():
                     "per": "the f32 block's kernel at the same sites; "
                            f"launches over the {FIT_STEPS} steps of "
                            "fit_train's fault-free FitLoop run"},
+            "f16": {"launches": launched_f16[name],
+                    "max_abs_err": totals_f16[name]["max_abs_err"],
+                    "ms": totals_f16[name]["ms"],
+                    "plain_ms": totals_f16[name]["plain_ms"],
+                    "bound_ms": totals_f16[name]["bound_ms"],
+                    "bound_by": "bytes" if totals_f16[name]["bound_by"]
+                    == {"bytes"} else "operations",
+                    "library_ms": totals_f16[name]["library_ms"],
+                    "per": f"one ResNet-50 v1 step (48 sites, batch {B}, "
+                           "f16); launches: device count over one replay "
+                           f"of the {K_STEPS}-step f16 graph"},
             "megastep": {"launches": mega_launches[name],
                          "launches_per_step": mega_launches[name]
                          / (FIT_IMAGES // GT_BATCH),
                          "per": "device launches in one profiled FitLoop "
                                 "epoch (8 steps) under MXTPU_MEGASTEP=on, "
                                 "every step one CUDA graph replay"}})
+    tcr, gnr = flash["tc"], flash["general"]
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,
-        "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
-        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-        "bound_share": flash["bound_share"],
-        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "max_abs_err": tcr["max_abs_err"], "ms": tcr["ms"],
+        "plain_ms": tcr["plain_ms"], "bound_ms": tcr["bound_ms"],
+        "bound_share": tcr["bound_share"],
+        "bound_by": tcr["bound_by"], "library_ms": tcr["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
-        "kernel_route": flash["route"], "tflops": flash["tflops"],
-        "simt_ms": flash["simt_ms"], "d128": flash["d128"],
+        "kernel_route": "tc", "entry": "mxt_flash_fwd_tc",
+        "tflops": tcr["tflops"], "general_ms": tcr["general_ms"],
+        "other_shapes": tcr["other_shapes"],
+        "max_abs_err_all_cases": flash["max_abs_err"],
         "per": f"one launch (B {TF_BATCH}, T {TF_T}, H 8, D 64, causal, "
-               f"bf16); launches over {TF_K_STEPS} train steps, all on "
+               f"bf16); launches over {TF_K_STEPS} bf16 train steps, all on "
                "the tensor-core route"})
+    kernels.append({
+        "name": "flash_fwd_general", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+        "launches": general_launches, "max_abs_err": gnr["max_abs_err"],
+        "ms": gnr["ms"], "plain_ms": gnr["plain_ms"],
+        "bound_ms": gnr["bound_ms"], "bound_share": gnr["bound_share"],
+        "bound_by": gnr["bound_by"], "library_ms": gnr["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention, f32",
+        "library_kernels": gnr["library_kernels"],
+        "library_tf32": gnr["library_tf32"],
+        "kernel_route": "general", "entry": "mxt_flash_fwd",
+        "tflops": gnr["tflops"],
+        "bound_f32_fma_ms": gnr["bound_f32_fma_ms"],
+        "per": f"one launch (B {TF_BATCH}, T {TF_T}, H 8, D 64, causal, "
+               f"f32; bound as 3xTF32); launches over {TF_K_STEPS} train "
+               "steps of the default (f32) TransformerConfig(), all on the "
+               "general route"})
     for name, row in rtc_rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": "chip_smoke.py",

@@ -258,7 +258,7 @@ _NP_TO_TORCH = {np.dtype(k): v for k, v in (
     ("float16", torch.float16), ("float32", torch.float32),
     ("float64", torch.float64), ("int8", torch.int8), ("uint8", torch.uint8),
     ("int16", torch.int16), ("int32", torch.int32), ("int64", torch.int64),
-    ("bool", torch.bool))}
+    ("uint16", torch.uint16), ("uint32", torch.uint32), ("bool", torch.bool))}
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
 _PY_DTYPES = {float: torch.float32, int: torch.int32, bool: torch.bool}
 

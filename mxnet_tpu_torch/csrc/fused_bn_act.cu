@@ -10,7 +10,9 @@
 // mxnet_tpu_torch/ops/fused_bn_act.py.
 //
 // Layout: x is channel-last, flattened to (R, C) row-major, R = N*H*W.
-// dtype code 0 = float32, 1 = bfloat16; all arithmetic is f32 in registers.
+// dtype code 0 = float32, 1 = bfloat16, 2 = float16; all arithmetic is f32
+// in registers (a 16-bit input converts to f32 exactly; outputs round to
+// nearest even, as PyTorch's casts do).
 //
 // Bound on the card: every kernel here does a handful of flops per element
 // and is memory-bound (H100 SXM: 3.35 TB/s). Least times, bytes / 3.35 TB/s:
@@ -19,8 +21,9 @@
 //   bn_apply      reads (1|2)*R*C*s, writes R*C*s
 //   bn_bwd_stats  reads 3*R*C*s
 //   bn_bwd_apply  reads 3*R*C*s, writes (1|2)*R*C*s
-// (s = 2 for bf16, 4 for f32). What the design does about it: each thread
-// moves 16 bytes per load along C (8 bf16 / 4 f32 channels) so a warp reads
+// (s = 2 for bf16 and f16, 4 for f32). What the design does about it: each
+// thread moves 16 bytes per load along C (8 bf16 or f16 / 4 f32 channels) so
+// a warp reads
 // whole 128-byte lines; every input is read once and every output written
 // once; the ReLU mask is re-derived from the saved output so no masked
 // cotangent is ever stored.
@@ -55,18 +58,21 @@
 // which is the masking the TPU kernel does with _row_mask (including the
 // product g*xhat in the backward).
 //
-// bn_apply is a grid-stride loop over 16-byte packs with per-channel
-// coefficients broadcast from a tiny (2, C) f32 table (cached in L1).
-// bn_bwd_apply is row-tiled like the reductions: the grid is (channel tiles)
-// x (row chunks), each thread owns one fixed pack of channels, loads that
-// pack's (5, pack) coefficients into registers once and walks its chunk's
-// rows, so there is no per-element table load and no index modulo. The
+// bn_apply and bn_bwd_apply are row-tiled like the reductions: the grid is
+// (channel tiles) x (row chunks), each thread owns one fixed pack of
+// channels, loads that pack's (2 or 5, pack) coefficients into registers
+// once and walks its chunk's rows APPLY_UNROLL at a time, every load of a
+// group issued before the first is used, so there is no per-element table
+// load and no index modulo, and each thread keeps APPLY_UNROLL rows of
+// loads in flight (a flat grid-stride loop would pay a 64-bit `e % C` and
+// 2 * VEC coefficient loads for every pack, with one pack in flight). The
 // elementwise arithmetic is written with explicit round-to-nearest
 // intrinsics so that it rounds exactly as the plain PyTorch version does,
 // operation by operation.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,6 +82,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -84,6 +91,10 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // VEC elements of T moved as one aligned load / store (16 bytes when wide).
@@ -408,29 +419,78 @@ __global__ void __cluster_dims__(1, CLUSTER, 1) __launch_bounds__(256, 2)
   finish_reduction<VEC>(smem, sg, sgx, partial, sums, tickets, C);
 }
 
-// out = relu(x * coef[0] + coef[1] [+ res]) in x's dtype; coef is (2, C).
+// rows whose loads are in flight; a build switch for timing other depths
+// (tools/kernel_variants_probe.py)
+#ifndef MXT_APPLY_UNROLL
+#define MXT_APPLY_UNROLL 4
+#endif
+constexpr int APPLY_UNROLL = MXT_APPLY_UNROLL;
+
+// out = relu(x * k[0] + k[1] [+ res]) for one pack; k holds the pack's
+// (2, VEC) coefficients.
+template <typename T, int VEC, bool RES>
+__device__ __forceinline__ void apply_pack(const Pack<T, VEC>& a,
+                                           const Pack<T, VEC>& r,
+                                           const float (&k)[2][VEC], T* out) {
+  Pack<T, VEC> o;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    float y = __fadd_rn(__fmul_rn(to_f32(a.v[j]), k[0][j]), k[1][j]);
+    if (RES) y = __fadd_rn(y, to_f32(r.v[j]));
+    o.v[j] = from_f32<T>(relu(y));
+  }
+  store_pack<T, VEC>(out, o);
+}
+
+// The row-tiled pass of bn_apply: out = relu(x * coef[0] + coef[1] [+ res])
+// in x's dtype, coef (2, C). Thread (x, y) of block (bx, by) owns channels
+// col .. col + VEC - 1, col = (bx * blockDim.x + x) * VEC, and rows r0 + y,
+// r0 + y + blockDim.y, ... of the chunk [r0, r1), r0 = by * rows_per_chunk,
+// APPLY_UNROLL rows at a time: (1 or 2) * APPLY_UNROLL pack loads are issued
+// before the first is used, and the rows left over go as one more guarded
+// group.
 template <typename T, int VEC, bool RES>
 __global__ void bn_apply(const T* __restrict__ x, const T* __restrict__ res,
                          const float* __restrict__ coef, T* __restrict__ out,
-                         int64_t nvec, int C) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nvec;
-       i += stride) {
-    const int64_t e = i * VEC;
-    const int c = (int)(e % C);
-    const Pack<T, VEC> a = load_pack<T, VEC>(x + e);
-    Pack<T, VEC> r;
-    if (RES) r = load_pack<T, VEC>(res + e);
-    Pack<T, VEC> o;
+                         int64_t R, int C, int64_t rows_per_chunk) {
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (col >= C) return;
+  float k[2][VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      float y = __fadd_rn(__fmul_rn(to_f32(a.v[j]), __ldg(coef + c + j)),
-                          __ldg(coef + C + c + j));
-      if (RES) y = __fadd_rn(y, to_f32(r.v[j]));
-      o.v[j] = from_f32<T>(relu(y));
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) k[i][j] = coef[i * C + col + j];
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_chunk;
+  const int64_t r1 = r0 + rows_per_chunk < R ? r0 + rows_per_chunk : R;
+  const int64_t step = blockDim.y;
+  int64_t r = r0 + threadIdx.y;
+  for (; r + (APPLY_UNROLL - 1) * step < r1; r += APPLY_UNROLL * step) {
+    Pack<T, VEC> a[APPLY_UNROLL], b[APPLY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < APPLY_UNROLL; ++u) {
+      const int64_t off = (r + u * step) * C + col;
+      a[u] = load_pack<T, VEC>(x + off);
+      if (RES) b[u] = load_pack<T, VEC>(res + off);
     }
-    store_pack<T, VEC>(out + e, o);
+#pragma unroll
+    for (int u = 0; u < APPLY_UNROLL; ++u)
+      apply_pack<T, VEC, RES>(a[u], b[u], k, out + (r + u * step) * C + col);
   }
+  // the last rows (fewer than APPLY_UNROLL), their loads also issued together
+  constexpr int TAIL = APPLY_UNROLL - 1;
+  Pack<T, VEC> a[TAIL], b[TAIL];
+#pragma unroll
+  for (int u = 0; u < TAIL; ++u) {
+    const int64_t off = (r + u * step) * C + col;
+    if (r + u * step < r1) {
+      a[u] = load_pack<T, VEC>(x + off);
+      if (RES) b[u] = load_pack<T, VEC>(res + off);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < TAIL; ++u)
+    if (r + u * step < r1)
+      apply_pack<T, VEC, RES>(a[u], b[u], k, out + (r + u * step) * C + col);
 }
 
 // dx = coef[2] * (g - coef[3] - xhat * coef[4]) for one pack, with g = dy
@@ -454,8 +514,6 @@ __device__ __forceinline__ void bwd_apply_pack(const Pack<T, VEC>& d,
   store_pack<T, VEC>(dx, gx);
   if (RES) store_pack<T, VEC>(dres, gr);
 }
-
-constexpr int BWD_APPLY_UNROLL = 4;   // rows whose loads are in flight
 
 // The row-tiled pass of bn_bwd_apply; coef is (5, C). Thread (x, y) of
 // block (bx, by) owns channels col .. col + VEC - 1, col = (bx * blockDim.x
@@ -481,26 +539,26 @@ __global__ void bn_bwd_apply(const T* __restrict__ dy,
   const int64_t r1 = r0 + rows_per_chunk < R ? r0 + rows_per_chunk : R;
   const int64_t step = blockDim.y;
   int64_t r = r0 + threadIdx.y;
-  for (; r + (BWD_APPLY_UNROLL - 1) * step < r1;
-       r += BWD_APPLY_UNROLL * step) {
-    Pack<T, VEC> d[BWD_APPLY_UNROLL], o[BWD_APPLY_UNROLL],
-        a[BWD_APPLY_UNROLL];
+  for (; r + (APPLY_UNROLL - 1) * step < r1;
+       r += APPLY_UNROLL * step) {
+    Pack<T, VEC> d[APPLY_UNROLL], o[APPLY_UNROLL],
+        a[APPLY_UNROLL];
 #pragma unroll
-    for (int u = 0; u < BWD_APPLY_UNROLL; ++u) {
+    for (int u = 0; u < APPLY_UNROLL; ++u) {
       const int64_t off = (r + u * step) * C + col;
       d[u] = load_pack<T, VEC>(dy + off);
       o[u] = load_pack<T, VEC>(out + off);
       a[u] = load_pack<T, VEC>(x + off);
     }
 #pragma unroll
-    for (int u = 0; u < BWD_APPLY_UNROLL; ++u) {
+    for (int u = 0; u < APPLY_UNROLL; ++u) {
       const int64_t off = (r + u * step) * C + col;
       bwd_apply_pack<T, VEC, RES>(d[u], o[u], a[u], k, dx + off,
                                   RES ? dres + off : nullptr);
     }
   }
   // the last rows (fewer than UNROLL), their loads also issued together
-  constexpr int TAIL = BWD_APPLY_UNROLL - 1;
+  constexpr int TAIL = APPLY_UNROLL - 1;
   Pack<T, VEC> d[TAIL], o[TAIL], a[TAIL];
 #pragma unroll
   for (int u = 0; u < TAIL; ++u) {
@@ -550,17 +608,19 @@ void launch_bwd_stats(const void* dy, const void* out, const void* x,
 
 template <typename T, int VEC>
 void launch_apply(const void* x, const void* res, const float* coef,
-                  void* out, int64_t R, int C, int blocks,
-                  cudaStream_t stream) {
-  const int64_t nvec = R * C / VEC;
+                  void* out, int64_t R, int C, int tx, int ty, int chunks,
+                  int64_t rows_per_chunk, cudaStream_t stream) {
+  const int width = tx * VEC;
+  dim3 grid((C + width - 1) / width, chunks);
+  dim3 block(tx, ty);
   if (res != nullptr)
-    bn_apply<T, VEC, true><<<blocks, 256, 0, stream>>>(
+    bn_apply<T, VEC, true><<<grid, block, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(res), coef,
-        static_cast<T*>(out), nvec, C);
+        static_cast<T*>(out), R, C, rows_per_chunk);
   else
-    bn_apply<T, VEC, false><<<blocks, 256, 0, stream>>>(
-        static_cast<const T*>(x), nullptr, coef, static_cast<T*>(out), nvec,
-        C);
+    bn_apply<T, VEC, false><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(x), nullptr, coef, static_cast<T*>(out), R, C,
+        rows_per_chunk);
 }
 
 template <typename T, int VEC>
@@ -597,6 +657,9 @@ void launch_bwd_apply(const void* dy, const void* out, const void* x,
     } else if ((dtype) == 1) {                                  \
       if (wide) FN<__nv_bfloat16, 8>(__VA_ARGS__);              \
       else FN<__nv_bfloat16, 1>(__VA_ARGS__);                   \
+    } else if ((dtype) == 2) {                                  \
+      if (wide) FN<__half, 8>(__VA_ARGS__);                     \
+      else FN<__half, 1>(__VA_ARGS__);                          \
     } else {                                                    \
       return (int)cudaErrorInvalidValue;                        \
     }                                                           \
@@ -614,10 +677,10 @@ int mxt_bn_stats(const void* x, float* partial, float* sums,
 }
 
 int mxt_bn_apply(const void* x, const void* res, const float* coef,
-                 void* out, long long R, int C, int dtype, int wide,
-                 int blocks, void* stream) {
-  MXT_DISPATCH(dtype, wide, launch_apply, x, res, coef, out, R, C, blocks,
-               (cudaStream_t)stream);
+                 void* out, long long R, int C, int dtype, int wide, int tx,
+                 int ty, int chunks, long long rows_per_chunk, void* stream) {
+  MXT_DISPATCH(dtype, wide, launch_apply, x, res, coef, out, R, C, tx, ty,
+               chunks, rows_per_chunk, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

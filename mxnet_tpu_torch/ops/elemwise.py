@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..base import torch_dtype
@@ -187,6 +188,22 @@ def _smooth_l1(x, scalar: float = 1.0):
 # scalar forms (ref: elemwise_binary_scalar_op_*.cc)
 # ---------------------------------------------------------------------------
 
+def _rmod(x, s):
+    """``s % x`` in the dtype ``jnp.mod(s, x)`` gives: x's own for a float
+    x; float32 for a float scalar and an integer or bool x; int32 for an
+    int scalar and a bool x; else x's. The scalar goes in as a full tensor,
+    since ``remainder(scalar, x)`` has no gradient; integers are taken in
+    int64 (torch has no remainder for uint16 / uint32) and cast back."""
+    if x.is_floating_point():
+        return torch.remainder(torch.full_like(x, s), x)
+    if not isinstance(s, (bool, int, np.integer)):
+        xf = x.to(torch.float32)
+        return torch.remainder(torch.full_like(xf, s), xf)
+    dt = torch.int32 if x.dtype == torch.bool else x.dtype
+    xi = x.to(torch.int64)
+    return torch.remainder(torch.full_like(xi, int(s)), xi).to(dt)
+
+
 def _scalar_op(fwd, rev=None):
     def impl(x, scalar: float = 1.0, reverse: bool = False):
         if reverse and rev is not None:
@@ -203,10 +220,8 @@ _SCALAR = {
     "_div_scalar": _scalar_op(lambda x, s: x / s),
     "_rdiv_scalar": _scalar_op(lambda x, s: s / x, lambda x, s: s / x),
     "_mod_scalar": _scalar_op(lambda x, s: torch.remainder(x, s)),
-    # a full tensor, not the scalar: remainder(scalar, x) has no gradient
-    "_rmod_scalar": _scalar_op(
-        lambda x, s: torch.remainder(torch.full_like(x, s), x),
-        lambda x, s: torch.remainder(torch.full_like(x, s), x)),
+    "_rmod_scalar": _scalar_op(lambda x, s: _rmod(x, s),
+                               lambda x, s: _rmod(x, s)),
     "_power_scalar": _scalar_op(lambda x, s: torch.pow(x, s)),
     "_rpower_scalar": _scalar_op(lambda x, s: torch.pow(s, x),
                                  lambda x, s: torch.pow(s, x)),

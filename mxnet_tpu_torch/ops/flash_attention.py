@@ -3,10 +3,21 @@ JAX package's ``ops/pallas_kernels.py`` ``_build_flash`` and
 ``flash_attention``).
 
 The forward is one of two hand-written CUDA kernels in
-``csrc/flash_attention.cu``, chosen by shape (``flash_route``): a
-tensor-core kernel (wgmma, TMA, P in bf16) for bf16 with D 64 or 128 and
-16-byte aligned views, and an online-softmax kernel in f32 arithmetic for
-every other call. The backward is not a kernel, as in the JAX package: it
+``csrc/flash_attention.cu``, chosen by shape (``flash_route``):
+
+- ``"tc"``, the tensor-core kernel ``mxt_flash_fwd_tc`` (wgmma, TMA, P
+  rounded to the input type): bf16 or f16 with D a multiple of 8 up to 256
+  and 16-byte aligned pointers and (b, t, h) strides. An element is within
+  ``2e-5 + 2^-7 |want| + 2^-8 max|v|`` of the plain version in bf16 and
+  ``2e-5 + 2^-10 |want| + 2^-11 max|v|`` in f16;
+- ``"general"``, the kernel ``mxt_flash_fwd`` for every other call: f32,
+  and f16 or bf16 at other D or through unaligned views, any T >= 1 and
+  any D >= 1. Its products run on the tensor cores in TF32 with f32
+  operands split in two (3xTF32), within 2e-5 of the plain version in f32
+  (plus one unit in the last place of a 16-bit output).
+
+Like the JAX kernel, both take f32, bf16 and f16 and return q's dtype; any
+other dtype raises. The backward is not a kernel, as in the JAX package: it
 recomputes through the plain ``parallel.ring_attention.attention`` with
 torch autograd, as the JAX ``custom_vjp`` recomputes through its plain
 attention.
@@ -15,8 +26,8 @@ Device rule: ``flash_fwd`` runs a kernel for CUDA tensors and its plain
 PyTorch version ``_flash_plain`` for CPU tensors; any other device raises.
 Nothing falls back from a kernel to the plain version or to the other
 kernel. The wrapper adds one to ``launches["flash_fwd"]`` for every kernel
-launch and one to ``launches["flash_fwd_tc"]`` when it is the tensor-core
-kernel.
+launch and one to ``launches["flash_fwd_tc"]`` or
+``launches["flash_fwd_general"]`` for its route.
 """
 from __future__ import annotations
 
@@ -33,12 +44,11 @@ __all__ = ["flash_attention", "flash_fwd", "flash_route", "launches",
            "reset_launches"]
 
 #: kernel launches since the last reset_launches(): every launch, and those
-#: of the tensor-core route
-launches = {"flash_fwd": 0, "flash_fwd_tc": 0}
+#: of each route
+launches = {"flash_fwd": 0, "flash_fwd_tc": 0, "flash_fwd_general": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 256
-_TC_D = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TC_MAX_D = 256
 _bound = False
 
 
@@ -69,7 +79,7 @@ def _lib():
                                       ctypes.c_float, i, i, i, p]
         lib.mxt_flash_fwd.restype = ctypes.c_int
         lib.mxt_flash_fwd_tc.argtypes = [p, p, p, p, p, i, i, i, i,
-                                         ctypes.c_float, i, p]
+                                         ctypes.c_float, i, i, p]
         lib.mxt_flash_fwd_tc.restype = ctypes.c_int
         _bound = True
     return lib
@@ -81,53 +91,60 @@ def _check(q, k, v):
         check(isinstance(t, torch.Tensor) and t.dim() == 4,
               f"flash_fwd: {name} must be a 4-D (B, T, H, D) tensor")
         check(t.dtype in _DTYPE_CODE,
-              f"flash_fwd: dtype {t.dtype} unsupported (float32 or "
-              "bfloat16)")
+              f"flash_fwd: dtype {t.dtype} unsupported (float32, bfloat16 "
+              "or float16)")
         check(t.dtype == q.dtype and t.shape == q.shape
               and t.device == q.device,
               "flash_fwd: q, k and v must share dtype, shape and device")
         check(t.stride(-1) == 1,
               f"flash_fwd: the last dim of {name} must be contiguous")
-    b, t, h, d = q.shape
-    check(b > 0 and t > 0 and h > 0, "flash_fwd: empty input")
-    check(0 < d <= _MAX_D and d % 8 == 0,
-          f"flash_fwd: head dim {d} unsupported (a multiple of 8, at most "
-          f"{_MAX_D})")
+    check(q.numel() > 0, "flash_fwd: empty input")
     if q.device.type not in ("cpu", "cuda"):
         raise MXNetError(f"flash_fwd: unsupported device {q.device}")
     return q.device.type
 
 
-def _aligned(ts) -> bool:
-    """Every pointer and every (b, t, h) stride 16-byte aligned."""
+def _unit(ts) -> int:
+    """Bytes per copy of the general kernel's loads: the largest of 16, 8
+    and 4 that divides every pointer and every (b, t, h) stride in bytes,
+    else the element size (16-bit views that are not 4-byte aligned)."""
     size = ts[0].element_size()
-    return (all(x.data_ptr() % 16 == 0 for x in ts)
-            and all(s * size % 16 == 0 for x in ts for s in x.stride()[:3]))
+    for unit in (16, 8, 4):
+        if all(x.data_ptr() % unit == 0 for x in ts) and all(
+                s * size % unit == 0 for x in ts for s in x.stride()[:3]):
+            return unit
+    return size
 
 
 def flash_route(q, k, v) -> str:
     """The kernel a call takes, by shape: ``"tc"`` (the tensor-core kernel)
-    for bf16 with D 64 or 128 whose pointers and (b, t, h) strides are all
-    16-byte aligned, else ``"simt"`` (the f32-arithmetic kernel)."""
-    if q.dtype == torch.bfloat16 and q.shape[-1] in _TC_D \
-            and _aligned((q, k, v)):
+    for bf16 or f16 with D a multiple of 8 up to 256 whose pointers and
+    (b, t, h) strides are all 16-byte aligned, else ``"general"``."""
+    d = q.shape[-1]
+    if q.dtype in (torch.bfloat16, torch.float16) and d % 8 == 0 \
+            and d <= _TC_MAX_D and _unit((q, k, v)) == 16:
         return "tc"
-    return "simt"
+    return "general"
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """softmax(q k^T * scale [causal -1e30 mask]) v over (B, T, H, D),
-    output in q's dtype (ref: pallas_kernels.py _build_flash).
+    output in q's dtype (ref: pallas_kernels.py _build_flash). q, k and v
+    are f32, bf16 or f16 and share dtype and shape; any T and D.
 
     Route rule (``flash_route``, dispatch by shape, never a fallback):
-    bf16 with D 64 or 128 and 16-byte aligned pointers and (b, t, h)
-    strides goes to the tensor-core kernel, whose products run in bf16 with
-    f32 accumulation and P rounded to bf16; an element of its output is
-    within ``2e-5 + 2^-7 |want| + 2^-8 max|v|`` of ``_flash_plain``'s
-    ``want`` (P's bf16 rounding moves the output by at most 2^-8 max|v|).
-    Everything else (f32, other D, unaligned views) goes to the SIMT kernel
-    in f32 arithmetic, within the plain version's f32 tolerance. A failed
-    build or launch on either route raises ``MXNetError``."""
+    bf16 or f16 with D a multiple of 8 up to 256 and 16-byte aligned
+    pointers and (b, t, h) strides goes to the tensor-core kernel, whose
+    products run in the input type with f32 accumulation and P rounded to
+    it; an element of its output is within
+    ``2e-5 + 2^-7 |want| + 2^-8 max|v|`` of ``_flash_plain``'s ``want`` in
+    bf16 (P's rounding moves the output by at most 2^-8 max|v|) and
+    ``2e-5 + 2^-10 |want| + 2^-11 max|v|`` in f16. Everything else (f32,
+    other D, unaligned views) goes to the general kernel, whose products
+    run on the tensor cores in TF32 with f32 operands split in two
+    (3xTF32), within 2e-5 of ``want`` in f32 plus one unit in the last
+    place of a 16-bit output (2^-7 |want| in bf16, 2^-10 |want| in f16). A
+    failed build or launch on either route raises ``MXNetError``."""
     if _check(q, k, v) == "cpu":
         return _flash_plain(q, k, v, causal, scale)
     b, t, h, d = q.shape
@@ -141,18 +158,18 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
         if route == "tc":
             err = _lib().mxt_flash_fwd_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                strides, b, t, h, d, float(scale), int(bool(causal)), stream)
+                strides, b, t, h, d, float(scale), int(bool(causal)),
+                _DTYPE_CODE[q.dtype], stream)
         else:
             err = _lib().mxt_flash_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 strides, b, t, h, d, float(scale), int(bool(causal)),
-                _DTYPE_CODE[q.dtype], int(_aligned(ts)), stream)
+                _DTYPE_CODE[q.dtype], _unit((q, k, v)), stream)
     if err != 0:
         raise MXNetError(f"flash_fwd: CUDA kernel launch failed on the "
                          f"{route} route (cudaError {err})")
     launches["flash_fwd"] += 1
-    if route == "tc":
-        launches["flash_fwd_tc"] += 1
+    launches[f"flash_fwd_{route}"] += 1
     return o
 
 

@@ -12,6 +12,9 @@ Two passes each way over the (R, C) view of the conv output (R = N*H*W):
 
 with g the ReLU-masked cotangent re-derived from the saved output, so it is
 never stored. The kernels are hand-written CUDA in ``csrc/fused_bn_act.cu``.
+The activations are float32, bfloat16 or float16 (the Pallas kernels take
+any float); every kernel computes in f32 and rounds as the plain versions
+do, so the elementwise ones are bit-identical to them in all three.
 
 The two reductions are one launch each. Blocks of a (channel tiles) x (row
 chunks) grid sum their rows; each thread-block cluster of ``_CLUSTER``
@@ -57,11 +60,11 @@ __all__ = ["fused_bn_act", "bn_stats", "bn_apply", "bn_bwd_stats",
 launches = {"bn_stats": 0, "bn_apply": 0, "bn_bwd_stats": 0,
             "bn_bwd_apply": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_PACK = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16 bytes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PACK = {torch.float32: 4, torch.bfloat16: 8,   # elements per 16 bytes
+         torch.float16: 8}
 _H100_SXM_SMS = 132
-_BWD_APPLY_BLOCKS_PER_SM = 8   # bn_bwd_apply blocks in flight (256 threads)
-_ELEMWISE_BLOCKS_PER_SM = 16
+_APPLY_BLOCKS_PER_SM = 8       # apply blocks in flight (256 threads)
 _STATS_BLOCKS_PER_SM = 1       # blocks of a reduction (256 threads each)
 _CLUSTER = 8                   # chunks per thread-block cluster (CLUSTER)
 _bound = False
@@ -120,7 +123,8 @@ def _lib():
         for fn, args in (
                 (lib.mxt_bn_stats,
                  [p, p, p, p, ll, i, i, i, i, i, i, ll, p]),
-                (lib.mxt_bn_apply, [p, p, p, p, ll, i, i, i, i, p]),
+                (lib.mxt_bn_apply, [p, p, p, p, ll, i, i, i, i, i, i, ll,
+                                    p]),
                 (lib.mxt_bn_bwd_stats,
                  [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, ll, p]),
                 (lib.mxt_bn_bwd_apply,
@@ -139,7 +143,8 @@ def _check_rows(name, *ts):
         check(isinstance(t, torch.Tensor) and t.dim() == 2,
               f"{name}: expected 2-D (R, C) tensors")
         check(t.dtype in _DTYPE_CODE,
-              f"{name}: dtype {t.dtype} unsupported (float32 or bfloat16)")
+              f"{name}: dtype {t.dtype} unsupported (float32, bfloat16 "
+              "or float16)")
         check(t.dtype == x.dtype and t.shape == x.shape
               and t.device == x.device,
               f"{name}: all activations must share dtype, shape and device")
@@ -174,16 +179,18 @@ def _device_sms(device) -> int:
     return n
 
 
-def _reduce_config(r, c, wide, dtype, sms=_H100_SXM_SMS):
-    """(tx, ty, chunks, rows_per_chunk) of the row-tiled bn_bwd_apply: tx
-    threads across C (each one pack), ty rows in flight, at least 4 rows
-    per thread (its unroll), and enough row chunks to fill the card."""
+def _reduce_config(r, c, wide, dtype, sms=_H100_SXM_SMS,
+                   blocks_per_sm=_APPLY_BLOCKS_PER_SM):
+    """(tx, ty, chunks, rows_per_chunk) of the row-tiled bn_apply and
+    bn_bwd_apply: tx threads across C (each one pack), ty rows in flight,
+    at least 4 rows per thread (their unroll), and enough row chunks for
+    ``blocks_per_sm`` blocks on each of ``sms``."""
     pack = _PACK[dtype] if wide else 1
     cols = -(-c // pack)
     tx = min(32, cols)
     ty = max(1, 256 // tx)
     grid_x = -(-cols // tx)
-    target = _BWD_APPLY_BLOCKS_PER_SM * sms
+    target = blocks_per_sm * sms
     chunks = max(1, min(-(-r // (4 * ty)), -(-target // grid_x)))
     rows_per_chunk = -(-r // chunks)
     chunks = -(-r // rows_per_chunk)
@@ -207,12 +214,6 @@ def _reduce_stats_config(r, c, wide, dtype, sms):
     rows_per_chunk = -(-r // (chunks * ty)) * ty
     chunks = -(-r // rows_per_chunk)
     return tx, ty, -(-chunks // _CLUSTER) * _CLUSTER, rows_per_chunk
-
-
-def _elemwise_blocks(r, c, wide, dtype, sms=_H100_SXM_SMS):
-    pack = _PACK[dtype] if wide else 1
-    return max(1, min(-(-(r * c // pack) // 256),
-                      _ELEMWISE_BLOCKS_PER_SM * sms))
 
 
 def _stream(x):
@@ -287,12 +288,13 @@ def bn_apply(x2d, res2d, coef):
     r, c = x2d.shape
     out = torch.empty_like(x2d)
     wide = _wide(*rows, out)
+    tx, ty, chunks, rpc = _reduce_config(r, c, wide, x2d.dtype,
+                                         _device_sms(x2d.device))
     with torch.cuda.device(x2d.device):
         err = _lib().mxt_bn_apply(
             x2d.data_ptr(), None if res2d is None else res2d.data_ptr(),
             coef.data_ptr(), out.data_ptr(), r, c, _DTYPE_CODE[x2d.dtype],
-            wide, _elemwise_blocks(r, c, wide, x2d.dtype,
-                                   _device_sms(x2d.device)), _stream(x2d))
+            wide, tx, ty, chunks, rpc, _stream(x2d))
         _ok("bn_apply", err)
     return out
 

@@ -32,11 +32,25 @@ def _safe_acc(x):
     return x, None
 
 
+def _int_dtype(x):
+    """The dtype ``jnp.sum`` / ``jnp.prod`` give an integer or bool x:
+    narrower integers widen to 32 bits, unsigned to uint32 and bool and
+    signed to int32; 64-bit ones keep theirs. None for a float x."""
+    if x.is_floating_point():
+        return None
+    if x.dtype in (torch.uint8, torch.uint16, torch.uint32):
+        return torch.uint32
+    return x.dtype if x.dtype in (torch.int64, torch.uint64) \
+        else torch.int32
+
+
 def _sum(x, ax, keepdim):
-    # integer sums keep their type, as jnp.sum does (torch widens to int64)
-    dt = x.dtype if not (x.is_floating_point() or x.dtype == torch.bool) \
-        else None
-    return torch.sum(x, dim=ax, keepdim=keepdim, dtype=dt)
+    # integers add in int64 (torch has no uint32 sum) and are cast to the
+    # JAX dtype; the cast wraps as a 32-bit sum would
+    dt = _int_dtype(x)
+    if dt is None:
+        return torch.sum(x, dim=ax, keepdim=keepdim)
+    return torch.sum(x, dim=ax, keepdim=keepdim, dtype=torch.int64).to(dt)
 
 
 def _mean(x, ax, keepdim):
@@ -45,12 +59,23 @@ def _mean(x, ax, keepdim):
 
 
 def _prod(x, ax, keepdim):
+    dt = _int_dtype(x)
+    if dt is not None:
+        x = x.to(torch.int64)
     for a in sorted(ax, reverse=True):
         x = torch.prod(x, dim=a, keepdim=keepdim)
-    return x
+    return x if dt is None else x.to(dt)
+
+
+def _nansum(x, ax, keepdim):
+    if not x.is_floating_point():
+        return _sum(x, ax, keepdim)
+    return torch.nansum(x, dim=ax, keepdim=keepdim)
 
 
 def _nanprod(x, ax, keepdim):
+    if not x.is_floating_point():
+        return _prod(x, ax, keepdim)
     return _prod(torch.where(torch.isnan(x), torch.ones_like(x), x), ax,
                  keepdim)
 
@@ -71,8 +96,7 @@ def _reduce(fn, accumulating: bool = True):
 register("sum", aliases=("sum_axis",))(_reduce(_sum))
 register("mean")(_reduce(_mean))
 register("prod")(_reduce(_prod))
-register("nansum")(_reduce(
-    lambda x, ax, k: torch.nansum(x, dim=ax, keepdim=k)))
+register("nansum")(_reduce(_nansum))
 register("nanprod")(_reduce(_nanprod))
 register("max", aliases=("max_axis",))(_reduce(
     lambda x, ax, k: torch.amax(x, dim=ax, keepdim=k), accumulating=False))

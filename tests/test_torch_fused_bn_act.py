@@ -5,7 +5,9 @@ On the CPU the port's wrappers run their kernels' plain PyTorch versions
 (the CUDA kernels themselves are held against those plain versions on the
 card by chip_smoke.py). The JAX side runs the Pallas kernels in interpret
 mode, as tests/test_fused_epilogue.py does. Same numpy inputs for both.
-Tolerances are test_fused_epilogue.py's: 2e-5 in f32, 2e-2 in bf16.
+Tolerances are test_fused_epilogue.py's: 2e-5 in f32, 2e-2 in bf16; 2e-3 in
+f16 (both sides compute in f32 and round to f16, whose unit roundoff is
+2^-11).
 """
 import ast
 import importlib.util
@@ -25,8 +27,8 @@ SHAPES = [(2, 7, 5, 9), (2, 4, 4, 256)]
 
 
 def _tol(dtype):
-    return dict(rtol=2e-5, atol=2e-5) if dtype == "float32" \
-        else dict(rtol=2e-2, atol=2e-2)
+    t = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-3}[dtype]
+    return dict(rtol=t, atol=t)
 
 
 def _inputs(shape, dtype, has_res, seed):
@@ -57,7 +59,7 @@ def _np(a):
 
 @pytest.mark.parametrize("shape", SHAPES, ids=["ragged", "c256"])
 @pytest.mark.parametrize("has_res", [False, True], ids=["relu", "add_relu"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_fused_bn_act_matches_pallas(shape, has_res, dtype):
     import jax
     import jax.numpy as jnp
@@ -98,7 +100,7 @@ def test_fused_bn_act_matches_pallas(shape, has_res, dtype):
         np.testing.assert_allclose(_np(mine), _np(ref), err_msg=name, **tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kernel", ["stats", "apply", "apply_res",
                                     "bwd_stats", "bwd_apply",
                                     "bwd_apply_res"])
@@ -142,14 +144,21 @@ def test_each_plain_kernel_matches_its_pallas_kernel(kernel, dtype):
         np.testing.assert_allclose(_np(g), _np(w), **tol)
 
 
-def _path_sites():
-    """chip_smoke.py's ResNet-50 epilogue sites (R, C): the shapes the main
-    path gives bn_bwd_apply."""
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return [(r, c, "bfloat16") for r, c, _, _ in mod.path_sites()]
+    return mod
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+def _path_sites():
+    """chip_smoke.py's ResNet-50 epilogue sites (R, C): the shapes the main
+    path gives bn_bwd_apply."""
+    return [(r, c, "bfloat16") for r, c, _, _ in CHIP_SMOKE.path_sites()]
 
 
 BWD_APPLY_SITES = _path_sites() + [(100003, 512, "bfloat16"),
@@ -186,6 +195,50 @@ def test_bwd_apply_grid_covers_each_row_and_pack_once(r, c, dtype):
         assert (hits == 1).all()
 
 
+APPLY_SITES = sorted(set(BWD_APPLY_SITES
+                         + [(r, c, "bfloat16") for r, c, _, _
+                            in CHIP_SMOKE.v2_path_sites()]
+                         + [(r, c, "float16") for r, c, _ in _path_sites()]
+                         + [(6272 * 32 // 128, 256, "float32"),
+                            (7, 64, "float16"), (1, 9, "float32"),
+                            (100003, 24, "float16")]))
+
+
+@pytest.mark.parametrize("kernel", ["bn_apply", "bn_bwd_apply"])
+@pytest.mark.parametrize("r,c,dtype", APPLY_SITES,
+                         ids=[f"{r}x{c}_{d}" for r, c, d in APPLY_SITES])
+def test_apply_grid_walk_covers_each_row_and_pack_once(r, c, dtype, kernel):
+    """The row-tiled bn_apply and bn_bwd_apply as their kernels walk the
+    grid ``_reduce_config`` sizes: thread (x, y) of block (bx, by) owns the
+    pack at column (bx * tx + x) * pack and reads rows r0 + y, r0 + y + ty,
+    ... of its chunk in groups of ``APPLY_UNROLL`` (all loads issued
+    first), then one guarded group of the rest. Every (row, pack) is
+    written exactly once, wide and narrow, at the v1, v2, f16 and f32 path
+    sites and the edge cases."""
+    dt = getattr(torch, dtype)
+    unroll = _unroll("apply")
+    for wide in ((1, 0) if c % tk._PACK[dt] == 0 else (0,)):
+        tx, ty, chunks, rpc = tk._reduce_config(r, c, wide, dt)
+        pack = tk._PACK[dt] if wide else 1
+        assert tx >= 1 and ty >= 1 and tx * ty <= 256
+        assert 1 <= chunks <= 65535 and (chunks - 1) * rpc < r
+        grid_x = -(-c // (tx * pack))
+        cols = (np.arange(grid_x)[:, None] * tx
+                + np.arange(tx)[None, :]).ravel() * pack
+        cols = cols[cols < c]
+        assert np.array_equal(np.sort(cols), np.arange(0, c, pack))
+        hits = np.zeros(r, np.int32)
+        for by in range(chunks):
+            r0 = by * rpc
+            r1 = min(r0 + rpc, r)
+            for y in range(ty):
+                groups, tail = _walk(r0, r1, y, ty, unroll)
+                assert len(tail) < unroll
+                for rows in groups + [tail]:
+                    hits[np.asarray(rows, np.int64)] += 1
+        assert (hits == 1).all()
+
+
 def _walk(r0, r1, y, ty, unroll):
     """The rows thread row y of a reduction block reads in its chunk [r0,
     r1), as the kernel's loop reads them: whole groups of ``unroll`` rows
@@ -208,10 +261,12 @@ def _finish_ranges(n, ty):
 
 def _unroll(kernel):
     """Rows a reduction thread loads at a time, read from the source."""
-    name = {"bn_stats": "STATS_UNROLL", "bn_bwd_stats": "BWD_STATS_UNROLL"}
+    name = {"bn_stats": "STATS_UNROLL", "bn_bwd_stats": "BWD_STATS_UNROLL",
+            "apply": "APPLY_UNROLL"}
     src = open(os.path.join(ROOT, "mxnet_tpu_torch", "csrc",
                             "fused_bn_act.cu")).read()
-    return int(re.search(rf"constexpr int {name[kernel]} = (\d+);",
+    n = name[kernel]   # a constant, or a build switch's default
+    return int(re.search(rf"(?:constexpr int {n} =|#define MXT_{n}) (\d+)",
                          src).group(1))
 
 
@@ -375,13 +430,17 @@ def test_cpu_tensors_use_plain_versions_and_count_no_launch():
     assert all(v == 0 for v in tk.launches.values())
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "noncontig", "coef",
-                                 "device", "ndim"])
+@pytest.mark.parametrize("bad", ["dtype", "float64", "shape", "noncontig",
+                                 "coef", "device", "ndim"])
 def test_wrappers_validate_their_inputs(bad):
+    """Inputs the kernels do not take raise (f32, bf16 and f16 are taken:
+    test_f16_goes_through_every_wrapper)."""
     x = torch.randn(8, 4)
     coef = torch.randn(2, 4)
     if bad == "dtype":
-        args = (x.half(), None, coef)
+        args = (x.to(torch.int32), None, coef)
+    elif bad == "float64":
+        args = (x.double(), None, coef)
     elif bad == "shape":
         args = (x, torch.randn(8, 5), coef)
     elif bad == "noncontig":
@@ -394,6 +453,31 @@ def test_wrappers_validate_their_inputs(bad):
         args = (x.reshape(2, 4, 4), None, coef)
     with pytest.raises(MXNetError):
         tk.bn_apply(*args)
+
+
+def test_f16_goes_through_every_wrapper():
+    """float16 activations: each wrapper's plain version in f16 (outputs
+    in f16, sums in f32), the elementwise ones bit for bit against the
+    f32 arithmetic rounded once to f16; the dtype table and the pack of 8
+    that the card's kernels use."""
+    assert tk._DTYPE_CODE[torch.float16] == 2 and \
+        tk._PACK[torch.float16] == 8
+    rs = np.random.RandomState(3)
+    x, dy, res = (torch.from_numpy(rs.randn(33, 16).astype(np.float32))
+                  .half() for _ in range(3))
+    coef2 = torch.from_numpy(np.stack([rs.rand(16) + 0.5, rs.randn(16)])
+                             .astype(np.float32))
+    coef5 = torch.from_numpy(rs.randn(5, 16).astype(np.float32))
+    out = tk.bn_apply(x, res, coef2)
+    assert out.dtype == torch.float16
+    want = torch.relu(x.float() * coef2[0] + coef2[1] + res.float()).half()
+    assert torch.equal(out, want)
+    assert tk.bn_stats(x).dtype == torch.float32
+    assert tk.bn_bwd_stats(dy, out, x, coef2).dtype == torch.float32
+    dx, dres = tk.bn_bwd_apply(dy, out, x, coef5, True)
+    assert dx.dtype == dres.dtype == torch.float16
+    assert torch.equal(dres, torch.where(out > 0, dy, 0.0).half())
+    assert all(v == 0 for v in tk.launches.values())
 
 
 def test_build_rule_points_at_the_cuda_source():
@@ -412,6 +496,11 @@ def test_build_rule_points_at_the_cuda_source():
     # float atomics, and each reduction is one kernel launch
     assert re.findall(r"atomic\w*\(", src) == ["atomicAdd("]
     assert "atomicAdd(counter, 1u)" in src
+    # f16: dtype code 2, packs of 8 halves, every kernel instantiated
+    assert "FN<__half, 8>" in src and "__float2half_rn" in src
+    # bn_apply is row-tiled: no 64-bit modulo per pack
+    body = src[src.index("__global__ void bn_apply("):]
+    assert "%" not in body[:body.index("\n}\n")]
     # the wrapper's grid arithmetic uses the source's cluster size
     assert f"constexpr int CLUSTER = {tk._CLUSTER};" in src
     for fn in ("launch_stats", "launch_bwd_stats"):

@@ -393,3 +393,47 @@ def test_string_params_are_coerced():
         got = tnd.reshape(x, shape="(5, -1)").shape
         assert got == (5, 12)
         assert tnd.sum(x, axis="(0, 2)", keepdims="True").shape == (1, 4, 1)
+
+
+INT_DTYPES = ["int8", "int16", "int32", "uint8", "uint16", "bool"]
+
+
+@pytest.mark.parametrize("scalar", [2.5, 11], ids=["float", "int"])
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_rmod_scalar_dtype_and_value_match_jax(dtype, scalar):
+    """``scalar % x`` on integer and bool arrays against the JAX package,
+    value and dtype: ``mx.nd``'s ``%`` (which passes the scalar as a
+    float: float32) and the op called with the scalar as given (a float
+    gives float32; an int the array's integer dtype, int32 for bool).
+    Divisors are nonzero. The two paths use different values, because
+    the JAX package's jit cache keys 13 and 13.0 alike."""
+    a = (np.arange(1, 9).reshape(2, 4) % 7 + 1).astype(dtype)
+    want = jnd.array(a, dtype=a.dtype)
+    with mt.cpu():
+        got = tnd.array(a, dtype=a.dtype)
+        dunder = 2.5 if isinstance(scalar, float) else 13
+        pairs = [(dunder % got, dunder % want)]
+        pairs.append((tnd.imperative_invoke(
+            "_rmod_scalar", (got,), {"scalar": scalar, "reverse": True}),
+            jnd.imperative_invoke("_rmod_scalar", (want,),
+                                  {"scalar": scalar, "reverse": True})))
+        for mine, ref in pairs:
+            assert mine.dtype == ref.dtype, (mine.dtype, ref.dtype)
+            np.testing.assert_array_equal(mine.asnumpy(), ref.asnumpy())
+
+
+@pytest.mark.parametrize("op", ["sum", "prod", "nansum", "nanprod"])
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_integer_reductions_widen_as_jax(dtype, op):
+    """Integer and bool sums and products take the JAX package's dtype
+    (8- and 16-bit integers widen to 32 bits, bool to int32) and value,
+    over one axis and over all (products wrap as 32-bit products do)."""
+    a = np.full((2, 150), 3).astype(dtype)
+    want_in = jnd.array(a, dtype=a.dtype)
+    with mt.cpu():
+        got_in = tnd.array(a, dtype=a.dtype)
+        for kw in ({"axis": 1}, {}):
+            mine = getattr(tnd, op)(got_in, **kw)
+            ref = getattr(jnd, op)(want_in, **kw)
+            assert mine.dtype == ref.dtype, (kw, mine.dtype, ref.dtype)
+            np.testing.assert_array_equal(mine.asnumpy(), ref.asnumpy())

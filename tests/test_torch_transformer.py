@@ -8,12 +8,12 @@ steps (every loss and every parameter after the last step). On the CPU both
 packages take plain attention (the JAX package's flash kernel is for a TPU,
 the port's for the card: tests/test_torch_flash_attention.py holds them).
 
-Tolerances: f32 2e-5 (summation order only); bf16 2e-2
-(test_fused_epilogue.py's bf16 tolerance). The bf16 JAX reference runs in a
-subprocess with XLA_FLAGS --xla_allow_excess_precision=false: without it
-XLA's CPU backend skips the bf16 rounding between fused ops, so its bf16
-model is more precise than bf16 arithmetic (and than the port, which rounds
-at every op as the card does).
+Tolerances: f32 2e-5 (summation order only); bf16 and f16 2e-2
+(test_fused_epilogue.py's bf16 tolerance). The bf16 and f16 JAX references
+run in a subprocess with XLA_FLAGS --xla_allow_excess_precision=false:
+without it XLA's CPU backend skips the 16-bit rounding between fused ops,
+so its model is more precise than 16-bit arithmetic (and than the port,
+which rounds at every op as the card does).
 """
 import os
 import subprocess
@@ -53,7 +53,7 @@ def _jax_run(case, dtype):
     from mxnet_tpu.models import transformer as jtf
     kw, _, _ = CASES[case]
     cfg = jtf.TransformerConfig(
-        **kw, dtype=jnp.bfloat16 if dtype == "bfloat16" else None)
+        **kw, dtype=None if dtype == "float32" else jnp.dtype(dtype))
     params = jtf.init_params(jax.random.PRNGKey(0), cfg)
     tok, tgt = (jnp.asarray(a) for a in _tokens(case))
     # the step donates its parameters: copy the initial ones out first
@@ -112,6 +112,8 @@ def _port_run(ref, case, dtype):
     if dtype == "bfloat16":
         import ml_dtypes
         init = {k: v.astype(ml_dtypes.bfloat16) for k, v in init.items()}
+    elif dtype == "float16":
+        init = {k: v.astype(np.float16) for k, v in init.items()}
     params = convert.from_transformer_params(_nest(init), cfg, device="cpu")
     tok, tgt = (torch.from_numpy(a) for a in _tokens(case))
     got = {"logits": ttf.forward(params, tok, cfg),
@@ -147,9 +149,19 @@ def test_f32_forward_loss_and_train_steps_match_jax(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_bf16_forward_loss_and_train_steps_match_jax(bf16_ref, case):
-    ref = {k[len(case) + 1:]: v for k, v in bf16_ref.items()
-           if k.startswith(case + "/")}
+    pre = f"bfloat16/{case}/"
+    ref = {k[len(pre):]: v for k, v in bf16_ref.items()
+           if k.startswith(pre)}
     _compare(ref, _port_run(ref, case, "bfloat16"), 2e-2)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_f16_forward_loss_and_train_steps_match_jax(bf16_ref, case):
+    """The LM in f16, three train steps, against the JAX package in f16."""
+    pre = f"float16/{case}/"
+    ref = {k[len(pre):]: v for k, v in bf16_ref.items()
+           if k.startswith(pre)}
+    _compare(ref, _port_run(ref, case, "float16"), 2e-2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -234,5 +246,7 @@ def test_unported_parts_raise(what):
 
 
 if __name__ == "__main__":
-    np.savez(sys.argv[1], **{f"{case}/{k}": v for case in CASES
-                             for k, v in _jax_run(case, "bfloat16").items()})
+    np.savez(sys.argv[1], **{f"{dt}/{case}/{k}": v
+                             for dt in ("bfloat16", "float16")
+                             for case in CASES
+                             for k, v in _jax_run(case, dt).items()})
