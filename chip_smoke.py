@@ -193,6 +193,34 @@ Phases, each printing JSON lines:
     step); ``train_f16``, the main path with ``SPMDTrainer(dtype=
     torch.float16)``, one timed replay of the K = 4 graph; ``profile_f16``,
     48 x K device launches of each BN kernel in the replay;
+14f. then the Mixture-of-Experts LM, remat and Gluon's user blocks:
+    ``transformer_moe_reference``, a small MoE LM (2 layers, both MoE, 4
+    experts, T 128, head dim 64) one step card against host from the same
+    converted weights, f32, TF32 off: every MoE call's routing identical
+    token by token, logits, loss and every updated tensor within 1e-3 of
+    each tensor's largest value, 2 flash launches per forward on the card;
+    ``transformer_moe_train``, ``TransformerConfig(n_experts=8,
+    moe_every=2, capacity_factor=1.25, router_k=1, aux_loss_coef=0.01)``
+    (Switch's routing settings) in bf16 at batch 8 x T 2048: ms a step,
+    tokens/s, peak memory and flash launches (4 a step, all on the
+    tensor-core route) over 4 timed steps; one timed step with router_k 2
+    (GShard's top-2); loss and every gradient with ``remat=True`` bit for
+    bit those without, from the same start, and remat's timed steps (8
+    flash launches a step); ``resnet_remat``, the main path's ResNet-50
+    v1 through ``SPMDTrainer(remat=False)``, ``remat=True`` and
+    ``remat=True`` with ``MXNET_BACKWARD_MIRROR_POLICY=convs`` from one
+    start (deterministic cuDNN): one timed replay each, weights, momenta
+    and running statistics against the plain run's bit for bit (or within
+    1e-3, the row says which), replay ms, first-call peak and reserved
+    memory, and each BN kernel's launches in the first call and in a
+    profiled replay (48 x K; with remat 96 x K for ``bn_stats`` and
+    ``bn_apply``, whose forward runs again in backward); ``gluon_user_block``,
+    ``examples/capsnet/capsnet.py``'s CapsNet written as there
+    (``params.get``, ``hybrid_forward`` over ``mx.nd``): 3
+    ``gluon.Trainer`` steps card against host (1e-3), ``SPMDTrainer``'s
+    K-step graph against eager steps with the ``params.get`` weight
+    trained, and ``save_parameters`` on the card loaded on the host bit
+    for bit;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
@@ -201,7 +229,9 @@ Phases, each printing JSON lines:
     ``fit``, the megastep's replays under ``megastep`` and the f16 step's
     under ``f16``; flash_fwd's (the tensor-core route) per launch at the
     bf16 path's shape and flash_fwd_general's at the default f32 LM's,
-    with that LM's launches; the rtc kernels' per launch at the sizes
+    with that LM's launches; the tensor-core row also carries the general
+    kernel on the same bf16 inputs with its bound and SDPA's time, and
+    the MoE LM's launches; the rtc kernels' per launch at the sizes
     above, sgd_mom's per imperative step, the sum over its 4 launches)
     and, last, the device line.
 
@@ -1280,6 +1310,15 @@ def flash_bound_ms(b, t, h, d, causal, itemsize):
         else "operations"
 
 
+def flash_general16_design_floor_ms(b, t, h, d, causal):
+    """The general kernel's own floor on 16-bit inputs, not the work's
+    bound: its Q K^T is one TF32 pass (16-bit values are exact in TF32)
+    and its P V two (P is f32, split in two), so 1.5 x the flops at 495
+    TFLOP/s, or the 16-bit bytes if larger."""
+    return 1e3 * max(4 * b * t * h * d * 2 / HBM_BYTES_PER_S,
+                     1.5 * flash_flops(b, t, h, d, causal) / TF32_FLOPS_PER_S)
+
+
 def flash_f32_fma_bound_ms(b, t, h, d, causal):
     return 1e3 * max(4 * b * t * h * d * 4 / HBM_BYTES_PER_S,
                      flash_flops(b, t, h, d, causal) / F32_FLOPS_PER_S)
@@ -1424,6 +1463,16 @@ def flash_phase(torch, fa):
                             torch.cuda.current_stream().cuda_stream):
                         fail("the general flash kernel did not launch")
                 row["general_ms"] = time_ms(torch, general, flush)
+                # the same work on the same inputs as the tensor-core
+                # route: 1x the flops at the 16-bit rate, or the bytes
+                row["general_bound_ms"], row["general_bound_by"] = \
+                    flash_bound_ms(b, t, h, d, causal, q.element_size())
+                row["general_bound_share"] = (row["general_bound_ms"]
+                                              / row["general_ms"])
+                row["general_design_floor_ms"] = \
+                    flash_general16_design_floor_ms(b, t, h, d, causal)
+                # SDPA on these same 16-bit inputs
+                row["general_library_ms"] = row["library_ms"]
             else:
                 row["bound_f32_fma_ms"] = flash_f32_fma_bound_ms(
                     b, t, h, d, causal)
@@ -1436,7 +1485,10 @@ def flash_phase(torch, fa):
             elif "tc" not in result:
                 result["tc"] = dict(row, other_shapes=[])
             else:
-                keys = ("H", "D", "dtype", "ms", "general_ms", "plain_ms",
+                keys = ("H", "D", "dtype", "ms", "general_ms",
+                        "general_bound_ms", "general_bound_share",
+                        "general_design_floor_ms", "general_library_ms",
+                        "plain_ms",
                         "library_ms", "bound_ms", "bound_share", "tflops",
                         "worst_err_over_tol")
                 result["tc"]["other_shapes"].append(
@@ -1463,9 +1515,8 @@ def transformer_reference(torch, mt):
     cfg = tf.TransformerConfig(vocab_size=257, d_model=128, n_heads=2,
                                n_layers=2, d_ff=512)
     init = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    arrays = {k: (v.numpy() if isinstance(v, torch.Tensor)
-                  else {kk: vv.numpy() for kk, vv in v.items()})
-              for k, v in init.items()}
+    arrays = tf.nest_params({k: v.numpy() for k, v in
+                             tf.flat_params(init).items()})
     rs = np.random.RandomState(1)
     tok = torch.from_numpy(rs.randint(0, 257, (2, 256)))
     tgt = torch.from_numpy(rs.randint(0, 257, (2, 256)))
@@ -1480,9 +1531,7 @@ def transformer_reference(torch, mt):
         fa.reset_launches()
         step(params, tok, tgt)
         stepped = fa.launches["flash_fwd"]
-        flat = {f"{k}/{kk}": vv.cpu() for k, v in params.items()
-                for kk, vv in (v.items() if isinstance(v, dict)
-                               else [("", v)])}
+        flat = {k: v.cpu() for k, v in tf.flat_params(params).items()}
         res[dev] = (logits, loss, flat, fwd, stepped)
     (l_c, loss_c, p_c, f_c, s_c), (l_g, loss_g, p_g, f_g, s_g) = \
         res["cpu"], res["cuda"]
@@ -3592,6 +3641,484 @@ def megastep_train(torch, mt, card, fit_row, tmp):
     return mega_launches, row
 
 
+# ---------------------------------------------------------------------------
+# the MoE transformer, remat and Gluon's user blocks
+# ---------------------------------------------------------------------------
+
+MOE_CFG = dict(n_experts=8, moe_every=2, capacity_factor=1.25, router_k=1,
+               aux_loss_coef=0.01)      # Switch's settings, the JAX defaults
+MOE_STEPS = 4
+
+
+def _routing_probe(torch, tf, moe, log):
+    """Wrap the transformer's ``moe_ffn`` so each call also records its
+    routing (the 0/1 dispatch, on the host); returns the undo."""
+    real = tf.moe_ffn
+
+    def probed(x, params, n_experts, capacity_factor=1.25, k=1, act=None):
+        b, t, d = x.shape
+        disp, _, _ = moe.route(x.reshape(b * t, d), params["gate"],
+                               n_experts, capacity_factor, k)
+        log.append(disp.to(torch.bool).cpu())
+        return real(x, params, n_experts, capacity_factor, k, act)
+
+    tf.moe_ffn = probed
+    return lambda: setattr(tf, "moe_ffn", real)
+
+
+def transformer_moe_reference(torch, mt):
+    """A small MoE LM (2 layers, MoE on both, 4 experts, T 128, head dim
+    64: the flash kernel's shape) one step on the card and on the host
+    from the same converted weights, f32, TF32 off: the routing of every
+    MoE call identical token by token, logits, loss and every updated
+    tensor within 1e-3 of each tensor's largest value; n_layers flash
+    launches per forward on the card, none on the host."""
+    import numpy as np
+    from mxnet_tpu_torch.convert import from_transformer_params
+    from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import moe
+    cfg = tf.TransformerConfig(vocab_size=257, d_model=128, n_heads=2,
+                               n_layers=2, d_ff=512, n_experts=4,
+                               moe_every=1)
+    init = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    arrays = tf.nest_params({k: v.numpy() for k, v in
+                             tf.flat_params(init).items()})
+    rs = np.random.RandomState(1)
+    tok = torch.from_numpy(rs.randint(0, 257, (2, 128)))
+    tgt = torch.from_numpy(rs.randint(0, 257, (2, 128)))
+    step, _ = tf.make_train_step(cfg, lr=0.1)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = from_transformer_params(arrays, cfg, device=dev)
+        routes = []
+        undo = _routing_probe(torch, tf, moe, routes)
+        try:
+            fa.reset_launches()
+            logits = tf.forward(params, tok, cfg).cpu()
+            fwd = fa.launches["flash_fwd"]
+            loss = tf.loss_fn(params, tok, tgt, cfg).cpu()
+            step(params, tok, tgt)
+        finally:
+            undo()
+        res[dev] = (logits, loss, {k: v.cpu() for k, v in
+                                   tf.flat_params(params).items()}, fwd,
+                    routes)
+    (l_c, loss_c, p_c, f_c, r_c), (l_g, loss_g, p_g, f_g, r_g) = \
+        res["cpu"], res["cuda"]
+    worst = max(float((p_g[k].float() - p_c[k].float()).abs().max())
+                / max(float(p_c[k].float().abs().max()), 1e-6) for k in p_c)
+    same_routes = len(r_g) == len(r_c) == 3 * cfg.n_layers and all(
+        torch.equal(a, b) for a, b in zip(r_g, r_c))
+    row = {"phase": "transformer_moe_reference", "model": "vocab 257, "
+           "d_model 128, 2 heads (head dim 64), 2 layers both MoE (4 "
+           "experts, top-1, capacity factor 1.25), d_ff 512, T 128, batch "
+           "2, f32, TF32 off, one SGD step lr 0.1",
+           "logits_max_abs_err": float((l_g - l_c).abs().max()),
+           "loss_card": float(loss_g), "loss_host": float(loss_c),
+           "worst_param_err_of_max": worst,
+           "moe_calls": len(r_g), "routing_identical": same_routes,
+           "tokens_kept": [int(r.sum()) for r in r_g],
+           "flash_fwd_launches": {"card_forward": f_g, "host_forward": f_c}}
+    emit(row)
+    if not same_routes:
+        fail(f"card and host route tokens differently: {row}")
+    if not (torch.allclose(l_g, l_c, rtol=1e-3, atol=1e-3)
+            and torch.allclose(loss_g, loss_c, rtol=1e-4, atol=1e-5)
+            and worst <= 1e-3):
+        fail(f"card and host disagree on the small MoE transformer: {row}")
+    if (f_g, f_c) != (cfg.n_layers, 0):
+        fail(f"small MoE transformer launch counts are wrong: {row}")
+
+
+def _moe_steps(torch, tf, fa, cfg, params, tok, tgt, steps):
+    """One untimed step, then ``steps`` timed ones (counters zeroed just
+    before, read just after): (losses, ms a step, peak GiB, the peak above
+    what was allocated when the timed steps began (the step's own working
+    memory: activations, gradients, temporaries), launches, tensor-core
+    launches)."""
+    step, _ = tf.make_train_step(cfg, lr=1e-3)
+    step(params, tok, tgt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    losses = torch.stack([step(params, tok, tgt)[0] for _ in range(steps)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return (losses.cpu(), 1e3 * dt / steps, peak / 2 ** 30,
+            (peak - base) / 2 ** 30, fa.launches["flash_fwd"],
+            fa.launches["flash_fwd_tc"])
+
+
+def transformer_moe_train(torch, mt, card):
+    """The LM with Switch MoE layers at full width: ``TransformerConfig(
+    **MOE_CFG, dtype=bf16)`` (vocab 32000, d_model 512, 8 heads, 4 layers,
+    d_ff 2048, experts on layers 1 and 3), batch TF_BATCH x T TF_T: ms a
+    step, tokens/s, peak memory, flash launches (4 a step, all on the
+    tensor-core route); one timed step with router_k 2 (GShard's top-2);
+    then loss and every gradient of one step with remat=True against
+    remat=False from the same start, bit for bit, and remat's timed steps
+    (8 flash launches a step: each layer's forward runs again in
+    backward), whose losses must be those of the k1 run bit for bit."""
+    import dataclasses
+    import math
+    from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    cfg = tf.TransformerConfig(**MOE_CFG, dtype=torch.bfloat16)
+    gen = mt.random.seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (TF_BATCH, TF_T), generator=gen,
+                        device="cuda")
+    tgt = torch.randint(0, cfg.vocab_size, (TF_BATCH, TF_T), generator=gen,
+                        device="cuda")
+    start = {k: v.clone() for k, v in
+             tf.flat_params(tf.init_params(mt.random.seed(0), cfg)).items()}
+    ntok = TF_BATCH * TF_T
+    rows = {}
+    for name, over, steps in (("k1", {}, MOE_STEPS),
+                              ("k2", {"router_k": 2}, 1),
+                              ("remat", {"remat": True}, MOE_STEPS)):
+        c = dataclasses.replace(cfg, **over)
+        params = tf.nest_params({k: v.clone() for k, v in start.items()})
+        losses, ms, peak, above, n, n_tc = _moe_steps(
+            torch, tf, fa, c, params, tok, tgt, steps)
+        rows[name] = {"router_k": c.router_k, "remat": c.remat,
+                      "losses": losses.tolist(), "step_ms": ms,
+                      "train_tokens_per_s": ntok / ms * 1e3,
+                      "peak_mem_gib": peak, "step_peak_above_start_gib":
+                      above, "timed_steps": steps,
+                      "flash_fwd_launches": n, "flash_fwd_tc_launches": n_tc}
+        del params
+        torch.cuda.empty_cache()
+        if not torch.isfinite(losses).all():
+            fail(f"non-finite MoE loss ({name}): {rows[name]}")
+        per_step = cfg.n_layers * (2 if c.remat else 1)
+        if n != per_step * steps or n_tc != n:
+            fail(f"expected {per_step} flash launches a step, all on the "
+                 f"tensor-core route ({name}): {rows[name]}")
+    # remat against plain from one start: loss and every gradient
+    grads = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        ws = {k: v.clone().requires_grad_() for k, v in start.items()}
+        loss = tf.loss_fn(tf.nest_params(ws), tok, tgt, c)
+        gs = torch.autograd.grad(loss, list(ws.values()))
+        grads[remat] = (loss.detach(), dict(zip(ws, gs)))
+        del ws, loss, gs
+    (lp, gp), (lr_, gr) = grads[False], grads[True]
+    bitwise = torch.equal(lp, lr_) and all(torch.equal(gp[k], gr[k])
+                                           for k in gp)
+    # the timed runs through make_train_step, from one start on one batch
+    same_losses = rows["remat"]["losses"] == rows["k1"]["losses"]
+    worst = max(float((gr[k].float() - gp[k].float()).abs().max())
+                / max(float(gp[k].float().abs().max()), 1e-30) for k in gp)
+    first = float(lp)
+    row = {"phase": "transformer_moe_train", "model": "TransformerConfig("
+           "n_experts=8, moe_every=2, capacity_factor=1.25, router_k=1, "
+           "aux_loss_coef=0.01) (vocab 32000, d_model 512, 8 heads, 4 "
+           "layers, d_ff 2048), bf16", "batch": TF_BATCH, "T": TF_T,
+           "dispatch_elements_per_moe_layer": {
+               k: ntok * 8 * max(1, math.ceil(ntok * 1.25 * kk / 8))
+               for k, kk in (("k1", 1), ("k2", 2))},
+           "runs": rows, "remat_loss_and_grads_bit_for_bit": bitwise,
+           "remat_train_step_losses_bit_for_bit": same_losses,
+           "remat_worst_grad_err_of_max": worst, "first_loss": first,
+           "card": card}
+    emit(row)
+    if not bitwise:
+        fail(f"remat's loss or gradients differ from the plain step's: "
+             f"{worst}")
+    if not same_losses:
+        fail(f"make_train_step's losses with remat differ from those "
+             f"without: {rows['remat']['losses']} {rows['k1']['losses']}")
+    if abs(first - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"first loss {first} is not that of a fresh "
+             f"{cfg.vocab_size}-token model")
+    del grads, start
+    torch.cuda.empty_cache()
+    return rows["k1"]["flash_fwd_launches"]
+
+
+REMAT_RUNS = (("plain", False, "full"), ("remat", True, "full"),
+              ("remat_convs", True, "convs"))
+
+
+def resnet_remat(torch, mt, card):
+    """The main path's ResNet-50 v1 (NHWC, s2d stem, bf16 b128, K 4, SGD
+    momentum) through ``SPMDTrainer(remat=False)``, ``remat=True`` and
+    ``remat=True`` under ``MXNET_BACKWARD_MIRROR_POLICY=convs``, each from
+    the same start (Xavier from seed 0, deterministic cuDNN): the first
+    call (K eager steps, then the capture) and one timed replay; memory as
+    read and above what was allocated / reserved when the run began (the
+    earlier phases' blocks stay cached in between). After the
+    replay weights, momenta and running statistics against the plain
+    run's: bit for bit, or within 1e-3 of each tensor's largest value
+    where cuDNN picked other algorithms (the row says which). Launches: the
+    first call's wrapper counts and one profiled replay's device counts;
+    with remat the forward kernels (bn_stats, bn_apply) run twice, the
+    backward ones once: 96 x K and 48 x K."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    gen = mt.random.seed(1)
+    data = torch.rand((K_STEPS, B, IMG, IMG, 3), generator=gen,
+                      device="cuda")
+    label = torch.randint(0, 1000, (K_STEPS, B), generator=gen,
+                          device="cuda").float()
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gib = 2.0 ** 30
+    rows, states = {}, {}
+    for name, remat, policy in REMAT_RUNS:
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        reserved0 = torch.cuda.memory_reserved()
+        os.environ["MXNET_BACKWARD_MIRROR_POLICY"] = policy
+        try:
+            net = resnet50_v1(layout="NHWC", stem_s2d=True)
+            net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+            tr = mt.parallel.SPMDTrainer(
+                net, gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+                dtype=torch.bfloat16, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tk.reset_launches()
+            warm = tr.run_steps(data, label)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("MXNET_BACKWARD_MIRROR_POLICY", None)
+        first = dict(tk.launches)
+        first_peak = torch.cuda.max_memory_allocated() / gib
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = tr.run_steps(data, label)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        reserved = torch.cuda.memory_reserved() / gib
+        states[name] = {**_trainer_state(tr, net),
+                        "losses": losses.detach().clone()}
+        prof, wall = _profiled(torch, lambda: tr.run_steps(data, label))
+        counts = _summary(name, _device_kernels(prof), wall,
+                          {})["epilogue_device_launches"]
+        rows[name] = {"remat": remat, "policy": policy,
+                      "warm_losses": warm.cpu().tolist(),
+                      "losses": losses.cpu().tolist(),
+                      "replay_step_ms": 1e3 * dt / K_STEPS,
+                      "img_per_s": B * K_STEPS / dt,
+                      "first_call_peak_allocated_gib": first_peak,
+                      "first_call_peak_above_start_gib":
+                      first_peak - alloc0 / gib,
+                      "reserved_after_replay_gib": reserved,
+                      "reserved_above_start_gib": reserved - reserved0 / gib,
+                      "first_call_wrapper_launches": first,
+                      "replay_device_launches": counts}
+        fwd_n = (96 if remat else 48) * K_STEPS
+        want = {"bn_stats": fwd_n, "bn_apply": fwd_n,
+                "bn_bwd_stats": 48 * K_STEPS, "bn_bwd_apply": 48 * K_STEPS}
+        if first != want or counts != want:
+            fail(f"{name}: expected BN launches {want} in the first call "
+                 f"and in a replay, got {first} and {counts}")
+        if not torch.isfinite(losses).all():
+            fail(f"{name}: non-finite loss")
+        del tr, net, warm, losses, prof
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = prev_det
+    agree = {}
+    for name in ("remat", "remat_convs"):
+        agree[name] = _agreement(torch, states[name], states["plain"])
+    row = {"phase": "resnet_remat", "model": "resnet50_v1 NHWC stem_s2d, "
+           "bf16 compute, f32 masters, SGD momentum 0.9 lr 0.05",
+           "batch": B, "k_steps": K_STEPS, "runs": rows,
+           "agreement_with_plain": {k: {"agreement": a, "worst_err_of_max": w}
+                                    for k, (a, w) in agree.items()},
+           "card": card}
+    emit(row)
+    bad = {k: v for k, v in agree.items() if v[0] is None}
+    if bad:
+        fail(f"remat's state after one replay differs from the plain "
+             f"run's: {bad}")
+    del states, data, label
+    torch.cuda.empty_cache()
+
+
+# examples/capsnet/capsnet.py
+CAPS_SIZE, CAPS_CLS, CAPS_PRIM, CAPS_PRIM_DIM, CAPS_DIM, CAPS_ITERS = \
+    16, 10, 4 * 4 * 8, 8, 16, 3
+CAPS_BATCH, CAPS_STEPS, CAPS_K = 64, 3, 2
+
+
+def capsnet_class(mx):
+    """``examples/capsnet/capsnet.py``'s CapsNet, over ``mx``."""
+    nn = mx.gluon.nn
+
+    class CapsNet(nn.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.conv1 = nn.Conv2D(32, 5, layout="NHWC", in_channels=1,
+                                       activation="relu")
+                self.prim = nn.Conv2D(CAPS_PRIM_DIM * 8, 5, strides=2,
+                                      layout="NHWC", in_channels=32)
+            self.W = self.params.get(
+                "caps_weight", shape=(CAPS_PRIM, CAPS_CLS * CAPS_DIM,
+                                      CAPS_PRIM_DIM))
+
+        @staticmethod
+        def squash(F, s, axis):
+            n2 = F.sum(F.square(s), axis=axis, keepdims=True)
+            return F.broadcast_mul(s, n2 / (1.0 + n2) / F.sqrt(n2 + 1e-9))
+
+        def hybrid_forward(self, F, x, caps_weight):
+            h = self.prim(self.conv1(x))
+            u = F.reshape(h, shape=(0, -1, CAPS_PRIM_DIM))
+            u = self.squash(F, u, axis=2)
+            uT = F.transpose(u, axes=(1, 2, 0))
+            uh = F.batch_dot(caps_weight, uT)
+            uh = F.transpose(uh, axes=(2, 0, 1))
+            u_hat = F.reshape(uh, shape=(0, CAPS_PRIM, CAPS_CLS, CAPS_DIM))
+            b = F.sum(u_hat * 0.0, axis=3)
+            for it in range(CAPS_ITERS):
+                c = F.softmax(b, axis=2)
+                s = F.sum(F.broadcast_mul(
+                    u_hat, F.expand_dims(c, axis=3)), axis=1)
+                v = self.squash(F, s, axis=2)
+                if it < CAPS_ITERS - 1:
+                    b = b + F.sum(F.broadcast_mul(
+                        u_hat, F.expand_dims(v, axis=1)), axis=3)
+            return F.sqrt(F.sum(F.square(v), axis=2) + 1e-9)
+
+    return CapsNet
+
+
+def _margin_rows(lengths, y):
+    """The example's margin loss per sample, on tensors."""
+    pos = (0.9 - lengths).clamp(min=0) ** 2
+    neg = (lengths - 0.1).clamp(min=0) ** 2
+    return (y * pos + 0.5 * (1.0 - y) * neg).sum(dim=1)
+
+
+def gluon_user_block(torch, mt, card):
+    """CapsNet as MXNet users write it (``params.get``, ``hybrid_forward``
+    over ``mx.nd``), f32, TF32 off: CAPS_STEPS ``record()`` / ``backward()``
+    / ``gluon.Trainer`` (Adam) steps on the card and on the host from the
+    same weights (losses and weights within 1e-3 of each tensor's largest
+    value); ``SPMDTrainer.run_steps`` twice (eager K steps and capture,
+    then a replay) against 2 K eager steps (bit for bit, or within 1e-3
+    where cuDNN picked other algorithms), the ``params.get`` weight moved
+    by every run (its gradient reached it); ``save_parameters`` on the card
+    and ``load_parameters`` into a fresh host block, bit for bit."""
+    import tempfile
+    import numpy as np
+    mx = mt
+    CapsNet = capsnet_class(mx)
+    rs = np.random.RandomState(0)
+    xs = rs.rand(CAPS_STEPS, CAPS_BATCH, CAPS_SIZE, CAPS_SIZE, 1).astype(
+        np.float32)
+    ys = np.eye(CAPS_CLS, dtype=np.float32)[
+        rs.randint(0, CAPS_CLS, (CAPS_STEPS, CAPS_BATCH))]
+    nets = {}
+    for dev, ctx in (("cpu", mx.cpu()), ("cuda", mx.gpu(0))):
+        with ctx:
+            nets[dev] = CapsNet(prefix=f"capsnet_{dev}_")
+    nets["cpu"].initialize(mx.init.Xavier(),
+                           generator=torch.Generator().manual_seed(0))
+    start = {k: p.data().asnumpy() for k, p in
+             nets["cpu"]._collect_params_with_prefix().items()}
+    for k, p in nets["cuda"]._collect_params_with_prefix().items():
+        p.set_data(start[k])
+    res = {}
+    for dev, net in nets.items():
+        ctx = mx.cpu() if dev == "cpu" else mx.gpu(0)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 2e-3})
+        losses = []
+        for x, y in zip(xs, ys):
+            with mx.autograd.record():
+                lengths = net(mx.nd.array(x, ctx=ctx))
+                L = mx.nd.mean(mx.nd.sum(
+                    mx.nd.array(y, ctx=ctx) * mx.nd.relu(0.9 - lengths) ** 2
+                    + 0.5 * (1.0 - mx.nd.array(y, ctx=ctx))
+                    * mx.nd.relu(lengths - 0.1) ** 2, axis=1))
+            L.backward()
+            trainer.step(CAPS_BATCH)
+            losses.append(float(L.asnumpy()))
+        res[dev] = (losses, {k: p.data().asnumpy() for k, p in
+                             net._collect_params_with_prefix().items()})
+    (lc, pc), (lg, pg) = res["cpu"], res["cuda"]
+    worst = max(float(np.abs(pg[k] - pc[k]).max())
+                / max(float(np.abs(pc[k]).max()), 1e-6) for k in pc)
+    loss_err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(lg, lc))
+    moved = float(np.abs(pg["caps_weight"] - start["caps_weight"]).max())
+    trainer_row = {"losses_card": lg, "losses_host": lc,
+                   "worst_param_err_of_max": worst,
+                   "worst_loss_rel_err": loss_err,
+                   "caps_weight_max_update": moved}
+    if not (worst <= 1e-3 and loss_err <= 1e-3 and moved > 0):
+        fail(f"CapsNet gluon.Trainer card and host disagree: {trainer_row}")
+
+    # SPMDTrainer: the K-step graph against eager steps
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    data = torch.from_numpy(xs[:CAPS_K]).cuda()
+    label = torch.from_numpy(ys[:CAPS_K]).cuda()
+    runs = {}
+    for how in ("graph", "eager"):
+        with mx.gpu(0):
+            net = CapsNet(prefix=f"capsnet_{how}_")
+        for k, p in net._collect_params_with_prefix().items():
+            p.set_data(start[k])
+        tr = mt.parallel.SPMDTrainer(
+            net, _margin_rows, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
+        if how == "graph":
+            losses = torch.cat([tr.run_steps(data, label)
+                                for _ in range(2)])
+        else:
+            losses = torch.stack([tr.step(data[k], label[k])
+                                  for _ in range(2) for k in range(CAPS_K)])
+        torch.cuda.synchronize()
+        runs[how] = ({"losses": losses.detach().clone(),
+                      **_trainer_state(tr, net)}, len(tr._graphs))
+    torch.backends.cudnn.deterministic = prev_det
+    (sg, n_graphs), (se, _) = runs["graph"], runs["eager"]
+    agree, g_worst = _agreement(torch, sg, se)
+    caps = [k for k in sg if k.endswith("param/caps_weight")]
+    caps_moved = {how: float((runs[how][0][caps[0]].cpu()
+                              - torch.from_numpy(start["caps_weight"]))
+                             .abs().max()) for how in runs}
+    spmd_row = {"agreement": agree, "worst_err_of_max": g_worst,
+                "graphs": n_graphs, "losses_graph": sg["losses"].tolist(),
+                "losses_eager": se["losses"].tolist(),
+                "caps_weight_max_update": caps_moved}
+    if agree is None or n_graphs != 1 or not all(caps_moved.values()):
+        fail(f"CapsNet SPMDTrainer graph against eager: {spmd_row}")
+
+    # save_parameters on the card, load_parameters on the host
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "capsnet.params")
+        nets["cuda"].save_parameters(path)
+        with mx.cpu():
+            fresh = CapsNet(prefix="capsnet_fresh_")
+        fresh.load_parameters(path)
+    got = {k: p.data().asnumpy() for k, p in
+           fresh._collect_params_with_prefix().items()}
+    saved_bitwise = got.keys() == pg.keys() and all(
+        np.array_equal(got[k], pg[k]) for k in pg)
+    row = {"phase": "gluon_user_block", "model": "examples/capsnet/"
+           f"capsnet.py CapsNet (16x16x1, conv 32, primary caps 128 x 8, "
+           f"digit caps 10 x 16, 3 routing iterations), batch {CAPS_BATCH}, "
+           "f32, TF32 off", "gluon_trainer": trainer_row,
+           "spmd_graph": spmd_row, "save_load_bit_for_bit": saved_bitwise,
+           "card": card}
+    emit(row)
+    if not saved_bitwise:
+        fail("save_parameters on the card and load_parameters on the host "
+             "are not bit for bit")
+
+
 def fit_phases(torch, mt, card, gluon_row, timed):
     """fit_reference, fit_train and megastep_train, their checkpoints in
     one temporary directory removed afterwards; the BN kernels' launches
@@ -3720,16 +4247,26 @@ def main():
                          label, "resnet50_v1", "f16")
     del trainer, data, label
     torch.cuda.empty_cache()
+    # the MoE LM, remat and Gluon's user blocks, after every earlier phase
+    timed("transformer_moe_reference", transformer_moe_reference, torch, mt)
+    moe_launches = timed("transformer_moe_train", transformer_moe_train,
+                         torch, mt, card)
+    timed("resnet_remat", resnet_remat, torch, mt, card)
+    timed("gluon_user_block", gluon_user_block, torch, mt, card)
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
              "kernel_f32")
     fits = ("fit_reference", "fit_train", "megastep_train")
     f16 = ("kernel_f16", "train_f16", "profile_f16")
+    moe_remat = ("transformer_moe_reference", "transformer_moe_train",
+                 "resnet_remat", "gluon_user_block")
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
-                                  if k not in v2 + gluon + fits + f16),
+                                  if k not in v2 + gluon + fits + f16
+                                  + moe_remat),
+          "moe_remat_user_block_phases_s": sum(walls[k] for k in moe_remat),
           "v2_phases_s": sum(walls[k] for k in v2),
           "gluon_trainer_phases_s": sum(walls[k] for k in gluon),
           "fit_phases_s": sum(walls[k] for k in fits),
@@ -3802,6 +4339,12 @@ def main():
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "kernel_route": "tc", "entry": "mxt_flash_fwd_tc",
         "tflops": tcr["tflops"], "general_ms": tcr["general_ms"],
+        "general_bound_ms": tcr["general_bound_ms"],
+        "general_bound_by": tcr["general_bound_by"],
+        "general_bound_share": tcr["general_bound_share"],
+        "general_design_floor_ms": tcr["general_design_floor_ms"],
+        "general_library_ms": tcr["general_library_ms"],
+        "launches_moe": moe_launches,
         "other_shapes": tcr["other_shapes"],
         "max_abs_err_all_cases": flash["max_abs_err"],
         "per": f"one launch (B {TF_BATCH}, T {TF_T}, H 8, D 64, causal, "

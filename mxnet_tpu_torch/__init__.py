@@ -13,7 +13,7 @@ from . import (autograd, context, convert, gluon, initializer, kvstore,
                lr_scheduler, models, ndarray, optimizer, ops, parallel,
                random, rtc)
 from . import (cached_op, callback, contrib, fault, fit, io, log, megastep,
-               metric, telemetry)
+               metric, telemetry, util)
 from .base import MXNetError, check
 from .context import Context, cpu, current_context, gpu, num_gpus
 
@@ -28,4 +28,5 @@ __all__ = ["Context", "MXNetError", "autograd", "cached_op", "callback",
            "current_context", "fault", "fit", "gpu", "gluon", "init",
            "initializer", "io", "kv", "kvstore", "log", "lr_scheduler",
            "megastep", "metric", "models", "nd", "ndarray", "num_gpus",
-           "ops", "optimizer", "parallel", "random", "rtc", "telemetry"]
+           "ops", "optimizer", "parallel", "random", "rtc", "telemetry",
+           "util"]

@@ -82,6 +82,13 @@ env.declare("MXNET_RESID_DTYPE", str, "",
             "grads/dx (via fp8 xhat) and ReLU masks see small zero-mean "
             "rounding (ops/resid8.py). Not ported yet: the port raises "
             "when it is set.")
+env.declare("MXNET_BACKWARD_DO_MIRROR", bool, False,
+            "Trade compute for memory in backward: recompute activations "
+            "(torch.utils.checkpoint) instead of storing them.")
+env.declare("MXNET_BACKWARD_MIRROR_POLICY", str, "full",
+            "Remat policy when mirroring: full (save nothing) | dots "
+            "(save matmul results, recompute elementwise ops) | convs "
+            "(save convolution and matmul results).")
 env.declare("MXTPU_FUSED_EPILOGUE", bool, True,
             "Route the fused conv-epilogue ops (BatchNorm(+add)+ReLU) "
             "through the hand-written CUDA kernels (their plain PyTorch "

@@ -20,9 +20,11 @@ the net stays valid.
 ``models.transformer.init_params`` pytree as numpy arrays and returns the
 port's nested dict on ``device`` (default: the card). The layouts are the
 JAX package's (``w_qkv`` ``(d, 3d)``, ``embed`` ``(V, d)`` ...), so nothing
-is transposed. Names, shapes and the dtype (``config.dtype``: float32
-arrays, or the ``bfloat16`` arrays that ``np.asarray`` makes of JAX bf16
-arrays) must match exactly, or it raises.
+is transposed; MoE layers' leaves sit a level deeper
+(``layer1/moe/w_in``). Names, shapes and each leaf's dtype
+(``param_dtypes``: ``config.dtype`` as float32 arrays or the ``bfloat16``
+arrays that ``np.asarray`` makes of JAX bf16 arrays, and float32 for every
+MoE router ``gate``) must match exactly, or it raises.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ import torch
 
 from .base import MXNetError
 from .context import resolve_device
-from .models.transformer import _dt, param_shapes
+from .models.transformer import (flat_params, nest_params,
+                                 param_dtypes, param_shapes)
 
 __all__ = ["from_mxnet_tpu_params", "from_transformer_params"]
 
@@ -62,32 +65,24 @@ def from_mxnet_tpu_params(net, params, prefix=None) -> None:
 
 def from_transformer_params(params, config, device=None) -> dict:
     dev = resolve_device(device)
-    dt = _dt(config)
-    want_dtype = str(dt).replace("torch.", "")
-
-    def walk(got, want, path):
-        if not isinstance(got, dict):
-            raise MXNetError(f"parameter {path!r}: expected a dict")
-        missing = sorted(set(want) - set(got))
-        extra = sorted(set(got) - set(want))
-        if missing or extra:
-            raise MXNetError(f"parameter names differ under {path!r}: "
-                             f"missing {missing[:5]}, extra {extra[:5]}")
-        out = {}
-        for k, shape in want.items():
-            name = f"{path}{k}"
-            if isinstance(shape, dict):
-                out[k] = walk(got[k], shape, name + "/")
-                continue
-            arr = np.asarray(got[k])
-            if tuple(arr.shape) != shape:
-                raise MXNetError(f"parameter {name}: shape "
-                                 f"{tuple(arr.shape)} does not match {shape}")
-            if str(arr.dtype) != want_dtype:
-                raise MXNetError(f"parameter {name}: dtype {arr.dtype} is "
-                                 f"not the configured {want_dtype}")
-            out[k] = torch.from_numpy(arr.astype(np.float32)).to(
-                device=dev, dtype=dt)
-        return out
-
-    return walk(params, param_shapes(config), "")
+    got = flat_params(params)
+    shapes = flat_params(param_shapes(config))
+    dtypes = flat_params(param_dtypes(config))
+    missing = sorted(set(shapes) - set(got))
+    extra = sorted(set(got) - set(shapes))
+    if missing or extra:
+        raise MXNetError(f"parameter names differ: missing {missing[:5]}, "
+                         f"extra {extra[:5]}")
+    out = {}
+    for name, shape in shapes.items():
+        arr = np.asarray(got[name])
+        if tuple(arr.shape) != shape:
+            raise MXNetError(f"parameter {name}: shape {tuple(arr.shape)} "
+                             f"does not match {shape}")
+        want_dtype = str(dtypes[name]).replace("torch.", "")
+        if str(arr.dtype) != want_dtype:
+            raise MXNetError(f"parameter {name}: dtype {arr.dtype} is not "
+                             f"the configured {want_dtype}")
+        out[name] = torch.from_numpy(arr.astype(np.float32)).to(
+            device=dev, dtype=dtypes[name])
+    return nest_params(out)

@@ -1,4 +1,4 @@
-"""Gluon HybridBlock as a ``torch.nn.Module`` (ref:
+"""Gluon Block and HybridBlock as ``torch.nn.Module``s (ref:
 python/mxnet/gluon/block.py).
 
 Naming follows MXNet: a block's prefix is its class name, lower-cased with
@@ -17,6 +17,20 @@ forward, ``functional_call``, the trainer), a block is a plain
 on the mode (BatchNorm) read ``autograd.is_training()``, never
 ``nn.Module.training``.
 
+MXNet's user blocks (ref: the JAX package's ``block.py:57-246``):
+
+- a :class:`HybridBlock` subclass that defines ``hybrid_forward(self, F,
+  x, ..., **params)`` and no ``forward`` gets a ``forward`` that calls it
+  with ``F = mx.nd``, its inputs as NDArrays and each of its own
+  parameters (``self.params``, bound by ``params.get``) as an NDArray
+  under its short name;
+- a :class:`Block` subclass's ``forward`` receives and returns NDArrays.
+
+Called with tensors (the trainers) either one wraps them, runs its
+``mx.nd`` ops with recording on exactly when torch has gradients enabled,
+and unwraps the outputs: ``SPMDTrainer`` and its CUDA graph get the same
+gradients as ``autograd.record()`` / ``backward()``.
+
 Deferred initialisation (ref: the JAX package's ``block.py:211-301``). A
 layer built without its input width (``in_units=0``, ``in_channels=0``)
 holds parameters whose tensors do not exist yet. On its first call the
@@ -25,10 +39,19 @@ layer's rule as in the JAX package), creates those tensors once on its
 device and initialises them with what ``initialize()`` recorded. A block
 with nothing deferred pays one attribute test per call.
 
-``hybridize()`` is a no-op: PyTorch runs the forward eagerly, and the
-trainer's CUDA graph (``parallel/spmd.py run_steps``) is the port's
-counterpart of a compiled program. It is kept so MXNet-style code runs
-unchanged.
+``hybridize()`` compiles nothing: PyTorch runs the forward eagerly, and
+the trainer's CUDA graph (``parallel/spmd.py run_steps``) is the port's
+counterpart of a compiled program (``CachedOp`` is ROADMAP A12). Its
+``mirror`` is kept: a hybridized block called with gradients enabled runs
+through ``util.mirror_wrapper(mirror)`` (``None`` follows
+``MXNET_BACKWARD_DO_MIRROR``), resolved at its first call after
+``hybridize``. ``export`` and ``SymbolBlock`` need ``symbol/`` and raise
+(ROADMAP A14).
+
+Checkpoints: ``save_parameters`` / ``load_parameters`` write and read
+``mx.nd.save`` files (the JAX package's format) keyed by the structural
+names of ``_collect_params_with_prefix``, so a file of either package
+loads in the other.
 """
 from __future__ import annotations
 
@@ -39,14 +62,17 @@ import torch
 from torch import nn
 
 from .. import autograd
-from ..base import check
-from ..context import resolve_device
-from .. import initializer as init_mod
-from .. import random as _random
+from ..base import MXNetError, check
+from ..context import cpu
+from ..ndarray import utils as nd_utils
 from ..ndarray.ndarray import NDArray, _own
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from ..ops.registry import NotPortedError
+from ..util import mirror_wrapper
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, _Holder)
 
-__all__ = ["HybridBlock", "name_scope"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "name_scope",
+           "nn_block_scope"]
 
 
 class _NameManager(threading.local):
@@ -78,21 +104,54 @@ class name_scope:
         _names.prefix_stack.pop()
 
 
+nn_block_scope = name_scope
+
+
 def _hint(cls_name: str) -> str:
     hint = re.sub("(.)([A-Z][a-z]+)", r"\1_\2", cls_name)
     return re.sub("([a-z0-9])([A-Z])", r"\1\2", hint).lower()
 
 
-class HybridBlock(nn.Module):
-    """Base block: an ``nn.Module`` with an MXNet prefix and a
-    :class:`ParameterDict` of its own parameters. ``device`` (default: the
-    card) is where its parameters are allocated."""
+def _wrap(x):
+    return NDArray(x) if isinstance(x, torch.Tensor) else x
 
-    def __init__(self, prefix=None, device=None):
+
+def _unwrap(out):
+    """An output of NDArrays (or a tuple / list of them) as tensors."""
+    if isinstance(out, NDArray):
+        return out._data
+    if isinstance(out, (tuple, list)):
+        return type(out)(_unwrap(o) for o in out)
+    return out
+
+
+def _nd_call(fn, args, kwargs):
+    """``fn`` on the tensors as NDArrays, its ``mx.nd`` ops recorded when
+    torch has gradients enabled (the trainers' forward), its NDArray
+    outputs back as tensors."""
+    prev = autograd.set_recording(torch.is_grad_enabled())
+    try:
+        out = fn(*(_wrap(a) for a in args),
+                 **{k: _wrap(v) for k, v in kwargs.items()})
+    finally:
+        autograd.set_recording(prev)
+    return _unwrap(out)
+
+
+class Block(nn.Module):
+    """Base block: an ``nn.Module`` with an MXNet prefix and a
+    :class:`ParameterDict` of its own parameters (``params=``: a
+    dictionary to share parameters from). ``device`` (default: the current
+    context) is where its parameters are allocated. A subclass's
+    ``forward`` receives and returns NDArrays (see the module
+    docstring)."""
+
+    def __init__(self, prefix=None, params=None, device=None):
         super().__init__()
         self._prefix = prefix if prefix is not None \
             else _names.next_prefix(_hint(type(self).__name__))
-        self._params = ParameterDict(self._prefix)
+        self._params = ParameterDict(self._prefix, shared=params,
+                                     owner=self)
         self._device = None if device is None else torch.device(device)
         self._deferred = []      # own parameters whose shape is not known
 
@@ -102,6 +161,11 @@ class HybridBlock(nn.Module):
         return self._prefix
 
     @property
+    def name(self) -> str:
+        return self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+
+    @property
     def params(self) -> ParameterDict:
         return self._params
 
@@ -109,6 +173,38 @@ class HybridBlock(nn.Module):
         return name_scope(self._prefix)
 
     # -- parameters -----------------------------------------------------
+    def __setattr__(self, name, value):
+        """``self.x = param`` adopts a :class:`Parameter` (ref: block.py
+        __setattr__): the attribute holds the record, the tensor is the
+        block's own under the parameter's short name."""
+        if isinstance(value, Parameter):
+            self._adopt(value)
+            object.__setattr__(self, name, value)
+            return
+        super().__setattr__(name, value)
+
+    def _adopt(self, p: Parameter) -> None:
+        """Make ``p`` one of this block's parameters, its tensor registered
+        here under its short name: bound now if it is free-standing, moved
+        here from its holder, or shared with the block that owns it."""
+        if p.name not in self._params:
+            self._params[p.name] = p
+        short = self._params._short(p.name)
+        if p.block is self and p.attr == short:
+            return
+        if p.block is None:
+            p._bind(self, short)
+            if not p._shape_known():
+                self._deferred.append(p)
+            return
+        t = p.tensor
+        if p._trained:
+            self.register_parameter(short, t)
+        else:
+            self.register_buffer(short, t)
+        if isinstance(p.block, _Holder):
+            p._block, p._attr = self, short
+
     def _new_param(self, name, shape, grad_req="write", init=None,
                    dtype=torch.float32, allow_deferred_init=False
                    ) -> Parameter:
@@ -118,22 +214,15 @@ class HybridBlock(nn.Module):
         attribute ``None`` until the first forward knows it. Values are set
         by :meth:`initialize` or by weight conversion."""
         shape = tuple(int(s) for s in shape)
-        known = all(s > 0 for s in shape)
-        check(known or allow_deferred_init,
+        check(all(s > 0 for s in shape) or allow_deferred_init,
               f"{self._prefix}{name}: shape {shape} must be fully known "
               "(this layer cannot defer it)")
-        device = resolve_device(self._device)
-        t = torch.empty(shape, dtype=dtype, device=device) if known \
-            else None
-        if grad_req == "null":
-            self.register_buffer(name, t)
-        else:
-            self.register_parameter(name, None if t is None
-                                    else nn.Parameter(t))
-        p = Parameter(self._prefix + name, self, name, shape, grad_req, init,
-                      dtype, device)
+        p = Parameter(self._prefix + name, grad_req=grad_req, shape=shape,
+                      dtype=dtype, init=init,
+                      allow_deferred_init=allow_deferred_init)
         self._params[p.name] = p
-        if not known:
+        p._bind(self, name)
+        if not p._shape_known():
             self._deferred.append(p)
         return p
 
@@ -155,13 +244,17 @@ class HybridBlock(nn.Module):
     def register_child(self, block, name=None) -> None:
         self.add_module(name or str(len(self._modules)), block)
 
-    def collect_params(self) -> ParameterDict:
-        """Own parameters, then each child's, in build order."""
+    def collect_params(self, select=None) -> ParameterDict:
+        """Own parameters, then each child's, in build order; ``select``:
+        a regular expression the names must match (ref: block.py
+        collect_params)."""
         ret = ParameterDict(self._prefix)
-        ret.update(self._params)
+        pattern = re.compile(select) if select is not None else None
+        ret.update((k, v) for k, v in self._params.items()
+                   if pattern is None or pattern.match(k))
         for child in self.children():
-            if isinstance(child, HybridBlock):
-                ret.update(child.collect_params())
+            if isinstance(child, Block):
+                ret.update(child.collect_params(select))
         return ret
 
     def _collect_params_with_prefix(self, prefix: str = "") -> dict:
@@ -174,34 +267,115 @@ class HybridBlock(nn.Module):
         ret = {prefix + k[len(self._prefix):]: v
                for k, v in self._params.items()}
         for name, child in self.named_children():
-            if isinstance(child, HybridBlock):
+            if isinstance(child, Block):
                 ret.update(child._collect_params_with_prefix(prefix + name))
         return ret
 
-    def initialize(self, init=None, generator=None) -> None:
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, generator=None) -> None:
         """Fill every parameter not yet set: a parameter's own initializer
         when it has one, else ``init`` (default ``Uniform(0.07)``, MXNet's);
         names decide the bias / gamma / beta / running-stat values as in
         MXNet. Random draws use ``generator`` (default: one seeded with 0
-        per device). A deferred parameter keeps the initializer and the
-        generator for its block's first forward."""
-        default = init_mod.create(init)
-        gens = {}
+        per device). ``ctx`` moves the parameters there first. A deferred
+        parameter keeps the initializer and the generator for its block's
+        first forward."""
+        self.collect_params().initialize(init, ctx, verbose, force_reinit,
+                                         generator)
+
+    def cast(self, dtype) -> None:
+        """Cast every parameter of the block and its children to ``dtype``
+        in place (``Parameter.cast``)."""
         for p in self.collect_params().values():
-            if p.initialized:
-                continue
-            gen = generator
-            if gen is None:
-                gen = gens.get(p.device)
-                if gen is None:
-                    gen = gens[p.device] = _random.seed(0, p.device)
-            initializer = init_mod.create(p.init) if p.init is not None \
-                else default
-            if p.tensor is None:
-                p._deferred_init = (initializer, gen)
-                continue
-            initializer(p.name, p.tensor.data, gen)
-            p.initialized = True
+            p.cast(dtype)
+
+    def hybridize(self, active: bool = True, **kwargs) -> None:
+        """Passed on to the children (a plain Block compiles nothing)."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
+
+    # -- persistence ----------------------------------------------------
+    def save_parameters(self, filename: str) -> None:
+        """``mx.nd.save`` of every parameter under its structural name
+        (ref: block.py save_parameters)."""
+        nd_utils.save(filename, {k: v.data() for k, v in
+                                 self._collect_params_with_prefix().items()})
+
+    save_params = save_parameters
+
+    def load_parameters(self, filename: str, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current") -> None:
+        """Set the parameters from a :meth:`save_parameters` file (either
+        package's), in place. A name of the block missing from the file
+        raises unless ``allow_missing``, one of the file missing from the
+        block unless ``ignore_extra``. Values take each parameter's dtype;
+        with ``cast_dtype`` and ``dtype_source="saved"`` the parameter is
+        cast to the file's dtype first. ``ctx``: moved there after."""
+        # read onto the host; set_data copies to each parameter's device
+        loaded = nd_utils.load(filename, ctx=cpu())
+        params = self._collect_params_with_prefix()
+        if not allow_missing:
+            for name in params:
+                check(name in loaded, f"parameter {name} missing in file")
+        for name, data in loaded.items():
+            if name not in params:
+                if ignore_extra:
+                    continue
+                raise MXNetError(f"parameter {name} not present in Block")
+            if cast_dtype and dtype_source == "saved":
+                params[name].cast(data.dtype)
+            params[name].set_data(data)
+        if ctx is not None:
+            for p in params.values():
+                p.reset_ctx(ctx)
+
+    def load_params(self, filename, ctx=None, **kw) -> None:
+        self.load_parameters(filename, ctx=ctx, **kw)
+
+    # -- execution ------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """NDArrays in, NDArrays out; tensors in, tensors out."""
+        if any(isinstance(a, NDArray) for a in (*args, *kwargs.values())):
+            return self.forward(*args, **kwargs)
+        return _nd_call(self.forward, args, kwargs)
+
+    def forward(self, *args):
+        raise NotImplementedError
+
+    def infer_shape(self, *args) -> None:
+        """Resolve deferred parameter shapes from the inputs: one forward
+        in inference mode, recording nothing."""
+        with autograd.pause(), torch.no_grad():
+            self(*args)
+
+    def summary(self, *inputs) -> None:
+        """Run the inputs through and print the parameter count (the JAX
+        package's one line)."""
+        self(*inputs)
+        n = sum(p.tensor.numel() for p in self.collect_params().values()
+                if p.tensor is not None)
+        print(f"{type(self).__name__}: {n} parameters")
+
+    def export(self, path, epoch=0, *args, **kwargs):
+        raise NotPortedError("export writes a symbol graph; symbol/ is not "
+                             "ported yet (ROADMAP A14)")
+
+    def extra_repr(self) -> str:
+        return f"prefix={self._prefix!r}"
+
+
+class HybridBlock(Block):
+    """A block whose ``forward`` takes and returns tensors, or that defines
+    ``hybrid_forward(F, *inputs, **params)`` instead (see the module
+    docstring)."""
+
+    def __init__(self, prefix=None, params=None, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
+        self._active = False
+        self._mirror_arg = None
+        self._mirror = None      # util.mirror_wrapper, at the first call
 
     def __call__(self, *args, **kwargs):
         """NDArrays in, NDArrays out (see the module docstring); tensors
@@ -210,7 +384,12 @@ class HybridBlock(nn.Module):
                                                       *kwargs.values())):
             if self._deferred:
                 self._finish_deferred(*args, **kwargs)
-            return super().__call__(*args, **kwargs)
+            if self._active and torch.is_grad_enabled():
+                if self._mirror is None:
+                    self._mirror = mirror_wrapper(self._mirror_arg)
+                return self._mirror(super(Block, self).__call__)(
+                    *args, **kwargs)
+            return super(Block, self).__call__(*args, **kwargs)
         args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
         kwargs = {k: v._data if isinstance(v, NDArray) else v
                   for k, v in kwargs.items()}
@@ -223,15 +402,46 @@ class HybridBlock(nn.Module):
             return NDArray(_own(out, inputs))
         return type(out)(NDArray(_own(o, inputs)) for o in out)
 
-    def cast(self, dtype) -> None:
-        """Cast every parameter of the block and its children to ``dtype``
-        in place (``Parameter.cast``)."""
-        for p in self.collect_params().values():
-            p.cast(dtype)
+    def forward(self, *args, **kwargs):
+        """``hybrid_forward(mx.nd, *inputs, **own parameters)`` on
+        NDArrays, for a subclass that defines ``hybrid_forward``."""
+        from .. import ndarray as F
+        own = {}
+        for name in self._params:
+            short = self._params._short(name)
+            t = self._parameters[short] if short in self._parameters \
+                else self._buffers[short]
+            if t is None:
+                raise DeferredInitializationError(
+                    f"parameter {name!r} has deferred initialization")
+            own[short] = t
+        return _nd_call(lambda *a, **kw: self.hybrid_forward(F, *a, **kw),
+                        args, {**kwargs, **own})
 
-    def hybridize(self, active: bool = True, **kwargs) -> None:
-        """No-op (see the module docstring)."""
+    def hybrid_forward(self, F, *args, **kwargs):
+        raise NotImplementedError
 
-    def extra_repr(self) -> str:
-        return f"prefix={self._prefix!r}"
+    def hybridize(self, active: bool = True, static_alloc: bool = False,
+                  static_shape: bool = False, mirror=None,
+                  **kwargs) -> None:
+        """Keep the flag and ``mirror`` (see the module docstring); the
+        children get the same."""
+        self._active = active
+        self._mirror_arg = mirror
+        self._mirror = None
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, mirror=mirror,
+                          **kwargs)
 
+
+class SymbolBlock(HybridBlock):
+    """A block over a symbol graph: needs ``symbol/`` (ROADMAP A14)."""
+
+    def __init__(self, outputs, inputs, params=None):
+        raise NotPortedError("SymbolBlock runs a symbol graph; symbol/ is "
+                             "not ported yet (ROADMAP A14)")
+
+    @classmethod
+    def imports(cls, symbol_file, input_names, param_file=None, ctx=None):
+        raise NotPortedError("SymbolBlock.imports loads a symbol graph; "
+                             "symbol/ is not ported yet (ROADMAP A14)")

@@ -11,7 +11,7 @@ from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D,
                           GlobalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
                           ReflectionPad2D)
 from .fused import FusedBatchNormAddReLU, FusedBatchNormReLU
-from ..block import HybridBlock
+from ..block import Block, HybridBlock, SymbolBlock
 
 __all__ = ["Activation", "LeakyReLU", "PReLU", "ELU", "SELU", "Swish",
            "GELU", "Sequential", "HybridSequential", "Dense", "Dropout",
@@ -22,4 +22,4 @@ __all__ = ["Activation", "LeakyReLU", "PReLU", "ELU", "SELU", "Swish",
            "AvgPool3D", "GlobalMaxPool1D", "GlobalMaxPool2D",
            "GlobalMaxPool3D", "GlobalAvgPool1D", "GlobalAvgPool2D",
            "GlobalAvgPool3D", "ReflectionPad2D", "FusedBatchNormReLU",
-           "FusedBatchNormAddReLU", "HybridBlock"]
+           "FusedBatchNormAddReLU", "Block", "HybridBlock", "SymbolBlock"]

@@ -14,6 +14,7 @@ import torch
 from ... import autograd
 from ...ops import nn as F
 from ...ops import registry as _reg
+from ...util import is_recomputing
 from ..block import HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
@@ -165,8 +166,10 @@ class BatchNorm(HybridBlock):
     def _update_running_stats(self, training, mean, var) -> None:
         """Momentum-blend the batch stats into the running buffers, in
         place (training mode only; ref: basic_layers.py
-        _update_running_stats)."""
-        if training and not self._use_global_stats:
+        _update_running_stats). A checkpoint's recompute in backward
+        (``util.is_recomputing``) leaves them as the forward moved them."""
+        if training and not self._use_global_stats and \
+                not is_recomputing():
             m = self._momentum
             with torch.no_grad():
                 self.running_mean.copy_(self.running_mean * m

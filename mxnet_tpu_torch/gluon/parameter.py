@@ -28,6 +28,20 @@ initialises it (``_finish_deferred``). ``set_data`` on such a parameter
 creates it from the value's shape. ``data()`` before that raises
 :class:`DeferredInitializationError`.
 
+MXNet's free-standing form (``Parameter(name, shape=...)``,
+``block.params.get(name, ...)``, ``ParameterDict.get_constant``,
+:class:`Constant`). A parameter made by ``params.get`` on a block's own
+dictionary is bound at once to that block under its short name (the name
+without the block's prefix), the name ``hybrid_forward`` receives it by
+(``capsnet.py`` keeps its ``caps_weight`` in the attribute ``self.W``: the
+attribute holds this record, the block's ``nn.Parameter`` or buffer is
+``caps_weight``). A parameter that no block owns yet lives in a holder
+module of its own until a block adopts it (``block.x = param``); one
+taken from a ``shared`` dictionary is registered in the sharing block
+too, the same tensor under the same short name, so the trainers and
+``functional_call`` see one tied weight. ``Parameter.var`` needs
+``symbol/`` and raises (ROADMAP A14).
+
 Each tensor and gradient buffer is registered with the memory ledger
 (``telemetry/memory.py``, categories ``params`` and ``grads``) where it
 is created, resized or dropped, as the JAX package's parameters do.
@@ -41,11 +55,17 @@ import torch
 from torch import nn
 
 from .. import autograd
-from ..base import MXNetError, check
+from .. import initializer as init_mod
+from ..base import MXNetError, check, torch_dtype
+from ..context import Context, current_context, resolve_device
+from ..ndarray import utils as nd_utils
 from ..ndarray.ndarray import NDArray
+from ..ops.registry import NotPortedError
+from ..random import seed as _seed
 from ..telemetry import memory as _memory
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -53,28 +73,66 @@ class DeferredInitializationError(MXNetError):
     (ref: parameter.py)."""
 
 
-class Parameter:
-    """Names one tensor of a block (``getattr(block, attr)``, ``None``
-    while its initialisation is deferred)."""
+class _Holder(nn.Module):
+    """The home of a parameter's tensor while no block owns it."""
 
-    def __init__(self, name, block, attr, shape, grad_req="write", init=None,
-                 dtype=torch.float32, device=None, lr_mult=1.0, wd_mult=1.0):
+
+class Parameter:
+    """Names one tensor of a block (its ``_parameters`` or ``_buffers``
+    entry ``attr``; ``None`` while its initialisation is deferred).
+    MXNet's signature; a new parameter is free-standing until
+    :meth:`_bind` gives it a block."""
+
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        check(stype == "default" and grad_stype == "default",
+              f"parameter {name}: sparse storage is not ported yet "
+              "(ROADMAP A11)")
         self.name = name
         self.init = init
         self.lr_mult = lr_mult       # scale the optimizer's lr / wd by these
         self.wd_mult = wd_mult
-        self._block = block
-        self._attr = attr
-        self._shape = tuple(shape)
-        self._dtype = dtype
-        self._device = device
-        self._trained = grad_req != "null"
+        self.allow_deferred_init = allow_deferred_init
+        if isinstance(shape, int):
+            shape = (shape,)
+        self._shape = None if shape is None else tuple(int(s) for s in shape)
+        self._dtype = torch_dtype(dtype)
+        self._block = None
+        self._attr = None
+        self._device = None
+        self._trained = differentiable and grad_req != "null"
         self._grad_req = "null"
         self._nd = None
         self._deferred_init = None     # (initializer, generator)
         self.initialized = False
         self.grad_req = grad_req
+
+    def _bind(self, block, attr, device=None) -> None:
+        """Make ``block.<attr>`` this parameter's tensor: an empty tensor
+        of its shape on ``device`` (default: the block's) when the shape
+        is known, else ``None`` until it is."""
+        self._block, self._attr = block, attr
+        self._device = resolve_device(
+            device if device is not None else getattr(block, "_device", None))
+        t = torch.empty(self._shape, dtype=self._dtype, device=self._device) \
+            if self._shape_known() else None
+        if self._trained:
+            block.register_parameter(attr, None if t is None
+                                     else nn.Parameter(t))
+        else:
+            block.register_buffer(attr, t)
         _memory.track_param_data(self)
+        self.grad_req = self._grad_req
+
+    def _home(self, device=None):
+        """Bind a free-standing parameter to a holder of its own."""
+        if self._block is None:
+            self._bind(_Holder(), "data", device)
+
+    def _shape_known(self) -> bool:
+        return self._shape is not None and all(s > 0 for s in self._shape)
 
     @property
     def attr(self) -> str:
@@ -87,8 +145,14 @@ class Parameter:
     @property
     def tensor(self):
         """The block's tensor itself (for the framework's own code);
-        ``None`` while the initialisation is deferred."""
-        return getattr(self._block, self._attr)
+        ``None`` while the initialisation is deferred or no block holds
+        it."""
+        b = self._block
+        if b is None:
+            return None
+        if self._attr in b._parameters:
+            return b._parameters[self._attr]
+        return b._buffers.get(self._attr)
 
     @property
     def shape(self):
@@ -137,11 +201,15 @@ class Parameter:
     # -- deferred initialisation ------------------------------------------
     def shape_hint(self, shape) -> None:
         """Fill the unknown (0) extents from ``shape``."""
+        if self._shape is None:
+            self._shape = tuple(int(h) for h in shape)
+            return
         self._shape = tuple(s if s > 0 else int(h)
                             for s, h in zip(self._shape, shape))
 
     def _create(self, shape) -> torch.Tensor:
         """Create the block's tensor, once (a deferred parameter only)."""
+        self._home()
         t = torch.empty(tuple(shape), dtype=self._dtype, device=self._device)
         if self._trained:
             self._block.register_parameter(self._attr, nn.Parameter(t))
@@ -157,7 +225,7 @@ class Parameter:
         if self._deferred_init is None:
             raise MXNetError(f"parameter {self.name!r} is not initialized; "
                              "call initialize()")
-        check(all(s > 0 for s in self._shape),
+        check(self._shape_known(),
               f"deferred init of {self.name!r}: shape {self._shape} still "
               "unknown")
         initializer, generator = self._deferred_init
@@ -165,17 +233,74 @@ class Parameter:
         self._deferred_init = None
         self.initialized = True
 
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, generator=None) -> None:
+        """Fill the tensor with ``init`` (else the parameter's own, else
+        ``default_init``, else ``Uniform(0.07)``), drawing from
+        ``generator`` (default: one seeded with 0 on the device). A
+        free-standing parameter is placed on ``ctx`` (default: the current
+        context); one of unknown shape records the initializer for its
+        first forward (``allow_deferred_init``) or raises."""
+        if self.initialized and not force_reinit:
+            return
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0] if ctx else None
+        self._home(ctx if ctx is not None else current_context())
+        initializer = init_mod.create(init if init is not None
+                                      else self.init if self.init is not None
+                                      else default_init)
+        if generator is None:
+            generator = _seed(0, self._device)
+        if self.tensor is None:
+            check(self.allow_deferred_init,
+                  f"cannot initialize parameter {self.name!r}: shape "
+                  f"{self._shape} unknown; set allow_deferred_init=True or "
+                  "give a full shape")
+            self._deferred_init = (initializer, generator)
+            return
+        initializer(self.name, self.tensor.data, generator)
+        self.initialized = True
+
+    def list_ctx(self):
+        """The parameter's device as a one-element list, empty before it
+        has a tensor (ref: parameter.py list_ctx)."""
+        return [] if self.tensor is None else [Context(self._device)]
+
+    def reset_ctx(self, ctx) -> None:
+        """Move the tensor (and its gradient buffer) to ``ctx`` in place:
+        the block's tensor keeps its identity."""
+        self._device = resolve_device(ctx)
+        t = self.tensor
+        if t is None:
+            return
+        with torch.no_grad():
+            t.data = t.data.to(self._device)
+            g = self.data()._grad
+            if g is not None:
+                g._data = g._data.to(self._device)
+
+    def var(self):
+        raise NotPortedError("Parameter.var makes a symbol variable; "
+                             "symbol/ is not ported yet (ROADMAP A14)")
+
     # -- access -----------------------------------------------------------
     def data(self, ctx=None) -> NDArray:
         """The parameter as an ``NDArray`` over the block's tensor (shared
         storage, not a copy). If the block's tensor was replaced, a new
-        array and a zeroed gradient buffer follow it."""
+        array and a zeroed gradient buffer follow it; a tensor computed
+        from it that a ``functional_call`` substitutes (the trainer's
+        16-bit replica) is wrapped as it is."""
         t = self.tensor
         if t is None:
+            if self._block is None:
+                raise MXNetError(f"parameter {self.name!r} is not "
+                                 "initialized; call initialize()")
             raise DeferredInitializationError(
                 f"parameter {self.name!r} has deferred initialization "
                 f"(shape {self._shape}); run a forward pass or give full "
                 "shapes first")
+        if t.requires_grad and not t.is_leaf:
+            return NDArray(t)
         if self._nd is None or self._nd._data is not t:
             self._nd = NDArray(t)
             self._attach(self._nd)
@@ -205,6 +330,7 @@ class Parameter:
             src = value
         else:
             src = torch.from_numpy(np.array(value, copy=True))
+        self._home(src.device)
         dst = self.tensor
         if dst is None:
             check(len(src.shape) == len(self._shape) and all(
@@ -255,7 +381,6 @@ class Parameter:
         place: the block's tensor keeps its identity, only its storage is
         swapped (``tensor.data = ...``). A deferred parameter is created
         in ``dtype`` later."""
-        from ..base import torch_dtype
         dtype = torch_dtype(dtype)
         self._dtype = dtype
         t = self.tensor
@@ -274,18 +399,154 @@ class Parameter:
                 f"dtype={self.dtype}, grad_req={self.grad_req})")
 
 
-class ParameterDict(OrderedDict):
-    """Full name -> :class:`Parameter`, with the owning block's prefix."""
+class _ConstantValue(init_mod.Initializer):
+    """Writes a :class:`Constant`'s value, whatever the name."""
 
-    def __init__(self, prefix=""):
+    def __init__(self, value):
+        super().__init__()
+        self._value = value
+
+    def __call__(self, desc, arr, generator=None) -> None:
+        with torch.no_grad():
+            arr.copy_(torch.from_numpy(self._value))
+
+
+class Constant(Parameter):
+    """A parameter that is never trained and holds ``value`` (ref:
+    gluon/parameter.py Constant): a buffer of the value's shape and dtype,
+    filled by ``initialize``."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, np.ndarray):
+            value = np.asarray(value, dtype=np.float32)
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_ConstantValue(value))
+
+
+class ParameterDict(OrderedDict):
+    """Full name -> :class:`Parameter`, with the owning block's prefix.
+    ``shared``: a dictionary whose parameters ``get`` returns under the
+    same full names (ref: parameter.py ParameterDict)."""
+
+    def __init__(self, prefix="", shared=None, owner=None):
         super().__init__()
         self.prefix = prefix
+        self._shared = shared
+        self._owner = owner      # the block whose own parameters these are
+
+    def _short(self, full: str) -> str:
+        return full[len(self.prefix):] if full.startswith(self.prefix) \
+            else full
+
+    def get(self, name, **kwargs) -> Parameter:
+        """The parameter ``prefix + name``: this dictionary's, else the
+        shared one's (registered in the owner block too), else a new
+        :class:`Parameter` made from ``kwargs`` and bound to the owner
+        block under ``name`` (ref: parameter.py get)."""
+        full = self.prefix + name
+        if full in self:
+            param = self[full]
+            shape = kwargs.get("shape")
+            if shape is not None and param._shape is None:
+                param._shape = (shape,) if isinstance(shape, int) \
+                    else tuple(shape)
+            return param
+        if self._shared is not None and full in self._shared:
+            param = self._shared[full]
+        else:
+            param = Parameter(full, **kwargs)
+        self._adopt(param)
+        return param
+
+    def get_constant(self, name, value=None) -> Constant:
+        """The :class:`Constant` ``prefix + name``, made from ``value``
+        the first time."""
+        full = self.prefix + name
+        if full in self:
+            return self[full]
+        check(value is not None, f"constant {full!r} needs a value")
+        const = Constant(full, value)
+        self._adopt(const)
+        return const
+
+    def _adopt(self, param) -> None:
+        self[param.name] = param
+        if self._owner is not None:
+            self._owner._adopt(param)
+
+    def update(self, other) -> None:
+        """Add ``other``'s parameters (a mapping or pairs); a name already
+        here must name the same parameter."""
+        for k, v in (other.items() if hasattr(other, "items") else other):
+            if k in self and self[k] is not v:
+                raise MXNetError(f"duplicate parameter name {k}")
+            self[k] = v
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, generator=None) -> None:
+        """``Parameter.initialize`` on each, in order: ``init`` (default
+        ``Uniform(0.07)``) for those without an initializer of their own,
+        the random draws from ``generator`` (default: one seeded with 0
+        per device, shared by the parameters on it). With ``ctx`` each
+        parameter is first moved there."""
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0] if ctx else None
+        default = init_mod.create(init)
+        gens = {}
+        for p in self.values():
+            if p.initialized and not force_reinit:
+                continue
+            p._home(ctx if ctx is not None else current_context())
+            if ctx is not None:
+                p.reset_ctx(ctx)
+            gen = generator
+            if gen is None:
+                gen = gens.get(p.device)
+                if gen is None:
+                    gen = gens[p.device] = _seed(0, p.device)
+            p.initialize(None, None, default, force_reinit, gen)
 
     def zero_grad(self) -> None:
         for p in self.values():
             p.zero_grad()
 
+    def reset_ctx(self, ctx) -> None:
+        for p in self.values():
+            p.reset_ctx(ctx)
+
     def setattr(self, name, value) -> None:
         """Set one attribute (e.g. ``grad_req``) on every parameter."""
         for p in self.values():
             setattr(p, name, value)
+
+    def save(self, filename, strip_prefix="") -> None:
+        """``mx.nd.save`` of every parameter, ``strip_prefix`` taken off
+        the names that start with it."""
+        payload = {}
+        for name, p in self.items():
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            payload[name] = p.data()
+        nd_utils.save(filename, payload)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix="") -> None:
+        """Set each parameter from a file of :meth:`save` (either
+        package's), ``restore_prefix`` put before the file's names."""
+        loaded = {restore_prefix + k: v
+                  for k, v in nd_utils.load(filename, ctx=Context("cpu"))
+                  .items()}
+        if not allow_missing:
+            for name in self:
+                check(name in loaded,
+                      f"parameter {name} missing from file {filename}")
+        for name, data in loaded.items():
+            if name not in self:
+                if ignore_extra:
+                    continue
+                raise MXNetError(f"parameter {name} in file is not in this "
+                                 "ParameterDict (pass ignore_extra=True)")
+            self[name].set_data(data)
+        if ctx is not None:
+            self.reset_ctx(ctx)

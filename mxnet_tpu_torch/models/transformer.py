@@ -10,9 +10,19 @@ and a head dim of at least 64; otherwise to the plain ``attention``. The
 projections, the FFN and the tied logits are ``torch.matmul``, as the JAX
 package leaves them to XLA.
 
-Only ``mesh=None`` is ported: meshes (tp/sp/dp, ring attention), MoE
-(``n_experts > 0``), ``remat=True`` and the pipeline step raise
-:class:`MXNetError`.
+Mixture-of-Experts layers (``n_experts > 0``, every ``moe_every``-th
+layer) run ``parallel/moe.py moe_ffn`` in place of the dense FFN and add
+their load-balance loss to ``aux``; their parameters sit under
+``layer<i>/moe`` with the JAX package's names, shapes and dtypes (the
+router ``gate`` is f32 in every model). ``remat=True`` runs each layer
+through ``util.mirror_wrapper``'s ``full`` policy
+(``torch.utils.checkpoint``), as the JAX package wraps ``_block`` in a
+plain ``jax.checkpoint``: backward recomputes a layer's activations, flash
+attention included, from its input. The mirror env flags do not apply to
+the LM: ``config.remat`` alone decides.
+
+Only ``mesh=None`` is ported: meshes (tp/sp/dp, ring attention) and the
+pipeline step raise :class:`MXNetError` (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -26,9 +36,12 @@ import torch.nn.functional as F
 from ..base import MXNetError, check
 from ..context import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..parallel.moe import init_moe_params, moe_ffn, moe_param_shapes
 from ..parallel.ring_attention import attention
+from ..util import mirror_wrapper
 
-__all__ = ["TransformerConfig", "init_params", "param_shapes", "forward",
+__all__ = ["TransformerConfig", "init_params", "param_shapes",
+           "param_dtypes", "flat_params", "nest_params", "forward",
            "loss_fn", "make_train_step", "make_pipeline_train_step"]
 
 
@@ -42,13 +55,16 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: Any = None  # a torch dtype, e.g. torch.bfloat16; None is float32
     causal: bool = True
-    remat: bool = False  # not ported: raises
-    # Mixture-of-Experts: not ported, n_experts > 0 raises
+    remat: bool = False  # recompute each layer in backward
+    # Mixture-of-Experts (parallel/moe.py); n_experts=0: dense FFN everywhere
     n_experts: int = 0
-    moe_every: int = 1
+    moe_every: int = 1   # layer i uses MoE when (i+1) % moe_every == 0
     capacity_factor: float = 1.25
-    router_k: int = 1
+    router_k: int = 1    # top-k routing (1=Switch, 2=GShard)
     aux_loss_coef: float = 0.01
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_experts > 0 and (i + 1) % self.moe_every == 0
 
 
 def _dt(config):
@@ -57,26 +73,38 @@ def _dt(config):
 
 def _check_ported(config: TransformerConfig, mesh=None) -> None:
     check(mesh is None, "transformer: only mesh=None (one device) is "
-          "ported; tp/sp/dp meshes and ring attention are not")
-    check(config.n_experts == 0, "transformer: MoE (n_experts > 0) is not "
-          "ported")
-    check(not config.remat, "transformer: remat=True is not ported")
+          "ported; tp/sp/dp meshes and ring attention are not (ROADMAP "
+          "A10)")
 
 
 def param_shapes(config: TransformerConfig) -> Dict[str, Any]:
     """Names and shapes of the parameter pytree, as ``init_params`` makes
-    them (the dense layers of the JAX ``init_params``)."""
+    them (the JAX ``init_params``): an MoE layer holds ``moe`` in place of
+    the dense FFN."""
     d, f = config.d_model, config.d_ff
     shapes: Dict[str, Any] = {"embed": (config.vocab_size, d),
                               "ln_f_scale": (d,), "ln_f_bias": (d,)}
     for i in range(config.n_layers):
-        shapes[f"layer{i}"] = {
-            "ln1_scale": (d,), "ln1_bias": (d,),
-            "w_qkv": (d, 3 * d), "wo": (d, d),
-            "ln2_scale": (d,), "ln2_bias": (d,),
-            "ffn_in": (d, f), "ffn_in_b": (f,),
-            "ffn_out": (f, d), "ffn_out_b": (d,)}
+        lp = {"ln1_scale": (d,), "ln1_bias": (d,),
+              "w_qkv": (d, 3 * d), "wo": (d, d),
+              "ln2_scale": (d,), "ln2_bias": (d,)}
+        if config.is_moe_layer(i):
+            lp["moe"] = moe_param_shapes(d, f, config.n_experts)
+        else:
+            lp.update({"ffn_in": (d, f), "ffn_in_b": (f,),
+                       "ffn_out": (f, d), "ffn_out_b": (d,)})
+        shapes[f"layer{i}"] = lp
     return shapes
+
+
+def param_dtypes(config: TransformerConfig) -> Dict[str, Any]:
+    """``param_shapes``' tree with each leaf's dtype: ``config.dtype``
+    (default f32), and f32 for every MoE router ``gate``."""
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict)
+                else torch.float32 if k == "gate" else _dt(config)
+                for k, v in tree.items()}
+    return walk(param_shapes(config))
 
 
 def init_params(generator: torch.Generator, config: TransformerConfig,
@@ -84,7 +112,8 @@ def init_params(generator: torch.Generator, config: TransformerConfig,
     """Random parameters from ``generator``: normal * 0.02 for the matrices
     (``wo`` and ``ffn_out`` also / sqrt(2 * n_layers)), ones for the
     layer-norm scales, zeros for the biases; in ``config.dtype`` on
-    ``device`` (default: the card). The draws are made on the generator's
+    ``device`` (default: the card), the MoE layers' from ``init_moe_params``
+    (after the layer's other draws). The draws are made on the generator's
     device."""
     _check_ported(config)
     dev = resolve_device(device)
@@ -102,8 +131,15 @@ def init_params(generator: torch.Generator, config: TransformerConfig,
             w = w / down
         return w.to(device=dev, dtype=dt)
 
-    return {k: ({n: make(n, s) for n, s in v.items()}
-                if isinstance(v, dict) else make(k, v))
+    def layer(shapes):
+        lp = {n: make(n, s) for n, s in shapes.items() if n != "moe"}
+        if "moe" in shapes:
+            lp["moe"] = init_moe_params(generator, config.d_model,
+                                        config.d_ff, config.n_experts,
+                                        dtype=dt, device=dev)
+        return lp
+
+    return {k: layer(v) if isinstance(v, dict) else make(k, v)
             for k, v in param_shapes(config).items()}
 
 
@@ -141,25 +177,39 @@ def _block(x, lp, config: TransformerConfig):
     x = x + torch.matmul(attn.reshape(b, t, d), lp["wo"])
 
     y = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"])
+    if "moe" in lp:
+        ff, aux = moe_ffn(y, lp["moe"], config.n_experts,
+                          capacity_factor=config.capacity_factor,
+                          k=config.router_k)
+        return x + ff, aux
     hdn = torch.matmul(y, lp["ffn_in"]) + lp["ffn_in_b"]
     hdn = F.gelu(hdn, approximate="tanh")
     x = x + torch.matmul(hdn, lp["ffn_out"]) + lp["ffn_out_b"]
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+# the whole layer recomputed, saving only its inputs: jax.checkpoint with
+# no policy
+@mirror_wrapper(True, policy="full")
+def _remat_block(x, lp, config: TransformerConfig):
+    return _block(x, lp, config)
+
+
 def forward(params, tokens, config: TransformerConfig, mesh=None,
             return_aux: bool = False):
     """tokens (B, T) integers -> logits (B, T, vocab), on the device of the
     parameters. With return_aux=True also returns the summed MoE
-    load-balance loss (0 for the dense model)."""
+    load-balance loss (0 for the dense model). With ``config.remat`` each
+    layer is recomputed in backward (``_remat_block``)."""
     _check_ported(config, mesh)
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device).long()
     x = embed[tokens]  # (B, T, D)
     x = x + _pos_encode(tokens, config.d_model, x.dtype)
+    blk = _remat_block if config.remat else _block
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(config.n_layers):
-        x, a = _block(x, params[f"layer{i}"], config)
+        x, a = blk(x, params[f"layer{i}"], config)
         aux = aux + a
     x = _layernorm(x, params["ln_f_scale"], params["ln_f_bias"])
     logits = torch.matmul(x, embed.t())
@@ -175,24 +225,27 @@ def loss_fn(params, tokens, targets, config: TransformerConfig, mesh=None):
     return nll.mean() + config.aux_loss_coef * aux
 
 
-def _flatten(params):
-    """[(path, tensor)] of a two-level parameter dict."""
-    items = []
+def flat_params(params, prefix: str = "") -> Dict[str, Any]:
+    """``{"layer1/moe/w_in": leaf, ...}`` of a nested parameter dict, at any
+    depth, in the dict's order. Any leaf type (tensors, arrays, shapes)."""
+    out: Dict[str, Any] = {}
     for k, v in params.items():
         if isinstance(v, dict):
-            items += [((k, kk), vv) for kk, vv in v.items()]
+            out.update(flat_params(v, f"{prefix}{k}/"))
         else:
-            items.append(((k,), v))
-    return items
+            out[prefix + k] = v
+    return out
 
 
-def _unflatten(items):
+def nest_params(flat) -> Dict[str, Any]:
+    """The inverse of :func:`flat_params`."""
     out: Dict[str, Any] = {}
-    for path, v in items:
+    for key, v in flat.items():
+        *heads, leaf = key.split("/")
         node = out
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = v
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = v
     return out
 
 
@@ -207,13 +260,13 @@ def make_train_step(config: TransformerConfig, mesh=None, lr: float = 1e-3):
     _check_ported(config, mesh)
 
     def step(params, tokens, targets):
-        items = _flatten(params)
-        ws = [w.detach().requires_grad_() for _, w in items]
-        loss = loss_fn(_unflatten([(p, w) for (p, _), w in zip(items, ws)]),
-                       tokens, targets, config)
-        grads = torch.autograd.grad(loss, ws)
+        ws = {k: w.detach().requires_grad_()
+              for k, w in flat_params(params).items()}
+        loss = loss_fn(nest_params(ws), tokens, targets, config)
+        grads = torch.autograd.grad(loss, list(ws.values()))
         with torch.no_grad():
-            torch._foreach_sub_(ws, torch._foreach_mul(grads, lr))
+            torch._foreach_sub_(list(ws.values()),
+                                torch._foreach_mul(grads, lr))
         return loss.detach(), params
 
     return step, lambda p: p

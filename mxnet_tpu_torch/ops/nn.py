@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError, check, env, torch_dtype
 from ..random import default_generator
+from ..util import replayed
 from .fused_bn_act import fused_bn_act
 from .registry import register
 
@@ -807,7 +808,8 @@ def dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
     """``data * mask / (1 - p)``, the mask kept with probability ``1 - p``
     and broadcast along ``axes``; the identity outside training unless
     ``mode="always"``. Draws from ``generator`` (default: the device's
-    default generator)."""
+    default generator); the recompute of a checkpointed forward
+    (``util.replayed``) takes the mask the forward drew."""
     if (not _training and mode != "always") or p <= 0:
         return data
     axes = tuple(a % data.dim() for a in axes)
@@ -815,8 +817,10 @@ def dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
     gen = generator if generator is not None \
         else default_generator(data.device)
     keep = 1.0 - p
-    mask = (torch.rand(shape, generator=gen, device=data.device) < keep) \
-        .to(data.dtype)
+    # a checkpoint's recompute (remat) reuses the forward's mask
+    mask = replayed(lambda: (torch.rand(shape, generator=gen,
+                                        device=data.device) < keep)
+                    .to(data.dtype))
     return data * mask / keep
 
 

@@ -54,8 +54,25 @@ then inference, so BatchNorm's running statistics do not move. The
 optimizer state is allocated after the probe, and any graph is captured
 after it.
 
+Rematerialisation (``remat``, ref: the JAX trainer's ``mirror_wrapper``).
+``remat=None`` follows ``MXNET_BACKWARD_DO_MIRROR``; the decision and
+``MXNET_BACKWARD_MIRROR_POLICY`` are resolved once, when the trainer first
+builds its step (the first ``step`` / ``run_steps``), through
+``util.mirror_wrapper``, which then wraps the whole forward + loss as the
+JAX trainer wraps ``loss_of``. Backward recomputes the forward from the
+data; the recompute leaves BatchNorm's running statistics as the forward
+moved them and replays the forward's Dropout masks (``util``), in
+``step()``, in the eager steps of a graph's first call and inside the
+captured graph alike.
+
+User blocks written with ``hybrid_forward`` or as a ``gluon.Block`` run
+their ``mx.nd`` ops with recording on whenever the trainer's forward has
+gradients enabled (``gluon/block.py``), so their parameters get gradients
+here as under ``autograd.record()``.
+
 Each call returns a clone of the static losses. On the CPU ``run_steps``
-is a loop over ``step``. Only ``mesh=None`` is ported.
+is a loop over ``step``. Only ``mesh=None`` is ported; ``plan=`` (a
+sharding plan over a mesh) raises ``NotPortedError`` (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -66,6 +83,8 @@ from torch.func import functional_call
 from .. import autograd
 from ..base import MXNetError, check
 from ..ndarray.ndarray import NDArray
+from ..ops.registry import NotPortedError
+from ..util import mirror_wrapper
 
 __all__ = ["SPMDTrainer"]
 
@@ -87,9 +106,13 @@ class _StepGraph:
 
 class SPMDTrainer:
     def __init__(self, block, loss_fn, mesh=None, optimizer: str = "sgd",
-                 optimizer_params=None, dtype=None):
+                 optimizer_params=None, plan=None, dtype=None, remat=None):
         check(mesh is None, "SPMDTrainer: only mesh=None (one device) is "
               "ported")
+        if plan is not None:
+            raise NotPortedError("SPMDTrainer(plan=...) shards parameters "
+                                 "over a mesh, which is not ported yet "
+                                 "(ROADMAP A10)")
         check(optimizer in ("sgd", "adam"),
               f"SPMDTrainer supports sgd/adam, not {optimizer!r}")
         opt = dict(optimizer_params or {})
@@ -105,6 +128,8 @@ class SPMDTrainer:
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         self._compute_dtype = dtype
+        self.remat = remat
+        self._mirror = None      # util.mirror_wrapper, resolved at build
         self._trainable = None   # [(name, Parameter, module path)]
         self._aux = None         # Parameters of the aux states
         self._state = None       # sgd: momenta or None; adam: (m, v)
@@ -214,7 +239,9 @@ class SPMDTrainer:
 
     def _step(self, data, label):
         weights = self._weights()
-        loss = self._loss(data, label)
+        # wrapped per call: a wrapped bound method kept on the trainer would
+        # tie it into a reference cycle that holds its device memory
+        loss = self._mirror(self._loss)(data, label)
         grads = list(torch.autograd.grad(loss, weights))
         with torch.no_grad():
             self._update(weights, grads)
@@ -229,6 +256,7 @@ class SPMDTrainer:
                        for a in (data, label))
         if self._trainable is None:
             self._collect(data[0] if steps else data)
+            self._mirror = mirror_wrapper(self.remat)
         return data, label
 
     def step(self, data, label):

@@ -485,5 +485,55 @@ def test_graph_replay_calls_no_wrapper_and_refuses_a_rebound_parameter(card):
         tr.run_steps(d, lab)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_graph_trains_a_hybrid_forward_block(card, remat):
+    """A user block (``params.get`` + ``hybrid_forward`` over ``mx.nd``,
+    a Dropout between) through run_steps' graph, with and without remat:
+    the replay follows eager steps, the ``params.get`` weight gets its
+    gradient inside the graph, and remat's recompute draws no new mask
+    (its trajectory is the plain one's)."""
+    import mxnet_tpu_torch as mx
+
+    class Net(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.drop = tnn.Dropout(0.5)    # the default generator
+            self.w = self.params.get("w", shape=(8, 4))
+
+        def hybrid_forward(self, F, x, w):
+            return F.dot(self.drop(F.tanh(x)), w)
+
+    rs = np.random.RandomState(2)
+    w0 = rs.randn(8, 4).astype(np.float32)
+    d = torch.from_numpy(rs.randn(2, 6, 8).astype(np.float32)).cuda()
+    lab = torch.from_numpy(rs.randint(0, 4, (2, 6)).astype(
+        np.float32)).cuda()
+    runs = {}
+    for how in ("graph", "eager", "plain"):
+        with mx.gpu(0):
+            net = Net(prefix=f"user_{how}_")
+        net.w.set_data(w0)
+        torch.cuda.manual_seed(5)
+        tr = TTrainer(net, tloss.SoftmaxCrossEntropyLoss(),
+                      optimizer_params={"learning_rate": 0.5},
+                      remat=remat and how != "plain")
+        if how == "eager":
+            losses = torch.stack([tr.step(d[k], lab[k]) for _ in range(2)
+                                  for k in range(2)])
+        else:
+            losses = torch.cat([tr.run_steps(d, lab) for _ in range(2)])
+        torch.cuda.synchronize()
+        runs[how] = (losses, net.w.tensor.detach().clone())
+    assert _max_rel(runs["graph"][0], runs["eager"][0]) <= 1e-6
+    assert _max_rel(runs["graph"][1], runs["eager"][1]) <= 1e-6
+    assert torch.equal(runs["graph"][0], runs["plain"][0])
+    assert torch.equal(runs["graph"][1], runs["plain"][1])
+    assert float((runs["graph"][1].cpu() - torch.from_numpy(w0)).abs()
+                 .max()) > 0
+
+
 if __name__ == "__main__":
     _jax_reference(sys.argv[1])
