@@ -221,6 +221,28 @@ Phases, each printing JSON lines:
     K-step graph against eager steps with the ``params.get`` weight
     trained, and ``save_parameters`` on the card loaded on the host bit
     for bit;
+14g. then the dense ``mx.nd`` op families: ``random_ops``, every random
+    op on the card at 2^22 draws (moments within 5 standard errors,
+    Kolmogorov-Smirnov for uniform / normal / gamma / exponential,
+    shuffle a permutation, multinomial by chi-square), ``seed(s)``
+    repeating every draw bit for bit and ``seed(s + 1)`` changing it,
+    ``initialize()`` after ``seed(1)`` against ``seed(0)``, and a Dropout
+    MLP's K-step graph replayed from one start after ``seed(s)`` twice
+    (bit for bit) and after ``seed(s + 1)`` (other masks);
+    ``flash_registry``, ``mx.nd.contrib.flash_attention`` at the LM shape
+    (B 8, T 2048, H 8, D 64, causal) in bf16 and f32, forward and
+    backward under ``record()``: one launch each, on the tensor-core
+    route in bf16 and the general route in f32 (the counters), output
+    within flash_phase's tolerance, gradients the plain attention's;
+    ``ssd_example``, ``examples/ssd/train_ssd.py`` at its settings card
+    against host from the same weights (losses within 1e-4 relative, the
+    last below the first, the same detection rows); ``ssd300_decode``,
+    ``MultiBoxPrior`` / ``MultiBoxTarget`` / ``MultiBoxDetection`` at
+    MXNet example/ssd's SSD300 widths (8732 anchors, 21 classes, batch
+    32): median ms of 10 calls, peak memory above the phase's start,
+    targets and kept rows card against host (a flipped row passes only
+    with its decision's IoU margin under 1e-6). ``nd_ops`` holds
+    ``_linalg_syevd`` and ``_linalg_gelqf`` by their invariants;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
@@ -231,7 +253,9 @@ Phases, each printing JSON lines:
     bf16 path's shape and flash_fwd_general's at the default f32 LM's,
     with that LM's launches; the tensor-core row also carries the general
     kernel on the same bf16 inputs with its bound and SDPA's time, and
-    the MoE LM's launches; the rtc kernels' per launch at the sizes
+    the MoE LM's launches; both flash rows carry ``launches_registry``,
+    their route's launches in ``flash_registry``; the rtc kernels' per
+    launch at the sizes
     above, sgd_mom's per imperative step, the sum over its 4 launches)
     and, last, the device line.
 
@@ -1734,6 +1758,38 @@ def _op_run(mt, np, name, case, ctx, gradable, index):
         return [out.asnumpy()] + [arrs[i].grad.asnumpy() for i in diff]
 
 
+# held on the card by their invariants, not elementwise: cuSOLVER may
+# choose other signs for Q's rows and the eigenvectors than LAPACK
+LINALG_BY_INVARIANT = ("_linalg_syevd", "_linalg_gelqf")
+
+
+def _linalg_invariants(torch, mt, np, name, case):
+    """The card's outputs of ``gelqf`` (L Q = A, Q Q^T = I, L lower) or
+    ``syevd`` (V^T diag(w) V = A, V V^T = I, w the host's), as residuals
+    relative to max |A|."""
+    nd = mt.nd
+    a = case.inputs[0]
+    outs = {}
+    for key, ctx in (("host", mt.cpu()), ("card", mt.gpu(0))):
+        with ctx:
+            outs[key] = [o.asnumpy().astype(np.float64) for o in
+                         nd.imperative_invoke(name, (nd.array(a),), {})]
+    a64, scale = a.astype(np.float64), float(np.abs(a).max())
+    if name == "_linalg_gelqf":
+        l, q = outs["card"]
+        res = {"LQ=A": np.abs(l @ q - a64).max() / scale,
+               "QQt=I": np.abs(q @ q.T - np.eye(q.shape[0])).max(),
+               "L lower": np.abs(np.triu(l, 1)).max() / scale}
+    else:
+        v, w = outs["card"]
+        res = {"VtdiagwV=A": np.abs(v.T @ np.diag(w) @ v - a64).max() / scale,
+               "VVt=I": np.abs(v @ v.T - np.eye(v.shape[0])).max(),
+               "w=host": np.abs(w - outs["host"][1]).max() / scale}
+    res = {k: float(x) for k, x in res.items()}
+    res["max_residual"] = max(res.values())
+    return res
+
+
 def nd_ops_phase(torch, mt, here):
     import numpy as np
     spec = importlib.util.spec_from_file_location(
@@ -1744,8 +1800,16 @@ def nd_ops_phase(torch, mt, here):
     ported = set(reg.list_ops())
     ops = sorted(n for n in cases_mod.CASES if n in ported)
     n_cases = n_grads = 0
-    worst, bad = 0.0, []
+    worst, bad, invariants = 0.0, [], {}
     for name in ops:
+        if name in LINALG_BY_INVARIANT:
+            for i, case in enumerate(cases_mod.CASES[name]):
+                invariants[f"{name} case {i}"] = res = \
+                    _linalg_invariants(torch, mt, np, name, case)
+                n_cases += 1
+                if res["max_residual"] > 1e-4:
+                    bad.append(f"{name} case {i} invariants")
+            continue
         for i, case in enumerate(cases_mod.CASES[name]):
             gradable = (case.grad is not False
                         and reg.get_op(name).differentiable
@@ -1770,8 +1834,11 @@ def nd_ops_phase(torch, mt, here):
                                                  .max()))
     row = {"phase": "nd_ops", "ops": len(ops), "cases": n_cases,
            "gradients": n_grads, "max_abs_err": worst, "failed": bad,
+           "invariants": invariants,
            "what": "card vs host at each op_cases.py case's rtol/atol, "
-                   "f32, TF32 off"}
+                   "f32, TF32 off; _linalg_syevd and _linalg_gelqf by "
+                   "their invariants instead (cuSOLVER may choose other "
+                   "signs than LAPACK)"}
     emit(row)
     if bad or len(ops) < 200:
         fail(f"mx.nd ops disagree between card and host: {row}")
@@ -4119,6 +4186,538 @@ def gluon_user_block(torch, mt, card):
              "are not bit for bit")
 
 
+# ---------------------------------------------------------------------------
+# the dense mx.nd op families: random streams, the flash registry op, the
+# SSD detector example and the SSD300 target / decode ops
+# ---------------------------------------------------------------------------
+
+RANDOM_DRAWS = 1 << 22
+# (op, params, mean, variance, scipy.stats distribution name and args for
+# the Kolmogorov-Smirnov test, or None)
+RANDOM_CREATION = [
+    ("_random_uniform", {"low": -1.0, "high": 3.0}, 1.0, 16 / 12,
+     ("uniform", (-1, 4))),
+    ("_random_normal", {"loc": 2.0, "scale": 3.0}, 2.0, 9.0,
+     ("norm", (2, 3))),
+    ("_random_gamma", {"alpha": 2.5, "beta": 2.0}, 5.0, 10.0,
+     ("gamma", (2.5, 0, 2.0))),
+    ("_random_exponential", {"lam": 4.0}, 0.25, 1 / 16,
+     ("expon", (0, 0.25))),
+    ("_random_poisson", {"lam": 3.5}, 3.5, 3.5, None),
+    ("_random_negative_binomial", {"k": 3, "p": 0.4}, 4.5, 11.25, None),
+    ("_random_generalized_negative_binomial", {"mu": 2.0, "alpha": 0.5},
+     2.0, 4.0, None),
+    ("_random_randint", {"low": -3, "high": 7}, 1.5, 8.25, None),
+]
+# the _like ops on a tensor of RANDOM_DRAWS ones, and the _sample_ ops with
+# one parameter value (a 1-element array) and RANDOM_DRAWS draws each
+RANDOM_LIKE = [
+    ("_random_uniform_like", {"low": 1.0, "high": 2.0}, 1.5, 1 / 12),
+    ("_random_normal_like", {"loc": -1.0, "scale": 0.5}, -1.0, 0.25),
+    ("_random_exponential_like", {"lam": 2.0}, 0.5, 0.25),
+    ("_random_gamma_like", {"alpha": 3.0, "beta": 0.5}, 1.5, 0.75),
+    ("_random_poisson_like", {"lam": 6.0}, 6.0, 6.0),
+    ("_random_negative_binomial_like", {"k": 2, "p": 0.5}, 2.0, 4.0),
+    ("_random_generalized_negative_binomial_like",
+     {"mu": 3.0, "alpha": 0.25}, 3.0, 5.25),
+]
+RANDOM_SAMPLE = [
+    ("_sample_uniform", (2.0, 6.0), 4.0, 16 / 12),
+    ("_sample_normal", (1.0, 2.0), 1.0, 4.0),
+    ("_sample_gamma", (2.0, 3.0), 6.0, 18.0),
+    ("_sample_exponential", (5.0,), 0.2, 0.04),
+    ("_sample_poisson", (2.5,), 2.5, 2.5),
+]
+
+
+def _moments_ok(np, x, mean, var):
+    """(mean error / its standard error, variance error / its standard
+    error) of the draws ``x`` (float64 numpy)."""
+    n = x.size
+    m4 = float(np.mean((x - x.mean()) ** 4))
+    se_var = max(np.sqrt(max(m4 - x.var() ** 2, 0.0) / n), 1e-300)
+    return (abs(x.mean() - mean) / np.sqrt(var / n),
+            abs(x.var() - var) / se_var)
+
+
+def _random_draws(torch, mt):
+    """One draw of every rng op on the card (small), for the seed checks."""
+    nd = mt.nd
+    dev = mt.gpu(0)
+    ones = nd.ones((64,), ctx=dev)
+    out = [getattr(nd.op, op)(shape=(64,), ctx=dev, **p)
+           for op, p, *_ in RANDOM_CREATION]
+    out += [getattr(nd.op, op)(ones, **p) for op, p, *_ in RANDOM_LIKE]
+    out += [getattr(nd.op, op)(*[nd.array([a], ctx=dev) for a in args],
+                               shape=(64,))
+            for op, args, *_ in RANDOM_SAMPLE]
+    out.append(mt.random.shuffle(nd.arange(64, ctx=dev)))
+    out.append(mt.random.multinomial(nd.array([0.2, 0.3, 0.5], ctx=dev),
+                                      shape=(64,)))
+    return [o.asnumpy() for o in out]
+
+
+def _dropout_graph_losses(torch, mt, seeds):
+    """A Dropout MLP through ``SPMDTrainer.run_steps``' K-step CUDA graph:
+    from one start state (weights restored in place before each replay),
+    one replay after each ``seed(s)`` of ``seeds``; the (K,) losses of
+    each."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    nn = mt.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(256, in_units=64, activation="relu", device="cuda"),
+            nn.Dropout(0.5), nn.Dense(8, in_units=256, device="cuda"))
+    net.initialize(generator=torch.Generator("cuda").manual_seed(3))
+    tr = mt.parallel.SPMDTrainer(net, gloss.L2Loss(),
+                                 optimizer_params={"learning_rate": 0.05})
+    gen = torch.Generator("cuda").manual_seed(4)
+    data = torch.randn((4, 32, 64), generator=gen, device="cuda")
+    label = torch.randn((4, 32, 8), generator=gen, device="cuda")
+    with mt.autograd.train_mode():
+        tr.run_steps(data, label)                # the eager steps + capture
+        params = [p.tensor for p in net.collect_params().values()]
+        start = [t.detach().clone() for t in params]
+        out = []
+        for s in seeds:
+            with torch.no_grad():
+                for t, v in zip(params, start):
+                    t.copy_(v)
+            mt.random.seed(s)
+            out.append(tr.run_steps(data, label).cpu())
+    return out
+
+
+def random_ops_phase(torch, mt):
+    """Every rng op on the card at 2^22 draws: moments within 5 standard
+    errors, Kolmogorov-Smirnov for uniform / normal / gamma / exponential,
+    shuffle a permutation, multinomial frequencies by chi-square; seed(s)
+    twice the same draws bit for bit and seed(s + 1) others; the default
+    initialize() after seed(1) other weights than after seed(0); a Dropout
+    net's K-step graph replays after seed(s) bit for bit alike and after
+    seed(s + 1) with other masks."""
+    import numpy as np
+    from scipy import stats
+    nd = mt.nd
+    dev = mt.gpu(0)
+    rows, bad = [], []
+
+    def check(name, x, mean, var, dist=None):
+        zm, zv = _moments_ok(np, x, mean, var)
+        row = {"op": name, "n": int(x.size), "mean": float(x.mean()),
+               "var": float(x.var()), "z_mean": float(zm),
+               "z_var": float(zv)}
+        if dist is not None:
+            d = getattr(stats, dist[0])(*dist[1])
+            row["ks_p"] = float(stats.kstest(x, d.cdf).pvalue)
+        rows.append(row)
+        if zm > 5 or zv > 5 or row.get("ks_p", 1.0) < 1e-4:
+            bad.append(name)
+
+    mt.random.seed(123)
+    for op, p, mean, var, dist in RANDOM_CREATION:
+        x = getattr(nd.op, op)(shape=(RANDOM_DRAWS,), ctx=dev, **p)
+        if x.context != dev:
+            fail(f"{op} made its output on {x.context}")
+        check(op, x.asnumpy().astype(np.float64), mean, var, dist)
+    ones = nd.ones((RANDOM_DRAWS,), ctx=dev)
+    for op, p, mean, var in RANDOM_LIKE:
+        check(op, getattr(nd.op, op)(ones, **p).asnumpy().astype(
+            np.float64), mean, var)
+    for op, args, mean, var in RANDOM_SAMPLE:
+        x = getattr(nd.op, op)(*[nd.array([a], ctx=dev) for a in args],
+                               shape=(RANDOM_DRAWS,))
+        check(op, x.asnumpy().reshape(-1).astype(np.float64), mean, var)
+    perm = mt.random.shuffle(nd.arange(RANDOM_DRAWS, ctx=dev)).asnumpy()
+    is_perm = bool((np.sort(perm) == np.arange(RANDOM_DRAWS)).all()
+                   and (perm != np.arange(RANDOM_DRAWS)).any())
+    p = np.array([0.1, 0.2, 0.3, 0.4])
+    idx = mt.random.multinomial(nd.array(p, ctx=dev),
+                                shape=(RANDOM_DRAWS,)).asnumpy()
+    chi_p = float(stats.chisquare(np.bincount(idx, minlength=4),
+                                  p / p.sum() * RANDOM_DRAWS).pvalue)
+    zs, tries = nd.op.sample_unique_zipfian(range_max=1000,
+                                            shape=(64, 100), ctx=dev)
+    zs = zs.asnumpy()
+    zipf_ok = zs.shape == (64, 100) and all(
+        len(set(r)) == 100 for r in zs) and \
+        bool((tries.asnumpy() >= 100).all())
+
+    mt.random.seed(7)
+    a = _random_draws(torch, mt)
+    mt.random.seed(7)
+    b = _random_draws(torch, mt)
+    mt.random.seed(8)
+    c = _random_draws(torch, mt)
+    same = all(np.array_equal(x, y) for x, y in zip(a, b))
+    other = all(not np.array_equal(x, z) for x, z in zip(a, c))
+
+    def dense_init(s):
+        mt.random.seed(s)
+        net = mt.gluon.nn.Dense(64, in_units=32, device="cuda")
+        net.initialize()
+        return [p.data().asnumpy() for p in net.collect_params().values()]
+    init_differs = not np.array_equal(dense_init(0)[0], dense_init(1)[0])
+    init_repeats = np.array_equal(dense_init(1)[0], dense_init(1)[0])
+    l1, l2, l3 = _dropout_graph_losses(torch, mt, (11, 11, 12))
+    graph_same = bool(torch.equal(l1, l2))
+    graph_other = not bool(torch.equal(l1, l3))
+
+    row = {"phase": "random_ops", "draws": RANDOM_DRAWS, "ops": rows,
+           "failed": bad, "shuffle_is_permutation": is_perm,
+           "multinomial_chi2_p": chi_p, "unique_zipfian_ok": zipf_ok,
+           "seed_repeats_bitwise": same, "next_seed_differs": other,
+           "init_after_seed1_differs": init_differs,
+           "init_repeats": init_repeats,
+           "graph_replays_after_seed_bitwise": graph_same,
+           "graph_replay_after_next_seed_differs": graph_other,
+           "graph_losses": [l1.tolist(), l2.tolist(), l3.tolist()],
+           "what": "every rng op on the card (default generator of the "
+                   "card), moments within 5 standard errors, KS p > 1e-4"}
+    emit(row)
+    if bad or not (is_perm and chi_p > 1e-4 and zipf_ok and same and other
+                   and init_differs and init_repeats and graph_same
+                   and graph_other):
+        fail(f"random ops on the card: {row}")
+
+
+def flash_registry_phase(torch, mt, fa):
+    """``mx.nd.contrib.flash_attention`` at the LM shape (B 8, T 2048,
+    H 8, D 64, causal) in bf16 and f32, forward and backward under
+    ``autograd.record()``: the tensor-core route for bf16 and the general
+    route for f32 read off the launch counters; the output held to the
+    plain version at flash_phase's tolerance and the gradients to the
+    plain attention's (the backward recomputes through it); the launches
+    of the driven run."""
+    from mxnet_tpu_torch.parallel.ring_attention import attention
+    nd, ag = mt.nd, mt.autograd
+    b, t, h, d = TF_BATCH, TF_T, 8, 64
+    scale = 1.0 / d ** 0.5
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out_rows, launched = [], {}
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "general")):
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        head = torch.randn((b, t, h, d), generator=gen,
+                           device="cuda").to(dtype)
+        xs = [nd.from_torch(x.clone()) for x in (q, k, v)]
+        for x in xs:
+            x.attach_grad()
+        before = dict(fa.launches)
+        with ag.record():
+            out = nd.contrib.flash_attention(*xs, causal=True)
+        out.backward(nd.from_torch(head))
+        torch.cuda.synchronize()
+        counts = {n: fa.launches[n] - before[n] for n in fa.launches}
+        launched[route] = counts[f"flash_fwd_{route}"]
+        want = fa._flash_plain(q, k, v, True, scale)
+        tol = flash_tolerance(torch, route, want, v)
+        err = (out.tensor.detach().float() - want.float()).abs()
+        ok_out = bool((err <= tol).all())
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        ref = attention(*qkv, causal=True, scale=scale)
+        grads = torch.autograd.grad(ref, qkv, head)
+        gerr = max(float((x.grad.tensor.float() - g.float()).abs().max())
+                   for x, g in zip(xs, grads))
+        gscale = max(float(g.float().abs().max()) for g in grads)
+        row = {"dtype": str(dtype).split(".")[-1], "route": route,
+               "launches": counts, "max_abs_err": float(err.max()),
+               "within_tolerance": ok_out, "grad_max_abs_err": gerr,
+               "grad_max_abs": gscale}
+        out_rows.append(row)
+        emit({"phase": "flash_registry", **row})
+        del xs, out, want, qkv, ref, grads
+        torch.cuda.empty_cache()
+        if counts[f"flash_fwd_{route}"] != 1 or counts["flash_fwd"] != 1 \
+                or not ok_out or gerr > 1e-6 * max(gscale, 1.0):
+            fail(f"flash_registry: {row}")
+    return launched, out_rows
+
+
+# examples/ssd/train_ssd.py's settings
+SSD_SIZES, SSD_RATIOS = (0.3, 0.45), (1.0, 2.0)
+SSD_ANCHORS = len(SSD_SIZES) + len(SSD_RATIOS) - 1
+SSD_BATCH, SSD_ITERS, SSD_LR = 8, 8, 0.05
+
+
+def ssd_synthetic_batch(np, rs, batch, size=32):
+    """The example's data: images each with one bright square, labelled
+    with its box."""
+    data = rs.rand(batch, 3, size, size).astype(np.float32) * 0.1
+    labels = np.zeros((batch, 1, 5), np.float32)
+    for i in range(batch):
+        w = rs.randint(8, 16)
+        x0 = rs.randint(0, size - w)
+        y0 = rs.randint(0, size - w)
+        data[i, :, y0:y0 + w, x0:x0 + w] = 1.0
+        labels[i, 0] = [0, x0 / size, y0 / size, (x0 + w) / size,
+                        (y0 + w) / size]
+    return data, labels
+
+
+def ssd_net(mx):
+    """The example's backbone and two heads, in one container."""
+    nn = mx.gluon.nn
+    net = nn.HybridSequential(prefix="ssd_")
+    with net.name_scope():
+        backbone = nn.HybridSequential()
+        backbone.add(nn.Conv2D(16, 3, 2, 1, activation="relu"),
+                     nn.Conv2D(32, 3, 2, 1, activation="relu"))
+        net.add(backbone, nn.Conv2D(SSD_ANCHORS * 2, 3, padding=1),
+                nn.Conv2D(SSD_ANCHORS * 4, 3, padding=1))
+    return net
+
+
+def ssd_heads(mx, net, x):
+    nd = mx.nd
+    feat = net[0](x)
+    anchors = nd.contrib.MultiBoxPrior(feat, sizes=SSD_SIZES,
+                                       ratios=SSD_RATIOS)
+    b = x.shape[0]
+    cp = net[1](feat).reshape((b, SSD_ANCHORS * 2, -1)).reshape((b, 2, -1))
+    bp = net[2](feat).reshape((b, -1))
+    return anchors.reshape((1, -1, 4)), cp, bp
+
+
+def ssd_example_phase(torch, mt):
+    """examples/ssd/train_ssd.py at its settings (batch 8, 8 iterations,
+    lr 0.05, seed 0) on the card and on the host from the same weights:
+    losses per step within 1e-4 relative, the last below the first, and
+    the same detection rows kept by MultiBoxDetection."""
+    import numpy as np
+    nd, ag = mt.nd, mt.autograd
+    gloss = mt.gluon.loss
+    rs = np.random.RandomState(0)
+    batches = [ssd_synthetic_batch(np, rs, SSD_BATCH)
+               for _ in range(SSD_ITERS)]
+    res = {}
+    weights = None
+    for key, ctx in (("host", mt.cpu()), ("card", mt.gpu(0))):
+        with ctx:
+            mt.random.seed(0)
+            net = ssd_net(mt)
+            net.initialize(mt.init.Xavier())
+            ssd_heads(mt, net, nd.array(batches[0][0]))
+            params = net._collect_params_with_prefix()
+            if weights is None:
+                weights = {k: p.data().asnumpy() for k, p in params.items()}
+            else:
+                for k, v in weights.items():
+                    params[k].set_data(v)
+            trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                       {"learning_rate": SSD_LR})
+            cls_loss, l1_loss = gloss.SoftmaxCrossEntropyLoss(), \
+                gloss.L1Loss()
+            losses = []
+            t0 = time.perf_counter()
+            for data_np, labels_np in batches:
+                x, labels = nd.array(data_np), nd.array(labels_np)
+                with ag.record():
+                    anchors, cp, bp = ssd_heads(mt, net, x)
+                    with ag.pause():
+                        bt, bm, ct = nd.contrib.MultiBoxTarget(anchors,
+                                                               labels, cp)
+                    loss = cls_loss(nd.transpose(cp, axes=(0, 2, 1)),
+                                    ct).mean() + \
+                        l1_loss(bp * bm, bt).mean()
+                loss.backward()
+                trainer.step(SSD_BATCH)
+                losses.append(float(loss.asscalar()))
+            wall = time.perf_counter() - t0
+            anchors, cp, bp = ssd_heads(mt, net, x)
+            det = nd.contrib.MultiBoxDetection(nd.softmax(cp, axis=1), bp,
+                                               anchors).asnumpy()
+            res[key] = (losses, det, wall)
+    (lh, dh, wh), (lg, dg, wg) = res["host"], res["card"]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(lg, lh))
+    kept_h, kept_g = dh[..., 0] >= 0, dg[..., 0] >= 0
+    same_rows = bool((kept_h == kept_g).all())
+    row_err = float(np.abs(dg - dh)[kept_h & kept_g].max()) \
+        if (kept_h & kept_g).any() else 0.0
+    row = {"phase": "ssd_example", "losses_card": lg, "losses_host": lh,
+           "max_rel_loss_diff": rel, "kept_card": int(kept_g.sum()),
+           "kept_host": int(kept_h.sum()), "same_rows_kept": same_rows,
+           "kept_row_max_abs_diff": row_err, "train_s_card": wg,
+           "train_s_host": wh, "what": "batch 8, 8 iterations, lr 0.05, "
+           "seed 0; card vs host from the same weights, f32, TF32 off"}
+    emit(row)
+    if rel > 1e-4 or not lg[-1] < lg[0] or not same_rows \
+            or not kept_g.any() or row_err > 1e-4:
+        fail(f"ssd_example: {row}")
+
+
+# MXNet example/ssd's VGG16-reduced SSD300 (symbol_factory.py): six maps
+SSD300_MAPS = (38, 19, 10, 5, 3, 1)
+SSD300_SIZES = ((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+                (.71, .79), (.88, .961))
+SSD300_RATIOS = ((1, 2, .5), (1, 2, .5, 3, 1 / 3), (1, 2, .5, 3, 1 / 3),
+                 (1, 2, .5, 3, 1 / 3), (1, 2, .5), (1, 2, .5))
+SSD300_STEPS = tuple(s / 300 for s in (8, 16, 32, 64, 100, 300))
+SSD300_CLASSES, SSD300_BATCH, SSD300_MAX_GT = 21, 32, 16
+SSD300_TARGET = {"overlap_threshold": 0.5, "negative_mining_ratio": 3,
+                 "negative_mining_thresh": 0.5, "ignore_label": -1}
+SSD300_DETECT = {"nms_threshold": 0.45, "nms_topk": 400, "threshold": 0.01}
+
+
+def ssd300_inputs(np):
+    """Ground truth (1-16 boxes an image), class predictions and box
+    offsets from one seed."""
+    rs = np.random.RandomState(300)
+    labels = np.full((SSD300_BATCH, SSD300_MAX_GT, 5), -1, np.float32)
+    for i in range(SSD300_BATCH):
+        for j in range(rs.randint(1, SSD300_MAX_GT + 1)):
+            x0, y0 = rs.uniform(0, 0.8, 2)
+            w, h = rs.uniform(0.05, 0.5, 2)
+            labels[i, j] = [rs.randint(0, SSD300_CLASSES - 1), x0, y0,
+                            min(x0 + w, 1.0), min(y0 + h, 1.0)]
+    n = sum(m * m * (len(s) + len(r) - 1) for m, s, r in
+            zip(SSD300_MAPS, SSD300_SIZES, SSD300_RATIOS))
+    logits = rs.randn(SSD300_BATCH, SSD300_CLASSES, n).astype(np.float32)
+    prob = np.exp(logits * 2)
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rs.randn(SSD300_BATCH, n * 4) * 0.5).astype(np.float32)
+    return labels, logits, prob, loc
+
+
+def ssd300_anchors(mt, ctx):
+    nd = mt.nd
+    parts = []
+    for m, s, r, st in zip(SSD300_MAPS, SSD300_SIZES, SSD300_RATIOS,
+                           SSD300_STEPS):
+        parts.append(nd.contrib.MultiBoxPrior(
+            nd.zeros((1, 1, m, m), ctx=ctx), sizes=s, ratios=r,
+            steps=(st, st)))
+    return nd.concat(*parts, dim=1)
+
+
+def _iou64(np, a, b):
+    tl = np.maximum(a[..., :2], b[..., :2])
+    br = np.minimum(a[..., 2:4], b[..., 2:4])
+    wh = np.clip(br - tl, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area = lambda x: np.clip(x[..., 2] - x[..., 0], 0, None) * \
+        np.clip(x[..., 3] - x[..., 1], 0, None)          # noqa: E731
+    return inter / np.maximum(area(a) + area(b) - inter, 1e-12)
+
+
+def _target_margins(np, anchors, labels, flips):
+    """|best IoU - 0.5| (float64) of each anchor whose match flipped."""
+    out = []
+    for bi, a in zip(*flips):
+        lab = labels[bi][labels[bi][:, 0] >= 0]
+        best = _iou64(np, anchors[a][None].astype(np.float64),
+                      lab[:, 1:5].astype(np.float64)).max()
+        out.append(abs(best - 0.5))
+    return out
+
+
+def _detection_margins(np, host_rows, card_rows, flips, thr):
+    """For each kept row that flipped: the least |IoU - thr| (float64)
+    against the earlier rows of its class, from the two decodings' boxes
+    (the rows are in the same score order on both)."""
+    out = []
+    for bi, j in zip(*flips):
+        rows = np.where(host_rows[bi][:, :1] >= 0, host_rows[bi],
+                        card_rows[bi]).astype(np.float64)
+        cls = rows[j, 0]
+        earlier = rows[:j][rows[:j, 0] == cls]
+        if not len(earlier):
+            out.append(float("inf"))
+            continue
+        out.append(float(np.abs(_iou64(np, earlier[:, 2:6],
+                                       rows[j, 2:6][None]) - thr).min()))
+    return out
+
+
+def ssd300_decode_phase(torch, mt):
+    """MultiBoxPrior, MultiBoxTarget and MultiBoxDetection at SSD300's
+    widths (8732 anchors, 21 classes, batch 32): median ms of 10 calls
+    after a warm-up and the peak memory above the phase's start; card
+    against host on the same inputs, targets within 1e-5 and the same
+    kept detection rows with coordinates within 1e-5 (a flipped row
+    passes only with the IoU margin of its decision, under 1e-6)."""
+    import numpy as np
+    nd = mt.nd
+    labels, logits, prob, loc = ssd300_inputs(np)
+    out = {}
+    for key, ctx in (("host", mt.cpu()), ("card", mt.gpu(0))):
+        with ctx:
+            anchors = ssd300_anchors(mt, ctx)
+            lab, cp, pr, lp = (nd.array(a) for a in (labels, logits, prob,
+                                                     loc))
+            tgt = nd.contrib.MultiBoxTarget(anchors, lab, cp,
+                                            **SSD300_TARGET)
+            det = nd.contrib.MultiBoxDetection(pr, lp, anchors,
+                                               **SSD300_DETECT)
+            out[key] = ([t.asnumpy() for t in tgt], det.asnumpy(),
+                        anchors.asnumpy())
+    # timing and memory on the card
+    dev = mt.gpu(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with dev:
+        lab, cp, pr, lp = (nd.array(a) for a in (labels, logits, prob, loc))
+        anchors = ssd300_anchors(mt, dev)
+        calls = {
+            "MultiBoxPrior": lambda: ssd300_anchors(mt, dev),
+            "MultiBoxTarget": lambda: nd.contrib.MultiBoxTarget(
+                anchors, lab, cp, **SSD300_TARGET),
+            "MultiBoxDetection": lambda: nd.contrib.MultiBoxDetection(
+                pr, lp, anchors, **SSD300_DETECT)}
+        ms = {}
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            ms[name] = float(np.median(ts))
+    peak = torch.cuda.max_memory_allocated() - base
+    (th, dh, ah), (tg, dg, ag_) = out["host"], out["card"]
+    n = ah.shape[1]
+    anchor_err = float(np.abs(ag_ - ah).max())
+    # targets: the same matches, encodings within 1e-5
+    flips = np.nonzero((th[2] != tg[2]) |
+                       (th[1].reshape(SSD300_BATCH, n, 4)[..., 0] !=
+                        tg[1].reshape(SSD300_BATCH, n, 4)[..., 0]))
+    t_margins = _target_margins(np, ah[0], labels, flips)
+    same = np.repeat((th[2] == tg[2])[..., None], 4, -1).reshape(
+        SSD300_BATCH, -1)
+    target_err = float(np.abs(tg[0] - th[0])[same].max())
+    # detections: the same kept rows, coordinates within 1e-5
+    kh, kg = dh[..., 0] >= 0, dg[..., 0] >= 0
+    dflips = np.nonzero(kh != kg)
+    d_margins = _detection_margins(np, dh, dg, dflips,
+                                   SSD300_DETECT["nms_threshold"])
+    both = kh & kg
+    det_err = float(np.abs(dg - dh)[both].max())
+    row = {"phase": "ssd300_decode", "anchors": int(n),
+           "batch": SSD300_BATCH, "classes": SSD300_CLASSES,
+           "gt_boxes": int((labels[..., 0] >= 0).sum()),
+           "ms_median": ms, "peak_bytes_above_start": int(peak),
+           "anchor_max_abs_diff": anchor_err,
+           "target_max_abs_diff": target_err,
+           "target_flips": len(t_margins),
+           "target_flip_margins": t_margins,
+           "positives_host": int((th[2] > 0).sum()),
+           "kept_host": int(kh.sum()), "kept_card": int(kg.sum()),
+           "detection_max_abs_diff": det_err,
+           "detection_flips": len(d_margins),
+           "detection_flip_margins": d_margins,
+           "what": "SSD300 (VGG16-reduced, MXNet example/ssd settings), "
+                   "card vs host on the same inputs, f32; ms = host clock "
+                   "around each call ending in torch.cuda.synchronize()"}
+    emit(row)
+    if n != 8732 or anchor_err > 1e-5 or target_err > 1e-5 \
+            or det_err > 1e-5 or any(m >= 1e-6 for m in t_margins) \
+            or any(m >= 1e-6 for m in d_margins) or not kh.any():
+        fail(f"ssd300_decode: {row}")
+    return row
+
+
 def fit_phases(torch, mt, card, gluon_row, timed):
     """fit_reference, fit_train and megastep_train, their checkpoints in
     one temporary directory removed afterwards; the BN kernels' launches
@@ -4253,6 +4852,13 @@ def main():
                          torch, mt, card)
     timed("resnet_remat", resnet_remat, torch, mt, card)
     timed("gluon_user_block", gluon_user_block, torch, mt, card)
+    # the dense mx.nd op families, after every earlier phase
+    timed("random_ops", random_ops_phase, torch, mt)
+    registry_launches, _ = timed("flash_registry", flash_registry_phase,
+                                 torch, mt, fa)
+    torch.cuda.empty_cache()
+    timed("ssd_example", ssd_example_phase, torch, mt)
+    timed("ssd300_decode", ssd300_decode_phase, torch, mt)
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -4261,11 +4867,13 @@ def main():
     f16 = ("kernel_f16", "train_f16", "profile_f16")
     moe_remat = ("transformer_moe_reference", "transformer_moe_train",
                  "resnet_remat", "gluon_user_block")
+    a19 = ("random_ops", "flash_registry", "ssd_example", "ssd300_decode")
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
                                   if k not in v2 + gluon + fits + f16
-                                  + moe_remat),
+                                  + moe_remat + a19),
+          "a19_phases_s": sum(walls[k] for k in a19),
           "moe_remat_user_block_phases_s": sum(walls[k] for k in moe_remat),
           "v2_phases_s": sum(walls[k] for k in v2),
           "gluon_trainer_phases_s": sum(walls[k] for k in gluon),
@@ -4345,6 +4953,7 @@ def main():
         "general_design_floor_ms": tcr["general_design_floor_ms"],
         "general_library_ms": tcr["general_library_ms"],
         "launches_moe": moe_launches,
+        "launches_registry": registry_launches["tc"],
         "other_shapes": tcr["other_shapes"],
         "max_abs_err_all_cases": flash["max_abs_err"],
         "per": f"one launch (B {TF_BATCH}, T {TF_T}, H 8, D 64, causal, "
@@ -4363,6 +4972,7 @@ def main():
         "kernel_route": "general", "entry": "mxt_flash_fwd",
         "tflops": gnr["tflops"],
         "bound_f32_fma_ms": gnr["bound_f32_fma_ms"],
+        "launches_registry": registry_launches["general"],
         "per": f"one launch (B {TF_BATCH}, T {TF_T}, H 8, D 64, causal, "
                f"f32; bound as 3xTF32); launches over {TF_K_STEPS} train "
                "steps of the default (f32) TransformerConfig(), all on the "

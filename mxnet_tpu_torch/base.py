@@ -74,6 +74,8 @@ class EnvRegistry:
 env = EnvRegistry()
 
 # the flags the port reads, with the JAX package's types, defaults and docs
+env.declare("MXNET_ENFORCE_DETERMINISM", bool, False,
+            "Restrict to deterministic algorithms.")
 env.declare("MXNET_SAFE_ACCUMULATION", bool, False,
             "Accumulate f16/bf16 reductions (sum/mean/prod/norm) in f32.")
 env.declare("MXNET_RESID_DTYPE", str, "",

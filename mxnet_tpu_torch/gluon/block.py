@@ -276,8 +276,9 @@ class Block(nn.Module):
         """Fill every parameter not yet set: a parameter's own initializer
         when it has one, else ``init`` (default ``Uniform(0.07)``, MXNet's);
         names decide the bias / gamma / beta / running-stat values as in
-        MXNet. Random draws use ``generator`` (default: one seeded with 0
-        per device). ``ctx`` moves the parameters there first. A deferred
+        MXNet. Random draws use ``generator`` (default: one seeded with
+        ``mx.random.seed``'s last seed, 0 before it is called, per
+        device). ``ctx`` moves the parameters there first. A deferred
         parameter keeps the initializer and the generator for its block's
         first forward."""
         self.collect_params().initialize(init, ctx, verbose, force_reinit,

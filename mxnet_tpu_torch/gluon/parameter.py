@@ -61,7 +61,7 @@ from ..context import Context, current_context, resolve_device
 from ..ndarray import utils as nd_utils
 from ..ndarray.ndarray import NDArray
 from ..ops.registry import NotPortedError
-from ..random import seed as _seed
+from ..random import init_generator
 from ..telemetry import memory as _memory
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
@@ -237,7 +237,8 @@ class Parameter:
                    force_reinit=False, generator=None) -> None:
         """Fill the tensor with ``init`` (else the parameter's own, else
         ``default_init``, else ``Uniform(0.07)``), drawing from
-        ``generator`` (default: one seeded with 0 on the device). A
+        ``generator`` (default: one seeded with ``mx.random.seed``'s
+        last seed, 0 before it is called, on the device). A
         free-standing parameter is placed on ``ctx`` (default: the current
         context); one of unknown shape records the initializer for its
         first forward (``allow_deferred_init``) or raises."""
@@ -250,7 +251,7 @@ class Parameter:
                                       else self.init if self.init is not None
                                       else default_init)
         if generator is None:
-            generator = _seed(0, self._device)
+            generator = init_generator(self._device)
         if self.tensor is None:
             check(self.allow_deferred_init,
                   f"cannot initialize parameter {self.name!r}: shape "
@@ -487,8 +488,9 @@ class ParameterDict(OrderedDict):
                    force_reinit=False, generator=None) -> None:
         """``Parameter.initialize`` on each, in order: ``init`` (default
         ``Uniform(0.07)``) for those without an initializer of their own,
-        the random draws from ``generator`` (default: one seeded with 0
-        per device, shared by the parameters on it). With ``ctx`` each
+        the random draws from ``generator`` (default: one seeded with
+        ``mx.random.seed``'s last seed, 0 before it is called, per device,
+        shared by the parameters on it). With ``ctx`` each
         parameter is first moved there."""
         if isinstance(ctx, (list, tuple)):
             ctx = ctx[0] if ctx else None
@@ -504,7 +506,7 @@ class ParameterDict(OrderedDict):
             if gen is None:
                 gen = gens.get(p.device)
                 if gen is None:
-                    gen = gens[p.device] = _seed(0, p.device)
+                    gen = gens[p.device] = init_generator(p.device)
             p.initialize(None, None, default, force_reinit, gen)
 
     def zero_grad(self) -> None:

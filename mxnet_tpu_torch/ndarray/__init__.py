@@ -3,10 +3,11 @@
 
 The NDArray type, creation functions, save/load, and one generated
 function per registered op, with the ``_internal`` and ``op``
-sub-namespaces; ``contrib`` holds the ``_contrib_`` ops (the fused
-epilogues). ``random``, ``linalg``, ``image`` and ``sparse`` hold nothing
-ported yet: any name asked of them, or of ``mx.nd`` itself, that the port
-lacks raises ``NotPortedError``.
+sub-namespaces; ``contrib`` holds the ``_contrib_`` ops, ``linalg`` the
+``_linalg_`` ops and ``random`` the ``_random_`` and ``_sample_`` ops, with
+the prefix stripped. ``image`` and ``sparse`` hold nothing ported yet: any
+name asked of them, or of ``mx.nd`` itself, that the port lacks raises
+``NotPortedError``.
 """
 import sys
 import types
@@ -14,10 +15,17 @@ import types
 from ..base import MXNetError
 # importing the op modules registers their ops
 from ..ops import broadcast as _broadcast  # noqa: F401
+from ..ops import contrib_ops as _contrib_ops  # noqa: F401
 from ..ops import elemwise as _elemwise  # noqa: F401
+from ..ops import flash_attention as _flash_attention  # noqa: F401
+from ..ops import linalg as _linalg  # noqa: F401
 from ..ops import matrix as _matrix  # noqa: F401
+from ..ops import misc_ops as _misc_ops  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
+from ..ops import ordering as _ordering  # noqa: F401
+from ..ops import parity_ops as _parity_ops  # noqa: F401
+from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from . import register as _register
 from .ndarray import (NDArray, arange, array, concatenate, empty, eye,  # noqa

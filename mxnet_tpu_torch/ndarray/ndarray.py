@@ -579,6 +579,29 @@ def _setitem(t, key, v):
     t.view(-1)[pos.reshape(-1)] = torch.broadcast_to(v, pos.shape).reshape(-1)
 
 
+# the indexing ops under the reference's registry names (ref: the JAX
+# package's ndarray.py:600-615); ``_idx`` is a key as ``x[key]`` takes it
+
+@_reg.register("_index")
+def _index_impl(x, _idx=None):
+    return _getitem(x, _index_key(_idx, x.device))
+
+
+@_reg.register("_index_assign")
+def _index_assign_impl(x, v, _idx=None):
+    out = x.clone()
+    _setitem(out, _index_key(_idx, x.device), v.to(x.dtype))
+    return out
+
+
+@_reg.register("_index_assign_scalar")
+def _index_assign_scalar_impl(x, _idx=None, _val=None):
+    out = x.clone()
+    _setitem(out, _index_key(_idx, x.device),
+             torch.as_tensor(_np.asarray(_val), device=x.device).to(x.dtype))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # creation
 # ---------------------------------------------------------------------------

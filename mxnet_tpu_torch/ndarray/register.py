@@ -4,13 +4,17 @@
 One front-end function per registered op: NDArray inputs positional
 (numbers and numpy arrays become arrays on the first NDArray input's
 context), op parameters as keywords, ``out=`` to write into given arrays
-and ``ctx=`` to move the result. An op that takes ``_training`` (BatchNorm,
-the fused epilogues, Dropout) gets ``autograd.is_training()`` unless the
-caller passes it. Names starting with ``_`` go to ``mx.nd._internal``,
-``_contrib_<name>`` also to ``mx.nd.contrib.<name>``; every op is also in
-``mx.nd.op``. A name the port does not have raises
-:class:`~mxnet_tpu_torch.ops.registry.NotPortedError` (an MXNetError)
-instead of being silently missing.
+and ``ctx=`` to move the result (a creation op makes it there). An op
+that takes ``_training`` (BatchNorm, the fused epilogues, Dropout) gets
+``autograd.is_training()`` unless the caller passes it. A random op given
+no ``generator=`` draws from the stream of its device
+(``random.default_generator``), where the JAX front end injects a key. Names
+go where the reference puts them: ``_`` names to ``mx.nd._internal``,
+``_contrib_<name>`` also to ``mx.nd.contrib.<name>``, ``_linalg_<name>``
+to ``mx.nd.linalg.<name>``, ``_random_<name>`` and ``_sample_<name>`` to
+``mx.nd.random.<name>``; every op is also in ``mx.nd.op``. A name the port
+does not have raises :class:`~mxnet_tpu_torch.ops.registry.NotPortedError`
+(an MXNetError) instead of being silently missing.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ def make_nd_function(name: str, opdef):
             kwargs["_training"] = autograd.is_training()
         home = next((a.context for a in args if isinstance(a, _nd.NDArray)),
                     None)
+        if opdef.creation:          # the op makes its output on ctx
+            kwargs["ctx"], ctx = ctx, None
         inputs = []
         for a in args:
             if isinstance(a, _nd.NDArray):
@@ -92,8 +98,10 @@ def populate(target_module, submodules: Dict[str, Any]) -> None:
             fn = make_nd_function(name, opdef)
             if opdef.name == name:
                 made[id(opdef)] = fn
-        if name.startswith("_contrib_"):
-            setattr(submodules["contrib"], name[len("_contrib_"):], fn)
+        for prefix, sub in (("_contrib_", "contrib"), ("_linalg_", "linalg"),
+                            ("_random_", "random"), ("_sample_", "random")):
+            if name.startswith(prefix):
+                setattr(submodules[sub], name[len(prefix):], fn)
         if name.startswith("_"):
             setattr(submodules["_internal"], name, fn)
         else:

@@ -28,6 +28,12 @@ Nothing falls back from a kernel to the plain version or to the other
 kernel. The wrapper adds one to ``launches["flash_fwd"]`` for every kernel
 launch and one to ``launches["flash_fwd_tc"]`` or
 ``launches["flash_fwd_general"]`` for its route.
+
+Registry names (ref: ``pallas_kernels.py:170-185, 471-480``):
+``_contrib_flash_attention`` / ``flash_attention`` is this op, so
+``mx.nd.contrib.flash_attention`` reaches the kernels by ``flash_route``;
+``_contrib_interleaved_matmul_selfatt_qk`` / ``_valatt`` are plain matmuls
+over the interleaved (T, B, 3 H D) projection, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -37,8 +43,8 @@ import math
 import torch
 
 from ..base import MXNetError, check
-from ..parallel.ring_attention import attention
 from . import _build
+from .registry import register
 
 __all__ = ["flash_attention", "flash_fwd", "flash_route", "launches",
            "reset_launches"]
@@ -189,6 +195,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         with torch.profiler.record_function("mxt::flash_attention_backward"), \
                 torch.enable_grad():
+            # imported here: the parallel package imports mx.nd, which
+            # imports this module to register its op names
+            from ..parallel.ring_attention import attention
             qkv = [x.detach().requires_grad_() for x in (q, k, v)]
             out = attention(*qkv, causal=ctx.causal, scale=ctx.scale)
             grads = torch.autograd.grad(out, qkv, g)
@@ -200,3 +209,34 @@ def flash_attention(q, k, v, causal: bool = False, scale=None):
     defaults to 1/sqrt(D) (ref: pallas_kernels.py flash_attention)."""
     sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, bool(causal), float(sc))
+
+
+@register("_contrib_flash_attention", aliases=("flash_attention",))
+def _flash_attention_op(q, k, v, causal=False, scale=None):
+    return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def _interleaved(qkv, heads, which):
+    """Part ``which`` (0 q, 1 k, 2 v) of the (T, B, 3 H D) interleaved
+    projection as (B H, T, D)."""
+    t, b, three_hd = qkv.shape
+    d = three_hd // (3 * heads)
+    x = qkv.reshape(t, b, heads, 3, d)[:, :, :, which]
+    return x.permute(1, 2, 0, 3).reshape(b * heads, t, d)
+
+
+@register("_contrib_interleaved_matmul_selfatt_qk")
+def _interleaved_qk(qkv, heads=1):
+    """(ref: src/operator/contrib/transformer.cc) qkv: (T, B, 3 H D)
+    interleaved -> (B H, T, T) scores q kᵀ / sqrt(D)."""
+    q, k = _interleaved(qkv, heads, 0), _interleaved(qkv, heads, 1)
+    return torch.matmul(q, k.transpose(1, 2)) / math.sqrt(q.shape[-1])
+
+
+@register("_contrib_interleaved_matmul_selfatt_valatt")
+def _interleaved_valatt(qkv, att, heads=1):
+    """att (B H, T, T) times the interleaved values -> (T, B, H D)."""
+    t, b, _ = qkv.shape
+    out = torch.matmul(att, _interleaved(qkv, heads, 2))   # (B H, T, D)
+    return out.reshape(b, heads, t, -1).permute(2, 0, 1, 3) \
+        .reshape(t, b, -1)

@@ -40,17 +40,20 @@ class OpDef:
     variadic : takes any number of array inputs.
     rng : draws random numbers (from the ``generator`` it is given, else
         the device's default generator; the JAX package's ops take a key).
+    creation : takes no array inputs (``_zeros``, ``_random_uniform``...);
+        it makes its output on the ``ctx`` it is given, else the current
+        context.
     aux_inputs : input slots that are auxiliary states (BatchNorm's
         moving statistics; ref: OperatorProperty::ListAuxiliaryStates).
     """
 
     __slots__ = ("name", "fn", "num_outputs", "differentiable", "variadic",
-                 "doc", "rng", "aux_inputs")
+                 "doc", "rng", "aux_inputs", "creation")
 
     def __init__(self, name: str, fn: Callable, num_outputs=1,
                  differentiable: bool = True, variadic: bool = False,
                  doc: str = "", rng: bool = False,
-                 aux_inputs: Sequence[int] = ()):
+                 aux_inputs: Sequence[int] = (), creation: bool = False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -59,6 +62,7 @@ class OpDef:
         self.doc = doc or (fn.__doc__ or "")
         self.rng = rng
         self.aux_inputs = tuple(aux_inputs)
+        self.creation = creation
 
     def __repr__(self):
         return f"<OpDef {self.name}>"

@@ -52,6 +52,8 @@ MEGASTEP_FLAGS = {"MXTPU_CACHEDOP_CACHE_SIZE": ["0", "8", "256", None]}
 MIRROR_FLAGS = {"MXNET_BACKWARD_DO_MIRROR": ["1", "0", "true", "", None],
                 "MXNET_BACKWARD_MIRROR_POLICY": ["full", "dots", "convs",
                                                  "", None]}
+# mx.random.np_rng's reproducibility guard
+RANDOM_FLAGS = {"MXNET_ENFORCE_DETERMINISM": ["1", "0", "true", "", None]}
 VALUES = ["on", "yes", "2", "1", "true", "0", "false", "False", "", None]
 
 
@@ -86,12 +88,19 @@ def test_safe_acc_upcast_decision_matches_jax(monkeypatch, value):
 
 def test_declarations_match_jax():
     for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS) + \
-            tuple(MEGASTEP_FLAGS) + tuple(MIRROR_FLAGS):
+            tuple(MEGASTEP_FLAGS) + tuple(MIRROR_FLAGS) + tuple(RANDOM_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
     assert {n for n, *_ in tbase.env.items()} == \
         set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS) | \
-        set(MEGASTEP_FLAGS) | set(MIRROR_FLAGS)
+        set(MEGASTEP_FLAGS) | set(MIRROR_FLAGS) | set(RANDOM_FLAGS)
+
+
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, vs in RANDOM_FLAGS.items() for v in vs])
+def test_random_flag_get_matches_jax(monkeypatch, name, value):
+    _set(monkeypatch, name, value)
+    assert tbase.env.get(name) == jbase.env.get(name)
 
 
 @pytest.mark.parametrize("name,value", [
