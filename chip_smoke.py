@@ -243,13 +243,42 @@ Phases, each printing JSON lines:
     targets and kept rows card against host (a flipped row passes only
     with its decision's IoU margin under 1e-6). ``nd_ops`` holds
     ``_linalg_syevd`` and ``_linalg_gelqf`` by their invariants;
+14h. then the input pipeline: ``image_ops``, each of the 14 ``_image_*``
+    ops on the card against the same op on the host on an NHWC uint8
+    (128, 256, 256, 3) batch from seed 0 (the elementwise ops bit for
+    bit, contrast and the color jitter within 1, ``_image_resize`` to 224
+    in bilinear, bicubic and nearest within 1 in uint8 and 1e-3 of 255 in
+    f32; the random ops on degenerate ranges, the jitter's factors drawn
+    on the card and applied on the host, the flips' coin share over 1,000
+    calls; the card's median ms of each); ``input_pipeline``, 640 records
+    of 256x256x3 uint8 (npy payloads, labels from seed 1) written with
+    ``mx.recordio``, ``RecordPipeline``'s order (shuffle, seed 0, two
+    epochs) equal to the splitmix64 permutation computed in numpy,
+    ``ImageRecordIter`` at ``train_imagenet.py``'s settings (crop 224,
+    mirror, its mean / std, 8 decode threads) with a center-cropped batch
+    against numpy, and img/s of it (also with PyTorch's intra-op threads
+    set to 1 for one epoch), of ``DataLoader(ImageRecordDataset
+    (...).transform_first(Compose([RandomResizedCrop(224),
+    RandomFlipLeftRight(), ToTensor(), Normalize(...)])), batch 128, 8
+    forked workers, pin_memory=True)`` and of the same loader with no
+    workers, every batch on the card with its labels in order;
+    ``imagenet_example``, ``train_imagenet.py``'s record path: resnet50_v1
+    NHWC with the space-to-depth stem, bf16 with f32 masters, SGD momentum
+    0.9 lr 0.05 wd 1e-4, batch 128, ``SPMDTrainer.step`` fed by that
+    ``ImageRecordIter`` (NCHW batch transposed to NHWC on the card): 2
+    warm-up and 4 timed steps (ms a step, img/s; 48 launches of each BN
+    kernel a step, counted from zero over the timed steps), one profiled
+    fed step (the card's idle share), and the same trainer on one batch
+    already on the card (4 timed steps). The records live in a temporary
+    directory the phases remove;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
     over the 48 call sites, with the v2 step's sums and launches under
     ``v2``, the f32 Gluon step's under ``f32``, the FitLoop's under
-    ``fit``, the megastep's replays under ``megastep`` and the f16 step's
-    under ``f16``; flash_fwd's (the tensor-core route) per launch at the
+    ``fit``, the megastep's replays under ``megastep``, the f16 step's
+    under ``f16`` and the ImageRecordIter-fed steps' under ``data_fed``;
+    flash_fwd's (the tensor-core route) per launch at the
     bf16 path's shape and flash_fwd_general's at the default f32 LM's,
     with that LM's launches; the tensor-core row also carries the general
     kernel on the same bf16 inputs with its bound and SDPA's time, and
@@ -4718,6 +4747,461 @@ def ssd300_decode_phase(torch, mt):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the input pipeline: mx.nd.image, RecordIO, the record iterators,
+# gluon.data, and the ImageNet example fed from records
+# ---------------------------------------------------------------------------
+
+IMG_BATCH = (128, 256, 256, 3)    # NHWC uint8, seed 0
+A20_RECORDS, A20_SIDE, A20_CROP = 640, 256, 224
+# examples/image_classification/train_imagenet.py:52-53
+IMAGENET_MEAN_STD = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939,
+                         std_r=58.393, std_g=57.12, std_b=57.375)
+# gluon's ToTensor scale ([0, 1]) of the same statistics
+GLUON_MEAN = (0.485, 0.456, 0.406)
+GLUON_STD = (0.229, 0.224, 0.225)
+A20_WARM, A20_TIMED = 2, 4
+
+
+def _median_ms(torch, fn, iters=5):
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def _flip_share(torch, io_, op, axis, calls=1000):
+    """Share of ``calls`` random flips of a tiny image that flipped, and
+    whether every output was the image or its flip."""
+    x = torch.arange(12, dtype=torch.uint8, device="cuda").reshape(2, 2, 3)
+    outs = torch.stack([op(x) for _ in range(calls)]).cpu()
+    x, f = x.cpu(), torch.flip(x.cpu(), (axis,))
+    flipped = (outs == f).flatten(1).all(1)
+    same = (outs == x).flatten(1).all(1)
+    return float(flipped.float().mean()), bool((flipped | same).all())
+
+
+def image_ops_phase(torch, mt):
+    """Each of the 14 ``_image_*`` ops on the card against the same op on
+    the host, on an NHWC uint8 (128, 256, 256, 3) batch from seed 0: the
+    elementwise ops bit for bit, contrast / color jitter within 1 (uint8;
+    the jitter's linear stages together and its hue alone),
+    resize to 224 within 1 in uint8 and 1e-3 of 255 in f32 (the first 16
+    images), bilinear, bicubic and nearest. The random ops run on
+    degenerate ranges; the color jitter's factors are drawn on the card
+    and handed to the host; the flips' coin share over 1,000 calls. Card
+    ms: the median of 5 calls, host clock ended by ``synchronize()``."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import image_ops as io_
+    host = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, IMG_BATCH).astype(np.uint8))
+    card = host.cuda()
+    host16 = host[:16].float()
+    card16 = host16.cuda()
+    rows = []
+
+    def check(name, card_fn, host_fn, tol, exact, note=None):
+        got = card_fn()
+        torch.cuda.synchronize()
+        want = host_fn()
+        err = float((got.cpu().double() - want.double()).abs().max())
+        row = {"phase": "image_ops", "op": name, "shape": list(got.shape),
+               "dtype": str(got.dtype)[6:], "max_abs_err": err,
+               "tolerance": 0.0 if exact else tol,
+               "ms": _median_ms(torch, card_fn)}
+        if note:
+            row["note"] = note
+        rows.append(row)
+        emit(row)
+        if (exact and err != 0.0) or err > tol:
+            fail(f"image_ops: {name} card against host {err} "
+                 f"(tolerance {0.0 if exact else tol})")
+
+    t_card = io_._image_to_tensor(card)
+    t_host = io_._image_to_tensor(host)
+    check("_image_to_tensor", lambda: io_._image_to_tensor(card),
+          lambda: t_host, 0.0, True)
+    norm = dict(mean=GLUON_MEAN, std=GLUON_STD)
+    check("_image_normalize", lambda: io_._image_normalize(t_card, **norm),
+          lambda: io_._image_normalize(t_host, **norm), 0.0, True)
+    del t_card, t_host
+    for name in ("_image_flip_left_right", "_image_flip_top_bottom"):
+        fn = getattr(io_, name)
+        check(name, lambda: fn(card), lambda: fn(host), 0.0, True)
+    for name, axis in (("_image_random_flip_left_right", 2),
+                       ("_image_random_flip_top_bottom", 1)):
+        fn = getattr(io_, name)
+        flips = torch.flip(host, (axis,))
+        out = fn(card).cpu()
+        err = min(float((out.int() - host.int()).abs().max()),
+                  float((out.int() - flips.int()).abs().max()))
+        share, valid = _flip_share(torch, io_, fn, axis - 1)
+        row = {"phase": "image_ops", "op": name, "shape": list(out.shape),
+               "dtype": "uint8", "max_abs_err": err,
+               "tolerance": 0.0, "ms": _median_ms(torch, lambda: fn(card)),
+               "flip_share_1000_calls": share}
+        rows.append(row)
+        emit(row)
+        # 0.5 within 5 standard errors of 1,000 fair coins
+        if err != 0.0 or not valid or abs(share - 0.5) > 0.08:
+            fail(f"image_ops: {name} gave {err} against x / flip(x), "
+                 f"share {share}, valid {valid}")
+    del flips, out
+    degenerate = (("_image_random_brightness", 1.3, 0.0, True),
+                  ("_image_random_contrast", 0.7, 1.0, False),
+                  ("_image_random_saturation", 1.4, 0.0, True),
+                  ("_image_random_hue", 0.2, 0.0, True))
+    for name, f, tol, exact in degenerate:
+        fn = getattr(io_, name)
+        check(name, lambda: fn(card, min_factor=f, max_factor=f),
+              lambda: fn(host, min_factor=f, max_factor=f), tol, exact,
+              f"min_factor = max_factor = {f}")
+    # the jitter's own path (factors drawn on the card in the op's order,
+    # stages in its fixed order) in two well-conditioned settings: the
+    # three linear stages together, and hue alone on the uint8 image. Hue
+    # after stages that push f32 values past 255 is ill-conditioned in
+    # the JAX op's HLS round trip itself (s = diff / (2 - vmax - vmin)
+    # with l near 1), where the card and the host part by tens.
+    gen = torch.Generator(device="cuda")
+    for jitter in (dict(brightness=0.4, contrast=0.4, saturation=0.4),
+                   dict(hue=0.1)):
+        gen.manual_seed(5)
+        state = gen.get_state()
+        factors = io_.jitter_factors(
+            jitter.get("brightness", 0.0), jitter.get("contrast", 0.0),
+            jitter.get("saturation", 0.0), jitter.get("hue", 0.0), gen,
+            card.device)
+        host_factors = {k: v.cpu() for k, v in factors.items()}
+
+        def jitter_card():
+            gen.set_state(state)
+            return io_._image_random_color_jitter(card, generator=gen,
+                                                  **jitter)
+
+        check(f"_image_random_color_jitter {'+'.join(jitter)}",
+              jitter_card, lambda: io_.color_jitter(host, host_factors),
+              1.0, False, "factors drawn on the card, the host applies "
+              "them: " + json.dumps({k: float(v) for k, v in
+                                     host_factors.items()}))
+    alpha = (0.1, -0.2, 0.3)
+    check("_image_adjust_lighting",
+          lambda: io_._image_adjust_lighting(card, alpha=alpha),
+          lambda: io_._image_adjust_lighting(host, alpha=alpha), 0.0, True)
+    check("_image_random_lighting",
+          lambda: io_._image_random_lighting(card, alpha_std=0.0),
+          lambda: io_._image_random_lighting(host, alpha_std=0.0), 0.0,
+          True, "alpha_std = 0")
+    for interp, method in ((1, "bilinear"), (2, "bicubic"), (0, "nearest")):
+        kw = dict(size=A20_CROP, interp=interp)
+        check(f"_image_resize {method}",
+              lambda: io_._image_resize(card, **kw),
+              lambda: io_._image_resize(host, **kw), 1.0, False,
+              "uint8, 256 -> 224")
+        check(f"_image_resize {method} f32",
+              lambda: io_._image_resize(card16, **kw),
+              lambda: io_._image_resize(host16, **kw), 1e-3 * 255, False,
+              "float32, the first 16 images, 256 -> 224")
+    emit({"phase": "image_ops", "ops": len({r["op"].split()[0]
+                                            for r in rows}),
+          "rows": len(rows)})
+    return rows
+
+
+def _splitmix_permutations(np, n, seed, epochs):
+    """The native pipeline's shuffle (src/recordio.cc ShuffleOffsets) in
+    numpy uint64: each epoch's order of range(n)."""
+    golden = np.uint64(0x9E3779B97F4A7C15)
+    order = list(range(n))
+    out = []
+    with np.errstate(over="ignore"):
+        for epoch in range(epochs):
+            x = np.uint64(seed) + golden * np.uint64(epoch + 1)
+            for i in range(n, 1, -1):
+                x = x + golden
+                z = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+                z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+                z = z ^ (z >> np.uint64(31))
+                j = int(z % np.uint64(i))
+                order[i - 1], order[j] = order[j], order[i - 1]
+            out.append(list(order))
+    return out
+
+
+def write_records(np, mt, tmp):
+    """640 records of 256x256x3 uint8 images (npy payloads) with labels,
+    both from seed 1; (rec path, images, labels)."""
+    import io as _io
+    rs = np.random.RandomState(1)
+    labels = rs.randint(0, 1000, A20_RECORDS)
+    images = rs.randint(0, 256, (A20_RECORDS, A20_SIDE, A20_SIDE, 3),
+                        dtype=np.uint8)
+    rec = os.path.join(tmp, "train.rec")
+    w = mt.recordio.MXIndexedRecordIO(os.path.join(tmp, "train.idx"), rec,
+                                      "w")
+    for i in range(A20_RECORDS):
+        buf = _io.BytesIO()
+        np.save(buf, images[i])
+        w.write_idx(i, mt.recordio.pack(
+            mt.recordio.IRHeader(0, float(labels[i]), i, 0), buf.getvalue()))
+    w.close()
+    return rec, images, labels
+
+
+def record_iter(mt, rec, **kw):
+    """train_imagenet.py's ImageRecordIter at this run's settings."""
+    args = dict(path_imgrec=rec, data_shape=(3, A20_CROP, A20_CROP),
+                batch_size=B, shuffle=True, rand_crop=True,
+                rand_mirror=True, preprocess_threads=8, **IMAGENET_MEAN_STD)
+    args.update(kw)
+    return mt.io.ImageRecordIter(**args)
+
+
+def _epoch_rate(torch, batches):
+    """(img/s, batches) of draining ``batches``, each batch's arrays
+    synchronized on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for b in batches:
+        out.append(b)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = sum(int((b.data[0] if hasattr(b, "data") else b[0]).shape[0])
+            for b in out)
+    return n / dt, out
+
+
+def input_pipeline_phase(torch, mt, tmp):
+    """RecordIO through the card: the records written, RecordPipeline's
+    shuffled order against the splitmix64 permutation over two epochs,
+    img/s of ImageRecordIter (train_imagenet.py's settings, 8 decode
+    threads) and of the DataLoader over ImageRecordDataset with the gluon
+    transforms, 8 forked workers and pinned staging, and with no workers;
+    each checked against a host reference on a small part."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    from mxnet_tpu_torch.io.record_io import RecordPipeline
+    t0 = time.perf_counter()
+    rec, images, labels = write_records(np, mt, tmp)
+    write_s = time.perf_counter() - t0
+    rec_bytes = os.path.getsize(rec)
+
+    # the pipeline's order: record ids over two shuffled epochs
+    pipe = RecordPipeline(rec, num_threads=8, shuffle=True, seed=0)
+    orders = []
+    for _ in range(2):
+        ids = []
+        while True:
+            r = pipe.next()
+            if r is None:
+                break
+            ids.append(mt.recordio.unpack(r)[0].id)
+        orders.append(ids)
+        pipe.reset()
+    pipe.close()
+    want = _splitmix_permutations(np, A20_RECORDS, 0, 2)
+    if orders != want:
+        fail("RecordPipeline's shuffled order is not the native "
+             "pipeline's splitmix64 permutation")
+
+    # ImageRecordIter: a deterministic batch against numpy, then img/s
+    check_it = record_iter(mt, rec, shuffle=False, rand_crop=False,
+                           rand_mirror=False)
+    b0 = check_it.next()
+    off = (A20_SIDE - A20_CROP) // 2
+    mean = np.asarray([IMAGENET_MEAN_STD[k] for k in
+                       ("mean_r", "mean_g", "mean_b")], np.float32)
+    std = np.asarray([IMAGENET_MEAN_STD[k] for k in
+                      ("std_r", "std_g", "std_b")], np.float32)
+    ref = ((images[:B, off:off + A20_CROP, off:off + A20_CROP]
+            .astype(np.float32) - mean) / std).transpose(0, 3, 1, 2)
+    iter_err = float(np.abs(b0.data[0].asnumpy() - ref).max())
+    if b0.data[0].context.device_type != "gpu" or iter_err > 1e-5 \
+            or not np.array_equal(b0.label[0].asnumpy(),
+                                  labels[:B].astype(np.float32)):
+        fail(f"ImageRecordIter's center-cropped batch: {iter_err} from "
+             "numpy, or its labels / device differ")
+    check_it.close()
+    it = record_iter(mt, rec)
+    first_rate, _ = _epoch_rate(torch, it)
+    it.reset()
+    iter_rate, batches = _epoch_rate(torch, it)
+    it.close()
+    # the same with one intra-op thread: 8 decode threads each running
+    # PyTorch's CPU ops on an OpenMP team of the core count oversubscribe
+    # the host (set process-wide for this epoch only, then restored)
+    intra = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        it1 = record_iter(mt, rec)
+        intra1_rate, _ = _epoch_rate(torch, it1)
+        it1.close()
+    finally:
+        torch.set_num_threads(intra)
+    shapes = {tuple(b.data[0].shape) for b in batches}
+    if shapes != {(B, 3, A20_CROP, A20_CROP)} or any(
+            not torch.isfinite(b.data[0]._data).all() for b in batches):
+        fail(f"ImageRecordIter batches: shapes {shapes} or non-finite")
+    del batches
+
+    # DataLoader over the records with the gluon transforms
+    tf = T.Compose([T.RandomResizedCrop(A20_CROP), T.RandomFlipLeftRight(),
+                    T.ToTensor(), T.Normalize(GLUON_MEAN, GLUON_STD)])
+    ds = ImageRecordDataset(rec).transform_first(tf)
+    rates = {}
+    for workers in (8, 0):
+        loader = DataLoader(ds, batch_size=B, num_workers=workers,
+                            pin_memory=workers > 0, last_batch="discard")
+        rate, out = _epoch_rate(torch, loader)
+        if workers:
+            rates["workers_8_first_epoch"] = rate
+            rate, out = _epoch_rate(torch, loader)
+        rates[f"workers_{workers}"] = rate
+        devs = {str(x.context) for b in out for x in b}
+        lab = np.concatenate([b[1].asnumpy() for b in out])
+        data_ok = all(tuple(b[0].shape) == (B, 3, A20_CROP, A20_CROP)
+                      and bool(torch.isfinite(b[0]._data).all())
+                      for b in out)
+        if devs != {"gpu(0)"} or not data_ok or not np.array_equal(
+                lab, labels[:len(lab)].astype(np.float32)):
+            fail(f"DataLoader(num_workers={workers}): devices {devs}, "
+                 "shapes / finiteness or labels wrong")
+        del out
+    row = {"phase": "input_pipeline", "records": A20_RECORDS,
+           "image": [A20_SIDE, A20_SIDE, 3], "rec_bytes": rec_bytes,
+           "write_s": write_s,
+           "pipeline_order": "splitmix64 permutation, 2 epochs: equal",
+           "image_record_iter": {
+               "img_per_s": iter_rate, "first_epoch_img_per_s": first_rate,
+               "img_per_s_one_intraop_thread": intra1_rate,
+               "intraop_threads": intra,
+               "preprocess_threads": 8, "batch": B,
+               "center_crop_batch_max_abs_err": iter_err},
+           "dataloader": {"img_per_s_8_workers_pinned":
+                          rates["workers_8"],
+                          "first_epoch_img_per_s_8_workers":
+                          rates["workers_8_first_epoch"],
+                          "img_per_s_no_workers": rates["workers_0"],
+                          "batch": B, "device": "gpu(0)"}}
+    emit(row)
+    return rec, row
+
+
+def imagenet_example_phase(torch, mt, card, rec):
+    """train_imagenet.py's record path in the port: resnet50_v1 NHWC with
+    the space-to-depth stem, bf16 with f32 masters, SGD momentum 0.9 lr
+    0.05 wd 1e-4, batch 128, ``SPMDTrainer.step`` fed by the
+    ImageRecordIter of input_pipeline (the batch transposed to NHWC on the
+    card): 2 warm-up steps, 4 timed (the BN kernels counted, 48 a step
+    each), one profiled; then the same trainer on one batch already on the
+    card, 4 timed steps."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    net = resnet50_v1(layout="NHWC", stem_s2d=True)
+    net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+    trainer = mt.parallel.SPMDTrainer(
+        net, gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        optimizer_params={"learning_rate": 0.05, "momentum": 0.9,
+                          "wd": 1e-4}, dtype=torch.bfloat16)
+    it = record_iter(mt, rec)
+
+    def batch():
+        try:
+            b = it.next()
+        except StopIteration:
+            it.reset()
+            b = it.next()
+        return (b.data[0]._data.permute(0, 2, 3, 1).contiguous(),
+                b.label[0]._data)
+
+    def fed():
+        return trainer.step(*batch())
+
+    warm = [float(fed()) for _ in range(A20_WARM)]
+    torch.cuda.synchronize()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    losses = [fed() for _ in range(A20_TIMED)]
+    torch.cuda.synchronize()
+    fed_dt = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    losses = [float(v) for v in losses]
+    x0, y0 = batch()
+    trainer.step(x0, y0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = [trainer.step(x0, y0) for _ in range(A20_TIMED)]
+    torch.cuda.synchronize()
+    staged_dt = time.perf_counter() - t0
+    staged = [float(v) for v in staged]
+    prof, wall = _profiled(torch, fed)
+    summary = _summary(f"resnet50_v1: one SPMDTrainer.step fed by "
+                       f"ImageRecordIter (next() included), batch {B}, "
+                       "bf16", _device_kernels(prof), wall, None)
+    it.close()
+    row = {"phase": "imagenet_example",
+           "model": "resnet50_v1 NHWC stem_s2d", "batch": B,
+           "dtype": "bf16 compute, f32 masters",
+           "optimizer": "sgd lr 0.05 momentum 0.9 wd 1e-4",
+           "fed": {"step_ms": 1e3 * fed_dt / A20_TIMED,
+                   "img_per_s": B * A20_TIMED / fed_dt,
+                   "losses": losses, "warmup_losses": warm,
+                   "wrapper_launches": launches},
+           "pre_staged": {"step_ms": 1e3 * staged_dt / A20_TIMED,
+                          "img_per_s": B * A20_TIMED / staged_dt,
+                          "losses": staged},
+           "profiled_fed_step": {
+               "wall_ms": summary["wall_ms"],
+               "device_busy_ms": summary["device_busy_ms"],
+               "device_idle_share": summary["device_idle_share"],
+               "epilogue_device_launches":
+                   summary["epilogue_device_launches"]},
+           "card": card}
+    emit(row)
+    if not all(np_isfinite(v) for v in warm + losses + staged):
+        fail("imagenet_example: non-finite loss")
+    if not 0.0 < warm[0] < 20.0:
+        fail(f"imagenet_example: first loss {warm[0]} is not that of a "
+             "fresh 1000-class model")
+    if any(launches[k] != 48 * A20_TIMED for k in KERNELS):
+        fail(f"imagenet_example: expected {48 * A20_TIMED} launches of "
+             f"each BN kernel over {A20_TIMED} fed steps: {launches}")
+    if any(n != 48 for n in summary["epilogue_device_launches"].values()):
+        fail("imagenet_example: expected 48 device launches of each BN "
+             f"kernel in the profiled step: "
+             f"{summary['epilogue_device_launches']}")
+    return launches, row
+
+
+def np_isfinite(v):
+    return v == v and abs(v) != float("inf")
+
+
+def a20_phases(torch, mt, card, timed):
+    """image_ops, input_pipeline and imagenet_example, the records in one
+    temporary directory removed afterwards."""
+    import shutil
+    import tempfile
+    timed("image_ops", image_ops_phase, torch, mt)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mxt_rec_")
+    try:
+        rec, _ = timed("input_pipeline", input_pipeline_phase, torch, mt,
+                       tmp)
+        launches, _ = timed("imagenet_example", imagenet_example_phase,
+                            torch, mt, card, rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def fit_phases(torch, mt, card, gluon_row, timed):
     """fit_reference, fit_train and megastep_train, their checkpoints in
     one temporary directory removed afterwards; the BN kernels' launches
@@ -4859,6 +5343,10 @@ def main():
     torch.cuda.empty_cache()
     timed("ssd_example", ssd_example_phase, torch, mt)
     timed("ssd300_decode", ssd300_decode_phase, torch, mt)
+    torch.cuda.empty_cache()
+    # the input pipeline and the ImageNet example, after every earlier
+    # phase
+    fed_launches = a20_phases(torch, mt, card, timed)
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -4868,11 +5356,13 @@ def main():
     moe_remat = ("transformer_moe_reference", "transformer_moe_train",
                  "resnet_remat", "gluon_user_block")
     a19 = ("random_ops", "flash_registry", "ssd_example", "ssd300_decode")
+    a20 = ("image_ops", "input_pipeline", "imagenet_example")
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
                                   if k not in v2 + gluon + fits + f16
-                                  + moe_remat + a19),
+                                  + moe_remat + a19 + a20),
+          "a20_phases_s": sum(walls[k] for k in a20),
           "a19_phases_s": sum(walls[k] for k in a19),
           "moe_remat_user_block_phases_s": sum(walls[k] for k in moe_remat),
           "v2_phases_s": sum(walls[k] for k in v2),
@@ -4935,7 +5425,12 @@ def main():
                          / (FIT_IMAGES // GT_BATCH),
                          "per": "device launches in one profiled FitLoop "
                                 "epoch (8 steps) under MXTPU_MEGASTEP=on, "
-                                "every step one CUDA graph replay"}})
+                                "every step one CUDA graph replay"},
+            "data_fed": {"launches": fed_launches[name],
+                         "per": f"wrapper launches over the {A20_TIMED} "
+                                "timed imagenet_example steps fed by "
+                                "ImageRecordIter (bf16, batch "
+                                f"{B})"}})
     tcr, gnr = flash["tc"], flash["general"]
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,

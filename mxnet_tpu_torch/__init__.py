@@ -12,8 +12,8 @@ kernels with NVRTC through one of them.
 from . import (autograd, context, convert, gluon, initializer, kvstore,
                lr_scheduler, models, ndarray, optimizer, ops, parallel,
                random, rtc)
-from . import (cached_op, callback, contrib, fault, fit, io, log, megastep,
-               metric, telemetry, util)
+from . import (cached_op, callback, contrib, fault, fit, image, io, log,
+               megastep, metric, recordio, telemetry, util)
 from .base import MXNetError, check
 from .context import Context, cpu, current_context, gpu, num_gpus
 
@@ -25,8 +25,8 @@ __version__ = "0.1.0"
 
 __all__ = ["Context", "MXNetError", "autograd", "cached_op", "callback",
            "check", "context", "contrib", "convert", "cpu",
-           "current_context", "fault", "fit", "gpu", "gluon", "init",
-           "initializer", "io", "kv", "kvstore", "log", "lr_scheduler",
-           "megastep", "metric", "models", "nd", "ndarray", "num_gpus",
-           "ops", "optimizer", "parallel", "random", "rtc", "telemetry",
-           "util"]
+           "current_context", "fault", "fit", "gpu", "gluon", "image",
+           "init", "initializer", "io", "kv", "kvstore", "log",
+           "lr_scheduler", "megastep", "metric", "models", "nd", "ndarray",
+           "num_gpus", "ops", "optimizer", "parallel", "random", "recordio",
+           "rtc", "telemetry", "util"]

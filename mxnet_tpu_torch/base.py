@@ -201,6 +201,17 @@ env.declare("MXTPU_ELASTIC", str, "off",
             "resize needs a process group, which is not ported yet "
             "(raises). Unknown values raise.")
 
+env.declare("MXNET_HOME", str, "",
+            "Root directory for datasets and model artifacts "
+            "(default ~/.mxnet; ref: docs/faq/env_var.md MXNET_HOME).")
+
+
+def data_dir() -> str:
+    """Dataset / model root: ``$MXNET_HOME``, else ``~/.mxnet`` (ref:
+    python/mxnet/base.py data_dir)."""
+    return env.get("MXNET_HOME") or os.path.join(
+        os.path.expanduser("~"), ".mxnet")
+
 
 def env_switch(name: str) -> bool:
     """A strict on/off flag, parsed as the JAX package parses its switches

@@ -9,13 +9,15 @@ Batches keep static shapes (pad / discard). The seeded order is the JAX
 package's: ``np.random.RandomState(seed + epoch).permutation``, so both
 packages serve the same batches in the same order.
 
-Not ported: ``MNISTIter`` and the record iterators (``ImageRecordIter``,
-``ImageDetRecordIter``, ``LibSVMIter``) raise ``NotPortedError``
-(ROADMAP A14).
+``MNISTIter`` reads the idx files as the JAX iterator does; the record
+iterators are ``image_record.py``'s.
 """
 from __future__ import annotations
 
 import collections
+import gzip
+import os
+import struct
 import threading
 import queue as _queue
 from typing import Optional
@@ -25,7 +27,6 @@ import numpy as _np
 from ..base import MXNetError, check
 from ..context import current_context
 from ..ndarray import ndarray as _nd
-from ..ops.registry import NotPortedError
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "MNISTIter", "ResizeIter", "PrefetchingIter"]
@@ -322,12 +323,59 @@ class CSVIter(DataIter):
 
 
 class MNISTIter(DataIter):
-    """MNIST idx-format reader (ref: src/io/iter_mnist.cc:260): not ported
-    yet."""
+    """MNIST idx-format reader (ref: src/io/iter_mnist.cc:260): the idx
+    files, plain or ``.gz``, scaled to [0, 1]; ``flat`` gives (N, 784)
+    instead of (N, 1, 28, 28); ``shuffle`` permutes once with
+    ``np.random.RandomState(seed)``, as the JAX iterator; the last partial
+    batch is discarded."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotPortedError("io.MNISTIter is not ported yet (ROADMAP.md, "
-                             "queue A14)")
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0, **kwargs):
+        super().__init__(batch_size)
+        with _open_idx(image) as f:
+            magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+            check(magic == 2051, "bad idx image magic")
+            imgs = _np.frombuffer(f.read(), dtype=_np.uint8)
+            imgs = imgs.reshape(n, rows, cols).astype(_np.float32) / 255.0
+        with _open_idx(label) as f:
+            magic, _ = struct.unpack(">II", f.read(8))
+            check(magic == 2049, "bad idx label magic")
+            labels = _np.frombuffer(f.read(), dtype=_np.uint8) \
+                .astype(_np.float32)
+        imgs = imgs.reshape((n, rows * cols) if flat else (n, 1, rows, cols))
+        if shuffle:
+            order = _np.random.RandomState(seed).permutation(n)
+            imgs, labels = imgs[order], labels[order]
+        self._inner = NDArrayIter(imgs, labels, batch_size,
+                                  last_batch_handle="discard",
+                                  label_name="softmax_label")
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+
+def _open_idx(path):
+    """``path``, else ``path.gz``."""
+    if os.path.exists(path):
+        return open(path, "rb")
+    if os.path.exists(path + ".gz"):
+        return gzip.open(path + ".gz", "rb")
+    raise MXNetError(f"MNIST file not found: {path}")
 
 
 class ResizeIter(DataIter):

@@ -50,7 +50,7 @@ from ..telemetry import memory as _memory
 from ..telemetry.step_breakdown import segment as _segment
 from .io import DataBatch, DataIter
 
-__all__ = ["DeviceStagingIter"]
+__all__ = ["DeviceStagingIter", "PinnedStager"]
 
 _STAGE_KEYS = itertools.count(1)
 
@@ -75,6 +75,81 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(_np.ascontiguousarray(a))
 
 
+class PinnedStager:
+    """Host arrays onto ``device`` through pooled page-locked buffers and a
+    side stream (steps 1-4 of the module docstring); a plain copy when
+    ``device`` is the host. ``gluon.data.DataLoader(pin_memory=True)``
+    stages its batches through one too."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._stream = None            # the copy stream, made at first use
+        self._pool = {}                # (shape, dtype) -> [(pinned, event)]
+
+    def _pinned(self, src: torch.Tensor) -> torch.Tensor:
+        """A page-locked host buffer of ``src``'s shape and dtype whose
+        last copy has completed, holding ``src``'s values."""
+        key = (tuple(src.shape), src.dtype)
+        free = self._pool.get(key)
+        if free:
+            buf, event = free.pop(0)
+            event.synchronize()        # its last H2D copy has landed
+        else:
+            buf = torch.empty(key[0], dtype=key[1], pin_memory=True)
+        buf.copy_(src)
+        return buf
+
+    def release(self, event, bufs) -> None:
+        """Return ``bufs`` to the pool, reusable once ``event`` is done."""
+        for buf in bufs:
+            self._pool.setdefault((tuple(buf.shape), buf.dtype), []).append(
+                (buf, event))
+
+    def put(self, a, bufs) -> NDArray:
+        """Start the copy of ``a`` to the device; the pinned buffers it
+        took are appended to ``bufs``."""
+        src = _host_tensor(a)
+        if src.device == self.device:
+            # already where it belongs (a base iterator on the card):
+            # nothing to copy
+            return NDArray(src)
+        if not self.cuda:
+            return NDArray(src.to(self.device, copy=True))
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        if src.is_cuda:                # on another card
+            with torch.cuda.stream(self._stream):
+                return NDArray(src.to(self.device, non_blocking=True))
+        buf = self._pinned(src)
+        bufs.append(buf)
+        with torch.cuda.stream(self._stream):
+            dev = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
+            dev.copy_(buf, non_blocking=True)
+        return NDArray(dev)
+
+    def record(self):
+        """An event after every copy started so far (None on the host)."""
+        if not self.cuda:
+            return None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return event
+
+    def hand_out(self, arrays, event) -> None:
+        """Make the consumer's stream wait for the copies, and keep their
+        memory from reuse until that stream is done with it."""
+        if event is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(event)
+        for a in arrays:
+            if a._data.is_cuda:
+                a._data.record_stream(stream)
+
+
 class DeviceStagingIter(DataIter):
     """Stage batches onto the device ahead of consumption.
 
@@ -90,9 +165,7 @@ class DeviceStagingIter(DataIter):
         self._depth = depth
         self._device = resolve_device(device)
         self._ctx = Context(self._device)
-        self._cuda = self._device.type == "cuda"
-        self._stream = None            # the copy stream, made at first use
-        self._pool = {}                # (shape, dtype) -> [(pinned, event)]
+        self._stager = PinnedStager(self._device)
         self._staged: list = []        # (DataBatch, event, [pinned])
         self._staged_keys: list = []   # parallel memory-ledger keys
         self._exhausted = False
@@ -136,7 +209,7 @@ class DeviceStagingIter(DataIter):
 
     def _drop_staged(self):
         for _, event, bufs in self._staged:
-            self._release(event, bufs)
+            self._stager.release(event, bufs)
         self._staged.clear()
         self._drop_staged_keys()
         self._exhausted = False
@@ -158,47 +231,10 @@ class DeviceStagingIter(DataIter):
             self._ledger.drop("staging", key)
         self._staged_keys.clear()
 
-    # -- pinned buffers -------------------------------------------------
-    def _pinned(self, src: torch.Tensor) -> torch.Tensor:
-        """A page-locked host buffer of ``src``'s shape and dtype whose
-        last copy has completed, holding ``src``'s values."""
-        key = (tuple(src.shape), src.dtype)
-        free = self._pool.get(key)
-        if free:
-            buf, event = free.pop(0)
-            event.synchronize()        # its last H2D copy has landed
-        else:
-            buf = torch.empty(key[0], dtype=key[1], pin_memory=True)
-        buf.copy_(src)
-        return buf
-
-    def _release(self, event, bufs) -> None:
-        for buf in bufs:
-            self._pool.setdefault((tuple(buf.shape), buf.dtype), []).append(
-                (buf, event))
-
     # -- staging ----------------------------------------------------------
     def _next_host_batch(self) -> DataBatch:
         host_next = getattr(self._base, "_next_host", None)
         return host_next() if host_next is not None else self._base.next()
-
-    def _put(self, a, bufs) -> NDArray:
-        src = _host_tensor(a)
-        if src.device == self._device:
-            # already where it belongs (a base iterator on the card):
-            # nothing to copy
-            return NDArray(src)
-        if not self._cuda:
-            return NDArray(src.to(self._device, copy=True))
-        if src.is_cuda:                # on another card
-            with torch.cuda.stream(self._stream):
-                return NDArray(src.to(self._device, non_blocking=True))
-        buf = self._pinned(src)
-        bufs.append(buf)
-        with torch.cuda.stream(self._stream):
-            dev = torch.empty(buf.shape, dtype=buf.dtype, device=self._device)
-            dev.copy_(buf, non_blocking=True)
-        return NDArray(dev)
 
     def _stage_one(self) -> bool:
         """Start the H2D copy of the next host batch."""
@@ -207,18 +243,14 @@ class DeviceStagingIter(DataIter):
         except StopIteration:
             return False
         with _segment("h2d"):
-            if self._cuda and self._stream is None:
-                self._stream = torch.cuda.Stream(self._device)
             bufs: list = []
+            put = self._stager.put
             staged = DataBatch(
-                [self._put(d, bufs) for d in (batch.data or [])],
-                [self._put(l, bufs) for l in (batch.label or [])],
+                [put(d, bufs) for d in (batch.data or [])],
+                [put(l, bufs) for l in (batch.label or [])],
                 pad=batch.pad, index=getattr(batch, "index", None),
                 bucket_key=getattr(batch, "bucket_key", None))
-            event = None
-            if self._cuda:
-                event = torch.cuda.Event()
-                event.record(self._stream)
+            event = self._stager.record()
             self._staged.append((staged, event, bufs))
             # ledger the staged-ahead bytes (category 'staging'): live from
             # the copy's start until the consumer pops the batch
@@ -232,14 +264,8 @@ class DeviceStagingIter(DataIter):
         return True
 
     def _hand_out(self, staged, event) -> DataBatch:
-        """Make the consumer's stream wait for the batch's copy, and keep
-        its memory from reuse until that stream is done with it."""
-        if event is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(event)
-            for a in (staged.data or []) + (staged.label or []):
-                if a._data.is_cuda:
-                    a._data.record_stream(stream)
+        self._stager.hand_out((staged.data or []) + (staged.label or []),
+                              event)
         return staged
 
     def next(self) -> DataBatch:
@@ -252,7 +278,7 @@ class DeviceStagingIter(DataIter):
         if self._staged_keys:
             self._ledger.drop("staging", self._staged_keys.pop(0))
         out = self._hand_out(staged, event)
-        self._release(event, bufs)
+        self._stager.release(event, bufs)
         # refill the pipeline: start the next transfer before returning
         if not self._exhausted and len(self._staged) <= self._depth \
                 and not self._stage_one():

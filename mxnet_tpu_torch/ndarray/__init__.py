@@ -4,10 +4,10 @@
 The NDArray type, creation functions, save/load, and one generated
 function per registered op, with the ``_internal`` and ``op``
 sub-namespaces; ``contrib`` holds the ``_contrib_`` ops, ``linalg`` the
-``_linalg_`` ops and ``random`` the ``_random_`` and ``_sample_`` ops, with
-the prefix stripped. ``image`` and ``sparse`` hold nothing ported yet: any
-name asked of them, or of ``mx.nd`` itself, that the port lacks raises
-``NotPortedError``.
+``_linalg_`` ops, ``random`` the ``_random_`` and ``_sample_`` ops and
+``image`` the ``_image_`` ops, with the prefix stripped. ``sparse`` holds
+nothing ported yet: any name asked of it, or of ``mx.nd`` itself, that the
+port lacks raises ``NotPortedError``.
 """
 import sys
 import types
@@ -18,6 +18,7 @@ from ..ops import broadcast as _broadcast  # noqa: F401
 from ..ops import contrib_ops as _contrib_ops  # noqa: F401
 from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import flash_attention as _flash_attention  # noqa: F401
+from ..ops import image_ops as _image_ops  # noqa: F401
 from ..ops import linalg as _linalg  # noqa: F401
 from ..ops import matrix as _matrix  # noqa: F401
 from ..ops import misc_ops as _misc_ops  # noqa: F401

@@ -12,9 +12,10 @@ no ``generator=`` draws from the stream of its device
 go where the reference puts them: ``_`` names to ``mx.nd._internal``,
 ``_contrib_<name>`` also to ``mx.nd.contrib.<name>``, ``_linalg_<name>``
 to ``mx.nd.linalg.<name>``, ``_random_<name>`` and ``_sample_<name>`` to
-``mx.nd.random.<name>``; every op is also in ``mx.nd.op``. A name the port
-does not have raises :class:`~mxnet_tpu_torch.ops.registry.NotPortedError`
-(an MXNetError) instead of being silently missing.
+``mx.nd.random.<name>``, ``_image_<name>`` to ``mx.nd.image.<name>``;
+every op is also in ``mx.nd.op``. A name the port does not have raises
+:class:`~mxnet_tpu_torch.ops.registry.NotPortedError` (an MXNetError)
+instead of being silently missing.
 """
 from __future__ import annotations
 
@@ -99,7 +100,8 @@ def populate(target_module, submodules: Dict[str, Any]) -> None:
             if opdef.name == name:
                 made[id(opdef)] = fn
         for prefix, sub in (("_contrib_", "contrib"), ("_linalg_", "linalg"),
-                            ("_random_", "random"), ("_sample_", "random")):
+                            ("_random_", "random"), ("_sample_", "random"),
+                            ("_image_", "image")):
             if name.startswith(prefix):
                 setattr(submodules[sub], name[len(prefix):], fn)
         if name.startswith("_"):

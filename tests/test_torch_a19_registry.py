@@ -6,8 +6,9 @@ names).
 Every JAX registry name is in the port with the same ``num_outputs``,
 ``differentiable``, ``rng``, ``creation`` and ``variadic`` flags, except
 exactly the names that later queues own (listed below by queue), and
-``mx.nd.random`` / ``mx.nd.linalg`` / ``mx.nd.contrib`` hold the JAX
-package's names less those.
+``mx.nd.random`` / ``mx.nd.linalg`` / ``mx.nd.contrib`` / ``mx.nd.image``
+hold the JAX package's names less those (the 14 ``_image_*`` names came
+with the input pipeline).
 """
 import pytest
 
@@ -45,13 +46,6 @@ NOT_YET = {
             "_contrib_PSROIPooling", "Proposal", "_contrib_Proposal",
             "_contrib_bipartite_matching", "bipartite_matching",
             "Custom", "_subgraph", "_cond", "_foreach", "_while_loop"],
-    "A20": ["_image_adjust_lighting", "_image_flip_left_right",
-            "_image_flip_top_bottom", "_image_normalize",
-            "_image_random_brightness", "_image_random_color_jitter",
-            "_image_random_contrast", "_image_random_flip_left_right",
-            "_image_random_flip_top_bottom", "_image_random_hue",
-            "_image_random_lighting", "_image_random_saturation",
-            "_image_resize", "_image_to_tensor"],
 }
 MISSING = {n for names in NOT_YET.values() for n in names}
 # the JAX modules of the dense op families and the aliases this slice ports
@@ -76,10 +70,10 @@ def _a19_names():
 
 
 def test_the_missing_names_are_exactly_the_later_queues():
-    assert len(MISSING) == 80
+    assert len(MISSING) == 66
     assert set(jreg.list_ops()) - set(treg.list_ops()) == MISSING
     assert not set(treg.list_ops()) - set(jreg.list_ops())
-    assert len(treg.list_ops()) == 416
+    assert len(treg.list_ops()) == 430
 
 
 def test_the_a19_names_are_ported():
@@ -113,7 +107,7 @@ def _stripped(prefix):
 
 
 @pytest.mark.parametrize("ns,missing", [
-    ("random", set()), ("linalg", set()),
+    ("random", set()), ("linalg", set()), ("image", set()),
     ("contrib", _stripped("_contrib_") | {"cond", "foreach", "while_loop"})])
 def test_namespaces_match_jax_less_the_later_queues(ns, missing):
     jnames = _names(getattr(jmx.nd, ns))
@@ -126,7 +120,7 @@ def test_namespace_functions_reach_the_same_ops_as_jax():
     """Where a ``_random_`` and a ``_sample_`` op strip to one name, the
     ``_sample_`` op holds it in both packages (the registry's sorted
     order)."""
-    for ns in ("random", "linalg", "contrib"):
+    for ns in ("random", "linalg", "contrib", "image"):
         jmod, tmod = getattr(jmx.nd, ns), getattr(mt.nd, ns)
         for name in _names(tmod) - {"__getattr__"}:
             assert getattr(tmod, name).__name__ == \

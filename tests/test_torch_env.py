@@ -54,6 +54,8 @@ MIRROR_FLAGS = {"MXNET_BACKWARD_DO_MIRROR": ["1", "0", "true", "", None],
                                                  "", None]}
 # mx.random.np_rng's reproducibility guard
 RANDOM_FLAGS = {"MXNET_ENFORCE_DETERMINISM": ["1", "0", "true", "", None]}
+# base.data_dir, the vision datasets' default root
+DATA_FLAGS = {"MXNET_HOME": ["/data/mxnet", "", None]}
 VALUES = ["on", "yes", "2", "1", "true", "0", "false", "False", "", None]
 
 
@@ -88,12 +90,14 @@ def test_safe_acc_upcast_decision_matches_jax(monkeypatch, value):
 
 def test_declarations_match_jax():
     for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS) + \
-            tuple(MEGASTEP_FLAGS) + tuple(MIRROR_FLAGS) + tuple(RANDOM_FLAGS):
+            tuple(MEGASTEP_FLAGS) + tuple(MIRROR_FLAGS) + \
+            tuple(RANDOM_FLAGS) + tuple(DATA_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
     assert {n for n, *_ in tbase.env.items()} == \
         set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS) | \
-        set(MEGASTEP_FLAGS) | set(MIRROR_FLAGS) | set(RANDOM_FLAGS)
+        set(MEGASTEP_FLAGS) | set(MIRROR_FLAGS) | set(RANDOM_FLAGS) | \
+        set(DATA_FLAGS)
 
 
 @pytest.mark.parametrize("name,value", [
@@ -101,6 +105,14 @@ def test_declarations_match_jax():
 def test_random_flag_get_matches_jax(monkeypatch, name, value):
     _set(monkeypatch, name, value)
     assert tbase.env.get(name) == jbase.env.get(name)
+
+
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, vs in DATA_FLAGS.items() for v in vs])
+def test_data_flag_get_and_data_dir_match_jax(monkeypatch, name, value):
+    _set(monkeypatch, name, value)
+    assert tbase.env.get(name) == jbase.env.get(name)
+    assert tbase.data_dir() == jbase.data_dir()
 
 
 @pytest.mark.parametrize("name,value", [

@@ -11,8 +11,9 @@
   ``fit_train``): the base iterator's batches on its device, ``depth`` /
   ``set_depth``, the memory ledger's ``staging`` bytes rising and
   falling as in the JAX package, the ``h2d`` segment.
-- ``MNISTIter`` and the RecordIO iterators raise ``NotPortedError``
-  (A14).
+- ``LibSVMIter`` raises ``NotPortedError`` (A11, sparse); the RecordIO
+  iterators and ``MNISTIter`` are held to the JAX ones in
+  ``test_torch_image.py``.
 """
 import gc
 
@@ -246,10 +247,16 @@ def test_staging_charges_the_h2d_segment():
 
 
 def test_not_ported_iterators_raise():
-    with pytest.raises(NotPortedError, match="A14"):
-        tio.MNISTIter()
-    for name in ("ImageRecordIter", "ImageDetRecordIter", "LibSVMIter"):
-        with pytest.raises(NotPortedError, match="A14"):
-            getattr(tio, name)(path_imgrec="x.rec")
+    """Only ``LibSVMIter`` (CSR batches) is left; it waits for sparse. The
+    record iterators and ``MNISTIter`` are ported
+    (``test_torch_image.py``)."""
+    with pytest.raises(NotPortedError, match="A11"):
+        tio.LibSVMIter(data_libsvm="x.libsvm", data_shape=(4,),
+                       batch_size=2)
+    for name in ("ImageRecordIter", "ImageDetRecordIter", "MNISTIter"):
+        assert not issubclass(getattr(tio, name), NotPortedError)
+        assert getattr(tio, name).__module__.startswith("mxnet_tpu_torch.io")
+    with pytest.raises(mt.MXNetError, match="not found"):
+        tio.MNISTIter(image="no-such-images", label="no-such-labels")
     assert mx.io.DataDesc.get_batch_axis("NHWC") == \
         tio.DataDesc.get_batch_axis("NHWC") == 0
