@@ -310,13 +310,12 @@ FLASH_REPLACES = "mxnet_tpu/ops/pallas_kernels.py:85"   # _build_flash
 STAGES = ((56, 64, 256, 3), (28, 128, 512, 4), (14, 256, 1024, 6),
           (7, 512, 2048, 3))
 SOURCE = "mxnet_tpu_torch/csrc/fused_bn_act.cu"
-KERNELS = {  # name -> (replaced TPU kernel, flops per element)
-    "bn_stats": ("mxnet_tpu/ops/pallas_kernels.py:231 _bn_stats_call", 3),
-    "bn_apply": ("mxnet_tpu/ops/pallas_kernels.py:261 _bn_apply_call", 4),
-    "bn_bwd_stats": ("mxnet_tpu/ops/pallas_kernels.py:298 "
-                     "_bn_bwd_stats_call", 6),
-    "bn_bwd_apply": ("mxnet_tpu/ops/pallas_kernels.py:340 "
-                     "_bn_bwd_apply_call", 7),
+KERNELS = {  # name -> replaced TPU kernel (operations per element: in
+    # mxnet_tpu_torch/ops/kernel_cost.py)
+    "bn_stats": "mxnet_tpu/ops/pallas_kernels.py:231 _bn_stats_call",
+    "bn_apply": "mxnet_tpu/ops/pallas_kernels.py:261 _bn_apply_call",
+    "bn_bwd_stats": "mxnet_tpu/ops/pallas_kernels.py:298 _bn_bwd_stats_call",
+    "bn_bwd_apply": "mxnet_tpu/ops/pallas_kernels.py:340 _bn_bwd_apply_call",
 }
 RTC_VIA = "mxnet_tpu_torch/rtc.py + mxnet_tpu_torch/csrc/rtc.cu (NVRTC)"
 RTC_REPLACES = "mxnet_tpu/rtc.py:78"      # PallasKernel._compiled
@@ -498,20 +497,10 @@ def max_err(torch, tk, name, cs, got, want):
 
 
 def site_bytes_flops(name, r, c, itemsize, has_res):
-    n = r * c
-    coef = {"bn_stats": 0, "bn_apply": 2, "bn_bwd_stats": 2,
-            "bn_bwd_apply": 5}[name] * c * 4
-    if name == "bn_stats":
-        moved = n * itemsize + 2 * c * 4
-    elif name == "bn_apply":
-        moved = (3 if has_res else 2) * n * itemsize
-    elif name == "bn_bwd_stats":
-        moved = 3 * n * itemsize + 2 * c * 4
-    else:
-        moved = (5 if has_res else 4) * n * itemsize
-    flops = KERNELS[name][1] * n + (n if has_res and name == "bn_apply"
-                                    else 0)
-    return moved + coef, flops
+    """The package's formula (``mxnet_tpu_torch/ops/kernel_cost.py``),
+    which the efficiency plane counts with too."""
+    from mxnet_tpu_torch.ops import kernel_cost
+    return kernel_cost.site_bytes_flops(name, r, c, itemsize, has_res)
 
 
 def bound_ms(name, r, c, itemsize, has_res):
@@ -807,10 +796,11 @@ def graph_phase(torch, mt):
 
 def main_path(torch, mt, card, dtype=None):
     """The timed ``run_steps`` is one replay of the K-step graph, captured
-    by the first call (which runs its K steps eagerly first). A replay
-    calls no wrapper, so its launches are read on the device by the
-    profile phase that follows. ``dtype``: the compute type (bf16 unless
-    given; f32 masters either way)."""
+    by the first call (which runs its K steps eagerly first, counted:
+    ``SPMDTrainer.program_stats()``, whose FLOPs must be K times its first
+    step's within 1 %). A replay calls no wrapper, so its launches are
+    read on the device by the profile phase that follows. ``dtype``: the
+    compute type (bf16 unless given; f32 masters either way)."""
     dtype = dtype or torch.bfloat16
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
@@ -835,6 +825,13 @@ def main_path(torch, mt, card, dtype=None):
     warm_launches = dict(tk.launches)
     setup_s = time.perf_counter() - t0
     first_peak = torch.cuda.max_memory_allocated() / gib
+    # the K-step graph's counted cost (its first call's K eager steps)
+    program = trainer.program_stats()
+    one_step = trainer.program_stats(step=True)
+    if abs(program["flops"] - K_STEPS * one_step["flops"]) > \
+            0.01 * program["flops"] or not program["flops"] > 0:
+        fail(f"program_stats: {program['flops']} FLOPs for {K_STEPS} "
+             f"steps, {one_step['flops']} for one")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tk.reset_launches()
@@ -865,6 +862,7 @@ def main_path(torch, mt, card, dtype=None):
            "peak_mem_gib": replay_mem["reserved_gib"],
            "replay_memory": replay_mem,
            "first_call_peak_allocated_gib": first_peak,
+           "program_stats": program, "program_stats_one_step": one_step,
            "eager_step_ms": 1e3 * eager_dt / K_STEPS,
            "eager_img_per_s": B * K_STEPS / eager_dt,
            "eager_peak_allocated_gib": torch.cuda.max_memory_allocated()
@@ -1344,8 +1342,10 @@ def flash_inputs(torch, b, t, h, d, dtype, layout, gen):
 
 
 def flash_flops(b, t, h, d, causal):
-    """4*B*H*T^2*D, halved when causal."""
-    return 4 * b * h * t * t * d / (2 if causal else 1)
+    """4*B*H*T^2*D, halved when causal (``mxnet_tpu_torch/ops/
+    kernel_cost.py``)."""
+    from mxnet_tpu_torch.ops import kernel_cost
+    return kernel_cost.flash_flops(b, t, h, d, causal)
 
 
 def flash_bound_ms(b, t, h, d, causal, itemsize):
@@ -1354,7 +1354,8 @@ def flash_bound_ms(b, t, h, d, causal, itemsize):
     TFLOP/s; f32 as 3xTF32, three passes at 495 TFLOP/s (the least time
     for f32-accurate products on this card; on f32 FMAs, 67 TFLOP/s, see
     ``flash_f32_fma_bound_ms``)."""
-    moved = 4 * b * t * h * d * itemsize
+    from mxnet_tpu_torch.ops import kernel_cost
+    moved = kernel_cost.flash_bytes(b, t, h, d, itemsize)
     flops = flash_flops(b, t, h, d, causal)
     t_ops = flops / BF16_FLOPS_PER_S if itemsize == 2 \
         else 3 * flops / TF32_FLOPS_PER_S
@@ -5202,10 +5203,396 @@ def a20_phases(torch, mt, card, timed):
     return launches
 
 
+PLANES_ENV = ("MXTPU_OPTIMIZER_AGGREGATION", "MXTPU_MEGASTEP",
+              "MXTPU_NUMERICS", "MXTPU_EFFICIENCY", "MXTPU_RUN_REPORT_DIR",
+              "MXTPU_MEM_DUMP_DIR", "MXTPU_DEVICE_PEAK", "MXTPU_AUTOTUNE")
+PLANES_ON = {"MXTPU_NUMERICS": "on,every=2", "MXTPU_EFFICIENCY": "on"}
+PLANES_PLAN, PLANES_SCALE = "nan_grad@5", 128.0
+PLANES_TRACE = (7, 9)   # the trace starts after step 7, stops after 9
+PLANES_FENCE = "10"     # run_compare's noise fence, percent
+
+
+def measure_peaks(torch):
+    """The card's f32 matmul FLOP/s (8192^3, TF32 off), bf16 matmul FLOP/s
+    (8192^3) and device-to-device copy bytes/s (1 GiB read and 1 GiB
+    written), each from CUDA events over repeated calls after a warm-up."""
+    n = 8192
+
+    def per_call(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / 1e3 / reps
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    a = torch.randn((n, n), generator=gen, device="cuda")
+    b = torch.randn((n, n), generator=gen, device="cuda")
+    t32 = per_call(lambda: torch.mm(a, b), 5)
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    t16 = per_call(lambda: torch.mm(a16, b16), 20)
+    del a, b, a16, b16
+    src = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    tc = per_call(lambda: dst.copy_(src), 10)
+    del src, dst
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.empty_cache()
+    return {"f32_matmul_flops_per_s": 2 * n ** 3 / t32,
+            "bf16_matmul_flops_per_s": 2 * n ** 3 / t16,
+            "copy_bytes_per_s": 2 * 2 ** 30 / tc,
+            "how": "8192^3 torch.mm f32 (TF32 off) x5 and bf16 x20; "
+                   "1 GiB device copy x10 (read + write); CUDA events"}
+
+
+def resnet_matmul_flops(torch, mt, net, x):
+    """Forward FLOPs of the convolutions and the dense layer of one
+    inference forward on ``x``, from the layers' shapes (2 x multiply-adds
+    each: 2 x output elements x weight elements per output channel), and
+    the stem convolution's (the first to run) with its weight's name."""
+    from mxnet_tpu_torch.gluon.nn import Conv2D, Dense
+    seen = []
+
+    def hook(mod, _inp, out):
+        w = [p for k, p in mod.collect_params().items()
+             if k.endswith("weight")][0]
+        seen.append((w.name, 2 * out.numel() * w.tensor.numel()
+                     // w.tensor.shape[0]))
+    hs = [m.register_forward_hook(hook) for m in net.modules()
+          if isinstance(m, (Conv2D, Dense))]
+    try:
+        with mt.autograd.pause():
+            net(x)
+    finally:
+        for h in hs:
+            h.remove()
+    return sum(f for _, f in seen), seen[0][1], seen[0][0]
+
+
+def telemetry_planes(torch, mt, card, tmp):
+    """The rest of the telemetry (the numerics and efficiency planes, the
+    program costs, the metrics registry, run reports, the autotuner,
+    mx.profiler) on ResNet-50 v1 at published widths, 224x224, f32, batch
+    32, TF32 off, deterministic cuDNN: fit_train's FitLoop route
+    (get_model("resnet50_v1", layout="NHWC"), hybridized, gluon.Trainer
+    sgd momentum, DeviceStagingIter, 2 epochs = 16 steps), all runs from
+    one start and one data order, loss scale 128 and chaos nan_grad@5:
+    (a) planes off, composed; (b) MXTPU_NUMERICS=on,every=2,
+    MXTPU_EFFICIENCY=on, MXTPU_RUN_REPORT_DIR, composed, with a
+    start_xla_trace window over steps 8-9; (c) as (b) under
+    MXTPU_MEGASTEP=on (two graphs: the stats variant and the plain one);
+    (d) a repeat of (b); (e) MXTPU_AUTOTUNE=on,probe=2,warmup=1, composed.
+    The card's f32 and bf16 matmul FLOP/s and its copy bandwidth are
+    measured first and set as MXTPU_DEVICE_PEAK. Checked: (b), (c), (d)
+    and (e) bit for bit (weights, momenta, losses) against (a); step 5
+    skipped and its numerics_*.json naming the parameter nan_grad
+    poisoned (the trainer's first trainable one in name order, the stem
+    BatchNorm's beta);
+    sampled windows at steps 0, 2, ..., 14; FLOPs a step of (b) and (c)
+    within 1 % of each other and within 2 % of the analytic count (the
+    forward convolution and dense FLOPs x 3, less the stem's input
+    gradient); MFU below 1; the BN kernels' reported bytes equal to
+    kernel_cost.site_bytes_flops over the 48 f32 sites; run_compare on
+    (b) and (d) exits 0 with equal loss hashes; the registry's
+    Prometheus text; (e)'s tuning report and restored environment; 48
+    device launches of each BN kernel a step in the trace; the wrappers'
+    launches: 48 a step in the composed runs, 96 in all under the
+    megastep (the two graphs' eager first steps). Printed: the ledger
+    plus the programs' temp bytes against memory_allocated() after step
+    7 of (b), and the phase's wall."""
+    import gc
+    import glob
+    import subprocess
+    import numpy as np
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.contrib import chaos
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    from mxnet_tpu_torch.ops import kernel_cost
+    from mxnet_tpu_torch.telemetry import memory as tmem
+    from mxnet_tpu_torch.telemetry.registry import default_registry
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in PLANES_ENV}
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    bad = []
+    try:
+        peaks = measure_peaks(torch)
+        emit({"phase": "telemetry_planes", "what": "peaks", "card": card,
+              **peaks})
+        os.environ["MXTPU_DEVICE_PEAK"] = (
+            f"flops={peaks['f32_matmul_flops_per_s']!r},"
+            f"bw={peaks['copy_bytes_per_s']!r}")
+        os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = "4"
+        rng = np.random.default_rng(1)
+        X = rng.random((FIT_IMAGES, IMG, IMG, 3), dtype=np.float32)
+        Y = rng.integers(0, 1000, FIT_IMAGES).astype(np.float32)
+        lossfn = gloss.SoftmaxCrossEntropyLoss()
+
+        def run(name, env, on_step_end=None, mid=None):
+            for k in PLANES_ENV:
+                if k not in ("MXTPU_OPTIMIZER_AGGREGATION",
+                             "MXTPU_DEVICE_PEAK"):
+                    os.environ.pop(k, None)
+            os.environ.update(env)
+            if mid is not None:
+                gc.collect()
+                torch.cuda.synchronize()
+                mid["base"] = torch.cuda.memory_allocated()
+            net = get_model("resnet50_v1", layout="NHWC")
+            net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+            net.hybridize()
+            trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                       dict(GT_OPT), kvstore="device")
+            itr = mt.io.DeviceStagingIter(mt.io.NDArrayIter(
+                X, Y, batch_size=GT_BATCH, shuffle=True, seed=13))
+            loop = mt.fit.FitLoop(net, trainer, lossfn, itr,
+                                  loss_scale=PLANES_SCALE,
+                                  on_step_end=on_step_end)
+            chaos.install(PLANES_PLAN)
+            gc.collect()
+            torch.cuda.synchronize()
+            tk.reset_launches()
+            t = time.perf_counter()
+            try:
+                res = loop.fit(epochs=FIT_EPOCHS)
+            finally:
+                chaos.uninstall()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            out = {"res": res, "wall_s": wall, "launches": dict(tk.launches),
+                   "state": _fit_state(torch, net, trainer), "net": net,
+                   "first": next(p.name for p in trainer._params
+                                 if p.grad_req != "null")}
+            del trainer, loop, itr
+            return out
+
+        a = run("a", {})
+        xb = mt.nd.array(X[:GT_BATCH])
+        fwd, stem, stem_w = resnet_matmul_flops(torch, mt, a["net"], xb)
+        analytic = 3 * fwd - stem
+        del a["net"], xb
+        mid = {}
+
+        def in_b(step, _loss):
+            if step == PLANES_TRACE[0]:
+                torch.cuda.synchronize()
+                mid.update(
+                    allocated=torch.cuda.memory_allocated(),
+                    ledger=tmem.ledger().summary(),
+                    programs=[{k: r.get(k) for k in (
+                        "kind", "label", "temp_bytes", "output_bytes",
+                        "argument_bytes", "held_bytes")}
+                        for r in tmem.program_report()])
+                profiler.start_xla_trace(os.path.join(tmp, "trace"))
+            elif step == PLANES_TRACE[1]:
+                mid["trace"] = profiler.stop_xla_trace()
+
+        planes = dict(PLANES_ON)
+        runs = {"a": a}
+        for name, extra, hook in (
+                ("b", {}, in_b), ("c", {"MXTPU_MEGASTEP": "on"}, None),
+                ("d", {}, None)):
+            env = dict(planes, MXTPU_RUN_REPORT_DIR=os.path.join(
+                tmp, f"reports_{name}"),
+                MXTPU_MEM_DUMP_DIR=os.path.join(tmp, f"dumps_{name}"),
+                **extra)
+            runs[name] = run(name, env, hook, mid if hook else None)
+            del runs[name]["net"]
+        runs["e"] = run("e", {"MXTPU_AUTOTUNE": "on,probe=2,warmup=1"})
+        del runs["e"]["net"]
+        agg_after = os.environ.get("MXTPU_OPTIMIZER_AGGREGATION")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # bit for bit against (a), the plane-off run
+        for name in "bcde":
+            diff = _not_bitwise(torch, runs[name]["state"], a["state"])
+            if diff or runs[name]["res"].losses != a["res"].losses:
+                bad.append(f"{name}: not bit for bit with (a): {diff[:4]}")
+        steps = FIT_STEPS
+        want_launch = {"a": 48 * steps, "b": 48 * steps, "c": 96,
+                       "d": 48 * steps, "e": 48 * steps}
+        for name, n in want_launch.items():
+            got = runs[name]["launches"]
+            if any(v != n for v in got.values()):
+                bad.append(f"{name}: wrapper launches {got}, want {n}")
+        rows = {}
+        for name in "bcd":
+            res = runs[name]["res"]
+            num, eff = res.numerics, res.efficiency
+            dumps = sorted(glob.glob(os.path.join(
+                tmp, f"dumps_{name}", "numerics_*.json")))
+            culprit = json.load(open(dumps[-1]))["culprit"] if dumps \
+                else None
+            rows[name] = {
+                "skipped_steps": res.skipped_steps,
+                "culprit": culprit and culprit["name"],
+                "sampled_steps": [r["step"] for r in num["recent"]],
+                "grad_norm_last": num.get("grad_norm"),
+                "flops_per_step": eff["flops_per_step"],
+                "bytes_per_step": eff["bytes_per_step"],
+                "mfu": eff["mfu"], "bw_util": eff["bw_util"],
+                "achieved_flops_per_s": eff["achieved_flops_per_s"],
+                "achieved_bytes_per_s": eff["achieved_bytes_per_s"],
+                "samples_per_s": eff["samples_per_s"],
+                "roofline": eff["roofline"], "estimate": eff["estimate"],
+                "per_program": [{k: p[k] for k in ("kind", "label",
+                                                   "flops",
+                                                   "bytes_accessed",
+                                                   "dispatches")}
+                                for p in eff["per_program"]],
+                "wall_s": runs[name]["wall_s"],
+                "median_step_ms": 1e3 * float(np.median(
+                    [r["wall"] for r in res.step_breakdown["per_step"]])),
+                "run_report": res.run_report}
+            r = rows[name]
+            if r["skipped_steps"] != [5]:
+                bad.append(f"{name}: skipped {r['skipped_steps']}")
+            # nan_grad poisons the trainer's first trainable parameter
+            # (natural name order), the one the plane must name
+            r["poisoned"] = runs[name]["first"]
+            if r["culprit"] != r["poisoned"]:
+                bad.append(f"{name}: culprit {r['culprit']!r}, poisoned "
+                           f"{r['poisoned']!r}")
+            if r["sampled_steps"] != list(range(0, steps, 2)):
+                bad.append(f"{name}: sampled {r['sampled_steps']}")
+            if abs(r["flops_per_step"] - analytic) > 0.02 * analytic:
+                bad.append(f"{name}: {r['flops_per_step']} FLOPs a step, "
+                           f"analytic {analytic}")
+            if not 0 < r["mfu"] < 1 or r["estimate"]:
+                bad.append(f"{name}: mfu {r['mfu']} estimate "
+                           f"{r['estimate']}")
+        fb, fc = rows["b"]["flops_per_step"], rows["c"]["flops_per_step"]
+        if abs(fb - fc) > 0.01 * fb:
+            bad.append(f"FLOPs a step: composed {fb}, megastep {fc}")
+        # the BN kernels' reported bytes a step against the formula over
+        # the 48 f32 sites
+        kb = {}
+        for prog in tmem.program_report():
+            if prog["kind"] != "cached_op":
+                continue
+            for k, v in (prog.get("kernels") or {}).items():
+                kb[k] = kb.get(k, 0.0) + v["bytes"]
+        want_kb = {k: float(sum(kernel_cost.site_bytes_flops(
+            k, r, c, 4, res_)[0] * m for r, c, res_, m in path_sites(
+                GT_BATCH))) for k in KERNELS}
+        if kb != want_kb:
+            bad.append(f"BN reported bytes {kb}, formula {want_kb}")
+        # run_compare on (b) and (d)
+        cmp_ = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "tools", "run_compare.py"),
+             rows["b"]["run_report"], rows["d"]["run_report"], "--fence",
+             PLANES_FENCE, "--json"], capture_output=True, text=True)
+        rb, rd = (json.load(open(rows[n]["run_report"])) for n in "bd")
+        if cmp_.returncode != 0 or \
+                rb["loss"]["sha256_16"] != rd["loss"]["sha256_16"]:
+            bad.append(f"run_compare rc {cmp_.returncode}: "
+                       f"{cmp_.stdout[-400:]} {cmp_.stderr[-400:]}")
+        prom = default_registry().render_prometheus()
+        need = ("mxtpu_mfu", "mxtpu_numerics_grad_norm",
+                "mxtpu_numerics_nonfinite_steps_total", "mxtpu_loss_scale",
+                'mxtpu_compile_total{kind="graph_capture"}',
+                'mxtpu_compile_total{kind="nvcc"}',
+                "mxtpu_autotune_probe_steps_total",
+                "mxtpu_autotune_chosen_agg")
+        from mxnet_tpu_torch.ops import _build
+        if not _build.build_seconds:    # nothing was built in this process
+            need = tuple(k for k in need if "nvcc" not in k)
+        missing = [k for k in need if k not in prom]
+        if missing:
+            bad.append(f"prometheus lacks {missing}")
+        tune = runs["e"]["res"].tuning_report
+        if tune["status"] != "locked" or agg_after != "4":
+            bad.append(f"autotune {tune['status']}, aggregation after "
+                       f"{agg_after!r}")
+        # the trace window: steps 8 and 9 of (b)
+        trace = json.load(open(mid["trace"]))["traceEvents"]
+        dev = [e for e in trace if e.get("cat") == "kernel"]
+        in_trace = {k: sum(1 for e in dev if v in e.get("name", ""))
+                    for k, v in _KERNEL_NAMES.items()}
+        if any(v != 2 * 48 for v in in_trace.values()):
+            bad.append(f"trace: BN kernels {in_trace}, want 96 each")
+        # this run's bytes: allocated after step 7 less what was allocated
+        # before its net was built (earlier phases' and runs' tensors)
+        ours = mid["allocated"] - mid["base"]
+        ledger = mid["ledger"]["live_bytes"]
+        # the block's forward and backward programs (activations and
+        # workspaces live there)
+        progs = [p for p in mid["programs"] if p["kind"] == "cached_op"]
+        temp = sum(int(p.get("temp_bytes") or 0) for p in progs)
+        gap = {"allocated_bytes": mid["allocated"],
+               "allocated_before_build_bytes": mid["base"],
+               "run_allocated_bytes": ours,
+               "ledger_bytes": ledger,
+               "ledger_by_category": mid["ledger"]["by_category"],
+               "run_allocated_over_ledger": ours / ledger,
+               "programs_temp_bytes": temp, "programs": progs,
+               "left_bytes": ours - ledger,
+               "left_after_temp_bytes": ours - ledger - temp}
+        launches = {k: sum(runs[n]["launches"][k] for n in runs)
+                    for k in KERNELS}
+        emit({"phase": "telemetry_planes", "card": card,
+              "config": "resnet50-fitloop-planes-f32-b32",
+              "peaks": peaks, "device_peak": os.environ.get(
+                  "MXTPU_DEVICE_PEAK"),
+              "analytic_flops_per_step": analytic,
+              "forward_matmul_flops": fwd, "stem_flops": stem,
+              "stem_weight": stem_w, "runs": rows,
+              "wall_s": {n: runs[n]["wall_s"] for n in runs},
+              "median_step_ms": {n: 1e3 * float(np.median(
+                  [r["wall"] for r in runs[n]["res"].step_breakdown[
+                      "per_step"]])) for n in runs},
+              # steps 2-15 but 5: the sampled (even) and unsampled (odd)
+              # numerics steps apart
+              "median_even_odd_ms": {n: [1e3 * float(np.median(
+                  [r["wall"] for i, r in enumerate(runs[n][
+                      "res"].step_breakdown["per_step"])
+                   if i >= 2 and i != 5 and i % 2 == k])) for k in (0, 1)]
+                  for n in runs},
+              "step_ms": {n: [round(1e3 * r["wall"], 3) for r in runs[n][
+                  "res"].step_breakdown["per_step"]] for n in runs},
+              "mfu_at_median_step": {n: rows[n]["flops_per_step"]
+                                     / (rows[n]["median_step_ms"] / 1e3)
+                                     / peaks["f32_matmul_flops_per_s"]
+                                     for n in rows},
+              "bn_reported_bytes_per_step": kb,
+              "bn_formula_bytes_per_step": want_kb,
+              "run_compare": json.loads(cmp_.stdout) if cmp_.stdout
+              else cmp_.stderr,
+              "tuning_report": tune, "trace_bn_launches": in_trace,
+              "memory_after_step_7": gap, "launches": launches,
+              "launches_by_run": {n: runs[n]["launches"] for n in runs},
+              "prometheus_lines": len(prom.splitlines()),
+              "phase_wall_s": time.perf_counter() - t_phase,
+              "failures": bad})
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if bad:
+        fail("telemetry_planes: " + "; ".join(bad))
+    return launches
+
+
 def fit_phases(torch, mt, card, gluon_row, timed):
-    """fit_reference, fit_train and megastep_train, their checkpoints in
-    one temporary directory removed afterwards; the BN kernels' launches
-    of fit_train's run and of the megastep's profiled epoch."""
+    """fit_reference, fit_train, megastep_train and telemetry_planes,
+    their files in one temporary directory removed afterwards; the BN
+    kernels' launches of fit_train's run, of the megastep's profiled
+    epoch and of the telemetry_planes runs."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="mxt_fit_")
@@ -5215,9 +5602,12 @@ def fit_phases(torch, mt, card, gluon_row, timed):
                                   gluon_row, tmp)
         mega_launches, _ = timed("megastep_train", megastep_train, torch,
                                  mt, card, fit_row, tmp)
+        torch.cuda.empty_cache()
+        planes_launches = timed("telemetry_planes", telemetry_planes, torch,
+                                mt, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, mega_launches
+    return launches, mega_launches, planes_launches
 
 
 def main():
@@ -5319,8 +5709,8 @@ def main():
     torch.cuda.empty_cache()
     totals_f32 = timed("kernel_f32", kernel_f32_phase, torch, tk)
     # the FitLoop path, after every earlier phase
-    fit_launches, mega_launches = fit_phases(torch, mt, card, gluon_row,
-                                             timed)
+    fit_launches, mega_launches, planes_launches = fit_phases(
+        torch, mt, card, gluon_row, timed)
     # ResNet-50 v1 in f16 (the BN kernels' f16 instances), after every
     # earlier phase
     totals_f16 = timed("kernel_f16", kernel_f16_phase, torch, tk)
@@ -5351,7 +5741,8 @@ def main():
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
              "kernel_f32")
-    fits = ("fit_reference", "fit_train", "megastep_train")
+    fits = ("fit_reference", "fit_train", "megastep_train",
+            "telemetry_planes")
     f16 = ("kernel_f16", "train_f16", "profile_f16")
     moe_remat = ("transformer_moe_reference", "transformer_moe_train",
                  "resnet_remat", "gluon_user_block")
@@ -5371,7 +5762,7 @@ def main():
           "f16_phases_s": sum(walls[k] for k in f16)})
 
     kernels = []
-    for name, (replaces, _) in KERNELS.items():
+    for name, replaces in KERNELS.items():
         t = totals[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
@@ -5426,6 +5817,10 @@ def main():
                          "per": "device launches in one profiled FitLoop "
                                 "epoch (8 steps) under MXTPU_MEGASTEP=on, "
                                 "every step one CUDA graph replay"},
+            "planes": {"launches": planes_launches[name],
+                       "per": "wrapper launches over telemetry_planes' "
+                              "five 16-step FitLoop runs (the megastep "
+                              "run's two eager first steps only)"},
             "data_fed": {"launches": fed_launches[name],
                          "per": f"wrapper launches over the {A20_TIMED} "
                                 "timed imagenet_example steps fed by "

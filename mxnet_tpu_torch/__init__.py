@@ -13,7 +13,8 @@ from . import (autograd, context, convert, gluon, initializer, kvstore,
                lr_scheduler, models, ndarray, optimizer, ops, parallel,
                random, rtc)
 from . import (cached_op, callback, contrib, fault, fit, image, io, log,
-               megastep, metric, recordio, telemetry, util)
+               megastep, metric, monitor, profiler, recordio, telemetry,
+               util)
 from .base import MXNetError, check
 from .context import Context, cpu, current_context, gpu, num_gpus
 
@@ -27,6 +28,6 @@ __all__ = ["Context", "MXNetError", "autograd", "cached_op", "callback",
            "check", "context", "contrib", "convert", "cpu",
            "current_context", "fault", "fit", "gpu", "gluon", "image",
            "init", "initializer", "io", "kv", "kvstore", "log",
-           "lr_scheduler", "megastep", "metric", "models", "nd", "ndarray",
-           "num_gpus", "ops", "optimizer", "parallel", "random", "recordio",
-           "rtc", "telemetry", "util"]
+           "lr_scheduler", "megastep", "metric", "models", "monitor", "nd",
+           "ndarray", "num_gpus", "ops", "optimizer", "parallel",
+           "profiler", "random", "recordio", "rtc", "telemetry", "util"]

@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 import torch
 
 from .base import MXNetError, check
+from .telemetry import efficiency as _efficiency
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
@@ -184,7 +185,12 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     MXAutogradBackwardEx)."""
     outs, grads = _heads(heads, head_grads)
     with _RecordingStateScope(False, train_mode):
-        _run(torch.autograd.backward, outs, grads, retain_graph=retain_graph)
+        # a hybridized block's backward is one program of the efficiency
+        # plane; with nothing pending this is one attribute read
+        _efficiency.run_backward(
+            lambda: _run(torch.autograd.backward, outs, grads,
+                         retain_graph=retain_graph),
+            device=outs[0].device if outs else None)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -61,6 +61,14 @@ class EnvRegistry:
         variables that are not the framework's to declare (``CUDA_HOME``)."""
         return os.environ.get(name)
 
+    def set(self, name: str, value: Optional[str]) -> None:
+        """Write the environment string (None unsets it): the one writer,
+        for a tuner that probes a knob and restores it."""
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = str(value)
+
     def default_for(self, name: str) -> Any:
         """The declared default (None for an undeclared name)."""
         decl = self._defaults.get(name)

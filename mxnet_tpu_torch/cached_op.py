@@ -7,8 +7,9 @@ thread-safe signature-keyed LRU of captured programs with its
 many-readers / one-writer lock that a capture takes exclusively (a
 capture runs the block's forward on shared Parameters). ``CachedOp`` and
 hybridize, which serving needs, are ROADMAP A12; the port's
-``hybridize()`` is a no-op. The JAX package also reports every cache's
-counters as gauges of its metrics registry, which is not ported (A9).
+``hybridize()`` compiles nothing. Every cache reports its counters to the
+metrics registry as polled gauges (``mxtpu_cachedop_cache_*``), as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +25,63 @@ CacheInfo = namedtuple("CacheInfo",
                        ["hits", "misses", "evictions", "currsize", "maxsize"])
 
 
+# Every live SignatureLRU (CachedOp signature caches, grouped-optimizer
+# program caches, serving signature caches) reports into the shared
+# telemetry registry as polled gauges — zero hot-path cost: the counters
+# are summed at export time, not on every lookup. Counters of DEAD caches
+# are folded into a retired accumulator by a weakref.finalize, so the
+# exported totals are MONOTONE: a cyclic-GC pass collecting an old
+# hybridized net between two reads must never make hits/misses go down
+# (the exact mechanism behind the test_env_flags+test_telemetry
+# pair-order flake this replaces — the gauge used to sum live caches
+# only, so a cache dying mid-test subtracted its whole history).
+_all_caches: "weakref.WeakSet" = None  # type: ignore[assignment]
+_retired_counts = {"hits": 0, "misses": 0, "evictions": 0}
+# RLock, not Lock: the retire callback runs from weakref.finalize, which
+# cyclic GC may fire synchronously on THIS thread while it already holds
+# the lock (list() below allocates, allocation can trigger collection of
+# a dead cycle holding a SignatureLRU) — a plain Lock would self-deadlock
+_track_lock = threading.RLock()
+
+
+def _retire_cache_counts(stats: dict) -> None:
+    with _track_lock:
+        for field in _retired_counts:
+            _retired_counts[field] += stats[field]
+
+
+def _tracked_cache_total(field: str) -> int:
+    """Monotone process-wide total for hits/misses/evictions; live-only
+    occupancy for currsize (a dead cache holds no entries)."""
+    with _track_lock:
+        live = list(_all_caches) if _all_caches is not None else []
+        base = _retired_counts.get(field, 0)
+    return base + sum(getattr(c.cache_info(), field) for c in live)
+
+
+def _track_cache(cache: "SignatureLRU") -> None:
+    global _all_caches
+    import weakref
+    with _track_lock:
+        if _all_caches is None:
+            _all_caches = weakref.WeakSet()
+            try:
+                from .telemetry import default_registry
+                reg = default_registry()
+                for field in ("hits", "misses", "evictions", "currsize"):
+                    reg.callback_gauge(
+                        f"mxtpu_cachedop_cache_{field}",
+                        (lambda f=field: _tracked_cache_total(f)),
+                        f"Signature-cache {field} over all compiled-"
+                        "program caches (monotone: retired caches keep "
+                        "their counts, except currsize which is live "
+                        "occupancy).")
+            except Exception:
+                pass
+        _all_caches.add(cache)
+    weakref.finalize(cache, _retire_cache_counts, cache._stats)
+
+
 class SignatureLRU:
     """Thread-safe signature-keyed LRU of captured programs, bounded by
     ``MXTPU_CACHEDOP_CACHE_SIZE`` (0 = unbounded)."""
@@ -32,6 +90,7 @@ class SignatureLRU:
         self._cache: "OrderedDict[Any, Any]" = OrderedDict()
         self._lock = threading.Lock()
         self._stats = {"hits": 0, "misses": 0, "evictions": 0}
+        _track_cache(self)
 
     @staticmethod
     def _bound() -> int:

@@ -99,6 +99,19 @@ from ..base import MXNetError, env
 __all__ = ["ChaosKilled", "ChaosPlan", "install", "uninstall", "active"]
 
 
+def _count_injection(kind: str) -> None:
+    """Mirror a fired fault into the shared telemetry registry (the
+    per-plan ``injected`` dict stays the test-facing source of truth)."""
+    try:
+        from ..telemetry import default_registry
+        default_registry().counter(
+            "mxtpu_chaos_injections_total",
+            "Chaos faults actually fired, by kind.",
+            label="kind").inc(label_value=kind)
+    except Exception:
+        pass
+
+
 class ChaosKilled(MXNetError):
     """Simulated abrupt worker death (``kill@step``): the process 'dies'
     with nothing flushed. Deliberately NOT caught by FitLoop — recovery is
@@ -334,6 +347,7 @@ class ChaosPlan:
             return False
         self._at[kind].discard(self._step)
         self.injected[kind] += 1
+        _count_injection(kind)
         return True
 
     # -- injection actions ----------------------------------------------
@@ -384,6 +398,7 @@ class ChaosPlan:
             return None
         world = self._resize.pop(self._step)
         self.injected["resize"] += 1
+        _count_injection("resize")
         return {"world": world}
 
     def mem_pressure_bytes(self) -> Optional[int]:
@@ -396,6 +411,7 @@ class ChaosPlan:
             return None
         budget = self._mem_pressure.pop(self._step)
         self.injected["mem_pressure"] += 1
+        _count_injection("mem_pressure")
         return budget
 
     def replica_kill_due(self, routed: int) -> Optional[int]:
@@ -409,6 +425,7 @@ class ChaosPlan:
             return None
         r = self._replica_kill.pop(min(due))
         self.injected["replica_kill"] += 1
+        _count_injection("replica_kill")
         return r
 
     def kv_delay_s(self) -> float:
@@ -423,6 +440,7 @@ class ChaosPlan:
                     self._rng.random() >= self.kv_slow_p:
                 return 0.0
             self.injected["kv_slow"] += 1
+            _count_injection("kv_slow")
         return self.kv_slow_ms / 1000.0
 
     def kv_hang_delay_s(self, rank: int) -> float:
@@ -438,6 +456,7 @@ class ChaosPlan:
             return 0.0
         del self._kv_hang[self._step]
         self.injected["kv_hang"] += 1
+        _count_injection("kv_hang")
         return ms / 1000.0
 
     def kv_maybe_fail(self, op: str, key) -> None:
@@ -446,6 +465,7 @@ class ChaosPlan:
         succeeds for P < 1)."""
         if self.kv_flake_p and self._rng.random() < self.kv_flake_p:
             self.injected["kv_flake"] += 1
+            _count_injection("kv_flake")
             from ..kvstore import TransientKVError
             raise TransientKVError(
                 f"chaos: injected transient {op} failure (key={key!r})")
@@ -462,6 +482,7 @@ class ChaosPlan:
                     self._rng.random() >= self.serve_slow_p:
                 return 0.0
             self.injected["serve_slow"] += 1
+            _count_injection("serve_slow")
         return self.serve_slow_ms / 1000.0
 
     def on_checkpoint_complete(self, step: int, path: str) -> None:
@@ -475,6 +496,7 @@ class ChaosPlan:
         else:
             return
         self.injected["ckpt_corrupt"] += 1
+        _count_injection("ckpt_corrupt")
         corrupt_file(os.path.join(path, "params"))
 
     def on_publish_complete(self, model: str, version: str,
@@ -490,6 +512,7 @@ class ChaosPlan:
         else:
             return
         self.injected["registry_corrupt"] += 1
+        _count_injection("registry_corrupt")
         # the serving registry's artifact name (its ARTIFACT_PREFIX)
         corrupt_file(os.path.join(path, "model-0000.params"))
 

@@ -31,13 +31,20 @@ loss))``). Under ``MXTPU_MEGASTEP=on`` the step (forward, backward,
 sentinel, grouped update) is one replay of a CUDA graph per input
 signature (``megastep.py``), timed as the breakdown's ``megastep``
 segment; the fetch, the rollback and the loss-scale backoff stay as
-they are. Not ported, each raising ``NotPortedError`` naming its
-ROADMAP item when its environment variable asks for it, at ``fit()``
+they are.
+
+The telemetry planes, as in the JAX package: ``MXTPU_NUMERICS`` (the
+sampled steps' stats matrices ride the step's one flag+loss transfer; a
+skipped step gets its provenance pass), ``MXTPU_EFFICIENCY`` (each step
+is an efficiency window), ``MXTPU_AUTOTUNE`` (the probe-then-lock tuner;
+the environment and the staging depth are restored when ``fit()``
+returns) and ``MXTPU_RUN_REPORT_DIR`` (a run report written at fit end).
+They fill ``FitResult.numerics``, ``.efficiency``, ``.tuning_report`` and
+``.run_report``. Not ported, each raising ``NotPortedError`` naming
+ROADMAP A10 when its environment variable asks for it, at ``fit()``
 start — before any step runs and before the signal handlers install:
-``MXTPU_AUTOTUNE``, ``MXTPU_EFFICIENCY``,
-``MXTPU_NUMERICS`` and ``MXTPU_RUN_REPORT_DIR`` (A9);
 ``MXTPU_COLL_HEALTH`` / ``MXTPU_COLL_TIMEOUT_S`` (the comm planes) and
-``MXTPU_ZERO`` (A10).
+``MXTPU_ZERO``.
 """
 from __future__ import annotations
 
@@ -58,9 +65,11 @@ from . import megastep as _megastep
 from .contrib import chaos as _chaos
 from .ops.registry import NotPortedError
 from .parallel import elastic as _elastic
+from .telemetry import autotune as _autotune
 from .telemetry import efficiency as _efficiency
 from .telemetry import memory as _memory
 from .telemetry import numerics as _numerics
+from .telemetry import run_report as _run_report
 from .telemetry.step_breakdown import StepBreakdown, segment as _segment
 
 __all__ = ["FitLoop", "FitResult", "resumable_exit_code"]
@@ -87,12 +96,9 @@ def _refuse_unported_planes() -> None:
     """The environment flags of parts the port lacks, parsed where the JAX
     package parses them (at fit start): a flag that asks for one raises
     ``NotPortedError`` naming its ROADMAP item, a malformed value raises
-    ``MXNetError``; unset or off, nothing happens."""
-    auto = str(env.get("MXTPU_AUTOTUNE") or "").strip()
-    if auto.lower() not in ("", "off", "0", "false"):
-        raise _not_ported("the knob autotuner (MXTPU_AUTOTUNE)", "A9")
-    if str(env.get("MXTPU_RUN_REPORT_DIR") or "").strip():
-        raise _not_ported("the run report (MXTPU_RUN_REPORT_DIR)", "A9")
+    ``MXNetError``; unset or off, nothing happens. The planes' own flags
+    get their strict parse here too, before any step runs."""
+    _autotune.requested()
     if _number("MXTPU_COLL_HEALTH", int) > 0 or \
             _number("MXTPU_COLL_TIMEOUT_S", float) > 0:
         raise _not_ported("the comm-health planes (MXTPU_COLL_HEALTH / "
@@ -267,12 +273,43 @@ class FitLoop:
             torch.ones((), dtype=torch.bool, device=like.device)
 
     @staticmethod
-    def _fetch(flag, loss_dev):
-        """The flag and the loss in ONE device-to-host copy (float64 holds
-        both exactly)."""
-        ok, lval = torch.stack([flag.to(torch.float64),
-                                loss_dev.to(torch.float64)]).tolist()
-        return ok != 0.0, lval
+    def _fetch(flag, loss_dev, nstats=None):
+        """The flag, the loss and a numerics sampled step's stats matrices
+        in ONE device-to-host copy (float64 holds them exactly). Returns
+        ``(finite, loss, matrices or None)``."""
+        parts = [flag.to(torch.float64).reshape(1),
+                 loss_dev.to(torch.float64).reshape(1)]
+        if nstats:
+            parts += [m.to(torch.float64).reshape(-1) for _, m in nstats]
+        vals = torch.cat([p.to(parts[0].device) for p in parts]).tolist()
+        nvals = None
+        if nstats is not None:
+            nvals, off = [], 2
+            for _, m in nstats:
+                n = m.shape[0]
+                nvals.append([vals[off + 6 * r:off + 6 * r + 6]
+                              for r in range(n)])
+                off += 6 * n
+        return vals[0] != 0.0, vals[1], nvals
+
+    def _record_late_numerics(self, step: int, finite: bool) -> None:
+        """Publish sampled stats a classic (non-sentinel) update produced
+        after the step's transfer (``skip_nonfinite=False``): the grouped
+        buckets' when they covered the step, else the per-parameter
+        fallback's."""
+        nstats = getattr(self._trainer, "last_numerics_stats", None)
+        if not nstats:
+            nstats = _numerics.fallback_collect(self._trainer)
+        if not nstats:
+            return
+        try:
+            _numerics.record_step(
+                step, [(names, m.double().cpu().numpy())
+                       for names, m in nstats],
+                loss_scale=self._loss_scale, finite=finite,
+                trainer=self._trainer)
+        except Exception as e:
+            _LOG.warning("numerics record failed: %s", e)
 
     def _composed_step(self, x, y, bs, plan, overlap_scope, step):
         """Forward, backward, chaos poison, allreduce and (where the
@@ -422,7 +459,14 @@ class FitLoop:
             hb = fault.Heartbeat(self._ckpt_dir,
                                  interval=self._hb_interval).start()
         self._install_handlers()
-        bd = StepBreakdown().install() if self._collect_breakdown else None
+        # the tuner scores candidates with the step breakdown, so probing
+        # forces one on; it is dropped at the lock if the caller opted out
+        tuner = None
+        if _autotune.requested():
+            tuner = _autotune.AutoTuner(trainer=self._trainer,
+                                        data_iter=self._iter)
+        bd = StepBreakdown().install() \
+            if (self._collect_breakdown or tuner is not None) else None
         # comm/backward overlap: brackets backward; inactive scopes are free
         overlap_scope = getattr(self._trainer, "overlap_scope", None)
         try:
@@ -460,6 +504,8 @@ class FitLoop:
                     _numerics.mark_step(result.step)
                     if self._preempted is not None:
                         self._final_exit(cm, result, epoch, consumed)
+                    if tuner is not None:
+                        tuner.on_step_begin(result.step)
                     x = batch.data[0]
                     y = batch.label[0] if batch.label else None
                     bs = batch_size if batch_size is not None \
@@ -475,31 +521,56 @@ class FitLoop:
                             x, y, bs, plan, overlap_scope, result.step)
                     # the blocking fetch realizes the whole async step
                     # (forward/backward dominate): charged to compute, or
-                    # to the megastep's one segment. The flag and the
-                    # loss come back in ONE transfer.
+                    # to the megastep's one segment. The flag, the loss
+                    # and a sampled step's numerics stats come back in
+                    # ONE transfer.
+                    nstats = getattr(self._trainer, "last_numerics_stats",
+                                     None)
+                    nvals = None
                     if fused_flag is not None:
                         with _segment("megastep" if megastep is not None
                                       else "compute"):
-                            finite, loss_val = self._fetch(fused_flag,
-                                                           loss_dev)
+                            finite, loss_val, nvals = self._fetch(
+                                fused_flag, loss_dev, nstats)
                         if not finite:
                             self._trainer.rollback_step()
                     elif self._skip_nonfinite:
-                        # fused path declined: the per-parameter check,
-                        # still one transfer
-                        _numerics.fallback_collect(self._trainer)
+                        # fused path declined: the per-parameter check and
+                        # fallback stats, still one transfer
+                        nstats = _numerics.fallback_collect(self._trainer)
                         with _segment("compute"):
-                            finite, loss_val = self._fetch(
-                                self._grads_finite_flag(loss_dev), loss_dev)
+                            finite, loss_val, nvals = self._fetch(
+                                self._grads_finite_flag(loss_dev), loss_dev,
+                                nstats)
                     else:
-                        finite = True
+                        finite, nstats = True, None
                         with _segment("compute"):
                             loss_val = float(loss_dev.item())
+                    if nvals is not None:
+                        try:
+                            _numerics.record_step(
+                                result.step,
+                                [(names, v) for (names, _), v
+                                 in zip(nstats, nvals)],
+                                loss_scale=self._loss_scale,
+                                finite=finite, trainer=self._trainer)
+                        except Exception as e:
+                            _LOG.warning("numerics record failed: %s", e)
                     if not finite:
                         # sentinel: skip the update entirely — params and
                         # optimizer state stay at the pre-step values —
                         # and back off the loss scale
                         result.skipped_steps.append(result.step)
+                        # provenance before the grads are zeroed below:
+                        # the extra syncs land only on this lost step
+                        if _numerics.enabled():
+                            try:
+                                _numerics.nonfinite_step(
+                                    result.step, self._trainer,
+                                    loss_scale=self._loss_scale)
+                            except Exception as e:
+                                _LOG.warning(
+                                    "numerics provenance failed: %s", e)
                         old_scale = self._loss_scale
                         self._loss_scale = max(
                             self._loss_scale * self._scale_backoff, 2e-5)
@@ -523,6 +594,9 @@ class FitLoop:
                                 self._trainer.update(
                                     bs * self._loss_scale,
                                     ignore_stale_grad=self._ignore_stale_grad)
+                            if not self._skip_nonfinite:
+                                self._record_late_numerics(result.step,
+                                                           finite)
                         good_streak += 1
                         if self._scale_growth and \
                                 good_streak % self._scale_growth == 0 and \
@@ -547,7 +621,17 @@ class FitLoop:
                         useful=finite,
                         tokens_per_sample=self._tokens_per_sample)
                     if bd is not None:
-                        bd.end_step()
+                        rec = bd.end_step()
+                        if tuner is not None:
+                            # the step that ran (result.step - 1)
+                            tuner.on_step_end(result.step - 1, rec,
+                                              breakdown=bd)
+                            if tuner.locked and \
+                                    not self._collect_breakdown:
+                                # the breakdown existed only to score the
+                                # probes: the caller's opt-out resumes
+                                bd.uninstall()
+                                bd = None
                     # memory pressure: the mem_pressure chaos event and the
                     # MXTPU_MEM_BUDGET watermark both fire a ranked
                     # forensics dump; a dump failure must not take down
@@ -573,23 +657,39 @@ class FitLoop:
             _memory.maybe_dump_oom(e, step=result.step)
             raise
         finally:
+            if tuner is not None:
+                # the decision persists in the report; the env mutation
+                # must not leak past this fit() call
+                tuner.restore_env()
             if bd is not None:
                 bd.uninstall()
             if hb is not None:
                 hb.stop()
             self._restore_handlers()
         result.loss_scale = self._loss_scale
-        if bd is not None and bd.steps:
+        if bd is not None and bd.steps and self._collect_breakdown:
             result.step_breakdown = bd.summary()
         # memory summary: ledger category snapshot + per-step watermarks
         result.memory = _memory.ledger().summary()
         if bd is not None and bd.mem_steps:
             result.memory.update(bd.memory_summary())
-        # the numbers axis: the loss-scale timeline (None when no
-        # loss-scale event fired; the plane itself is off)
+        if tuner is not None:
+            result.tuning_report = tuner.report()
+        # the numbers axis: sampled-stat window, loss-scale timeline,
+        # non-finite provenance (None when the plane is off and no
+        # loss-scale event fired)
         result.numerics = _numerics.summary()
+        # the efficiency axis: MFU / roofline / goodput (None when off)
         result.efficiency = _efficiency.summary(
             tokens_per_sample=self._tokens_per_sample)
+        # the run report, written last so it holds every summary above; a
+        # failed write is diagnosed, never fatal
+        if _run_report.report_dir() is not None:
+            try:
+                result.run_report = _run_report.write_run_report(result)
+                _LOG.info("run report: %s", result.run_report)
+            except Exception as e:
+                _LOG.warning("run report failed: %s", e)
         return result
 
     def _final_resize(self, cm, result: FitResult, epoch: int,

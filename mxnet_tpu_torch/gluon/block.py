@@ -46,7 +46,12 @@ counterpart of a compiled program (``CachedOp`` is ROADMAP A12). Its
 through ``util.mirror_wrapper(mirror)`` (``None`` follows
 ``MXNET_BACKWARD_DO_MIRROR``), resolved at its first call after
 ``hybridize``. ``export`` and ``SymbolBlock`` need ``symbol/`` and raise
-(ROADMAP A14).
+(ROADMAP A14). With ``MXTPU_EFFICIENCY`` on, the outermost hybridized
+block's call is one program of the efficiency plane (kind ``cached_op``,
+keyed by block and input signature, standing in for the JAX package's
+CachedOp programs): counted on its first call, noted on every call, and
+its backward likewise at the next ``autograd.backward``
+(``telemetry.efficiency.pending_backward``).
 
 Checkpoints: ``save_parameters`` / ``load_parameters`` write and read
 ``mx.nd.save`` files (the JAX package's format) keyed by the structural
@@ -67,6 +72,7 @@ from ..context import cpu
 from ..ndarray import utils as nd_utils
 from ..ndarray.ndarray import NDArray, _own
 from ..ops.registry import NotPortedError
+from ..telemetry import efficiency as _efficiency
 from ..util import mirror_wrapper
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, _Holder)
@@ -385,12 +391,11 @@ class HybridBlock(Block):
                                                       *kwargs.values())):
             if self._deferred:
                 self._finish_deferred(*args, **kwargs)
-            if self._active and torch.is_grad_enabled():
-                if self._mirror is None:
-                    self._mirror = mirror_wrapper(self._mirror_arg)
-                return self._mirror(super(Block, self).__call__)(
-                    *args, **kwargs)
-            return super(Block, self).__call__(*args, **kwargs)
+            if self._active and _efficiency.notes_on():
+                return _efficiency.observe_block(
+                    self, lambda: self._tensor_call(*args, **kwargs),
+                    args, kwargs)
+            return self._tensor_call(*args, **kwargs)
         args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
         kwargs = {k: v._data if isinstance(v, NDArray) else v
                   for k, v in kwargs.items()}
@@ -402,6 +407,14 @@ class HybridBlock(Block):
         if isinstance(out, torch.Tensor):
             return NDArray(_own(out, inputs))
         return type(out)(NDArray(_own(o, inputs)) for o in out)
+
+    def _tensor_call(self, *args, **kwargs):
+        if self._active and torch.is_grad_enabled():
+            if self._mirror is None:
+                self._mirror = mirror_wrapper(self._mirror_arg)
+            return self._mirror(super(Block, self).__call__)(
+                *args, **kwargs)
+        return super(Block, self).__call__(*args, **kwargs)
 
     def forward(self, *args, **kwargs):
         """``hybrid_forward(mx.nd, *inputs, **own parameters)`` on

@@ -15,7 +15,11 @@ others (an optimizer without a grouping rule, or aggregation 0) take the
 per-parameter ``Updater`` loop. Both run the same update code and write
 weights and states in place. ``last_update_dispatches`` counts the calls
 of the last update (buckets, plus one for the sentinel's finiteness
-reduction). Before any update, every live parameter's gradient must be
+reduction), and the metrics registry's
+``mxtpu_update_dispatches_total`` their sum. On a ``MXTPU_NUMERICS``
+sampled step the grouped buckets also compute their stats matrices,
+parked un-fetched on ``last_numerics_stats`` for the caller's one
+transfer (``fit.FitLoop``). Before any update, every live parameter's gradient must be
 fresh (written by ``backward`` since the last step), or nothing is
 applied and the step raises (``ignore_stale_grad=True`` skips the stale
 ones). ``update_with_sentinel`` guards the update with one on-device
@@ -40,12 +44,12 @@ its device calls, run outside the step's CUDA graph every step.
 Not ported, each raising ``NotPortedError`` when asked for, by argument
 or by environment flag: ``MXTPU_COMM_OVERLAP=on`` (``overlap_scope``)
 and flat gradient buckets (``MXTPU_GRAD_BUCKET_MB`` with a store
-object), ``compression_params``, ``MXTPU_ZERO`` (ROADMAP A10);
-``MXTPU_NUMERICS`` (A9).
+object), ``compression_params``, ``MXTPU_ZERO`` (ROADMAP A10).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 from typing import List
 
@@ -55,6 +59,7 @@ from .. import optimizer as opt_mod
 from ..ops.registry import NotPortedError
 from ..optimizer import grouped as _grouped
 from ..telemetry import memory as _memory
+from ..telemetry import numerics as _numerics
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -67,6 +72,15 @@ def _natural_key(name: str):
     right ones)."""
     return [(1, int(t)) if t.isdigit() else (0, t)
             for t in re.split(r"(\d+)", name)]
+
+
+@functools.lru_cache(maxsize=1)
+def _update_dispatch_counter():
+    from ..telemetry import default_registry
+    return default_registry().counter(
+        "mxtpu_update_dispatches_total",
+        "Compiled-program launches per optimizer update "
+        "(aggregated: one per dtype/device bucket).")
 
 
 def _not_ported(what: str, item: str) -> NotPortedError:
@@ -89,9 +103,7 @@ class Trainer:
         if _switch("MXTPU_ZERO"):
             raise _not_ported("ZeRO-1 sharded optimizer state (MXTPU_ZERO)",
                               "A10")
-        if str(env.get("MXTPU_NUMERICS") or "").strip().lower() not in (
-                "", "off", "0", "false"):
-            raise _not_ported("the numerics plane (MXTPU_NUMERICS)", "A9")
+        _numerics.spec()   # the strict parse: a malformed value raises
         self._params: List[Parameter] = []
         for p in params:
             if not isinstance(p, Parameter):
@@ -106,6 +118,9 @@ class Trainer:
         self._chaos_step = 0  # step clock for env-driven chaos plans
         self.last_update_dispatches = 0
         self.last_allreduce_collectives = 0
+        # numerics plane: the last sampled update's stats matrices,
+        # [(param_names, (n, 6) device matrix)] per bucket, un-fetched
+        self.last_numerics_stats = None
         self._last_fused_indices: List[int] = []
         self._last_fused_created: List[int] = []
 
@@ -259,6 +274,7 @@ class Trainer:
         chunk order (the graph reads them from one device vector: Adam's
         bias-corrected lr changes every step)."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        self.last_numerics_stats = None
         live = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
         rank_chunks, created, handled = [], [], []
@@ -279,6 +295,9 @@ class Trainer:
         return live, rank_chunks, lr_list, wd_list
 
     def _update(self, ignore_stale_grad=False, sentinel=False):
+        # stale sampled stats must not outlive their step: FitLoop reads
+        # this attribute right after the update call
+        self.last_numerics_stats = None
         updater = self._updaters[0]
         live = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
@@ -308,14 +327,21 @@ class Trainer:
             # parameter, so decline without touching any
             return None
         handled, flag = set(), None
+        stats_out = None
         if agg > 0 and todo:
             if sentinel:
+                # numerics plane: one consume-once sampling decision per
+                # step, taken only when a grouped call runs (a per-
+                # parameter step leaves it to the caller's fallback)
+                stats_out = [] if _numerics.collect_spec() is not None \
+                    else None
                 # the flag covers every live gradient, stale ones skipped
                 # under ignore_stale_grad included, as the classic host
                 # check does
                 grads = [p.grad()._data for _, p in live]
                 idxs, n, flag, created = _grouped.grouped_update(
-                    updater, todo, agg, sentinel=True, sentinel_grads=grads)
+                    updater, todo, agg, sentinel=True, sentinel_grads=grads,
+                    stats_out=stats_out)
                 handled = set(idxs)
                 self._last_fused_indices = idxs
                 self._last_fused_created = created
@@ -324,15 +350,25 @@ class Trainer:
                 dense = [(i, p) for i, p in todo
                          if _grouped.eligible(updater, [(i, p)])]
                 if dense:
-                    idxs, n, _, _ = _grouped.grouped_update(updater, dense,
-                                                            agg)
+                    # collect only when the grouped call covers every
+                    # live parameter: a partial set would publish an
+                    # under-counted global norm
+                    if len(dense) == len(todo):
+                        stats_out = [] if _numerics.collect_spec() \
+                            is not None else None
+                    idxs, n, _, _ = _grouped.grouped_update(
+                        updater, dense, agg, stats_out=stats_out)
                     handled = set(idxs)
                     self.last_update_dispatches += n
+        if stats_out:
+            self.last_numerics_stats = stats_out
         for i, p in todo:
             if i not in handled:
                 updater(i, p.grad(), p.data())
                 self.last_update_dispatches += 1
             p._fresh_grad = False
+        if self.last_update_dispatches:
+            _update_dispatch_counter().inc(self.last_update_dispatches)
         return flag
 
     def get_states_bytes(self) -> bytes:

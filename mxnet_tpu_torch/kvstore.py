@@ -58,6 +58,13 @@ def _retry_op(what: str, fn):
             return fn()
         except TransientKVError as e:
             attempt += 1
+            # retries are rare by construction: the registry lookup is
+            # off the happy path
+            from .telemetry import default_registry
+            default_registry().counter(
+                "mxtpu_kv_retries_total",
+                "kvstore push/pull retries after TransientKVError.",
+                label="op").inc(label_value=what)
             if attempt > max_retries:
                 raise MXNetError(
                     f"kvstore {what} still failing after {max_retries} "

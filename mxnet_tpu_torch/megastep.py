@@ -56,9 +56,18 @@ grouped rule and aggregation 0 are refused at construction, and a live
 parameter that gets no gradient raises at the first (eager) step, which
 is then rolled back. Sparse parameters cannot be built in the port
 (A11). Not ported, raising ``NotPortedError``: simulated ZeRO worlds
-(``MXTPU_ZERO_WORLD``, A10); ``MXTPU_EFFICIENCY`` / ``MXTPU_NUMERICS``
-raise at ``FitLoop.fit`` (A9). ``MXTPU_COMM_OVERLAP`` is superseded, as
-in the JAX package.
+(``MXTPU_ZERO_WORLD``, A10). ``MXTPU_COMM_OVERLAP`` is superseded, as in
+the JAX package.
+
+Telemetry. The eager body of the cold call runs under a counting scope
+(``telemetry.efficiency``): the graph's cost and footprint are recorded
+once per signature (kind ``megastep``), since a replay runs nothing the
+counter can see; the capture's seconds land in the registry's compile
+counters. With ``MXTPU_EFFICIENCY`` on each replay is one dispatch note.
+On a ``MXTPU_NUMERICS`` sampled step the body also computes every
+bucket's stats matrix into static buffers: ``collect`` is part of the
+signature, so the cache holds a second graph, the stats variant, and an
+unsampled step replays the stats-free one at no cost.
 
 Randomness: a random op in the body draws from a generator the graph
 advances on every replay (PyTorch registers the default CUDA generator
@@ -81,6 +90,10 @@ from .log import get_logger
 from .ndarray.ndarray import NDArray
 from .ops.registry import NotPortedError
 from .optimizer import grouped as _grouped
+from .telemetry import efficiency as _efficiency
+from .telemetry import memory as _memory
+from .telemetry import numerics as _numerics
+from .telemetry.registry import note_compile
 
 __all__ = ["megastep_requested", "Megastep", "cache_info",
            "donation_supported"]
@@ -122,14 +135,16 @@ class _Entry:
     """One signature: static inputs and outputs, the graph and its
     stream, the tensors the graph captured, and the host ms its capture
     took."""
-    __slots__ = ("ready", "x", "y", "scal", "flag", "loss", "graph",
-                 "stream", "ptrs", "states", "capture_ms")
+    __slots__ = ("ready", "x", "y", "scal", "flag", "loss", "smats",
+                 "graph", "stream", "ptrs", "states", "capture_ms", "label")
 
     def __init__(self):
         self.ready = False
         self.graph = None
         self.stream = None
         self.capture_ms = None
+        self.smats = None
+        self.label = None
 
 
 def _block_generators(net) -> List[torch.Generator]:
@@ -195,9 +210,10 @@ class Megastep:
         self._cache = cache
 
     # -- signature -------------------------------------------------------
-    def _signature(self, rank_chunks, x, y):
+    def _signature(self, rank_chunks, x, y, collect):
         """What the graph bakes in. lr, wd, rescale, the loss scale and
-        the poison are inputs, not keys."""
+        the poison are inputs, not keys; ``collect`` (the numerics stats
+        variant) is a key."""
         tr = self._trainer
         psig = tuple((tuple(p.tensor.shape), p.tensor.dtype, p.grad_req)
                      for p in tr._params)
@@ -212,7 +228,7 @@ class Megastep:
                 self._rule.statics(tr._optimizer),
                 _grouped.aggregation_size(), psig, plan_sig, xsig, ysig,
                 bool(env.get("MXTPU_FUSED_EPILOGUE")),
-                bool(env.get("MXNET_SAFE_ACCUMULATION")))
+                bool(env.get("MXNET_SAFE_ACCUMULATION")), bool(collect))
 
     # -- the step body ---------------------------------------------------
     def _body(self, e, live, rank_chunks, n, check_stale: bool) -> None:
@@ -251,17 +267,21 @@ class Megastep:
                 g.copy_(torch.where(poison, fill.to(g.dtype), g))
             flag = _grouped.global_finite_flag(grads)
         updater = tr._updaters[0]
+        stats = [] if e.smats is not None else None
         off = 0
         for chunks in rank_chunks:
             for chunk in chunks:
                 k = len(chunk)
                 _grouped.apply_chunk(updater, self._rule, chunk,
                                      lrs[off:off + k], wds[off:off + k],
-                                     rescale, sentinel=True, flag=flag)
+                                     rescale, sentinel=True, flag=flag,
+                                     stats_out=stats)
                 off += k
         with torch.no_grad():
             e.flag.copy_(flag)
             e.loss.copy_(loss.mean()._data)
+            for buf, (_names, mat) in zip(e.smats or (), stats or ()):
+                buf.copy_(mat)
 
     # -- entry state -----------------------------------------------------
     def _ptrs(self, live):
@@ -308,6 +328,9 @@ class Megastep:
                 poison, fill = True, float("nan")
             elif plan.should("inf_grad"):
                 poison, fill = True, float("inf")
+        # numerics plane: one consume-once sampling decision per step; a
+        # sampled step replays the stats variant of the graph
+        collect = _numerics.collect_spec() is not None
         live, rank_chunks, lr_list, wd_list = tr.megastep_plan(
             bs * loss_scale)
         handles = [h for chunks in rank_chunks for chunk in chunks
@@ -320,11 +343,18 @@ class Megastep:
             lr_list + wd_list + [float(tr._optimizer.rescale_grad),
                                  float(loss_scale), float(poison),
                                  float(fill)], dtype=torch.float32)
-        e = self._cache.get_or_insert(
-            self._signature(rank_chunks, x, y), _Entry)
+        sig = self._signature(rank_chunks, x, y, collect)
+        e = self._cache.get_or_insert(sig, _Entry)
         if not e.ready:
             self._rw.acquire_write()
             try:
+                e.label = (f"megastep:{self._rule.name}:"
+                           f"{_grouped._digest(sig)}")
+                if collect:
+                    e.smats = [torch.empty((len(chunk), 6),
+                                           dtype=torch.float32, device=dev)
+                               for chunks in rank_chunks
+                               for chunk in chunks]
                 self._cold(e, live, handles, rank_chunks, n, x, y, scal,
                            dev)
             finally:
@@ -338,8 +368,19 @@ class Megastep:
                 self._rw.release_read()
         for _i, p in live:
             p._fresh_grad = False
+        if collect:
+            names = [tuple(ent[1].name for ent in chunk)
+                     for chunks in rank_chunks for chunk in chunks]
+            tr.last_numerics_stats = list(zip(names, e.smats))
         tr.last_update_dispatches = 1
         tr.last_allreduce_collectives = 0
+        from .gluon.trainer import _update_dispatch_counter
+        _update_dispatch_counter().inc(1)
+        if _efficiency.notes_on():
+            label = e.label
+            _efficiency.note_dispatch(
+                ("megastep", id(e)), "megastep", label,
+                lambda: _memory.get_program("megastep", label))
         return e.flag, e.loss
 
     @staticmethod
@@ -361,19 +402,20 @@ class Megastep:
         e.loss = torch.empty((), dtype=torch.float32, device=dev)
         self._load(e, x, y, scal)
         if dev.type != "cuda":
-            self._body(e, live, rank_chunks, n, check_stale=True)
+            self._counted_body(e, live, handles, rank_chunks, n, dev)
         else:
             cur = torch.cuda.current_stream(dev)
             e.stream = torch.cuda.Stream(dev)
             e.stream.wait_stream(cur)
             with torch.cuda.stream(e.stream):
-                self._body(e, live, rank_chunks, n, check_stale=True)
+                self._counted_body(e, live, handles, rank_chunks, n, dev)
                 graph = torch.cuda.CUDAGraph()
                 for gen in _block_generators(self._net):
                     graph.register_generator_state(gen)
                 t0 = time.perf_counter()
                 try:
-                    with torch.cuda.graph(graph, stream=e.stream):
+                    with torch.cuda.graph(graph, stream=e.stream), \
+                            _efficiency.program_scope():
                         self._body(e, live, rank_chunks, n,
                                    check_stale=False)
                 except Exception as err:
@@ -381,16 +423,31 @@ class Megastep:
                         f"megastep: CUDA graph capture of the training "
                         f"step failed: {err}") from err
                 e.capture_ms = 1e3 * (time.perf_counter() - t0)
+                note_compile("graph_capture", e.capture_ms / 1e3, e.label)
             cur.wait_stream(e.stream)
             e.graph = graph
         e.ptrs = self._ptrs(live)
         e.states = [h._data for h in handles]
         e.ready = True
 
+    def _counted_body(self, e, live, handles, rank_chunks, n, dev) -> None:
+        """The cold call's eager body, counted: the graph's cost and
+        footprint, recorded once per signature (kind ``megastep``)."""
+        with _efficiency.counting(dev) as c, _efficiency.program_scope():
+            self._body(e, live, rank_chunks, n, check_stale=True)
+        tr = self._trainer
+        args = [p.tensor for p in tr._params] + \
+            [_grouped._grad_nd(p)._data for _i, p in live] + \
+            [h._data for h in handles] + \
+            [t for t in (e.x, e.y, e.scal) if t is not None]
+        outs = [e.flag, e.loss] + list(e.smats or ())
+        _memory.record_program("megastep", e.label, c.stats(args, outs))
+
     def _warm(self, e, live, rank_chunks, n, x, y, scal, dev) -> None:
         self._load(e, x, y, scal)
         if e.graph is None:
-            self._body(e, live, rank_chunks, n, check_stale=False)
+            with _efficiency.program_scope():
+                self._body(e, live, rank_chunks, n, check_stale=False)
             return
         cur = torch.cuda.current_stream(dev)
         e.stream.wait_stream(cur)

@@ -82,9 +82,11 @@ def build(names=SOURCES) -> dict:
              os.path.join(_CSRC, f"{n}.cu"), *extra, *rpath],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
+    from ..telemetry.registry import note_compile
     for n, (tmp, t0, proc) in procs.items():
         log, _ = proc.communicate()
         build_seconds[n] = time.perf_counter() - t0
+        note_compile("nvcc", build_seconds[n], f"{n}.cu")
         if proc.returncode != 0:
             failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue

@@ -27,7 +27,9 @@ PyTorch version ``_flash_plain`` for CPU tensors; any other device raises.
 Nothing falls back from a kernel to the plain version or to the other
 kernel. The wrapper adds one to ``launches["flash_fwd"]`` for every kernel
 launch and one to ``launches["flash_fwd_tc"]`` or
-``launches["flash_fwd_general"]`` for its route.
+``launches["flash_fwd_general"]`` for its route, and reports the launch's
+cost (``kernel_cost.flash_report``) to any open counting scope of the
+efficiency plane.
 
 Registry names (ref: ``pallas_kernels.py:170-185, 471-480``):
 ``_contrib_flash_attention`` / ``flash_attention`` is this op, so
@@ -43,7 +45,8 @@ import math
 import torch
 
 from ..base import MXNetError, check
-from . import _build
+from ..telemetry import efficiency as _efficiency
+from . import _build, kernel_cost
 from .registry import register
 
 __all__ = ["flash_attention", "flash_fwd", "flash_route", "launches",
@@ -171,12 +174,21 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 strides, b, t, h, d, float(scale), int(bool(causal)),
                 _DTYPE_CODE[q.dtype], _unit((q, k, v)), stream)
+    _ok(route, err, q)
+    return o
+
+
+def _ok(route, err, q):
+    """Raise on a failed launch; count a launch that ran and report its
+    cost to an open counting scope."""
     if err != 0:
         raise MXNetError(f"flash_fwd: CUDA kernel launch failed on the "
                          f"{route} route (cudaError {err})")
     launches["flash_fwd"] += 1
     launches[f"flash_fwd_{route}"] += 1
-    return o
+    if _efficiency.OPEN[0]:
+        _efficiency.report_kernel(*kernel_cost.flash_report(
+            *q.shape, q.element_size()), f"flash_fwd_{route}")
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -29,7 +29,10 @@ different streams never share a counter.
 Device rule: each wrapper runs its kernel for CUDA tensors and its plain
 PyTorch version (``_bn_stats_plain`` ...) for CPU tensors; any other device
 raises. Nothing falls back from the kernel to the plain version. Each
-wrapper adds one to ``launches[<name>]`` when it launches its kernel.
+wrapper adds one to ``launches[<name>]`` when it launches its kernel, and
+reports the launch's bytes (``kernel_cost.bn_report``) to any open
+counting scope of the efficiency plane (one flag check when none is
+open); the plain version's ops are counted by the scope itself.
 
 Under CUDA-graph capture (``SPMDTrainer.run_steps``). A wrapper called
 while its stream captures records its kernel into the graph and launches
@@ -51,7 +54,8 @@ import ctypes
 import torch
 
 from ..base import MXNetError, check
-from . import _build
+from ..telemetry import efficiency as _efficiency
+from . import _build, kernel_cost
 
 __all__ = ["fused_bn_act", "bn_stats", "bn_apply", "bn_bwd_stats",
            "bn_bwd_apply", "launches", "reset_launches"]
@@ -220,14 +224,19 @@ def _stream(x):
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def _ok(name, err):
+def _ok(name, err, x2d, has_res=False):
     """Raise on a failed launch; count a launch that ran (not one
-    recorded into a CUDA graph)."""
+    recorded into a CUDA graph) and report its cost to an open counting
+    scope."""
     if err != 0:
         raise MXNetError(f"{name}: CUDA kernel launch failed "
                          f"(cudaError {err})")
     if not torch.cuda.is_current_stream_capturing():
         launches[name] += 1
+        if _efficiency.OPEN[0]:
+            r, c = x2d.shape
+            _efficiency.report_kernel(*kernel_cost.bn_report(
+                name, r, c, x2d.element_size(), has_res), name)
 
 
 def _reduction_args(*rows):
@@ -273,7 +282,7 @@ def bn_stats(x2d):
     with torch.cuda.device(x2d.device):
         sums, args = _reduction_args(x2d)
         err = _lib().mxt_bn_stats(x2d.data_ptr(), *args)
-        _ok("bn_stats", err)
+        _ok("bn_stats", err, x2d)
     return sums
 
 
@@ -295,7 +304,7 @@ def bn_apply(x2d, res2d, coef):
             x2d.data_ptr(), None if res2d is None else res2d.data_ptr(),
             coef.data_ptr(), out.data_ptr(), r, c, _DTYPE_CODE[x2d.dtype],
             wide, tx, ty, chunks, rpc, _stream(x2d))
-        _ok("bn_apply", err)
+        _ok("bn_apply", err, x2d, res2d is not None)
     return out
 
 
@@ -310,7 +319,7 @@ def bn_bwd_stats(dy2d, out2d, x2d, coef):
         sums, args = _reduction_args(x2d, dy2d, out2d)
         err = _lib().mxt_bn_bwd_stats(dy2d.data_ptr(), out2d.data_ptr(),
                                       x2d.data_ptr(), coef.data_ptr(), *args)
-        _ok("bn_bwd_stats", err)
+        _ok("bn_bwd_stats", err, x2d)
     return sums
 
 
@@ -335,7 +344,7 @@ def bn_bwd_apply(dy2d, out2d, x2d, coef, has_res):
             coef.data_ptr(), dx.data_ptr(),
             None if dres is None else dres.data_ptr(), r, c,
             _DTYPE_CODE[x2d.dtype], wide, tx, ty, chunks, rpc, _stream(x2d))
-        _ok("bn_bwd_apply", err)
+        _ok("bn_bwd_apply", err, x2d, has_res)
     return (dx, dres) if has_res else dx
 
 

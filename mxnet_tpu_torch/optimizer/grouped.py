@@ -24,22 +24,37 @@ step created.
 ``cache_info`` / ``clear_cache`` count the bucket kernels built per rule,
 hyper-parameters, multi-precision and statefulness: a kernel is a closure
 over these alone, so a change of learning rate, batch size or shapes
-reuses it. Not ported:
-``program_memory`` (compiled-program memory, ROADMAP A9) and
-``sparse_rows_update`` (row-sparse tables, A11) raise ``NotPortedError``.
+reuses it.
+
+Telemetry. A bucket program (one signature: rule, hyper-parameters,
+guard, stats, the tensors' shapes and dtypes) and the finiteness
+reduction are counted the first time they run
+(``telemetry.efficiency.CostCounter``) and recorded in the program
+registry (kind ``optimizer``), which :func:`program_memory` reads; with
+``MXTPU_EFFICIENCY`` on each launch is noted in the step window. With
+``stats_out`` (a ``MXTPU_NUMERICS`` sampled step) a bucket also computes
+its ``(n_params, 6)`` stats matrix (``telemetry.numerics.stats_rows``)
+from the tensors its update reads and the new weights it computed, before
+they are written. Not ported: ``sparse_rows_update`` (row-sparse tables,
+A11) raises ``NotPortedError``.
 """
 from __future__ import annotations
 
+import hashlib
+import weakref
 from collections import OrderedDict
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from ..base import MXNetError, check, env
 from ..cached_op import CacheInfo
 from ..ops import optimizer_ops as _ops
 from ..ops.registry import NotPortedError
+from ..telemetry import efficiency as _efficiency
 from ..telemetry import memory as _memory
+from ..telemetry import numerics as _numerics
 from .optimizer import adam_lr
 
 __all__ = ["aggregation_size", "eligible", "grouped_update",
@@ -206,10 +221,84 @@ def _get_or_build(sig, build):
     return fn
 
 
-def program_memory(refresh: bool = False):
-    raise NotPortedError(
-        "grouped.program_memory (compiled-program memory analysis) is not "
-        "ported yet (ROADMAP.md, queue A9)")
+#: first tensor of a program's list -> {key: (weakref to its last tensor,
+#: registry label)}
+_LABELS = WeakTensorKeyDictionary()
+_COUNTED: set = set()               # labels counted in this process
+
+
+def _digest(sig) -> str:
+    return hashlib.md5(repr(sig).encode()).hexdigest()[:12]
+
+
+def _label(prefix: str, key, tensors, sig: Callable[[], Any]) -> str:
+    """The registry label of the program over ``tensors``: ``prefix`` and
+    the digest of ``sig()`` (the shapes and dtypes it runs on). ``sig`` is
+    built only the first time: later steps pass the same persistent
+    weight or gradient tensors, found by the first one's identity,
+    ``key`` (which holds the list's length) and the last one's."""
+    memo = _LABELS.get(tensors[0]) if tensors else None
+    hit = memo.get(key) if memo is not None else None
+    if hit is not None and hit[0]() is tensors[-1]:
+        return hit[1]
+    label = f"{prefix}:{_digest(sig())}"
+    if tensors:
+        if memo is None:
+            memo = _LABELS[tensors[0]] = {}
+        memo[key] = (weakref.ref(tensors[-1]), label)
+    return label
+
+
+def _run_counted(label, n_params, run, arguments, outputs, note_label):
+    """``run()`` as one launch of the program ``("optimizer", label)``:
+    counted and recorded the first time (never under a CUDA-graph
+    capture, which executes nothing), noted in the efficiency plane's
+    step window (as ``note_label``, the JAX package's) when it is on.
+    Inside an enclosing program (``efficiency.program_scope``: the
+    megastep) it is neither: that program counts and notes it.
+    ``arguments`` is a callable, evaluated only when counting."""
+    if _efficiency.in_program():
+        return run()
+    if label not in _COUNTED and \
+            not (torch.cuda.is_available() and
+                 torch.cuda.is_current_stream_capturing()):
+        _COUNTED.add(label)
+        args = arguments()
+        dev = args[0].device if args else None
+        with _efficiency.counting(dev) as c:
+            res = run()
+        _memory.record_program("optimizer", label, dict(
+            c.stats(args, outputs(res)),
+            signature=label.rsplit(":", 1)[1], params=n_params))
+    else:
+        res = run()
+    if _efficiency.spec():
+        _efficiency.note_dispatch(
+            ("optimizer", label), "optimizer", note_label,
+            lambda: _memory.get_program("optimizer", label))
+    return res
+
+
+def program_memory(refresh: bool = False) -> Dict[str, dict]:
+    """Memory attribution of every bucket program and finiteness
+    reduction that has run: ``{signature_digest: {argument_bytes,
+    output_bytes, temp_bytes, alias_bytes, generated_code_bytes, flops,
+    bytes_accessed, signature, params}}`` from the program registry (kind
+    ``optimizer``), each counted on its first execution. ``refresh``
+    drops the records, so each program is counted again the next time it
+    runs."""
+    out: Dict[str, dict] = {}
+    for row in _memory.program_report(None):
+        if row.get("kind") != "optimizer":
+            continue
+        if refresh:
+            _memory.drop_program("optimizer", row["label"])
+            _COUNTED.discard(row["label"])
+            continue
+        if "argument_bytes" in row and "signature" in row:
+            out[row["signature"]] = {k: v for k, v in row.items()
+                                     if k not in ("kind", "label")}
+    return out
 
 
 def global_finite_flag(grads) -> torch.Tensor:
@@ -217,9 +306,18 @@ def global_finite_flag(grads) -> torch.Tensor:
     is 0 where g is finite and NaN where it is not, so the sum of each
     tensor's L1 norm of it is 0 or NaN, whatever the gradients'
     magnitude. Nothing is fetched to the host."""
-    zeros = torch._foreach_mul(list(grads), 0.0)
-    norms = torch._foreach_norm(zeros, 1)
-    return torch.stack([n.float() for n in norms]).sum() == 0
+    grads = list(grads)
+
+    def run():
+        zeros = torch._foreach_mul(grads, 0.0)
+        norms = torch._foreach_norm(zeros, 1)
+        return torch.stack([n.float() for n in norms]).sum() == 0
+
+    name = f"finite_flag:{len(grads)}"
+    label = _label(name, ("finite", len(grads)), grads, lambda: (
+        "finite", tuple((tuple(g.shape), g.dtype) for g in grads)))
+    return _run_counted(label, len(grads), run, lambda: grads,
+                        lambda r: (r,), name)
 
 
 # ---------------------------------------------------------------------------
@@ -303,14 +401,16 @@ def chunk_prepared(prepared, agg_size: int):
 
 
 def apply_chunk(updater, rule, chunk, lrs, wds, rescale,
-                sentinel: bool = False, flag=None):
+                sentinel: bool = False, flag=None, stats_out=None):
     """Device half for ONE chunk: its bucket kernel (cached by rule) on
     the chunk's tensors, written in place, guarded by ``flag`` when
     ``sentinel``. ``lrs`` / ``wds`` are the chunk's per-parameter scalars
     and ``rescale`` the gradient scale: Python floats, or (the megastep's
     CUDA graph, whose inputs change every step) a float32 device vector
     slice each and a 0-d float32 device tensor, which round alike
-    (``optimizer_ops.scalar``). Returns the handled indices."""
+    (``optimizer_ops.scalar``). ``stats_out``: a list to append
+    ``(param_names, (n, 6) f32 device matrix)`` to (a numerics sampled
+    step). Returns the handled indices."""
     opt = updater.optimizer
     ws = [e[1].tensor for e in chunk]
     gs = [_grad_nd(e[1])._data for e in chunk]
@@ -323,26 +423,47 @@ def apply_chunk(updater, rule, chunk, lrs, wds, rescale,
         k = rule.make_kernel(opt, has_state)
         return _ops.mp(k) if mp else k
 
-    kernel = _get_or_build((rule.name, rule.statics(opt), mp, has_state),
-                           build)
-    with torch.no_grad():
-        if not isinstance(rescale, torch.Tensor):
-            lrs, wds, rescale = list(lrs), list(wds), float(rescale)
-        nw, ns = kernel(ws, gs, states, lrs, wds, rescale)
-        _ops.commit(ws + [s for slot in states for s in slot],
-                    list(nw) + [s for slot in ns for s in slot],
-                    flag if sentinel else None)
+    statics = rule.statics(opt)
+    kernel = _get_or_build((rule.name, statics, mp, has_state), build)
+    collect = stats_out is not None
+    key = (rule.name, statics, mp, has_state, bool(sentinel), collect)
+
+    def run():
+        nonlocal lrs, wds, rescale
+        with torch.no_grad():
+            if not isinstance(rescale, torch.Tensor):
+                lrs, wds, rescale = list(lrs), list(wds), float(rescale)
+            nw, ns = kernel(ws, gs, states, lrs, wds, rescale)
+            mat = _numerics.stats_rows(ws, gs, nw) if collect else None
+            _ops.commit(ws + [s for slot in states for s in slot],
+                        list(nw) + [s for slot in ns for s in slot],
+                        flag if sentinel else None)
+        return mat
+
+    label = _label(rule.name, (*key, len(ws)), ws, lambda: (
+        *key, tuple((tuple(t.shape), t.dtype)
+                    for t in ws + gs + [s for slot in states for s in slot])))
+    mat = _run_counted(label, len(chunk), run,
+                       lambda: ws + gs + [s for slot in states for s in slot],
+                       lambda m: ws + [s for slot in states for s in slot]
+                       + ([m] if m is not None else []),
+                       f"{rule.name}:bucket{len(chunk)}")
+    if collect:
+        stats_out.append((tuple(e[1].name for e in chunk), mat))
     return [e[0] for e in chunk]
 
 
 def grouped_update(updater, items, agg_size: int, sentinel: bool = False,
-                   sentinel_grads=None):
+                   sentinel_grads=None, stats_out=None):
     """One aggregated optimizer step over ``items`` ([(index, Parameter)]
     with fresh dense gradients).
 
     ``sentinel_grads``: the gradient tensors the finiteness flag covers
     (the caller's whole live set, which may be wider than ``items``);
     default the items' own.
+
+    ``stats_out``: a list collecting each bucket's numerics stats
+    (:func:`apply_chunk`); None for the stats-free programs.
 
     Returns ``(handled_indices, n_dispatches, finite_flag, created)``:
     ``finite_flag`` is the device flag when ``sentinel``, else None;
@@ -360,7 +481,8 @@ def grouped_update(updater, items, agg_size: int, sentinel: bool = False,
     for chunk in chunks:
         handled += apply_chunk(updater, rule, chunk, [e[4] for e in chunk],
                                [e[5] for e in chunk], opt.rescale_grad,
-                               sentinel=sentinel, flag=flag)
+                               sentinel=sentinel, flag=flag,
+                               stats_out=stats_out)
     return handled, len(chunks), flag, created
 
 

@@ -73,8 +73,20 @@ here as under ``autograd.record()``.
 Each call returns a clone of the static losses. On the CPU ``run_steps``
 is a loop over ``step``. Only ``mesh=None`` is ported; ``plan=`` (a
 sharding plan over a mesh) raises ``NotPortedError`` (ROADMAP A10).
+
+Telemetry. The first call of a signature (the K eager steps before the
+capture; on the CPU the first loop) runs under a counting scope
+(``telemetry.efficiency``): :meth:`SPMDTrainer.program_stats` reads the
+K-step program's cost and footprint (and, ``step=True``, its first
+step's, kept on the trainer), and the program registry holds the
+program (kind ``spmd``). The
+capture's seconds land in the registry's compile counters; with
+``MXTPU_EFFICIENCY`` on every call is one dispatch note.
 """
 from __future__ import annotations
+
+import hashlib
+import time
 
 import numpy as np
 import torch
@@ -84,6 +96,9 @@ from .. import autograd
 from ..base import MXNetError, check
 from ..ndarray.ndarray import NDArray
 from ..ops.registry import NotPortedError
+from ..telemetry import efficiency as _efficiency
+from ..telemetry import memory as _memory
+from ..telemetry.registry import note_compile
 from ..util import mirror_wrapper
 
 __all__ = ["SPMDTrainer"]
@@ -135,6 +150,8 @@ class SPMDTrainer:
         self._state = None       # sgd: momenta or None; adam: (m, v)
         self._t = None           # adam: device step count (int32)
         self._graphs = {}        # signature -> _StepGraph
+        self._programs = {}      # signature -> (label, stats, 1st step's)
+        self._last_program = None
 
     def _collect(self, sample):
         items = sorted(self.block.collect_params().items())
@@ -277,15 +294,85 @@ class SPMDTrainer:
         module docstring)."""
         data, label = self._inputs(data, label, steps=True)
         dev = self._trainable[0][1].tensor.device
+        sig = ("multi", tuple((tuple(a.shape), a.dtype)
+                              for a in (data, label)))
         if dev.type != "cuda":
-            return torch.stack([self._step(data[k].to(dev),
-                                           label[k].to(dev))
-                                for k in range(data.shape[0])])
-        return self._graph_steps(data, label, dev)
+            def loop(count_first=False):
+                out, first = [], None
+                for k in range(data.shape[0]):
+                    d, lb = data[k].to(dev), label[k].to(dev)
+                    if count_first and k == 0:
+                        with _efficiency.counting(dev) as c1:
+                            out.append(self._step(d, lb))
+                        first = (c1, (d, lb), out[-1:])
+                    else:
+                        out.append(self._step(d, lb))
+                return torch.stack(out), first
+            if sig in self._programs:
+                losses = loop()[0]
+            else:
+                with _efficiency.counting(dev) as c, \
+                        _efficiency.program_scope():
+                    losses, first = loop(count_first=True)
+                self._record(sig, (c, (data, label), (losses,)), first)
+        else:
+            losses = self._graph_steps(data, label, dev, sig)
+        self._last_program = sig
+        if _efficiency.notes_on():
+            lbl = self._programs[sig][0]
+            _efficiency.note_dispatch(
+                ("spmd", id(self), sig), "spmd", lbl,
+                lambda: _memory.get_program("spmd", lbl))
+        return losses
 
-    def _k_steps(self, g):
+    def _record(self, sig, program, first) -> None:
+        """Keep a counted K-step run, ``program``, and its counted first
+        step, ``first`` (each ``(counter, inputs, outputs)``), on the
+        trainer, and record the K-step program in the program registry
+        (kind ``spmd``). The first step is part of that program, so it is
+        not a registry record of its own. The label holds everything that
+        sets the program apart: the block's
+        ``efficiency.block_signature``, the loss, the optimizer and its
+        state, remat, and the data's shapes and dtypes."""
+        key = (sig, _efficiency.block_signature(self.block),
+               type(self.loss_fn).__name__, self.optimizer,
+               self.momentum != 0.0, self.remat)
+        lbl = f"{type(self.block).__name__}:" + \
+            hashlib.md5(repr(key).encode()).hexdigest()[:12]
+        state = self._state_tensors()
+        stats = [c.stats([*state, *inputs], outputs)
+                 for c, inputs, outputs in (program, first)]
+        self._programs[sig] = (lbl, *stats)
+        _memory.record_program("spmd", lbl, stats[0])
+
+    def program_stats(self, step: bool = False) -> dict:
+        """Counted cost of the most recent ``run_steps`` program (the
+        K-step CUDA graph on a card), from its first call's observed run:
+        ``{"flops", "bytes_accessed", "argument_bytes", "temp_bytes"}``
+        (the JAX package's keys). ``step=True``: its first step alone."""
+        if self._last_program is None:
+            raise MXNetError(
+                "program_stats: no fused step program dispatched yet — "
+                "call run_steps() first")
+        _lbl, program, first = self._programs[self._last_program]
+        stats = first if step else program
+        return {"flops": float(stats["flops"]),
+                "bytes_accessed": float(stats["bytes_accessed"]),
+                "argument_bytes": int(stats["argument_bytes"]),
+                "temp_bytes": int(stats["temp_bytes"])}
+
+    def _k_steps(self, g, count_first=False):
+        """The K steps over the static buffers; with ``count_first`` the
+        first runs in a counting scope of its own, which is returned."""
+        c1 = None
         for k in range(g.data.shape[0]):
-            g.losses[k].copy_(self._step(g.data[k], g.label[k]))
+            if count_first and k == 0:
+                with _efficiency.counting(g.data.device) as c1:
+                    loss = self._step(g.data[k], g.label[k])
+            else:
+                loss = self._step(g.data[k], g.label[k])
+            g.losses[k].copy_(loss)
+        return c1
 
     def _state_tensors(self):
         state = self._state or []
@@ -293,9 +380,7 @@ class SPMDTrainer:
             state = [*state[0], *state[1], self._t]
         return [*self._weights(), *(p.tensor for p in self._aux), *state]
 
-    def _graph_steps(self, data, label, dev):
-        sig = ("multi", tuple((tuple(a.shape), a.dtype)
-                              for a in (data, label)))
+    def _graph_steps(self, data, label, dev, sig):
         g = self._graphs.get(sig)
         first = g is None
         if first:
@@ -311,8 +396,14 @@ class SPMDTrainer:
         g.stream.wait_stream(cur)
         with torch.cuda.stream(g.stream):
             if first:
-                self._k_steps(g)      # the warm-up: K real steps
+                # the warm-up: K real steps, counted
+                with _efficiency.counting(dev) as c, \
+                        _efficiency.program_scope():
+                    c1 = self._k_steps(g, count_first=True)
+                self._record(sig, (c, (g.data, g.label), (g.losses,)),
+                             (c1, (g.data[0], g.label[0]), (g.losses[0],)))
                 graph = torch.cuda.CUDAGraph()
+                t0 = time.perf_counter()
                 try:
                     with torch.cuda.graph(graph, stream=g.stream):
                         self._k_steps(g)
@@ -320,6 +411,8 @@ class SPMDTrainer:
                     raise MXNetError(
                         f"SPMDTrainer.run_steps: CUDA graph capture of "
                         f"{data.shape[0]} steps failed: {e}") from e
+                note_compile("graph_capture", time.perf_counter() - t0,
+                             self._programs[sig][0])
                 g.graph = graph
                 g.ptrs = [t.data_ptr() for t in self._state_tensors()]
                 self._graphs[sig] = g

@@ -181,6 +181,8 @@ class CudaModule:
             _c_strings(self._exports), ctypes.byref(handle))
         #: NVRTC compile time of this module, in ms (host clock)
         self.compile_ms = 1e3 * (time.perf_counter() - t0)
+        from .telemetry.registry import note_compile
+        note_compile("nvrtc", self.compile_ms / 1e3, "CudaModule")
         if rc != 0:
             # a name in exports that the source lacks fails here too
             with_exports = f" with exports {list(self._exports)}" \

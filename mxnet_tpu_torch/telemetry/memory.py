@@ -21,11 +21,16 @@ exceeding ``MXTPU_MEM_BUDGET`` (checked per step by ``fit.FitLoop``), and
 on the deterministic ``mem_pressure@N[:BYTES]`` chaos event, so the dump
 path is testable on the CPU.
 
-Not ported: the compiled-program half (``compiled_memory_stats``,
-``record_program``, ``merge_program``, ``get_program``,
-``program_report``, ``program_total``, ``register_cache_programs``)
-measures XLA executables, which the port does not have; each raises
-``NotPortedError`` (ROADMAP A9).
+**Per-program attribution** (``record_program`` ... ``program_report``):
+the static footprint and cost of each program the port runs as one unit
+(a megastep graph, ``SPMDTrainer.run_steps``'s K-step graph, a grouped
+optimizer bucket, a hybridized block's forward and backward), counted on
+one observed execution by ``efficiency.CostCounter`` (the JAX package
+reads XLA's ``memory_analysis()`` instead). A program's ``temp_bytes``
+are the activations and workspaces the ledger does not see, so the
+ledger plus the programs' ``temp_bytes`` is the split of
+``torch.cuda.memory_allocated()`` the ledger alone cannot give. The
+registry gauges ``mxtpu_mem_*`` and ``mxtpu_program_*`` read both.
 
 Ledger mutations are rare (allocation-time, not per-op) and O(1); nothing
 here touches the hot dispatch path.
@@ -44,7 +49,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..base import env
-from ..ops.registry import NotPortedError
 
 __all__ = ["CATEGORIES", "MemoryLedger", "ledger", "nd_bytes",
            "compiled_memory_stats", "record_program", "merge_program",
@@ -201,11 +205,46 @@ class MemoryLedger:
 
 
 _LEDGER = MemoryLedger()
+_metrics_installed = False
+_install_lock = threading.Lock()
 
 
 def ledger() -> MemoryLedger:
-    """The process-wide ledger."""
+    """The process-wide ledger (installs registry gauges on first use)."""
+    _install_metrics()
     return _LEDGER
+
+
+def _install_metrics() -> None:
+    global _metrics_installed
+    with _install_lock:
+        if _metrics_installed:
+            return
+        _metrics_installed = True
+    try:
+        from .registry import default_registry
+        reg = default_registry()
+        reg.callback_gauge(
+            "mxtpu_mem_live_bytes", _LEDGER.live_bytes,
+            "Live framework-attributed device bytes (memory ledger).")
+        reg.callback_gauge(
+            "mxtpu_mem_peak_bytes", lambda: _LEDGER.peak_bytes,
+            "Process-lifetime peak of the memory-ledger total.")
+        for cat in CATEGORIES:
+            reg.callback_gauge(
+                f"mxtpu_mem_{cat}_bytes",
+                (lambda c=cat: _LEDGER.live_bytes(c)),
+                f"Live device bytes attributed to category '{cat}'.")
+        reg.callback_gauge(
+            "mxtpu_program_temp_bytes", lambda: _program_total("temp_bytes"),
+            "Temp (workspace / activation) bytes over recorded programs "
+            "(one counted execution each).")
+        reg.callback_gauge(
+            "mxtpu_program_argument_bytes",
+            lambda: _program_total("argument_bytes"),
+            "Argument bytes over recorded programs.")
+    except Exception:
+        pass
 
 
 # ---------------------------------------------------------------------------
@@ -371,26 +410,100 @@ def track_ndarray(category: str, nd, owner: str = "") -> None:
 
 
 # ---------------------------------------------------------------------------
-# The compiled-program half: XLA executables, which the port does not have
+# Per-program attribution
 # ---------------------------------------------------------------------------
 
-def _program_half(name: str):
-    def fn(*args, **kwargs):
-        raise NotPortedError(
-            f"telemetry.memory.{name}: per-program memory attribution "
-            "measures compiled XLA programs and is not ported yet "
-            "(ROADMAP.md, queue A9)")
-    fn.__name__ = name
-    return fn
+_PROGRAMS: Dict[Tuple[str, str], Dict[str, Any]] = {}
+_prog_lock = threading.Lock()
 
 
-compiled_memory_stats = _program_half("compiled_memory_stats")
-record_program = _program_half("record_program")
-merge_program = _program_half("merge_program")
-get_program = _program_half("get_program")
-program_report = _program_half("program_report")
-program_total = _program_half("program_total")
-register_cache_programs = _program_half("register_cache_programs")
+def compiled_memory_stats(counter, arguments=(),
+                          outputs=()) -> Optional[Dict[str, int]]:
+    """The memory fields of one counted execution (an
+    ``efficiency.CostCounter`` that observed it) as a plain int dict;
+    None without a counter. A view over ``efficiency.program_stats``,
+    whose cost half lands in the same registry records."""
+    from .efficiency import MEMORY_FIELDS, compiled_program_stats
+    stats = compiled_program_stats(counter, arguments, outputs)
+    if stats is None or "argument_bytes" not in stats:
+        return None
+    return {k: stats[k] for k in MEMORY_FIELDS}
+
+
+def record_program(kind: str, label: str, stats: Dict[str, Any]) -> None:
+    """Record one program's footprint and cost, keyed by (kind, label),
+    e.g. ("megastep", "megastep:SGD:ab12...")."""
+    with _prog_lock:
+        _PROGRAMS[(kind, label)] = dict(stats)
+
+
+def merge_program(kind: str, label: str, stats: Dict[str, Any]) -> None:
+    """Merge fields into one program's record ATOMICALLY (under the
+    registry lock): two threads adding fields to one record must not
+    clobber each other's."""
+    with _prog_lock:
+        rec = dict(_PROGRAMS.get((kind, label)) or {})
+        rec.update(stats)
+        _PROGRAMS[(kind, label)] = rec
+
+
+def get_program(kind: str, label: str) -> Optional[Dict[str, Any]]:
+    with _prog_lock:
+        hit = _PROGRAMS.get((kind, label))
+    return dict(hit) if hit is not None else None
+
+
+def drop_program(kind: str, label: str) -> None:
+    """Forget one program's record (it is counted again when it next
+    runs)."""
+    with _prog_lock:
+        _PROGRAMS.pop((kind, label), None)
+
+
+def program_report(limit: Optional[int] = None) -> List[Dict[str, Any]]:
+    """Recorded programs ranked by temp (workspace) bytes."""
+    with _prog_lock:
+        rows = [{"kind": k, "label": lbl, **st}
+                for (k, lbl), st in _PROGRAMS.items()]
+    rows.sort(key=lambda r: -int(r.get("temp_bytes", 0)))
+    return rows[:limit] if limit else rows
+
+
+def _program_total(field: str) -> int:
+    with _prog_lock:
+        return sum(int(st.get(field, 0) or 0) for st in _PROGRAMS.values())
+
+
+def program_total(field: str) -> int:
+    """Sum of one numeric field over every recorded program (the
+    ``mxtpu_program_*`` gauges — memory fields here, cost fields via
+    ``efficiency``'s gauges)."""
+    return _program_total(field)
+
+
+def register_cache_programs(owner: str, op, stats: Dict[str, dict]) -> None:
+    """Ledger the footprint (temp + output bytes) of a signature cache's
+    programs under ``serving_cache``, freed when the owning object dies
+    and refreshed wholesale on each call (evicted signatures drop
+    out)."""
+    try:
+        # trailing ':' keeps prefix matching exact — owner 'sigcache3'
+        # must not also claim 'sigcache30' entries
+        _LEDGER.drop_owner("serving_cache", owner + ":")
+        for digest, st in stats.items():
+            _LEDGER.set("serving_cache", (owner, digest),
+                        int(st.get("temp_bytes", 0)) +
+                        int(st.get("output_bytes", 0)),
+                        owner=f"{owner}:{digest}")
+        if not getattr(op, "_mem_finalized", False):
+            try:
+                op._mem_finalized = True
+                weakref.finalize(op, _LEDGER.drop_owner,
+                                 "serving_cache", owner + ":")
+            except Exception:
+                pass
+    except Exception:
+        pass
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +620,7 @@ def dump_forensics(reason: str, budget: Optional[int] = None,
         "peak_bytes": _LEDGER.peak_bytes,
         "categories": cats,
         "top_buffers": _LEDGER.top(20),
-        "programs": [],
+        "programs": program_report(limit=20),
         "backend_memory_stats": backend,
         "trace_window": trace_window,
     }

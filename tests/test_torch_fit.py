@@ -203,9 +203,9 @@ def test_one_transfer_a_step(tmp_path, monkeypatch):
     calls = []
     real = tfit.FitLoop._fetch
 
-    def counting(flag, loss):
+    def counting(flag, loss, nstats=None):
         calls.append(1)
-        return real(flag, loss)
+        return real(flag, loss, nstats)
 
     monkeypatch.setattr(tfit.FitLoop, "_fetch", staticmethod(counting))
     _, _, res = _run("port", str(tmp_path), 1)
@@ -511,7 +511,7 @@ def test_fitloop_ignore_stale_grad_passthrough():
     _same_result(out["port"], out["jax"])
 
 
-# ----------------------------------------------------------- not ported
+# ---------------------------------------- the planes: ported and not
 
 @pytest.mark.parametrize("flag,value,item", [
     ("MXTPU_AUTOTUNE", "on", "A9"),
@@ -524,6 +524,42 @@ def test_fitloop_ignore_stale_grad_passthrough():
 ])
 def test_unported_planes_raise_before_any_step(tmp_path, monkeypatch, flag,
                                                value, item):
+    """A10's planes raise before any step runs (nothing written, no step,
+    the handlers untouched). A9's are ported (the name and the cases are
+    kept from when they raised): the same flag runs ``FitLoop.fit`` in
+    both packages to the same trajectory and fills the same result
+    field."""
+    if item == "A9":
+        monkeypatch.setenv("MXTPU_OPTIMIZER_AGGREGATION", "4")
+        monkeypatch.setenv(flag, value)
+        out = {}
+        for pkg in ("jax", "port"):
+            cwd = tmp_path / pkg
+            cwd.mkdir()
+            monkeypatch.chdir(cwd)   # a relative report directory
+            net, _, loop = _build(pkg, None)
+            before = signal.getsignal(signal.SIGTERM)
+            out[pkg] = (net, loop.fit(epochs=2))
+            assert signal.getsignal(signal.SIGTERM) is before
+        _same_result(out["port"], out["jax"])
+        t, j = out["port"][1], out["jax"][1]
+        if flag == "MXTPU_AUTOTUNE":
+            assert [c["label"] for c in t.tuning_report["candidates"]] == \
+                [c["label"] for c in j.tuning_report["candidates"]]
+            assert sorted(t.tuning_report) == sorted(j.tuning_report)
+        elif flag == "MXTPU_EFFICIENCY":
+            assert sorted(t.efficiency) == sorted(j.efficiency)
+            assert t.efficiency["steps"] == j.efficiency["steps"] == 16
+        elif flag == "MXTPU_NUMERICS":
+            assert [r["step"] for r in t.numerics["recent"]] == \
+                [r["step"] for r in j.numerics["recent"]] == \
+                list(range(0, 16, 2))
+        else:
+            for pkg in ("jax", "port"):
+                rep = out[pkg][1].run_report
+                assert os.path.dirname(rep) == value
+                assert os.path.exists(tmp_path / pkg / rep)
+        return
     _, trainer, loop = _build("port", str(tmp_path))
     before = signal.getsignal(signal.SIGTERM)
     monkeypatch.setenv(flag, value)

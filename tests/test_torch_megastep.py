@@ -270,7 +270,9 @@ def test_megastep_incompatible_knobs_raise_as_in_jax(monkeypatch, knob,
 def test_megastep_refusals_the_port_raises_earlier(monkeypatch):
     """Compression and sparse parameters cannot be built in the port
     (A10, A11); simulated ZeRO worlds under the megastep raise naming
-    A10; the efficiency and numerics planes raise at FitLoop.fit (A9)."""
+    A10. The efficiency and numerics planes run under the megastep: one
+    dispatch note a step, the stats variant on sampled steps, and the
+    trajectory of the plane-off run."""
     _mega(monkeypatch, True)
     net = _port_net()
     with pytest.raises(NotPortedError, match="A10"):
@@ -283,11 +285,20 @@ def test_megastep_refusals_the_port_raises_earlier(monkeypatch):
     with pytest.raises(NotPortedError, match="A10"):
         tmegastep.Megastep(net, tr, mt.gluon.loss.L2Loss())
     monkeypatch.delenv("MXTPU_ZERO_WORLD")
+    off = _fit(monkeypatch, True)
     for flag, value in (("MXTPU_EFFICIENCY", "on"),
                         ("MXTPU_NUMERICS", "on,every=2")):
         monkeypatch.setenv(flag, value)
-        with pytest.raises(NotPortedError, match="A9"):
-            _fit(monkeypatch, True)
+        res = _fit(monkeypatch, True)
+        assert res.losses == off.losses
+        if flag == "MXTPU_EFFICIENCY":
+            eff = res.efficiency
+            assert eff["steps"] == 4 and eff["flops_per_step"] > 0
+            assert [p["kind"] for p in eff["per_program"]] == ["megastep"]
+            assert eff["per_program"][0]["dispatches"] == 4
+        else:
+            assert [r["step"] for r in res.numerics["recent"]] == [0, 2]
+            assert tmegastep.cache_info(res._net).currsize == 2
         monkeypatch.delenv(flag)
     assert tmegastep.donation_supported() is True
 

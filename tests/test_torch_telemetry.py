@@ -372,11 +372,35 @@ def test_oom_guard_and_reconcile(tmp_path, monkeypatch):
     rec = tmem.reconcile(mt.cpu())
     assert rec["backend_bytes_in_use"] is None and rec["consistent"] is None
     assert rec["ledger_bytes"] == tmem.ledger().live_bytes()
-    for name in ("compiled_memory_stats", "record_program", "merge_program",
-                 "get_program", "program_report", "program_total",
-                 "register_cache_programs"):
-        with pytest.raises(NotPortedError, match="A9"):
-            getattr(tmem, name)(None)
+    # the per-program half, as the JAX package's on the same records
+    for mem in (jmem, tmem):
+        mem.record_program("spmd", "t:a", {"temp_bytes": 10,
+                                           "argument_bytes": 3})
+        mem.merge_program("spmd", "t:a", {"flops": 5.0})
+        mem.record_program("spmd", "t:b", {"temp_bytes": 30,
+                                           "argument_bytes": 4})
+    for name in ("t:a", "t:b"):
+        assert tmem.get_program("spmd", name) == \
+            jmem.get_program("spmd", name)
+    trows = [r for r in tmem.program_report() if r["label"] in ("t:a",
+                                                                "t:b")]
+    jrows = [r for r in jmem.program_report() if r["label"] in ("t:a",
+                                                                "t:b")]
+    assert trows == jrows and trows[0]["label"] == "t:b"
+    assert tmem.program_total("temp_bytes") >= 40
+    assert tmem.compiled_memory_stats(None) is None
+    with teff.counting() as c:
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    assert sorted(tmem.compiled_memory_stats(c)) == sorted(
+        teff.MEMORY_FIELDS)
+    owner_op = type("Op", (), {})()
+    tmem.register_cache_programs("sigcache_t", owner_op,
+                                 {"ab": {"temp_bytes": 7,
+                                         "output_bytes": 1}})
+    assert tmem.ledger().live_bytes("serving_cache") >= 8
+    for name in ("t:a", "t:b"):
+        tmem.drop_program("spmd", name)
+        assert tmem.get_program("spmd", name) is None
 
 
 # ---------------------------------------------------------- numerics, eff
@@ -404,10 +428,26 @@ def test_planes_off_match_jax(monkeypatch):
     ("MXTPU_NUMERICS", "on,stats=l2|absmax,pattern=dense.*"),
     ("MXTPU_EFFICIENCY", "on"), ("MXTPU_EFFICIENCY", "1,off,on")])
 def test_planes_on_raise_not_ported(monkeypatch, name, value):
+    """The planes are ported (the name is kept from when they raised):
+    a value that turns one on arms it at ``reset_run`` as in the JAX
+    package, with the same parsed spec, and its summary is the JAX
+    package's with nothing recorded."""
     monkeypatch.setenv(name, value)
-    mod = tnum if name == "MXTPU_NUMERICS" else teff
-    with pytest.raises(NotPortedError, match="A9"):
-        mod.reset_run()
+    jmod, tmod = (jnum, tnum) if name == "MXTPU_NUMERICS" else (jeff, teff)
+    jmod.reset_run()
+    tmod.reset_run()
+    assert tmod.enabled() and jmod.enabled()
+    if name == "MXTPU_NUMERICS":
+        ts, js = tmod.spec(), jmod.spec()
+        assert (ts.every, ts.stats, ts.raw) == (js.every, js.stats, js.raw)
+        assert (ts.pattern and ts.pattern.pattern) == \
+            (js.pattern and js.pattern.pattern)
+        assert tmod.summary() == jmod.summary()
+        assert tmod.summary()["enabled"] is True
+    else:
+        assert tmod.summary() is None and jmod.summary() is None
+        assert tmod.device_peak()["estimate"] is True
+    tmod.reset_run()
 
 
 @pytest.mark.parametrize("name,value", [

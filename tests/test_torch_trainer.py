@@ -427,11 +427,18 @@ def test_not_ported_halves_raise(monkeypatch):
     params = _Port(ws, "float32").params
     with pytest.raises(NotPortedError, match="A10"):
         mt.gluon.Trainer(params, "sgd", compression_params={"type": "2bit"})
-    for flag, item in (("MXTPU_ZERO", "A10"), ("MXTPU_NUMERICS", "A9")):
-        monkeypatch.setenv(flag, "on")
-        with pytest.raises(NotPortedError, match=item):
-            mt.gluon.Trainer(params, "sgd")
-        monkeypatch.delenv(flag)
+    monkeypatch.setenv("MXTPU_ZERO", "on")
+    with pytest.raises(NotPortedError, match="A10"):
+        mt.gluon.Trainer(params, "sgd")
+    monkeypatch.delenv("MXTPU_ZERO")
+    # the numerics plane is ported: the Trainer takes the flag, as the
+    # JAX package's does, and strict-parses it
+    monkeypatch.setenv("MXTPU_NUMERICS", "on")
+    assert mt.gluon.Trainer(params, "sgd").last_numerics_stats is None
+    monkeypatch.setenv("MXTPU_NUMERICS", "on,stats=nope")
+    with pytest.raises(mt.MXNetError, match="unknown stat"):
+        mt.gluon.Trainer(params, "sgd")
+    monkeypatch.delenv("MXTPU_NUMERICS")
     monkeypatch.setenv("MXTPU_ZERO", "onn")
     with pytest.raises(mt.MXNetError, match="unknown value"):
         mt.gluon.Trainer(params, "sgd")
@@ -446,8 +453,20 @@ def test_not_ported_halves_raise(monkeypatch):
         tr.overlap_scope()
     with pytest.raises(NotPortedError, match="A10"):
         mt.gluon.Trainer(params, "sgd", kvstore="dist_sync").step(1)
-    with pytest.raises(NotPortedError, match="A9"):
-        tgrouped.program_memory()
+    # the bucket programs' attribution: every signature that ran, counted
+    # on its first execution, with the JAX package's memory fields
+    monkeypatch.setenv("MXTPU_OPTIMIZER_AGGREGATION", "4")
+    ps = _Port(ws, "float32")
+    tr = mt.gluon.Trainer(ps.params, "sgd", {"learning_rate": 0.1},
+                          kvstore=None)
+    ps.set_grads(gs[0])
+    tr.step(2)
+    mem = tgrouped.program_memory()
+    assert mem and sum(v["params"] for v in mem.values()) >= 2
+    assert all({"argument_bytes", "output_bytes", "temp_bytes",
+                "alias_bytes", "generated_code_bytes", "flops",
+                "bytes_accessed", "signature", "params"} <= set(v)
+               for v in mem.values())
     with pytest.raises(NotPortedError, match="A11"):
         tgrouped.sparse_rows_update(None, None, (), None, None, None, 0, 0)
 

@@ -5,10 +5,10 @@
 
 Builds the port's kernels, runs ``gluon_train`` (whose step time
 ``fit_train`` reports beside its own) and then ``fit_reference``,
-``fit_train`` and ``megastep_train``, printing their JSON lines as
-``chip_smoke.py`` does: a quick card check of the FitLoop path and its
-megastep (about two minutes) without the other phases. Any failure
-exits non-zero.
+``fit_train``, ``megastep_train`` and ``telemetry_planes``, printing
+their JSON lines as ``chip_smoke.py`` does: a quick card check of the
+FitLoop path, its megastep and the telemetry planes (about three
+minutes) without the other phases. Any failure exits non-zero.
 """
 import os
 import sys
@@ -42,9 +42,10 @@ def main():
     _build.build()
     walls["build"] = time.perf_counter() - t
     _, gluon_row = timed("gluon_train", cs.gluon_train, torch, mt, card)
-    launches, mega = cs.fit_phases(torch, mt, card, gluon_row, timed)
+    launches, mega, planes = cs.fit_phases(torch, mt, card, gluon_row,
+                                           timed)
     cs.emit({"phase": "walls", "seconds": walls, "fit_launches": launches,
-             "megastep_launches": mega})
+             "megastep_launches": mega, "planes_launches": planes})
 
 
 if __name__ == "__main__":
