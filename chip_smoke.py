@@ -148,11 +148,13 @@ Phases, each printing JSON lines:
     than the host's, plus 1e-6 + 1e-6 relative); ``gluon_train``,
     ``get_model("resnet50_v1", layout="NHWC")``, ``initialize(Xavier)``,
     ``gluon.Trainer(sgd, lr 0.05, momentum 0.9, kvstore="device")`` at
-    batch 32 as ``examples/gluon/image_classification.py`` runs it: one
-    untimed step and 10 timed (img/s, ms a step split into forward,
-    backward and ``trainer.step`` on the host and on the device, peak
-    memory; 48 launches of each BN kernel a step, counts zeroed just
-    before and read just after), a profiled step (idle share, 16 residual
+    batch 32 as ``examples/gluon/image_classification.py`` runs it,
+    hybridized (its CachedOp captures the forward and backward graphs at
+    the first step): one untimed step and 10 timed replays (img/s, ms a
+    step split into forward, backward and ``trainer.step`` on the host
+    and on the device, peak memory; 48 wrapper launches of each BN kernel
+    in the capturing step, none in the replays), a profiled step (idle
+    share, 48 device launches of each BN kernel, 16 residual
     ``bn_apply``) and a profiled ``trainer.step`` at aggregation 4 and 0
     (update calls, device kernels, device and wall ms); ``kernel_f32``,
     each BN kernel against its plain version in f32 at that path's 48
@@ -271,13 +273,36 @@ Phases, each printing JSON lines:
     fed step (the card's idle share), and the same trainer on one batch
     already on the card (4 timed steps). The records live in a temporary
     directory the phases remove;
+14e. then ``cached_op``, a real CachedOp behind ``hybridize()``: a small
+    channel-last ResNetV1 (12 fused sites) and a hybridized user block
+    over ``mx.nd.contrib.flash_attention`` (f32 general route, bf16
+    tensor-core route) against the same blocks un-hybridized: inference
+    and 3 training steps (outputs, losses, gradients, updated weights,
+    moving statistics, momenta) bit for bit or within 1e-3 of each
+    tensor's largest value, no wrapper call in a warm step and 12 device
+    launches of each BN kernel in its replay, the expected cache hits and
+    misses, a new capture when ``MXTPU_FUSED_EPILOGUE`` toggles, a fresh
+    capture (never a stale replay) after a parameter's storage is
+    rebound, the BN ticket counters back at 0; and ``serving``:
+    ``get_model("resnet50_v1", layout="NHWC")`` at full size (224x224x3
+    f32 items) behind ``serving.ModelServer`` with its defaults (max batch
+    32, buckets 1-32, 5 ms, queue depth 256): ``warmup()`` of every
+    bucket (capture ms each), 8 clients x 64 single images with 1 worker
+    and with 2 (img/s, p50 / p99, mean batch and fill, the card's idle
+    share, no cache miss after warmup, every response against an eager
+    forward of its padded batch within 1e-3), padding rows inert,
+    ``serve_slow`` delaying a dispatch while expired requests are never
+    dispatched, eager against replay ms at batch 1 and 32, and
+    ``examples/serving/resnet_server.py`` under the port's names (its
+    ``--smoke`` path, and its zoo path up to the SIGTERM drain, exit 75);
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
     over the 48 call sites, with the v2 step's sums and launches under
     ``v2``, the f32 Gluon step's under ``f32``, the FitLoop's under
     ``fit``, the megastep's replays under ``megastep``, the f16 step's
-    under ``f16`` and the ImageRecordIter-fed steps' under ``data_fed``;
+    under ``f16``, the ImageRecordIter-fed steps' under ``data_fed`` and
+    the small hybridized net's replayed step under ``cached_op``;
     flash_fwd's (the tensor-core route) per launch at the
     bf16 path's shape and flash_fwd_general's at the default f32 LM's,
     with that LM's launches; the tensor-core row also carries the general
@@ -2881,13 +2906,17 @@ def gluon_train(torch, mt, card):
     .py runs it: get_model("resnet50_v1", layout="NHWC"),
     initialize(Xavier), hybridize(), gluon.Trainer(sgd, lr 0.05, momentum
     0.9, kvstore="device"), batch 32 of 224x224 in f32 (TF32 off),
-    MXTPU_OPTIMIZER_AGGREGATION 4. One untimed step, then GT_STEPS timed
-    (counts zeroed just before, read just after: 48 launches of each BN
-    kernel a step); host and device ms of forward, backward and
-    trainer.step (CUDA events; a device span includes the time the card
-    waited for the host); one profiled step for the device's idle share
-    and the residual bn_apply launches (16); one profiled trainer.step at
-    aggregation 4 and at 0."""
+    MXTPU_OPTIMIZER_AGGREGATION 4. The hybridized net runs through its
+    CachedOp: the untimed first step captures the forward and backward
+    graphs (its warm-up calls each BN kernel wrapper 48 times), and the
+    GT_STEPS timed steps replay them (wrapper counts zeroed just before,
+    read just after: none, a replay calls no wrapper); host and device ms
+    of forward, backward and trainer.step (CUDA events; a device span
+    includes the time the card waited for the host); one profiled step
+    for the device's idle share and the BN kernels' device launches in
+    the graphs (48 each, 16 bn_apply with the residual: the launches this
+    phase reports); one profiled trainer.step at aggregation 4 and at
+    0."""
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
     from mxnet_tpu_torch.ops import fused_bn_act as tk
@@ -2931,9 +2960,11 @@ def gluon_train(torch, mt, card):
             mark("step")
         return loss
 
+    tk.reset_launches()
     first = step(0).tensor.detach().clone()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    capture_launches = dict(tk.launches)
     gib = 2.0 ** 30
     torch.cuda.reset_peak_memory_stats()
     tk.reset_launches()
@@ -2941,7 +2972,7 @@ def gluon_train(torch, mt, card):
     losses = [step(i + 1, timed=True) for i in range(GT_STEPS)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    launches = dict(tk.launches)
+    warm_wrappers = dict(tk.launches)
     peak = torch.cuda.max_memory_allocated() / gib
     losses = torch.stack([l.tensor.detach().mean() for l in losses]).cpu()
     split = {}
@@ -2957,6 +2988,7 @@ def gluon_train(torch, mt, card):
                        f"{GT_BATCH}, f32", _device_kernels(prof), wall, {})
     summary["host_top_ops"] = _host_top(torch, prof)
     emit(summary)
+    launches = dict(summary["epilogue_device_launches"])
     updates = [_profile_update(torch, trainer, live, agg) for agg in (4, 0)]
     for u in updates:
         emit({"phase": "gluon_update", **u})
@@ -2976,8 +3008,13 @@ def gluon_train(torch, mt, card):
            "device_idle_share": summary["device_idle_share"],
            "peak_allocated_gib": peak,
            "launches": launches,
-           "launches_per_step": {k: v / GT_STEPS
-                                 for k, v in launches.items()},
+           "launches_per_step": launches,
+           "capture_step_wrapper_launches": capture_launches,
+           "timed_steps_wrapper_launches": warm_wrappers,
+           "cache_info": tuple(net._cached_op.cache_info()),
+           "capture_ms": net._cached_op.capture_ms(),
+           "graph_pool_bytes": {k: v["temp_bytes"] for k, v in
+                                net._cached_op.memory_analysis().items()},
            "bn_apply_residual_per_step":
                summary["bn_apply_with_residual_launches"],
            "update_calls_per_step": updates[0]["update_calls"],
@@ -2985,12 +3022,17 @@ def gluon_train(torch, mt, card):
     emit(row)
     if not (torch.isfinite(losses).all() and 0.0 < row["first_loss"] < 20.0):
         fail(f"gluon_train: bad loss {row['first_loss']} {losses.tolist()}")
-    if any(v != 48 * GT_STEPS for v in launches.values()):
-        fail(f"gluon_train: expected {48 * GT_STEPS} launches of each BN "
-             f"kernel over {GT_STEPS} steps: {launches}")
+    if any(v != 48 for v in capture_launches.values()) or \
+            any(warm_wrappers.values()):
+        fail(f"gluon_train: expected 48 wrapper launches of each BN kernel "
+             f"in the capturing step and none in the {GT_STEPS} replayed "
+             f"steps: {capture_launches} {warm_wrappers}")
     if row["bn_apply_residual_per_step"] != 16 or any(
             n != 48 for n in summary["epilogue_device_launches"].values()):
         fail(f"gluon_train: the profiled step's BN launches: {summary}")
+    if row["cache_info"][:2] != (GT_STEPS + 2, 1):
+        fail(f"gluon_train: cache_info {row['cache_info']}, want "
+             f"{GT_STEPS + 2} hits and 1 miss")
     if not updates[0]["update_calls"] < updates[1]["update_calls"] or \
             not updates[0]["device_kernels"] < updates[1]["device_kernels"]:
         fail(f"gluon_train: aggregation 4 should take fewer calls and "
@@ -3180,7 +3222,9 @@ def fit_train(torch, mt, card, gluon_row, tmp):
     without the loss fetched to the host each step, and gluon_train's;
     one epoch each of the loop without checkpoints, without staging and
     without the sentinel, and one profiled epoch for the card's idle
-    share), the breakdown's shares, the checkpoint's save() (loop
+    share; then one epoch and one profiled epoch without checkpoints with
+    the net hybridized, its CachedOp's graphs replayed every step), the
+    breakdown's shares, the checkpoint's save() (loop
     thread) and write (writer thread: files, SHA-256, rename) ms and
     bytes, restore_latest ms with verify, and the memory ledger by
     category against torch.cuda.memory_allocated() after step 5."""
@@ -3300,6 +3344,19 @@ def fit_train(torch, mt, card, gluon_row, tmp):
                            _device_kernels(prof), prof_wall, {})
     fit_profile["host_top_ops"] = _host_top(torch, prof)
     emit(fit_profile)
+    # the same loop with the net hybridized: every step replays the
+    # CachedOp's forward and backward graphs (the first captures them)
+    net.hybridize()
+    variants["no_checkpoints_hybridized"] = epoch_ms(loop_for())
+    prof, prof_wall = _profiled(
+        torch, lambda: loop_for().fit(epochs=1, resume=False))
+    hyb_profile = _summary("one FitLoop epoch (8 steps), no checkpoints, "
+                           "the net hybridized (CachedOp graphs)",
+                           _device_kernels(prof), prof_wall, {})
+    hyb_profile["host_top_ops"] = _host_top(torch, prof)
+    emit(hyb_profile)
+    hyb_cache = tuple(net._cached_op.cache_info())
+    net.hybridize(False)
     # the checkpoint alone: save() on this thread, the write on the
     # writer thread, twice; then restore_latest (verify included)
     ck = os.path.join(tmp, "w")
@@ -3365,6 +3422,9 @@ def fit_train(torch, mt, card, gluon_row, tmp):
            "variants_step_ms": variants,
            "device_idle_share_no_checkpoints":
                fit_profile["device_idle_share"],
+           "device_idle_share_no_checkpoints_hybridized":
+               hyb_profile["device_idle_share"],
+           "hybridized_cache_info": hyb_cache,
            "shares": bd["shares"], "shares_after_first": _shares(steady),
            "accounted_frac": bd["accounted_frac"],
            "diagnoses": bd["diagnoses"][:3],
@@ -5257,8 +5317,11 @@ def resnet_matmul_flops(torch, mt, net, x):
     """Forward FLOPs of the convolutions and the dense layer of one
     inference forward on ``x``, from the layers' shapes (2 x multiply-adds
     each: 2 x output elements x weight elements per output channel), and
-    the stem convolution's (the first to run) with its weight's name."""
+    the stem convolution's (the first to run) with its weight's name. The
+    net runs un-hybridized: a CachedOp's warm-up and capture would each
+    run the hooks."""
     from mxnet_tpu_torch.gluon.nn import Conv2D, Dense
+    net.hybridize(False)
     seen = []
 
     def hook(mod, _inp, out):
@@ -5304,8 +5367,10 @@ def telemetry_planes(torch, mt, card, tmp):
     (b) and (d) exits 0 with equal loss hashes; the registry's
     Prometheus text; (e)'s tuning report and restored environment; 48
     device launches of each BN kernel a step in the trace; the wrappers'
-    launches: 48 a step in the composed runs, 96 in all under the
-    megastep (the two graphs' eager first steps). Printed: the ledger
+    launches: 48 in each composed run (the hybridized net's CachedOp
+    captures its forward and backward graphs after one eager warm-up, and
+    every step replays them), 96 in all under the megastep (the two
+    graphs' eager first steps; the net runs inline). Printed: the ledger
     plus the programs' temp bytes against memory_allocated() after step
     7 of (b), and the phase's wall."""
     import gc
@@ -5420,8 +5485,7 @@ def telemetry_planes(torch, mt, card, tmp):
             if diff or runs[name]["res"].losses != a["res"].losses:
                 bad.append(f"{name}: not bit for bit with (a): {diff[:4]}")
         steps = FIT_STEPS
-        want_launch = {"a": 48 * steps, "b": 48 * steps, "c": 96,
-                       "d": 48 * steps, "e": 48 * steps}
+        want_launch = {"a": 48, "b": 48, "c": 96, "d": 48, "e": 48}
         for name, n in want_launch.items():
             got = runs[name]["launches"]
             if any(v != n for v in got.values()):
@@ -5610,6 +5674,658 @@ def fit_phases(torch, mt, card, gluon_row, timed):
     return launches, mega_launches, planes_launches
 
 
+# ---------------------------------------------------------------------------
+# CachedOp (hybridize) and the serving core
+# ---------------------------------------------------------------------------
+
+CO_SPEC = ([1, 1, 1, 1], [16, 32, 64, 128, 256])    # 4 bottlenecks
+CO_BATCH, CO_IMG, CO_SITES, CO_STEPS = 16, 64, 12, 3
+CO_FLASH = (2, 256, 4, 64)                          # B, T, H, D, causal
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_BURST = 8, 64, 8
+SERVE_DEADLINES_MS = (None, 2000.0, 5000.0)         # a client's mix
+SERVE_TIMED = 20                                    # latency repeats
+
+
+def _agree_all(torch, pairs):
+    """_agreement over (name, got, want) tensors: ('bit for bit' | 'within
+    1e-3' | None, worst, names not bit for bit)."""
+    got = {n: g.detach() for n, g, _ in pairs}
+    want = {n: w.detach() for n, _, w in pairs}
+    verdict, worst = _agreement(torch, got, want)
+    return verdict, worst, _not_bitwise(torch, got, want)
+
+
+def _co_resnet(mt):
+    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (BottleneckV1,
+                                                               ResNetV1)
+    net = ResNetV1(BottleneckV1, *CO_SPEC, classes=10, layout="NHWC",
+                   stem_s2d=True)
+    net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+    return net
+
+
+def _co_flash_block(mt, units, heads):
+    """A user block over ``mx.nd.contrib.flash_attention``: a fused QKV
+    projection, causal flash attention, an output projection."""
+    class FlashSelfAttention(mt.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.qkv = mt.gluon.nn.Dense(3 * units, flatten=False,
+                                             in_units=units)
+                self.proj = mt.gluon.nn.Dense(units, flatten=False,
+                                              in_units=units)
+
+        def hybrid_forward(self, F, x):
+            b, t, _ = x.shape
+            q, k, v = F.split(self.qkv(x).reshape((b, t, 3, heads, -1)),
+                              num_outputs=3, axis=2, squeeze_axis=True)
+            o = F.contrib.flash_attention(q, k, v, causal=True)
+            return self.proj(o.reshape((b, t, units)))
+    return FlashSelfAttention()
+
+
+def _co_same_weights(torch, src, dst):
+    with torch.no_grad():
+        for a, b in zip(src.collect_params().values(),
+                        dst.collect_params().values()):
+            b.set_data(a.data())
+
+
+def _co_grads(net):
+    return {f"grad:{i}": p.grad().tensor.clone()
+            for i, p in enumerate(net.collect_params().values())
+            if p.grad_req != "null"}
+
+
+def _co_params(net):
+    return {f"param:{i}": p.tensor.detach().clone()
+            for i, p in enumerate(net.collect_params().values())}
+
+
+def cached_op_phase(torch, mt, card):
+    """A real CachedOp behind hybridize() on the card: a small channel-last
+    ResNetV1 (4 bottlenecks, widths 16-256, 12 fused BN sites, batch 16 of
+    64x64, f32, TF32 off, deterministic cuDNN) and a hybridized user block
+    over mx.nd.contrib.flash_attention (B 2, T 256, H 4, D 64, causal, f32
+    on the general route and bf16 on the tensor-core route), each against
+    the same block un-hybridized with the same weights. Checked: inference
+    (the cold call captures, the next replays) and CO_STEPS training steps
+    (record, SoftmaxCrossEntropy, backward, gluon.Trainer sgd momentum):
+    outputs, losses, every gradient, the updated weights and moving
+    statistics and the momenta, bit for bit or within 1e-3 of each
+    tensor's largest value (the row names the tensors that are not bit
+    for bit); a warm training step calls no kernel wrapper, and its
+    profiled replay launches each BN kernel 12 times on the device (4
+    residual bn_apply); cache_info equal to the expected hits and misses;
+    MXTPU_FUSED_EPILOGUE=0 captures anew (a miss) and matches the eager
+    composed epilogue, and switching back replays the first graph (a hit);
+    a parameter whose storage is rebound is captured again, never replayed
+    stale; two training forwards before their backwards (two slots) and a
+    second backward through the first (retain_graph) against eager, the
+    second backward's gradients equal to the first's; the BN ticket
+    counters back at 0; the capture ms per signature
+    and the graph pools' bytes (memory_analysis)."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    bad, rows = [], {}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    try:
+        eager, hyb = _co_resnet(mt), _co_resnet(mt)
+        xs = [torch.rand((CO_BATCH, CO_IMG, CO_IMG, 3), generator=gen,
+                         device="cuda") for _ in range(CO_STEPS + 2)]
+        ys = [torch.randint(0, 10, (CO_BATCH,), generator=gen,
+                            device="cuda").float()
+              for _ in range(CO_STEPS + 2)]
+        with mt.autograd.pause():
+            eager(mt.nd.from_torch(xs[0]))
+            hyb(mt.nd.from_torch(xs[0]))
+        _co_same_weights(torch, eager, hyb)
+        hyb.hybridize()
+        op_infos = {}
+        # inference: the cold call captures, the second replays
+        x0 = mt.nd.from_torch(xs[0])
+        want = eager(x0).tensor
+        t = time.perf_counter()
+        first = hyb(x0).tensor
+        torch.cuda.synchronize()
+        cold_ms = 1e3 * (time.perf_counter() - t)
+        second = hyb(x0).tensor
+        v = _agree_all(torch, [("cold", first, want), ("warm", second, want)])
+        rows["inference"] = {"agreement": v[0], "worst": v[1],
+                             "not_bitwise": v[2], "cold_call_ms": cold_ms}
+        if v[0] is None:
+            bad.append(f"inference: {rows['inference']}")
+        op_infos["inference"] = tuple(hyb._cached_op.cache_info())
+        # training: step 1 captures the forward and backward graphs
+        lossfn = gloss.SoftmaxCrossEntropyLoss()
+        trs = [mt.gluon.Trainer(n.collect_params(), "sgd", dict(GT_OPT),
+                                kvstore="device") for n in (eager, hyb)]
+        steps = []
+        for i in range(CO_STEPS):
+            x, y = mt.nd.from_torch(xs[i + 1]), mt.nd.from_torch(ys[i + 1])
+            outs = []
+            for net, tr in zip((eager, hyb), trs):
+                if net is hyb and i == CO_STEPS - 1:
+                    tk.reset_launches()
+                with mt.autograd.record():
+                    out = net(x)
+                    loss = lossfn(out, y)
+                loss.backward()
+                grads = _co_grads(net)
+                tr.step(CO_BATCH)
+                torch.cuda.synchronize()
+                outs.append({"out": out.tensor.detach(),
+                             "loss": loss.tensor.detach(), **grads,
+                             **_co_params(net),
+                             **{f"state:{j}": s.detach().clone()
+                                for j, s in enumerate(_state_tensors(tr))}})
+            warm_wrappers = dict(tk.launches) if i == CO_STEPS - 1 else None
+            v = _agree_all(torch, [(k, outs[1][k], outs[0][k])
+                                   for k in outs[0]])
+            steps.append({"step": i, "agreement": v[0], "worst": v[1],
+                          "not_bitwise": v[2][:8],
+                          "n_not_bitwise": len(v[2])})
+            if v[0] is None:
+                bad.append(f"training step {i}: {steps[-1]}")
+        rows["training"] = steps
+        op_infos["training"] = tuple(hyb._cached_op.cache_info())
+        if any(warm_wrappers.values()):
+            bad.append(f"a warm training step called kernel wrappers: "
+                       f"{warm_wrappers}")
+        # one more warm step, profiled: the BN kernels inside the graphs
+        # (the eager net takes the same steps, so the moving statistics
+        # stay equal)
+
+        def warm_step(net):
+            with mt.autograd.record():
+                loss = lossfn(net(mt.nd.from_torch(xs[-1])),
+                              mt.nd.from_torch(ys[-1]))
+            loss.backward()
+        prof, wall = _profiled(torch, lambda: warm_step(hyb))
+        for _ in range(2):
+            warm_step(eager)
+        summary = _summary("small ResNetV1 NHWC, one hybridized training "
+                           "step (forward and backward graph replays)",
+                           _device_kernels(prof), wall, {})
+        rows["profiled_warm_step"] = {
+            k: summary[k] for k in ("wall_ms", "device_busy_ms",
+                                    "device_idle_share",
+                                    "epilogue_device_launches",
+                                    "bn_apply_with_residual_launches")}
+        if any(n != CO_SITES for n in
+               summary["epilogue_device_launches"].values()) or \
+                summary["bn_apply_with_residual_launches"] != 4:
+            bad.append(f"profiled warm step: {rows['profiled_warm_step']}")
+        op_infos["profiled"] = tuple(hyb._cached_op.cache_info())
+        # the trace flags: a toggle captures anew, switching back replays
+        os.environ["MXTPU_FUSED_EPILOGUE"] = "0"
+        try:
+            want0 = eager(x0).tensor
+            got0 = hyb(x0).tensor
+            op_infos["flag_off"] = tuple(hyb._cached_op.cache_info())
+        finally:
+            os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+        want1 = eager(x0).tensor
+        got1 = hyb(x0).tensor
+        op_infos["flag_back"] = tuple(hyb._cached_op.cache_info())
+        v = _agree_all(torch, [("flag_off", got0, want0),
+                               ("flag_back", got1, want1)])
+        rows["flag_toggle"] = {"agreement": v[0], "worst": v[1],
+                               "not_bitwise": v[2]}
+        if v[0] is None:
+            bad.append(f"flag toggle: {rows['flag_toggle']}")
+        # a rebound parameter: its storage swapped (as cast() does)
+        pe = next(iter(eager.collect_params().values()))
+        ph = next(iter(hyb.collect_params().values()))
+        stale = hyb(x0).tensor.clone()
+        new = (pe.tensor.detach() * 0.5).contiguous()
+        pe.set_data(new)
+        with torch.no_grad():
+            ph.tensor.data = new.clone()
+        want2 = eager(x0).tensor
+        got2 = hyb(x0).tensor
+        v = _agree_all(torch, [("rebound", got2, want2)])
+        rows["rebound"] = {"agreement": v[0], "worst": v[1],
+                           "changed": not torch.equal(stale, got2),
+                           "parameter": ph.name}
+        if v[0] is None or not rows["rebound"]["changed"]:
+            bad.append(f"rebound parameter: {rows['rebound']}")
+        op_infos["rebound"] = tuple(hyb._cached_op.cache_info())
+        # two forwards of one signature before their backwards (a second
+        # slot, captured after the rebind dropped the training graphs),
+        # and the first forward's backward twice (retain_graph)
+
+        def two_forwards(net):
+            (xa, ya), (xb, yb) = [(mt.nd.from_torch(xs[i]),
+                                   mt.nd.from_torch(ys[i])) for i in (1, 2)]
+            with mt.autograd.record():
+                la = lossfn(net(xa), ya)
+                lb = lossfn(net(xb), yb)
+            res = {"loss_a": la.tensor.detach(), "loss_b": lb.tensor.detach()}
+            la.backward(retain_graph=True)
+            res.update({f"a_{k}": v for k, v in _co_grads(net).items()})
+            la.backward()
+            res.update({f"a2_{k}": v for k, v in _co_grads(net).items()})
+            lb.backward()
+            res.update({f"b_{k}": v for k, v in _co_grads(net).items()})
+            return {**res, **_co_params(net)}
+        got3, want3 = two_forwards(hyb), two_forwards(eager)
+        pairs = [(k, got3[k], want3[k]) for k in want3] + \
+            [(k, got3[k], got3["a" + k[2:]]) for k in got3
+             if k.startswith("a2_")]
+        v = _agree_all(torch, pairs)
+        slots = [len(var.slots) for _k, e in
+                 hyb._cached_op._cache.snapshot_items()
+                 for var in e.variants.values() if var.grad]
+        rows["two_forwards"] = {"agreement": v[0], "worst": v[1],
+                                "not_bitwise": v[2][:8],
+                                "training_slots": slots}
+        if v[0] is None or slots != [2]:
+            bad.append(f"two forwards, then the backwards: "
+                       f"{rows['two_forwards']}")
+        op_infos["two_forwards"] = tuple(hyb._cached_op.cache_info())
+        # hits, misses: inference (1 miss, 1 hit); training CO_STEPS calls
+        # (1 miss) and the profiled step twice; the flag toggle (a miss,
+        # then a hit); the rebound parameter's call and the one before it;
+        # the two forwards
+        expect = {"inference": (1, 1), "training": (1 + CO_STEPS - 1, 2),
+                  "profiled": (CO_STEPS + 2, 2),
+                  "flag_off": (CO_STEPS + 2, 3),
+                  "flag_back": (CO_STEPS + 3, 3),
+                  "rebound": (CO_STEPS + 5, 3),
+                  "two_forwards": (CO_STEPS + 7, 3)}
+        got_hm = {k: op_infos[k][:2] for k in expect}
+        if got_hm != expect:
+            bad.append(f"cache_info (hits, misses) {got_hm}, want {expect}")
+        rows["cache_info"] = op_infos
+        rows["capture_ms"] = hyb._cached_op.capture_ms()
+        rows["memory_analysis"] = hyb._cached_op.memory_analysis()
+        del eager, hyb, trs, outs, xs, ys
+        torch.cuda.empty_cache()
+        # the flash-attention user block, f32 (general route) and bf16
+        # (tensor-core route)
+        b, t_, h, d = CO_FLASH
+        for dtype, route in ((torch.float32, "general"),
+                             (torch.bfloat16, "tc")):
+            blocks = [_co_flash_block(mt, h * d, h) for _ in range(2)]
+            for blk in blocks:
+                blk.initialize(mt.init.Xavier(), generator=mt.random.seed(3))
+                blk.cast(dtype)
+            _co_same_weights(torch, blocks[0], blocks[1])
+            blocks[1].hybridize()
+            x = mt.nd.from_torch(torch.randn((b, t_, h * d), generator=gen,
+                                             device="cuda").to(dtype))
+            head = mt.nd.from_torch(torch.randn((b, t_, h * d),
+                                                generator=gen,
+                                                device="cuda").to(dtype))
+            res = []
+            for blk in blocks:
+                for _ in range(2):       # the cold call, then a replay
+                    fa.reset_launches()
+                    with mt.autograd.record():
+                        out = blk(x)
+                    out.backward(head)
+                    torch.cuda.synchronize()
+                res.append({"out": out.tensor.detach(), **_co_grads(blk),
+                            "launches": dict(fa.launches)})
+            v = _agree_all(torch, [(k, res[1][k], res[0][k])
+                                   for k in res[0] if k != "launches"])
+            row = {"dtype": str(dtype).split(".")[-1], "route": route,
+                   "agreement": v[0], "worst": v[1], "not_bitwise": v[2],
+                   "eager_launches": res[0]["launches"],
+                   "replay_wrapper_launches": res[1]["launches"],
+                   "cache_info": tuple(blocks[1]._cached_op.cache_info())}
+            rows[f"flash_{route}"] = row
+            if v[0] is None or res[0]["launches"][f"flash_fwd_{route}"] \
+                    != 1 or res[1]["launches"]["flash_fwd"] != 0:
+                bad.append(f"flash user block ({route}): {row}")
+            del blocks, res, x, head
+        left = {str(k): int(v.abs().sum()) for k, v in tk._tickets.items()}
+        rows["tickets_left"] = left
+        if any(left.values()):
+            bad.append(f"BN ticket counters not back at 0: {left}")
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+        os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+    emit({"phase": "cached_op", "card": card, **rows, "failures": bad})
+    if bad:
+        fail("cached_op: " + "; ".join(bad))
+    return rows
+
+
+def _serve_load(torch, srv, images, workers_label,
+                per_client=SERVE_PER_CLIENT):
+    """SERVE_CLIENTS client threads, each submitting ``per_client`` single
+    images in bursts of SERVE_BURST (waiting for each burst's answers),
+    deadlines cycling through SERVE_DEADLINES_MS. Returns the wall, every
+    (image index, future) pair and the errors."""
+    import threading
+    done, errors = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        base = c * per_client
+        for s in range(0, per_client, SERVE_BURST):
+            futs = []
+            for j in range(base + s, base + s + SERVE_BURST):
+                dl = SERVE_DEADLINES_MS[j % len(SERVE_DEADLINES_MS)]
+                futs.append((j, srv.submit(images[j], deadline_ms=dl)))
+            for j, f in futs:
+                try:
+                    f.result(timeout=120)
+                except Exception as e:
+                    with lock:
+                        errors.append((j, repr(e)))
+            with lock:
+                done.extend(futs)
+
+    srv.reset_metrics()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    wall = time.perf_counter() - t
+    if any(th.is_alive() for th in threads):
+        fail(f"serving ({workers_label}): clients still waiting after 300 s")
+    return wall, done, errors
+
+
+def _serve_check_rows(torch, mt, net, srv, images, done):
+    """Every response against an eager forward of the same padded batch
+    (the batch's rows, zero rows up to its bucket): worst error as a
+    fraction of the batch's largest logit, and the batches checked."""
+    import numpy as np
+    from mxnet_tpu_torch.serving import pad_rows
+    batches = {}
+    for j, f in done:
+        if f.done() and f._error is None:
+            batches.setdefault(f.dispatch_seq, []).append((j, f.result(0)))
+    worst, exact = 0.0, 0
+    with torch.no_grad():
+        for seq, items in sorted(batches.items()):
+            rows = [images[j] for j, _ in items]
+            x = pad_rows(rows, srv._table.pad_to(len(rows)))
+            want = net(mt.nd.from_torch(torch.from_numpy(x).cuda())
+                       ).tensor[:len(rows)].cpu()
+            got = torch.from_numpy(np.stack([r for _, r in items]))
+            worst = max(worst, float((got - want).abs().max())
+                        / max(float(want.abs().max()), 1e-6))
+            exact += int(torch.equal(got, want))
+    return worst, len(batches), exact
+
+
+def _serve_latency(torch, fn, x):
+    """Median ms of ``fn(x)`` (synchronised), SERVE_TIMED calls after one
+    warm call."""
+    import numpy as np
+    fn(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(SERVE_TIMED):
+        t = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(times))
+
+
+def serving_phase(torch, mt, card):
+    """The serving core at full size: get_model("resnet50_v1",
+    layout="NHWC") at the published widths and full depth, 224x224x3 f32
+    items, TF32 off, deterministic cuDNN, served through ModelServer with
+    its defaults (max batch 32, buckets 1-32, 5 ms queue latency, queue
+    depth 256). warmup() captures every bucket (the capture ms of each);
+    8 client threads then submit 64 single images each (bursts of 8,
+    deadlines None / 2 s / 5 s), with 1 worker and with 2: img/s, p50 and
+    p99 latency, the mean batch and its fill, cache misses after warmup
+    (must be 0), and every response against an eager forward of the same
+    padded batch (1e-3 of its largest logit). A profiled run of the 1-worker
+    server (8 x 16 images) gives the card's idle share. Then: the padding
+    rows never change a real row (a bucket-8 batch of 7 rows with zero and
+    with random padding, bit for bit); chaos serve_slow@200 delays a
+    dispatch, and requests that expire behind it are rejected with
+    DeadlineExceeded and never dispatched; the eager un-hybridized forward
+    against the CachedOp replay at batch 1 and 32 (median ms); and
+    examples/serving/resnet_server.py run under the port's names, its
+    --smoke path and its zoo path to the SIGTERM drain (exit 75)."""
+    import numpy as np
+    from mxnet_tpu_torch.contrib import chaos
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.serving import (DeadlineExceeded, ModelServer,
+                                         batch_buckets)
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    bad, rows = [], {}
+    try:
+        net = get_model("resnet50_v1", layout="NHWC")
+        net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+        with mt.autograd.pause():
+            net(mt.nd.from_torch(torch.zeros((1, IMG, IMG, 3),
+                                              device="cuda")))
+        gen = torch.Generator().manual_seed(17)
+        n_img = SERVE_CLIENTS * SERVE_PER_CLIENT
+        images = torch.rand((n_img, IMG, IMG, 3), generator=gen).numpy()
+        shape = (IMG, IMG, 3)
+        for workers in (1, 2):
+            srv = ModelServer(net, bucket_shapes=[shape], workers=workers,
+                              name=f"resnet50_v1-w{workers}")
+            srv.start()
+            t = time.perf_counter()
+            built = srv.warmup()
+            warm_s = time.perf_counter() - t
+            after_warm = srv.cache.cache_info()
+            wall, done, errors = _serve_load(torch, srv, images,
+                                             f"{workers} worker(s)")
+            misses = srv.cache.cache_info().misses - after_warm.misses
+            m = srv.metrics_json()
+            worst, n_batches, exact = _serve_check_rows(
+                torch, mt, net, srv, images, done)
+            fill = m["dispatched_rows_total"] / max(
+                1, m["dispatched_rows_total"] + m["padded_rows_total"])
+            row = {"workers": workers, "buckets": list(batch_buckets(
+                       srv.max_batch_size)),
+                   "max_batch": srv.max_batch_size,
+                   "max_queue_latency_ms": srv.max_queue_latency_ms,
+                   "queue_depth": srv.queue_depth,
+                   "warmup_signatures": built, "warmup_s": warm_s,
+                   "capture_ms": srv.cache.capture_ms(),
+                   "graph_pool_bytes": {k: v["temp_bytes"] for k, v in
+                                        srv.cache.program_memory().items()},
+                   "requests": len(done), "responses": m["responses_total"],
+                   "rejected": m["rejected"], "errors": errors[:4],
+                   "wall_s": wall, "img_per_s": m["responses_total"] / wall,
+                   "latency_ms": m["latency_ms"]["total"],
+                   "compute_ms": m["latency_ms"]["compute"],
+                   "queue_ms": m["latency_ms"]["queue"],
+                   "batches": m["batches_total"],
+                   "mean_batch": m["batch_size"]["mean"],
+                   "batch_fill": fill,
+                   "cache_misses_after_warmup": misses,
+                   "rows_vs_eager_worst": worst,
+                   "batches_checked": n_batches,
+                   "batches_bit_for_bit": exact}
+            rows[f"workers_{workers}"] = row
+            emit({"phase": "serving", "what": f"{workers} worker(s)",
+                  "card": card, **row})
+            if misses or built != len(batch_buckets(srv.max_batch_size)):
+                bad.append(f"{workers} worker(s): {built} signatures "
+                           f"warmed, {misses} misses after warmup")
+            if errors or m["responses_total"] != n_img:
+                bad.append(f"{workers} worker(s): {errors[:4]}, "
+                           f"{m['responses_total']} responses")
+            if worst > 1e-3:
+                bad.append(f"{workers} worker(s): responses {worst} off "
+                           "the eager forward of their padded batch")
+            if workers == 1:
+                from torch.profiler import ProfilerActivity, profile
+                short = images[:SERVE_CLIENTS * 16]
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    pwall, _, _ = _serve_load(torch, srv, short, "profiled",
+                                              per_client=16)
+                busy = sum(ms for ms, _ in _device_kernels(prof).values())
+                rows["profiled"] = {"images": len(short), "wall_ms":
+                                    1e3 * pwall, "device_busy_ms": busy,
+                                    "device_idle_share":
+                                        1.0 - busy / (1e3 * pwall)}
+                # the padding never changes a real row
+                x7 = images[:7]
+                zero = np.concatenate([x7, np.zeros((1,) + shape,
+                                                    np.float32)])
+                rnd = np.concatenate([x7, images[7:8]])
+                a = srv.cache(srv.cache.batch(zero)).tensor[:7].cpu()
+                b = srv.cache(srv.cache.batch(rnd)).tensor[:7].cpu()
+                rows["padding_rows_inert"] = bool(torch.equal(a, b))
+                if not rows["padding_rows_inert"]:
+                    bad.append("padding rows changed a real row")
+                # serve_slow delays a dispatch; expired requests are
+                # never dispatched
+                chaos.install("serve_slow@200")
+                try:
+                    srv.reset_metrics()
+                    t = time.perf_counter()
+                    first = srv.submit(images[0])
+                    time.sleep(0.05)
+                    doomed = [srv.submit(images[i], deadline_ms=20)
+                              for i in range(1, 5)]
+                    first.result(timeout=60)
+                    first_ms = 1e3 * (time.perf_counter() - t)
+                    expired = 0
+                    for f in doomed:
+                        try:
+                            f.result(timeout=60)
+                        except DeadlineExceeded:
+                            expired += 1
+                    mm = srv.metrics_json()
+                    injected = chaos.active().injected["serve_slow"]
+                finally:
+                    chaos.uninstall()
+                rows["chaos"] = {"first_ms": first_ms, "expired": expired,
+                                 "dispatched_rows":
+                                     mm["dispatched_rows_total"],
+                                 "injected": injected}
+                if first_ms < 200 or expired != 4 or \
+                        mm["dispatched_rows_total"] != 1:
+                    bad.append(f"serve_slow: {rows['chaos']}")
+                # eager against the replay at batch 1 and 32
+                lat = {}
+                with torch.no_grad():
+                    for bsz in (1, srv.max_batch_size):
+                        xb = srv.cache.batch(images[:bsz])
+                        lat[bsz] = {
+                            "eager_ms": _serve_latency(torch, net, xb),
+                            "replay_ms": _serve_latency(torch, srv.cache,
+                                                        xb)}
+                rows["forward_ms"] = lat
+                emit({"phase": "serving", "what": "forward_ms",
+                      "card": card, **lat})
+                # where a batch-32 forward's device time goes, eager
+                # against the replay
+                with torch.no_grad():
+                    xb = srv.cache.batch(images[:srv.max_batch_size])
+                    for what, fn in (("eager", net),
+                                     ("replay", srv.cache)):
+                        prof, wall = _profiled(torch, lambda: fn(xb))
+                        summ = _summary(f"resnet50_v1 forward, batch "
+                                        f"{srv.max_batch_size}, {what}",
+                                        _device_kernels(prof), wall, {})
+                        rows[f"profile_b32_{what}"] = {
+                            k: summ[k] for k in ("wall_ms",
+                                                 "device_busy_ms",
+                                                 "by_family_ms",
+                                                 "top_kernels")}
+                        emit({"phase": "serving", "card": card,
+                              "what": f"profile_b32_{what}",
+                              **rows[f"profile_b32_{what}"]})
+            srv.stop()
+            del srv
+            torch.cuda.empty_cache()
+        rows["example"] = resnet_server_example(torch, mt)
+        for r in rows["example"].values():
+            if not r["ok"]:
+                bad.append(f"resnet_server.py: {r}")
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    emit({"phase": "serving", "card": card,
+          "config": "resnet50-serve-f32-b32", **{
+              k: v for k, v in rows.items() if not k.startswith("workers")},
+          "failures": bad})
+    if bad:
+        fail("serving: " + "; ".join(bad))
+    return rows
+
+
+def resnet_server_example(torch, mt):
+    """examples/serving/resnet_server.py with ``mxnet_tpu`` resolved to the
+    port (its module names aliased for the run): the --smoke path, and the
+    zoo path (resnet18_v1 at 32x32, the example's defaults) up to a
+    SIGTERM once serve_forever's handlers are in place, which must drain
+    and exit with the resumable code."""
+    import contextlib
+    import io as _io
+    import runpy
+    import signal
+    import threading
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "examples", "serving", "resnet_server.py")
+    alias = {"mxnet_tpu": mt, "mxnet_tpu.gluon": mt.gluon,
+             "mxnet_tpu.serving": mt.serving,
+             "mxnet_tpu.gluon.model_zoo": mt.gluon.model_zoo,
+             "mxnet_tpu.gluon.model_zoo.vision": vision}
+    server_cls = mt.serving.ModelServer
+    install = server_cls.install_signal_handlers
+
+    def install_then_term(self):
+        install(self)
+        threading.Timer(0.5, signal.raise_signal, (signal.SIGTERM,)).start()
+
+    out = {}
+    saved_argv = sys.argv
+    saved_mods = {k: sys.modules.get(k) for k in alias}
+    try:
+        sys.modules.update(alias)
+        server_cls.install_signal_handlers = install_then_term
+        for name, argv, code in (("smoke", ["--smoke", "--requests", "64"],
+                                  0), ("zoo", [], 75)):
+            sys.argv = [script] + argv
+            buf = _io.StringIO()
+            t = time.perf_counter()
+            rc = None
+            with contextlib.redirect_stdout(buf):
+                try:
+                    runpy.run_path(script, run_name="__main__")
+                except SystemExit as e:
+                    rc = e.code or 0
+            text = buf.getvalue()
+            n = int(argv[argv.index("--requests") + 1]) if argv else 128
+            ok = rc == code and f"served {n}/{n} requests" in text and \
+                ("SMOKE OK" in text if code == 0
+                 else "serving until SIGTERM" in text)
+            out[name] = {"argv": argv, "exit_code": rc, "ok": ok,
+                         "wall_s": time.perf_counter() - t,
+                         "lines": [ln for ln in text.splitlines()
+                                   if ln.startswith(("warmup", "served",
+                                                     "SMOKE"))]}
+            emit({"phase": "serving", "what": f"resnet_server.py {name}",
+                  **out[name]})
+    finally:
+        server_cls.install_signal_handlers = install
+        sys.argv = saved_argv
+        for k, v in saved_mods.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    return out
+
+
 def main():
     try:
         import torch
@@ -5737,6 +6453,12 @@ def main():
     # the input pipeline and the ImageNet example, after every earlier
     # phase
     fed_launches = a20_phases(torch, mt, card, timed)
+    # a real CachedOp behind hybridize() and the serving core, after every
+    # earlier phase
+    co_rows = timed("cached_op", cached_op_phase, torch, mt, card)
+    torch.cuda.empty_cache()
+    timed("serving", serving_phase, torch, mt, card)
+    torch.cuda.empty_cache()
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -5748,11 +6470,13 @@ def main():
                  "resnet_remat", "gluon_user_block")
     a19 = ("random_ops", "flash_registry", "ssd_example", "ssd300_decode")
     a20 = ("image_ops", "input_pipeline", "imagenet_example")
+    a12 = ("cached_op", "serving")
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
                                   if k not in v2 + gluon + fits + f16
-                                  + moe_remat + a19 + a20),
+                                  + moe_remat + a19 + a20 + a12),
+          "a12_phases_s": sum(walls[k] for k in a12),
           "a20_phases_s": sum(walls[k] for k in a20),
           "a19_phases_s": sum(walls[k] for k in a19),
           "moe_remat_user_block_phases_s": sum(walls[k] for k in moe_remat),
@@ -5793,8 +6517,10 @@ def main():
                     == {"bytes"} else "operations",
                     "library_ms": totals_f32[name]["library_ms"],
                     "per": f"one gluon.Trainer ResNet-50 v1 step (48 "
-                           f"sites, batch {GT_BATCH}, f32); launches over "
-                           f"the {GT_STEPS} timed steps of gluon_train"},
+                           f"sites, batch {GT_BATCH}, f32); launches: "
+                           "device count in gluon_train's profiled step, "
+                           "CUDA graph replays of the hybridized net's "
+                           "CachedOp"},
             "fit": {"launches": fit_launches[name],
                     "launches_per_step": fit_launches[name] / FIT_STEPS,
                     "per": "the f32 block's kernel at the same sites; "
@@ -5825,7 +6551,13 @@ def main():
                          "per": f"wrapper launches over the {A20_TIMED} "
                                 "timed imagenet_example steps fed by "
                                 "ImageRecordIter (bf16, batch "
-                                f"{B})"}})
+                                f"{B})"},
+            "cached_op": {"launches": co_rows["profiled_warm_step"][
+                              "epilogue_device_launches"][name],
+                          "per": f"device launches in one replayed "
+                                 f"training step of cached_op's "
+                                 f"hybridized small ResNetV1 "
+                                 f"({CO_SITES} sites)"}})
     tcr, gnr = flash["tc"], flash["general"]
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,

@@ -126,10 +126,34 @@ env.declare("MXTPU_MEGASTEP", str, "off",
             "backward, sentinel and grouped update as one CUDA graph "
             "replay per input signature (megastep.py). Unknown values "
             "raise.")
+env.declare("MXNET_EXEC_BULK_EXEC_INFERENCE", bool, True,
+            "Run a hybridized block's inference calls through its CachedOp "
+            "(one CUDA graph replay per signature on a card). 0 runs them "
+            "op by op.")
+env.declare("MXNET_EXEC_BULK_EXEC_TRAIN", bool, True,
+            "Run a hybridized block's training calls through its CachedOp "
+            "(one forward and one backward CUDA graph replay per "
+            "signature on a card). 0 runs them op by op.")
 env.declare("MXTPU_CACHEDOP_CACHE_SIZE", int, 256,
             "LRU bound on a per-signature cache of captured programs "
-            "(cached_op.SignatureLRU; the megastep's CUDA graphs). 0 = "
-            "unbounded.")
+            "(cached_op.SignatureLRU: CachedOp's CUDA graphs, the "
+            "megastep's). 0 = unbounded. CachedOp.cache_info() reports "
+            "hits/misses/evictions.")
+env.declare("MXTPU_SERVE_MAX_BATCH", int, 32,
+            "serving.ModelServer: maximum coalesced batch size per "
+            "dispatch; also the largest batch-padding bucket.")
+env.declare("MXTPU_SERVE_MAX_LATENCY_MS", float, 5.0,
+            "serving.ModelServer: maximum time a request may wait in its "
+            "shape bucket before the batch is flushed partially full.")
+env.declare("MXTPU_SERVE_QUEUE_DEPTH", int, 256,
+            "serving.ModelServer: bounded admission-queue depth; a full "
+            "queue sheds load with a typed QueueFull rejection "
+            "(backpressure) instead of buffering without bound.")
+env.declare("MXTPU_SERVE_REPLAY", str, "",
+            "Signature-replay file: when set, ModelServer appends one "
+            "JSON line per distinct dispatched (item shape, dtype, padded "
+            "batch) signature; serving.warm_from_replay prewarms a "
+            "cache from it.")
 env.declare("MXTPU_ZERO", str, "off",
             "ZeRO-1 sharded optimizer state ('on'/'off'). Not ported yet: "
             "'on' raises when a gluon.Trainer is built. Unknown values "

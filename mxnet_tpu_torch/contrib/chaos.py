@@ -81,10 +81,11 @@ identically — chaos runs are regression tests, not flake generators.
 
 In the port the training events fire (``nan_grad``, ``inf_grad``, ``kill``,
 ``preempt``, ``resize``, ``ckpt_corrupt``, ``kv_flake``, ``kv_slow``,
-``mem_pressure``). The serving events (``serve_slow``,
-``registry_corrupt``, ``replica_kill``) and ``kv_hang`` parse and keep
-their plan state, but nothing calls their hooks yet: the serving stack
-(ROADMAP A12) and the process group (A10) are not ported.
+``mem_pressure``), and ``serve_slow`` fires in ``serving.ModelServer``'s
+workers, once per dispatched batch. ``registry_corrupt``,
+``replica_kill`` and ``kv_hang`` parse and keep their plan state, but
+nothing calls their hooks yet: the serving fleet (ROADMAP A23) and the
+process group (A10) are not ported.
 """
 from __future__ import annotations
 

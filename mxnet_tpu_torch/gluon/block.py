@@ -39,19 +39,18 @@ layer's rule as in the JAX package), creates those tensors once on its
 device and initialises them with what ``initialize()`` recorded. A block
 with nothing deferred pays one attribute test per call.
 
-``hybridize()`` compiles nothing: PyTorch runs the forward eagerly, and
-the trainer's CUDA graph (``parallel/spmd.py run_steps``) is the port's
-counterpart of a compiled program (``CachedOp`` is ROADMAP A12). Its
-``mirror`` is kept: a hybridized block called with gradients enabled runs
-through ``util.mirror_wrapper(mirror)`` (``None`` follows
-``MXNET_BACKWARD_DO_MIRROR``), resolved at its first call after
-``hybridize``. ``export`` and ``SymbolBlock`` need ``symbol/`` and raise
-(ROADMAP A14). With ``MXTPU_EFFICIENCY`` on, the outermost hybridized
-block's call is one program of the efficiency plane (kind ``cached_op``,
-keyed by block and input signature, standing in for the JAX package's
-CachedOp programs): counted on its first call, noted on every call, and
-its backward likewise at the next ``autograd.backward``
-(``telemetry.efficiency.pending_backward``).
+``hybridize()`` routes the block's calls through a
+:class:`~mxnet_tpu_torch.cached_op.CachedOp`, built at its first call
+(ref: the JAX package's ``block.py:201-281``): on a card one CUDA graph
+per signature, a forward graph for inference and a forward and a
+backward graph under ``autograd.record()``; on the CPU the same cache,
+keys and counters over eager runs. Blocks nested in a hybridized block
+run inside its graphs. ``hybridize(mirror=)`` recomputes activations in
+the backward (``util.mirror_wrapper``; ``None`` follows
+``MXNET_BACKWARD_DO_MIRROR``). ``export`` and ``SymbolBlock`` need
+``symbol/`` and raise (ROADMAP A14). With ``MXTPU_EFFICIENCY`` on, the
+CachedOp's forward and backward programs are the efficiency plane's
+``cached_op`` programs.
 
 Checkpoints: ``save_parameters`` / ``load_parameters`` write and read
 ``mx.nd.save`` files (the JAX package's format) keyed by the structural
@@ -72,8 +71,7 @@ from ..context import cpu
 from ..ndarray import utils as nd_utils
 from ..ndarray.ndarray import NDArray, _own
 from ..ops.registry import NotPortedError
-from ..telemetry import efficiency as _efficiency
-from ..util import mirror_wrapper
+from ..cached_op import CachedOp
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, _Holder)
 
@@ -129,6 +127,25 @@ def _unwrap(out):
     if isinstance(out, (tuple, list)):
         return type(out)(_unwrap(o) for o in out)
     return out
+
+
+def ndarray_call(fn, args, kwargs):
+    """``fn(*args, **kwargs)`` taking and giving tensors, called with
+    NDArrays: their tensors in, under ``enable_grad`` while
+    ``autograd.record()`` is on and ``no_grad`` otherwise, and the output
+    tensors wrapped as NDArrays (copied where one is a view of an
+    input)."""
+    args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
+    kwargs = {k: v._data if isinstance(v, NDArray) else v
+              for k, v in kwargs.items()}
+    inputs = [t for t in (*args, *kwargs.values())
+              if isinstance(t, torch.Tensor)]
+    with torch.enable_grad() if autograd.is_recording() \
+            else torch.no_grad():
+        out = fn(*args, **kwargs)
+    if isinstance(out, torch.Tensor):
+        return NDArray(_own(out, inputs))
+    return type(out)(NDArray(_own(o, inputs)) for o in out)
 
 
 def _nd_call(fn, args, kwargs):
@@ -382,7 +399,7 @@ class HybridBlock(Block):
         super().__init__(prefix=prefix, params=params, device=device)
         self._active = False
         self._mirror_arg = None
-        self._mirror = None      # util.mirror_wrapper, at the first call
+        self._cached_op = None   # built at the first call after hybridize
 
     def __call__(self, *args, **kwargs):
         """NDArrays in, NDArrays out (see the module docstring); tensors
@@ -391,29 +408,14 @@ class HybridBlock(Block):
                                                       *kwargs.values())):
             if self._deferred:
                 self._finish_deferred(*args, **kwargs)
-            if self._active and _efficiency.notes_on():
-                return _efficiency.observe_block(
-                    self, lambda: self._tensor_call(*args, **kwargs),
-                    args, kwargs)
             return self._tensor_call(*args, **kwargs)
-        args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
-        kwargs = {k: v._data if isinstance(v, NDArray) else v
-                  for k, v in kwargs.items()}
-        inputs = [t for t in (*args, *kwargs.values())
-                  if isinstance(t, torch.Tensor)]
-        with torch.enable_grad() if autograd.is_recording() \
-                else torch.no_grad():
-            out = self(*args, **kwargs)
-        if isinstance(out, torch.Tensor):
-            return NDArray(_own(out, inputs))
-        return type(out)(NDArray(_own(o, inputs)) for o in out)
+        return ndarray_call(self, args, kwargs)
 
     def _tensor_call(self, *args, **kwargs):
-        if self._active and torch.is_grad_enabled():
-            if self._mirror is None:
-                self._mirror = mirror_wrapper(self._mirror_arg)
-            return self._mirror(super(Block, self).__call__)(
-                *args, **kwargs)
+        if self._active:
+            if self._cached_op is None:
+                self._cached_op = CachedOp(self, mirror=self._mirror_arg)
+            return self._cached_op.call(args, kwargs)
         return super(Block, self).__call__(*args, **kwargs)
 
     def forward(self, *args, **kwargs):
@@ -438,11 +440,12 @@ class HybridBlock(Block):
     def hybridize(self, active: bool = True, static_alloc: bool = False,
                   static_shape: bool = False, mirror=None,
                   **kwargs) -> None:
-        """Keep the flag and ``mirror`` (see the module docstring); the
-        children get the same."""
+        """Route the block's calls through a ``CachedOp`` (see the module
+        docstring), built anew at the next call; the children get the
+        same flag."""
         self._active = active
         self._mirror_arg = mirror
-        self._mirror = None
+        self._cached_op = None
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, mirror=mirror,
                           **kwargs)

@@ -77,15 +77,13 @@ statistically, not bit for bit, as in the JAX package.
 """
 from __future__ import annotations
 
-import time
-from typing import List
-
 import torch
 
 from . import autograd
 from .base import MXNetError, check, env
 from .base import env_switch as _switch
-from .cached_op import SignatureLRU, trace_rw_for
+from .cached_op import (SignatureLRU, _block_generators, capture_graph,
+                        inline_scope, on_stream, trace_rw_for)
 from .log import get_logger
 from .ndarray.ndarray import NDArray
 from .ops.registry import NotPortedError
@@ -145,17 +143,6 @@ class _Entry:
         self.capture_ms = None
         self.smats = None
         self.label = None
-
-
-def _block_generators(net) -> List[torch.Generator]:
-    """The CUDA generators the net's blocks hold (``Dropout(generator=)``),
-    each once."""
-    gens = {}
-    for m in net.modules():
-        g = getattr(m, "_generator", None)
-        if isinstance(g, torch.Generator) and g.device.type == "cuda":
-            gens[id(g)] = g
-    return list(gens.values())
 
 
 class Megastep:
@@ -242,7 +229,8 @@ class Megastep:
             s[2 * n + 2] != 0, s[2 * n + 3]
         x = NDArray(e.x)
         y = NDArray(e.y) if e.y is not None else None
-        with autograd.record():
+        # a hybridized net runs inline: the step is one program
+        with autograd.record(), inline_scope():
             out = net(x)
             loss = self._loss_fn(out, y) if y is not None \
                 else self._loss_fn(out)
@@ -316,7 +304,7 @@ class Megastep:
         # deferred init OUTSIDE the step: the same init draws, in the same
         # order, as the composed path's first recorded forward
         if any(p.tensor is None for p in tr._params):
-            with autograd.pause():
+            with autograd.pause(), inline_scope():
                 net(x_nd)
         if not tr._kv_initialized:
             tr._init_kvstore()
@@ -404,28 +392,18 @@ class Megastep:
         if dev.type != "cuda":
             self._counted_body(e, live, handles, rank_chunks, n, dev)
         else:
-            cur = torch.cuda.current_stream(dev)
             e.stream = torch.cuda.Stream(dev)
-            e.stream.wait_stream(cur)
-            with torch.cuda.stream(e.stream):
+
+            def body():
+                with _efficiency.program_scope():
+                    self._body(e, live, rank_chunks, n, check_stale=False)
+            with on_stream(e.stream):
                 self._counted_body(e, live, handles, rank_chunks, n, dev)
-                graph = torch.cuda.CUDAGraph()
-                for gen in _block_generators(self._net):
-                    graph.register_generator_state(gen)
-                t0 = time.perf_counter()
-                try:
-                    with torch.cuda.graph(graph, stream=e.stream), \
-                            _efficiency.program_scope():
-                        self._body(e, live, rank_chunks, n,
-                                   check_stale=False)
-                except Exception as err:
-                    raise MXNetError(
-                        f"megastep: CUDA graph capture of the training "
-                        f"step failed: {err}") from err
-                e.capture_ms = 1e3 * (time.perf_counter() - t0)
-                note_compile("graph_capture", e.capture_ms / 1e3, e.label)
-            cur.wait_stream(e.stream)
-            e.graph = graph
+                e.graph, _, secs = capture_graph(
+                    body, e.stream, "the megastep's training step",
+                    _block_generators(self._net))
+            e.capture_ms = 1e3 * secs
+            note_compile("graph_capture", secs, e.label)
         e.ptrs = self._ptrs(live)
         e.states = [h._data for h in handles]
         e.ready = True
@@ -449,8 +427,5 @@ class Megastep:
             with _efficiency.program_scope():
                 self._body(e, live, rank_chunks, n, check_stale=False)
             return
-        cur = torch.cuda.current_stream(dev)
-        e.stream.wait_stream(cur)
-        with torch.cuda.stream(e.stream):
+        with on_stream(e.stream):
             e.graph.replay()
-        cur.wait_stream(e.stream)

@@ -105,9 +105,30 @@ def _make_loss(x, grad_scale: float = 1.0, **_):
     return x  # the gradient is the head gradient; MakeLoss marks a loss
 
 
+def saturating_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` as ``dtype`` the way XLA's convert casts (the JAX package's
+    ``astype``): a float to an integer type truncates toward zero and
+    saturates at the type's limits, NaN gives 0. Every other cast is
+    ``Tensor.to`` (integer to integer wraps, as XLA's does)."""
+    dtype = torch_dtype(dtype)
+    if not x.is_floating_point() or dtype.is_floating_point or \
+            dtype.is_complex or dtype == torch.bool:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    t = torch.trunc(x)
+    # compared in x's own type: a limit that type cannot hold exactly
+    # rounds, and whatever reaches it saturates
+    hi = t >= info.max
+    lo = t <= info.min
+    inside = torch.where(hi | lo | torch.isnan(t), torch.zeros_like(t), t)
+    out = inside.to(dtype)
+    out = torch.where(hi, torch.full_like(out, info.max), out)
+    return torch.where(lo, torch.full_like(out, info.min), out)
+
+
 @register("cast", aliases=("Cast",))
 def _cast(x, dtype="float32"):
-    return x.to(torch_dtype(dtype))
+    return saturating_cast(x, dtype)
 
 
 @register("amp_cast")

@@ -216,9 +216,11 @@ def _split_v2_outputs(n_inputs, params):
 
 @register("_split_v2", num_outputs=_split_v2_outputs)
 def _split_v2(x, indices=(), axis=1, squeeze_axis=False, sections=0):
-    """Split by equal sections or boundary indices that include the
-    leading 0 (ref: the JAX package's ops/misc_ops.py _split_v2;
-    matrix_op-inl.h SplitParam)."""
+    """Split by equal sections or by boundary indices. As the JAX
+    package does (ops/misc_ops.py _split_v2), ``indices[0]`` is taken for
+    the leading 0 that MXNet's serialised attributes carry and dropped:
+    the array is split at ``indices[1:]`` with numpy's slice rules, so
+    ``len(indices)`` parts come out whatever the first index is."""
     axis = int(axis)
     n = x.shape[axis]
     if int(sections) > 0:
@@ -227,8 +229,9 @@ def _split_v2(x, indices=(), axis=1, squeeze_axis=False, sections=0):
                              "division")
         parts = torch.split(x, n // int(sections), dim=axis)
     else:
-        bounds = [int(i) for i in indices] + [n]
-        parts = [x.narrow(axis, b, max(0, min(e, n) - b))
+        bounds = [0] + [int(i) for i in indices][1:] + [n]
+        lead = (slice(None),) * (axis % x.dim())
+        parts = [x[lead + (slice(b, e),)]
                  for b, e in zip(bounds[:-1], bounds[1:])]
     return _finish_split(parts, axis, squeeze_axis)
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
-from ..base import MXNetError, coerce_param
+from ..base import MXNetError, coerce_param, env
 
 __all__ = ["OpDef", "register", "alias", "get_op", "list_ops", "invoke",
            "normalize_params", "as_tuple_outputs", "NotPortedError"]
@@ -66,6 +66,20 @@ class OpDef:
 
     def __repr__(self):
         return f"<OpDef {self.name}>"
+
+
+def _trace_time_flags() -> Tuple:
+    """The environment flags that op implementations read at run time
+    and that change what a captured program computes (ref: the JAX
+    package's ``ops/registry.py _trace_time_flags``). ``CachedOp`` keys
+    its signatures on them, so toggling one captures anew instead of
+    replaying a graph of the other setting. The two quantization flags
+    (ROADMAP A13) are kept as their raw strings."""
+    return (bool(env.get("MXNET_SAFE_ACCUMULATION")),
+            env.get("MXNET_RESID_DTYPE") or "",
+            env.raw("MXNET_CONV_COMPUTE") or "",
+            env.raw("MXNET_CONV_INT8_RANGE") or "",
+            bool(env.get("MXTPU_FUSED_EPILOGUE")))
 
 
 def register(name: str, aliases: Sequence[str] = (), **kw) -> Callable:

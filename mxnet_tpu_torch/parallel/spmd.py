@@ -86,7 +86,6 @@ capture's seconds land in the registry's compile counters; with
 from __future__ import annotations
 
 import hashlib
-import time
 
 import numpy as np
 import torch
@@ -94,6 +93,7 @@ from torch.func import functional_call
 
 from .. import autograd
 from ..base import MXNetError, check
+from ..cached_op import capture_graph, inline_scope, on_stream
 from ..ndarray.ndarray import NDArray
 from ..ops.registry import NotPortedError
 from ..telemetry import efficiency as _efficiency
@@ -257,8 +257,10 @@ class SPMDTrainer:
     def _step(self, data, label):
         weights = self._weights()
         # wrapped per call: a wrapped bound method kept on the trainer would
-        # tie it into a reference cycle that holds its device memory
-        loss = self._mirror(self._loss)(data, label)
+        # tie it into a reference cycle that holds its device memory. A
+        # hybridized block runs inline: the step is the trainer's program
+        with inline_scope():
+            loss = self._mirror(self._loss)(data, label)
         grads = list(torch.autograd.grad(loss, weights))
         with torch.no_grad():
             self._update(weights, grads)
@@ -272,7 +274,8 @@ class SPMDTrainer:
                        else torch.as_tensor(np.asarray(a))
                        for a in (data, label))
         if self._trainable is None:
-            self._collect(data[0] if steps else data)
+            with inline_scope():
+                self._collect(data[0] if steps else data)
             self._mirror = mirror_wrapper(self.remat)
         return data, label
 
@@ -390,11 +393,9 @@ class SPMDTrainer:
             check(now == g.ptrs, "SPMDTrainer.run_steps: a parameter's "
                   "tensor was rebound after the CUDA graph captured it; "
                   "write parameters in place (Parameter.set_data)")
-        cur = torch.cuda.current_stream(dev)
         g.data.copy_(data, non_blocking=True)
         g.label.copy_(label, non_blocking=True)
-        g.stream.wait_stream(cur)
-        with torch.cuda.stream(g.stream):
+        with on_stream(g.stream):
             if first:
                 # the warm-up: K real steps, counted
                 with _efficiency.counting(dev) as c, \
@@ -402,21 +403,12 @@ class SPMDTrainer:
                     c1 = self._k_steps(g, count_first=True)
                 self._record(sig, (c, (g.data, g.label), (g.losses,)),
                              (c1, (g.data[0], g.label[0]), (g.losses[0],)))
-                graph = torch.cuda.CUDAGraph()
-                t0 = time.perf_counter()
-                try:
-                    with torch.cuda.graph(graph, stream=g.stream):
-                        self._k_steps(g)
-                except Exception as e:
-                    raise MXNetError(
-                        f"SPMDTrainer.run_steps: CUDA graph capture of "
-                        f"{data.shape[0]} steps failed: {e}") from e
-                note_compile("graph_capture", time.perf_counter() - t0,
-                             self._programs[sig][0])
-                g.graph = graph
+                g.graph, _, secs = capture_graph(
+                    lambda: self._k_steps(g), g.stream,
+                    f"SPMDTrainer.run_steps' {data.shape[0]} steps")
+                note_compile("graph_capture", secs, self._programs[sig][0])
                 g.ptrs = [t.data_ptr() for t in self._state_tensors()]
                 self._graphs[sig] = g
             else:
                 g.graph.replay()
-        cur.wait_stream(g.stream)
         return g.losses.clone()

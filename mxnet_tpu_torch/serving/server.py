@@ -1,0 +1,551 @@
+"""ModelServer: the serving runtime (threads, admission, deadlines, drain)
+(ref: the JAX package's ``serving/server.py``).
+
+Request life cycle::
+
+    submit() ── admission control ──> admit deque ──> batcher thread
+      │   QueueFull / NoBucket / ServerClosed          │ shape buckets,
+      │   shed HERE, typed, never queued               │ flush on size/age
+      ▼                                                ▼
+    PredictionFuture  <── worker threads <── dispatch queue (bounded)
+                           │ deadline filter BEFORE dispatch
+                           │ pad to batch bucket, one CachedOp replay
+                           │ (one CUDA graph on the card)
+                           └ split rows back to futures + metrics
+
+Design decisions (the JAX package's):
+
+- **Backpressure, not buffering**: the admitted-but-undispatched count is
+  bounded by ``queue_depth``; excess load is rejected at ``submit`` with
+  :class:`QueueFull`. Nothing in the server blocks a client thread.
+- **Deadlines drop work before compute**: a request whose deadline expired
+  while queued is rejected by the worker *before* the batch is padded and
+  dispatched — expired work never occupies the accelerator.
+- **Graceful drain**: SIGTERM/SIGINT (or ``stop(drain=True)``) stops
+  admission, flushes every pending bucket, finishes in-flight batches,
+  then ``serve_forever`` exits with the resumable code shared with
+  ``fit.FitLoop`` so one relauncher policy covers training and serving.
+- **Chaos-testable**: an installed ``contrib.chaos`` plan with a
+  ``serve_slow:P@ms`` event delays batch compute deterministically, which
+  is how the deadline/saturation behaviors are regression-tested.
+"""
+from __future__ import annotations
+
+import queue
+import signal
+import sys
+import threading
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..base import MXNetError, env
+from ..log import get_logger
+from ..ops.registry import NotPortedError
+from .batcher import (Batch, BucketTable, DeadlineExceeded, NoBucket,
+                      PredictionFuture, QueueFull, Request, ServerClosed,
+                      pad_rows)
+from .cache import SignatureCache
+from .metrics import ServerMetrics
+
+__all__ = ["ModelServer", "ActiveModel"]
+
+_LOG = get_logger("mxnet_tpu_torch.serving")
+
+_STOP = object()  # worker sentinel
+
+
+class ActiveModel:
+    """The unit of atomic hot-swap: ONE reference the workers read.
+
+    Everything that must change together when a new version takes over —
+    the warm :class:`SignatureCache` and the version tag stamped on every
+    response — lives behind a single attribute (``ModelServer._active``),
+    so the flip is one Python reference assignment: any batch observes
+    either the old model or the new one, never a mix. ``inflight`` counts
+    batches currently executing against THIS model so a deployer can
+    drain the old version after the flip.
+    """
+
+    __slots__ = ("cache", "version", "inflight", "_lock", "_idle")
+
+    def __init__(self, cache: SignatureCache, version: Optional[str] = None):
+        self.cache = cache
+        self.version = version
+        self.inflight = 0
+        self._lock = threading.Lock()
+        self._idle = threading.Event()
+        self._idle.set()
+
+    def enter(self) -> None:
+        with self._lock:
+            self.inflight += 1
+            self._idle.clear()
+
+    def exit(self) -> None:
+        with self._lock:
+            self.inflight -= 1
+            if self.inflight <= 0:
+                self._idle.set()
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Wait until no batch is executing against this model."""
+        return self._idle.wait(timeout)
+
+
+class ModelServer:
+    """Dynamic-batching inference server over a gluon block (or callable).
+
+    Parameters
+    ----------
+    model : gluon Block (captured per signature through CachedOp) or any
+        callable mapping a batched NDArray to an NDArray / tuple of them.
+        Batches are made on the block's device (for a callable, the
+        context current when the server is built).
+    bucket_shapes : closed set of admissible item shapes (no batch dim);
+        None lets every observed shape open its own bucket (open signature
+        set — fine for experiments, not for production compile budgets).
+    max_batch_size / max_queue_latency_ms / queue_depth : batching policy
+        knobs; default from MXTPU_SERVE_MAX_BATCH / _MAX_LATENCY_MS /
+        _QUEUE_DEPTH.
+    workers : worker threads running model dispatch (host-side pre/post
+        overlap; replays of one signature take turns on its entry).
+    default_deadline_ms : per-request deadline applied when ``submit``
+        gets none; None = no deadline.
+    dtype : the server's input dtype; every admitted payload is coerced
+        to it (a python list would otherwise arrive float64 and open an
+        unwarmed signature on the hot path). Uncastable payloads are
+        rejected with :class:`NoBucket`.
+    """
+
+    def __init__(self, model, bucket_shapes: Optional[Sequence] = None,
+                 max_batch_size: Optional[int] = None,
+                 max_queue_latency_ms: Optional[float] = None,
+                 queue_depth: Optional[int] = None, workers: int = 1,
+                 cache_size: Optional[int] = None,
+                 default_deadline_ms: Optional[float] = None,
+                 dtype: str = "float32", name: str = "model"):
+        if max_batch_size is None:
+            max_batch_size = int(env.get("MXTPU_SERVE_MAX_BATCH"))
+        if max_queue_latency_ms is None:
+            max_queue_latency_ms = float(env.get("MXTPU_SERVE_MAX_LATENCY_MS"))
+        if queue_depth is None:
+            queue_depth = int(env.get("MXTPU_SERVE_QUEUE_DEPTH"))
+        if queue_depth < 1:
+            raise MXNetError("queue_depth must be >= 1")
+        if int(workers) < 1:
+            raise MXNetError("workers must be >= 1 (0 workers would admit "
+                             "requests whose futures never resolve)")
+        self.name = name
+        self.dtype = np.dtype(dtype)
+        self._table = BucketTable(max_batch_size, max_queue_latency_ms,
+                                  bucket_shapes)
+        self.queue_depth = int(queue_depth)
+        self._default_deadline_ms = default_deadline_ms
+        self._cache_size = cache_size
+        self._active = ActiveModel(
+            SignatureCache(model, cache_size=cache_size))
+        self.metrics = ServerMetrics(name)
+        self.metrics.cache_info_fn = lambda: self._active.cache.cache_info()
+        self.metrics.memory_fn = lambda: self._active.cache.memory_bytes()
+        # replay recorder (serving/aot.py): every dispatched signature is
+        # logged once so new replicas can prewarm from real traffic
+        self._replay = None
+        replay_path = env.get("MXTPU_SERVE_REPLAY")
+        if replay_path:
+            from .aot import ReplayLog
+            self._replay = ReplayLog(replay_path)
+        self._dispatch_seq = 0  # allocated under _cond with the version
+        self._cond = threading.Condition()
+        self._admit: "list[Request]" = []
+        self._queued = 0            # admitted, not yet dispatched/rejected
+        self._dispatch_q: "queue.Queue" = queue.Queue(
+            maxsize=max(2, 2 * int(workers)))
+        self._workers = int(workers)
+        self._threads: "list[threading.Thread]" = []
+        self._started = False
+        self._closed = False        # no new admissions
+        self._abort = False         # drop queued work instead of finishing
+        self._report_written = False  # one serving run report per lifetime
+        self._sig_event = threading.Event()
+        self._signum: Optional[int] = None
+        self._old_handlers: dict = {}
+
+    @property
+    def cache(self) -> SignatureCache:
+        """The ACTIVE model's signature cache (changes on hot-swap)."""
+        return self._active.cache
+
+    @property
+    def active_version(self) -> Optional[str]:
+        """Version tag of the model currently serving (None when the
+        server was built from a bare model instead of a registry)."""
+        return self._active.version
+
+    # -- lifecycle -------------------------------------------------------
+    def start(self) -> "ModelServer":
+        with self._cond:
+            if self._started:
+                return self
+            self._started = True
+        t = threading.Thread(target=self._batcher_loop,
+                             name=f"serve-batcher[{self.name}]", daemon=True)
+        t.start()
+        self._threads.append(t)
+        for i in range(self._workers):
+            w = threading.Thread(target=self._worker_loop,
+                                 name=f"serve-worker[{self.name}]-{i}",
+                                 daemon=True)
+            w.start()
+            self._threads.append(w)
+        return self
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Stop admission; ``drain=True`` finishes everything already
+        admitted, ``drain=False`` rejects it with :class:`ServerClosed`."""
+        with self._cond:
+            self._closed = True
+            if not drain:
+                self._abort = True
+            self._cond.notify_all()
+        if not self._started:
+            return
+        deadline = time.perf_counter() + timeout
+        for t in self._threads:
+            t.join(max(0.0, deadline - time.perf_counter()))
+        alive = [t.name for t in self._threads if t.is_alive()]
+        if alive:
+            raise MXNetError(f"serving drain timed out after {timeout}s "
+                             f"(stuck threads: {alive})")
+        if drain:
+            # serving-mode run report: the drained metrics snapshot is
+            # this replica's verdict (QPS, p50/p95/p99, sheds) — written
+            # only when the report plane is on and traffic was served,
+            # so a replica that dies before its first response leaves
+            # the directory clean for run_compare
+            self._maybe_write_run_report()
+
+    def _maybe_write_run_report(self) -> None:
+        from ..telemetry.run_report import report_dir
+        if self._report_written or report_dir() is None:
+            return
+        m = self.metrics_json()
+        if not m.get("responses_total"):
+            return
+        try:
+            self.write_run_report(metrics_json=m)
+        except Exception as e:
+            _LOG.warning("serving run report failed: %s", e)
+
+    def write_run_report(self, directory: Optional[str] = None,
+                         extra: Optional[dict] = None,
+                         metrics_json: Optional[dict] = None) -> str:
+        """Write this server's serving-mode run report (see
+        ``telemetry.run_report.write_serving_report``)."""
+        from ..telemetry.run_report import write_serving_report
+        path = write_serving_report(metrics_json or self.metrics_json(),
+                                    directory=directory, extra=extra)
+        self._report_written = True
+        return path
+
+    def install_signal_handlers(self) -> None:
+        """Trap SIGTERM/SIGINT (main thread only) so ``serve_forever``
+        drains and exits resumable instead of dying mid-batch."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._old_handlers[sig] = signal.signal(sig, self._on_signal)
+            except (ValueError, OSError):
+                pass
+
+    def _on_signal(self, signum, frame) -> None:
+        self._signum = signum
+        self._sig_event.set()
+
+    def serve_forever(self) -> None:
+        """Run until SIGTERM/SIGINT, then drain in-flight work and exit
+        with the resumable code shared with ``fit.FitLoop`` (the
+        relauncher treats a preempted server like a preempted trainer)."""
+        from ..fit import resumable_exit_code
+        self.start()
+        self.install_signal_handlers()
+        # timed wait, not wait(): a signal raised on a non-main thread
+        # only trips the C-level flag — the main thread must re-enter the
+        # bytecode loop for the python handler (which sets this event) to
+        # run at all
+        while not self._sig_event.wait(0.2):
+            pass
+        _LOG.warning("signal %s: draining serving queues", self._signum)
+        self.stop(drain=True)
+        for sig, old in self._old_handlers.items():
+            try:
+                signal.signal(sig, old)
+            except (ValueError, OSError):
+                pass
+        sys.exit(resumable_exit_code())
+
+    # -- client surface ---------------------------------------------------
+    def submit(self, x, deadline_ms: Optional[float] = None
+               ) -> PredictionFuture:
+        """Admit one example (item shape, no batch dim). Returns a
+        :class:`PredictionFuture`; raises :class:`QueueFull`,
+        :class:`NoBucket` or :class:`ServerClosed` when load is shed."""
+        if not self._started:   # benign race: start() re-checks under
+            self.start()        # the lock; avoids a hot-path acquisition
+        self.metrics.record_request()
+        if deadline_ms is None:
+            deadline_ms = self._default_deadline_ms
+        deadline = (None if deadline_ms is None
+                    else time.perf_counter() + float(deadline_ms) / 1000.0)
+        try:
+            # own the bytes (a client reusing one preallocated buffer must
+            # not mutate the queued request) AND coerce to the server
+            # dtype — the signature set must stay closed on the dtype
+            # axis, not just the shape axis
+            if hasattr(x, "asnumpy"):
+                payload = x.asnumpy().astype(self.dtype, copy=False)
+            else:
+                payload = np.array(x, dtype=self.dtype, copy=True)
+        except (TypeError, ValueError) as e:
+            self.metrics.record_rejection("no_bucket")
+            raise NoBucket(f"payload is not castable to the server dtype "
+                           f"{self.dtype}: {e}")
+        try:
+            key = self._table.key_for(payload.shape, payload.dtype)
+        except NoBucket:
+            self.metrics.record_rejection("no_bucket")
+            raise
+        with self._cond:
+            if self._closed:
+                self.metrics.record_rejection("closed")
+                raise ServerClosed(
+                    f"server {self.name!r} is draining; not admitting")
+            if self._queued >= self.queue_depth:
+                self.metrics.record_rejection("queue_full")
+                raise QueueFull(
+                    f"admission queue full ({self._queued}/"
+                    f"{self.queue_depth} requests queued) — retry with "
+                    "backoff or add capacity")
+            req = Request(payload, key, deadline)
+            self._queued += 1
+            self.metrics.queue_depth.set(self._queued)
+            self._admit.append(req)
+            self._cond.notify()
+        return req.future
+
+    def predict(self, x, deadline_ms: Optional[float] = None,
+                timeout: Optional[float] = None):
+        """Blocking convenience over :meth:`submit`."""
+        return self.submit(x, deadline_ms=deadline_ms).result(timeout)
+
+    def warmup(self, item_shapes: Optional[Sequence[Tuple[int, ...]]] = None,
+               batch_sizes: Optional[Sequence[int]] = None,
+               dtype: Optional[str] = None) -> int:
+        """Capture (item shape x batch bucket) signatures so first
+        traffic replays instead of capturing. Returns the signatures
+        built."""
+        if dtype is None:
+            dtype = str(self.dtype)  # warm what admission coerces to
+        if item_shapes is None:
+            if self._table.bucket_shapes is None:
+                raise MXNetError("warmup needs item_shapes when no "
+                                 "bucket_shapes were configured")
+            item_shapes = sorted(self._table.bucket_shapes)
+        if batch_sizes is None:
+            batch_sizes = self._table.batch_sizes
+        return self.cache.warmup(item_shapes, batch_sizes, dtype)
+
+    @property
+    def max_batch_size(self) -> int:
+        """The resolved batching policy (public: bench/ops tooling reads
+        these rather than reaching into the bucket table)."""
+        return self._table.max_batch_size
+
+    @property
+    def max_queue_latency_ms(self) -> float:
+        return self._table.max_latency_s * 1000.0
+
+    # -- metrics export ---------------------------------------------------
+    def reset_metrics(self) -> ServerMetrics:
+        """Swap in a fresh metrics plane (warm executables untouched) —
+        lets an offered-load sweep isolate per-load-point statistics."""
+        self.metrics = ServerMetrics(self.name)
+        self.metrics.cache_info_fn = lambda: self._active.cache.cache_info()
+        self.metrics.memory_fn = lambda: self._active.cache.memory_bytes()
+        return self.metrics
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of the full metrics plane."""
+        return self.metrics.render_prometheus()
+
+    def metrics_json(self) -> dict:
+        return self.metrics.render_json()
+
+    @classmethod
+    def load(cls, prefix: str, epoch: int = 0, input_names=("data",),
+             ctx=None, **kwargs) -> "ModelServer":
+        """Serve an exported checkpoint (``HybridBlock.export`` layout),
+        loaded through ``gluon.SymbolBlock.imports``: needs ``symbol/``,
+        not ported yet (ROADMAP A14)."""
+        raise NotPortedError("ModelServer.load reads an exported symbol "
+                             "graph through SymbolBlock.imports; symbol/ "
+                             "is not ported yet (ROADMAP.md, queue A14)")
+
+    # -- internals --------------------------------------------------------
+    def _reject(self, req: Request, reason: str, err: Exception) -> None:
+        with self._cond:
+            self._queued -= 1
+            self.metrics.queue_depth.set(self._queued)
+        self.metrics.record_rejection(reason)
+        req.future.set_exception(err)
+
+    def _put_batch(self, batch: Batch) -> None:
+        while True:
+            try:
+                self._dispatch_q.put(batch, timeout=0.1)
+                return
+            except queue.Full:
+                if self._abort:
+                    for r in batch.requests:
+                        self._reject(r, "closed",
+                                     ServerClosed("server aborted"))
+                    return
+
+    def _batcher_loop(self) -> None:
+        table = self._table
+        while True:
+            batches: "list[Batch]" = []
+            with self._cond:
+                while not self._admit:
+                    if self._closed:
+                        break
+                    nxt = table.next_deadline()
+                    now = time.perf_counter()
+                    if nxt is not None and now >= nxt:
+                        break
+                    # untimed when nothing is aging: submit/stop notify
+                    # the condvar, so an idle server takes zero wakeups
+                    self._cond.wait(None if nxt is None
+                                    else min(0.05, nxt - now))
+                drained = list(self._admit)
+                self._admit.clear()
+                closed = self._closed
+                abort = self._abort
+            for req in drained:
+                if abort:
+                    self._reject(req, "closed", ServerClosed("server aborted"))
+                    continue
+                full = table.add(req)
+                if full is not None:
+                    batches.append(full)
+            batches.extend(table.due())
+            if closed:
+                # drain: everything still bucketed goes out now (or is
+                # rejected on abort), then the workers get their sentinels
+                final = table.flush_all()
+                if abort:
+                    for b in final:
+                        for r in b.requests:
+                            self._reject(r, "closed",
+                                         ServerClosed("server aborted"))
+                else:
+                    batches.extend(final)
+            for b in batches:
+                self._put_batch(b)
+            if closed:
+                with self._cond:
+                    empty = not self._admit
+                if empty and table.pending_count == 0:
+                    for _ in range(self._workers):
+                        self._dispatch_q.put(_STOP)
+                    return
+
+    def _worker_loop(self) -> None:
+        from .. import profiler
+        from ..contrib import chaos as _chaos
+        while True:
+            batch = self._dispatch_q.get()
+            if batch is _STOP:
+                return
+            now = time.perf_counter()
+            live: "list[Request]" = []
+            for r in batch.requests:
+                if self._abort:
+                    self._reject(r, "closed", ServerClosed("server aborted"))
+                elif r.expired(now):
+                    # the whole point of deadlines: expired work is dropped
+                    # BEFORE padding/dispatch — zero accelerator time spent
+                    self._reject(r, "deadline", DeadlineExceeded(
+                        f"deadline expired {1000 * (now - r.deadline):.1f}ms "
+                        "ago while queued; request was never dispatched"))
+                else:
+                    live.append(r)
+            if not live:
+                continue
+            t_dispatch = time.perf_counter()
+            # capture ONE metrics plane per batch: reset_metrics() may
+            # swap self.metrics mid-batch, and a split inc/dec pair would
+            # wedge the fresh inflight gauge at -1
+            metrics = self.metrics
+            with self._cond:
+                self._queued -= len(live)
+                metrics.queue_depth.set(self._queued)
+                # capture the active model AND allocate the dispatch
+                # sequence number under the same lock a hot-swap flips
+                # under: the (seq, version) stream is linearizable, so a
+                # deploy's version tags are provably monotone in seq
+                # order even with concurrent workers. enter() must happen
+                # under the SAME lock: a deployer that flips and then
+                # drains the old model must see this batch as in-flight,
+                # not catch the gap between capture and enter
+                active = self._active
+                seq = self._dispatch_seq
+                self._dispatch_seq += 1
+                active.enter()
+            metrics.inflight_batches.inc()
+            try:
+                padded_to = self._table.pad_to(len(live))
+                for r in live:
+                    r.future.version = active.version
+                    r.future.dispatch_seq = seq
+                if self._replay is not None:
+                    shape, dtype = batch.key
+                    self._replay.record(shape, dtype, padded_to)
+                plan = _chaos.active()
+                if plan is not None:
+                    delay = plan.serve_delay_s()
+                    if delay:
+                        time.sleep(delay)
+                x = pad_rows([r.payload for r in live], padded_to)
+                out = active.cache(active.cache.batch(x))
+                outs = tuple(out) if isinstance(out, (list, tuple)) \
+                    else (out,)
+                # asnumpy blocks until the device result is real — compute
+                # time includes the sync, same as a client would see
+                host = [o.asnumpy() for o in outs]
+                t_done = time.perf_counter()
+                for i, r in enumerate(live):
+                    rows = [h[i] for h in host]
+                    r.future.set_result(rows[0] if len(rows) == 1
+                                        else tuple(rows))
+                    metrics.record_response(r.t_submit, r.t_formed,
+                                            t_dispatch, t_done)
+                metrics.record_batch(len(live), padded_to, t_dispatch,
+                                     t_done)
+                profiler.record_span(
+                    f"serve_batch[{self.name}]", "serving", t_dispatch,
+                    t_done, args={"bucket": str(batch.key),
+                                  "rows": len(live),
+                                  "padded_to": padded_to,
+                                  "version": active.version or ""})
+            except Exception as e:  # model error: fail the batch, not the
+                _LOG.exception("serving batch failed")        # server
+                for r in live:
+                    if not r.future.done():
+                        metrics.record_rejection("error")
+                        r.future.set_exception(e)
+            finally:
+                metrics.inflight_batches.dec()
+                active.exit()

@@ -37,8 +37,8 @@ The counter is part of the thread's dispatch state, which PyTorch hands
 to autograd's device threads, so a backward run inside a counted scope
 is counted too. A CUDA graph's replay runs no op the mode can see, so
 graphs are counted on the eager run before their capture
-(``megastep.py``, ``parallel/spmd.py``) and the cost is cached per
-signature; a warm step runs no counting mode.
+(``megastep.py``, ``parallel/spmd.py``, ``cached_op.py``) and the cost is
+cached per signature; a warm step runs no counting mode.
 
 :func:`program_stats` (exported as :func:`compiled_program_stats`, the
 JAX package's name) turns a counted run into the JAX package's field
@@ -50,9 +50,9 @@ ledger's program registry (``memory.record_program``).
 package: dispatch sites drop a :func:`note_dispatch` per launch — the
 megastep graph's replay (kind ``megastep``), ``SPMDTrainer.run_steps``'s
 K-step graph (``spmd``), each grouped optimizer bucket and the
-finiteness reduction (``optimizer``), and a hybridized block's forward
-call and its backward, keyed by input signature (``cached_op``, standing
-in for the JAX package's CachedOp programs). ``fit.FitLoop`` brackets
+finiteness reduction (``optimizer``), and a hybridized block's
+``CachedOp`` programs, its forward and its backward per signature
+(``cached_op``). ``fit.FitLoop`` brackets
 each step with :func:`begin_step` / :func:`end_step`; the step's FLOP and
 byte sums divide by the wall and the device peak table
 (:func:`device_peak`, ``MXTPU_DEVICE_PEAK=flops=F,bw=B``) into MFU,
@@ -75,7 +75,7 @@ import threading
 import time
 import weakref
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils._python_dispatch import (TorchDispatchMode,
@@ -86,7 +86,7 @@ from ..base import MXNetError, env
 
 __all__ = ["CostCounter", "counting", "program_stats",
            "compiled_program_stats", "report_kernel", "observe",
-           "observe_block", "block_signature", "run_backward",
+           "pend_backward", "block_signature", "run_backward",
            "program_scope", "in_program", "notes_on", "COST_FIELDS",
            "MEMORY_FIELDS", "spec", "enabled", "device_peak", "note_dispatch",
            "begin_step", "end_step", "reset_run", "summary", "rollup",
@@ -315,12 +315,6 @@ def notes_on() -> bool:
     return spec() and not in_program()
 
 
-#: block -> {input signature: registry label}; weak, so a block that
-#: dies takes its labels along and a later block at its address gets its
-#: own
-_BLOCK_LABELS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
 def block_signature(block) -> Tuple:
     """What sets a block's program apart from another's at equal inputs:
     each module's path, type and settings (``extra_repr``, the Gluon
@@ -338,48 +332,23 @@ def block_signature(block) -> Tuple:
     return tuple(mods), tuple(tensors)
 
 
-def observe_block(block, run: Callable[[], Any], args, kwargs):
-    """The outermost hybridized block's call as one ``cached_op`` program
-    (keyed by the block's :func:`block_signature` and the input
-    signature): counted the first time, noted every time; with gradients
-    enabled its backward is left pending for the next
-    :func:`run_backward`."""
-    import hashlib
-    ins = _tensors((args, kwargs))
-    grad = torch.is_grad_enabled()
-    sig = (tuple((tuple(t.shape), t.dtype, t.device.type) for t in ins),
-           grad)
-    labels = _BLOCK_LABELS.get(block)
-    if labels is None:
-        labels = _BLOCK_LABELS[block] = {}
-    label = labels.get(sig)
-    if label is None:
-        label = labels[sig] = f"{type(block).__name__}:" + \
-            hashlib.md5(repr((block_signature(block), sig)).encode()
-                        ).hexdigest()[:12]
-
-    def scoped():
-        with program_scope():
-            return run()
-
-    res = observe("cached_op", label + ":fwd", scoped,
-                  device=ins[0].device if ins else None,
-                  arguments=lambda: ins + list(block.parameters()),
-                  outputs=lambda r: r)
-    if grad:
-        pend = getattr(_tls, "pending", None)
-        if pend is None:
-            pend = _tls.pending = []
-        if label not in pend:
-            pend.append(label)
-    return res
+def pend_backward(label: str) -> None:
+    """A CachedOp program ``label`` ran its forward with gradients on: its
+    backward (``label + ":bwd"``) is the next :func:`run_backward`'s."""
+    pend = getattr(_tls, "pending", None)
+    if pend is None:
+        pend = _tls.pending = []
+    if label not in pend:
+        pend.append(label)
 
 
 def run_backward(run: Callable[[], Any], device=None):
     """``run()`` (a reverse pass) as the backward program of the
-    hybridized blocks whose forward ran since the last one: counted the
-    first time when it is one block's (the ops from the heads down, so a
-    loss after the block is part of it), noted every time."""
+    hybridized blocks whose forward ran since the last one
+    (:func:`pend_backward`): noted every time; counted the first time
+    when it is one block's and the CachedOp has not recorded it (on the
+    CPU, where the block runs eagerly: the ops from the heads down, so a
+    loss after the block is part of it)."""
     pend = getattr(_tls, "pending", None)
     if not pend:
         return run()
@@ -397,20 +366,27 @@ def run_backward(run: Callable[[], Any], device=None):
     return res
 
 
-def observe(kind: str, label: str, run: Callable[[], Any], device=None,
+def observe(kind: str, label: Union[str, Callable[[Any], str]],
+            run: Callable[[], Any], device=None,
             arguments=(), outputs: Optional[Callable[[Any], Any]] = None):
     """Run ``run()`` as a dispatch of the program ``(kind, label)``: the
     first time, counted and recorded in the program registry; every time,
     noted in the step window. ``arguments`` may be a callable (evaluated
-    only when counting). Returns ``run()``'s result. Call it only when
-    :func:`notes_on`."""
+    only when counting). ``label`` may be a callable of ``run()``'s
+    result, for a program keyed on what its run resolves (a block's
+    deferred shapes): that run is counted. Returns ``run()``'s result.
+    Call it only when :func:`notes_on`."""
     from . import memory as _memory
-    if _memory.get_program(kind, label) is None:
+    lazy = callable(label)
+    if lazy or _memory.get_program(kind, label) is None:
         with counting(device) as c:
             res = run()
-        _memory.record_program(kind, label, c.stats(
-            arguments() if callable(arguments) else arguments,
-            outputs(res) if outputs is not None else ()))
+        if lazy:
+            label = label(res)
+        if _memory.get_program(kind, label) is None:
+            _memory.record_program(kind, label, c.stats(
+                arguments() if callable(arguments) else arguments,
+                outputs(res) if outputs is not None else ()))
     else:
         res = run()
     note_dispatch((kind, label), kind, label,

@@ -432,7 +432,9 @@ def compiled_memory_stats(counter, arguments=(),
 
 def record_program(kind: str, label: str, stats: Dict[str, Any]) -> None:
     """Record one program's footprint and cost, keyed by (kind, label),
-    e.g. ("megastep", "megastep:SGD:ab12...")."""
+    e.g. ("megastep", "megastep:SGD:ab12..."). The registry's
+    ``mxtpu_program_*`` gauges read the records."""
+    _install_metrics()
     with _prog_lock:
         _PROGRAMS[(kind, label)] = dict(stats)
 
@@ -441,6 +443,7 @@ def merge_program(kind: str, label: str, stats: Dict[str, Any]) -> None:
     """Merge fields into one program's record ATOMICALLY (under the
     registry lock): two threads adding fields to one record must not
     clobber each other's."""
+    _install_metrics()
     with _prog_lock:
         rec = dict(_PROGRAMS.get((kind, label)) or {})
         rec.update(stats)

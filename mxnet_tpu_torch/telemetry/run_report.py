@@ -20,7 +20,8 @@ tmp+rename so a file that exists parses) carries the JAX package's keys:
 per-metric regression verdicts with CI exit codes. The report directory
 keeps a shared ``fault.write_manifest`` SHA-256 manifest over its files.
 The serving-mode report (``build_serving_payload`` /
-``write_serving_report``) comes with serving (ROADMAP A12) and raises.
+``write_serving_report``) is the verdict of one ``serving.ModelServer``
+(queries a second, latency percentiles, sheds), written at its drain.
 """
 from __future__ import annotations
 
@@ -33,7 +34,6 @@ import time
 from typing import Any, Dict, List, Optional
 
 from ..base import env
-from ..ops.registry import NotPortedError
 
 __all__ = ["REPORT_FORMAT", "write_run_report", "load_run_report",
            "build_payload", "report_dir", "build_serving_payload",
@@ -275,15 +275,82 @@ def write_run_report(result, directory: Optional[str] = None,
 
 def build_serving_payload(metrics_json: Dict[str, Any],
                           extra: Optional[dict] = None) -> Dict[str, Any]:
-    raise NotPortedError("run_report.build_serving_payload: the serving "
-                         "report is not ported yet (ROADMAP.md, queue A12)")
+    """Assemble a SERVING-mode report payload from a ModelServer's
+    ``metrics_json()`` snapshot. Same kind/format as training reports
+    (one reader, one compare tool); the verdict lives under a
+    ``"serving"`` section instead of ``step_time``/``loss`` — QPS,
+    latency percentiles, and shed counts are what a serving regression
+    looks like (``tools/run_compare.py`` diffs them directioned)."""
+    lat = (metrics_json.get("latency_ms") or {}).get("total") or {}
+    rejected = metrics_json.get("rejected") or {}
+    payload: Dict[str, Any] = {
+        "format": REPORT_FORMAT,
+        "kind": "mxtpu_run_report",
+        "time_unix": time.time(),
+        "pid": os.getpid(),
+        "fingerprint": _env_fingerprint(),
+        "run": {"status": "serving", "steps": 0, "epochs": 0},
+        "serving": {
+            "model": metrics_json.get("model"),
+            "uptime_s": metrics_json.get("uptime_s"),
+            "qps": metrics_json.get("throughput_rps"),
+            "requests_total": metrics_json.get("requests_total"),
+            "responses_total": metrics_json.get("responses_total"),
+            "shed_total": int(sum(rejected.values())) if rejected else 0,
+            "rejected": dict(rejected),
+            "latency_ms": {
+                "p50": lat.get("p50"),
+                "p95": lat.get("p95"),
+                "p99": lat.get("p99"),
+                "mean": lat.get("mean"),
+            },
+            "queue_depth_peak": metrics_json.get("queue_depth_peak"),
+            "batches_total": metrics_json.get("batches_total"),
+            "mean_batch": (metrics_json.get("batch_size") or {}).get(
+                "mean"),
+        },
+    }
+    if extra:
+        payload["extra"] = dict(extra)
+    return payload
 
 
 def write_serving_report(metrics_json: Dict[str, Any],
                          directory: Optional[str] = None,
                          extra: Optional[dict] = None) -> str:
-    raise NotPortedError("run_report.write_serving_report: the serving "
-                         "report is not ported yet (ROADMAP.md, queue A12)")
+    """Write one serving-mode run report (tmp+rename + manifest, the
+    :func:`write_run_report` conventions). ``ModelServer.stop`` calls
+    this automatically on drain when ``MXTPU_RUN_REPORT_DIR`` is set."""
+    d = directory or report_dir()
+    if not d:
+        raise ValueError(
+            "write_serving_report: no directory (set MXTPU_RUN_REPORT_DIR "
+            "or pass directory=)")
+    os.makedirs(d, exist_ok=True)
+    payload = build_serving_payload(metrics_json, extra=extra)
+    ts = int(payload["time_unix"])
+    path = os.path.join(d, f"serve_{os.getpid()}_{ts}.json")
+    while os.path.exists(path):
+        path = os.path.join(
+            d, f"serve_{os.getpid()}_{ts}_{next(_seq)}.json")
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(_json_safe(payload), f, indent=1, default=str,
+                  allow_nan=False)
+    os.replace(tmp, path)
+    try:
+        from ..fault import write_manifest
+        write_manifest(d)
+    except Exception:
+        pass
+    try:
+        from .registry import default_registry
+        default_registry().counter(
+            "mxtpu_run_reports_total",
+            "Run reports written at fit end (MXTPU_RUN_REPORT_DIR).").inc()
+    except Exception:
+        pass
+    return path
 
 
 def load_run_report(path: str) -> Dict[str, Any]:

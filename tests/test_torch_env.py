@@ -48,6 +48,13 @@ FIT_FLAGS = {"MXNET_IS_RECOVERY": ["1", "0", "False", "", None],
              "MXTPU_ELASTIC": ["on", "off", None]}
 # the megastep's signature cache (cached_op.SignatureLRU)
 MEGASTEP_FLAGS = {"MXTPU_CACHEDOP_CACHE_SIZE": ["0", "8", "256", None]}
+# CachedOp's bulk-exec bypass and the serving core
+SERVING_FLAGS = {"MXNET_EXEC_BULK_EXEC_INFERENCE": ["0", "1", "", None],
+                 "MXNET_EXEC_BULK_EXEC_TRAIN": ["0", "false", "1", None],
+                 "MXTPU_SERVE_MAX_BATCH": ["1", "32", None],
+                 "MXTPU_SERVE_MAX_LATENCY_MS": ["0.5", "5", None],
+                 "MXTPU_SERVE_QUEUE_DEPTH": ["1", "256", None],
+                 "MXTPU_SERVE_REPLAY": ["replay.jsonl", "", None]}
 # backward rematerialisation (util.mirror_wrapper)
 MIRROR_FLAGS = {"MXNET_BACKWARD_DO_MIRROR": ["1", "0", "true", "", None],
                 "MXNET_BACKWARD_MIRROR_POLICY": ["full", "dots", "convs",
@@ -91,13 +98,13 @@ def test_safe_acc_upcast_decision_matches_jax(monkeypatch, value):
 def test_declarations_match_jax():
     for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS) + \
             tuple(MEGASTEP_FLAGS) + tuple(MIRROR_FLAGS) + \
-            tuple(RANDOM_FLAGS) + tuple(DATA_FLAGS):
+            tuple(RANDOM_FLAGS) + tuple(DATA_FLAGS) + tuple(SERVING_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
     assert {n for n, *_ in tbase.env.items()} == \
         set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS) | \
         set(MEGASTEP_FLAGS) | set(MIRROR_FLAGS) | set(RANDOM_FLAGS) | \
-        set(DATA_FLAGS)
+        set(DATA_FLAGS) | set(SERVING_FLAGS)
 
 
 @pytest.mark.parametrize("name,value", [
@@ -125,6 +132,13 @@ def test_mirror_flag_get_matches_jax(monkeypatch, name, value):
 @pytest.mark.parametrize("name,value", [
     (n, v) for n, vs in MEGASTEP_FLAGS.items() for v in vs])
 def test_megastep_flag_get_matches_jax(monkeypatch, name, value):
+    _set(monkeypatch, name, value)
+    assert tbase.env.get(name) == jbase.env.get(name)
+
+
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, vs in SERVING_FLAGS.items() for v in vs])
+def test_serving_flag_get_matches_jax(monkeypatch, name, value):
     _set(monkeypatch, name, value)
     assert tbase.env.get(name) == jbase.env.get(name)
 

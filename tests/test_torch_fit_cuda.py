@@ -106,5 +106,5 @@ def test_staging_on_the_card(card, depth):
         got.append((b.data[0]._data * 2).sum().item())
     want = [float((b.data[0]._data.cpu() * 2).sum()) for b in base]
     np.testing.assert_allclose(got, want, rtol=1e-6)
-    assert sum(len(v) for v in it._pool.values()) >= 2, \
+    assert sum(len(v) for v in it._stager._pool.values()) >= 2, \
         "pinned buffers are pooled"

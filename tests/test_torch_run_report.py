@@ -15,7 +15,6 @@ import torch_planes_common as C
 from mxnet_tpu.telemetry import run_report as jrr
 
 from mxnet_tpu_torch import fault as tfault
-from mxnet_tpu_torch.ops.registry import NotPortedError
 from mxnet_tpu_torch.telemetry import run_report as trr
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,10 +99,31 @@ def test_run_compare_on_port_reports_and_beside_a_jax_report(
         got["loss_last"]["candidate"], rel=1e-4)
 
 
+_SERVE_METRICS = {
+    "model": "m", "uptime_s": 2.5, "throughput_rps": 40.0,
+    "requests_total": 103, "responses_total": 100,
+    "rejected": {"queue_full": 2, "deadline": 1},
+    "latency_ms": {"total": {"p50": 1.5, "p95": 3.0, "p99": 4.25,
+                             "mean": 1.75, "count": 100}},
+    "queue_depth_peak": 7, "batches_total": 20,
+    "batch_size": {"mean": 5.0}}
+
+
 def test_serving_report_is_a12(tmp_path):
-    with pytest.raises(NotPortedError, match="A12"):
-        trr.write_serving_report({}, directory=str(tmp_path))
-    with pytest.raises(NotPortedError, match="A12"):
-        trr.build_serving_payload({})
+    """Queue A12's serving report: the payload is the JAX package's for
+    the same metrics apart from the identity block, the file lands with
+    its manifest, and it needs a directory."""
+    want = jrr.build_serving_payload(_SERVE_METRICS, extra={"k": 1})
+    got = trr.build_serving_payload(_SERVE_METRICS, extra={"k": 1})
+    for k in ("time_unix", "pid", "fingerprint"):
+        want.pop(k), got.pop(k)
+    assert got == want
+    path = trr.write_serving_report(_SERVE_METRICS,
+                                    directory=str(tmp_path))
+    assert os.path.basename(path).startswith("serve_")
+    assert trr.load_run_report(path)["serving"]["qps"] == 40.0
+    tfault.verify_manifest(str(tmp_path), required=True)
+    with pytest.raises(ValueError, match="no directory"):
+        trr.write_serving_report(_SERVE_METRICS)
     with pytest.raises(ValueError, match="no directory"):
         trr.write_run_report(object())
