@@ -295,14 +295,40 @@ Phases, each printing JSON lines:
     dispatched, eager against replay ms at batch 1 and 32, and
     ``examples/serving/resnet_server.py`` under the port's names (its
     ``--smoke`` path, and its zoo path up to the SIGTERM drain, exit 75);
+14i. then ``dist_train``, data-parallel training over
+    ``torch.distributed``: (a) in a child (``chip_smoke.py
+    --nccl-check``) a one-rank NCCL group, every collective of
+    ``parallel/collectives.py`` on CUDA tensors against its definition
+    and the tiled reduce-scatter route taken; (b) two ranks sharing the
+    card over gloo (``python -m mxnet_tpu_torch.launch -n 2 python3
+    chip_smoke.py --dist-rank DIR``), each training
+    ``get_model("resnet50_v1", layout="NHWC")`` hybridized, f32 batch 32
+    a rank from its own seed, TF32 off, deterministic cuDNN, sgd lr 0.05
+    momentum 0.9 over ``mx.kv.create("dist_sync")``, DT_STEPS steps in
+    each of: the default buckets, ``MXTPU_ZERO=1``, ZeRO with
+    ``MXTPU_COMM_OVERLAP=on``, and 2-bit compression (threshold 0.05):
+    both ranks' weights bit for bit alike and equal to a one-process
+    reference on the card (both ranks' batches through two copies of the
+    net, each keeping its BatchNorm statistics, the gradients summed
+    g0 + g1, through the port's compressor in the last variant), each
+    rank's running statistics its reference copy's, 48 wrapper launches
+    of each BN kernel a rank (the capturing step) and 48 device launches
+    a rank in a profiled forward and backward; ms a step, comm ms, peak
+    allocation and ZeRO's optimizer-state share a rank; (c) the megastep
+    at ``MXTPU_ZERO_WORLD=4`` on the megastep cell's net (4 FitLoop
+    steps) bit for bit against the composed ZeRO step; (d)
+    ``examples/distributed_training/cifar10_dist.py`` as two ranks with
+    ``mxnet_tpu`` resolved to the port (``chip_smoke.py
+    --example-rank``), both printing DONE;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
     over the 48 call sites, with the v2 step's sums and launches under
     ``v2``, the f32 Gluon step's under ``f32``, the FitLoop's under
     ``fit``, the megastep's replays under ``megastep``, the f16 step's
-    under ``f16``, the ImageRecordIter-fed steps' under ``data_fed`` and
-    the small hybridized net's replayed step under ``cached_op``;
+    under ``f16``, the ImageRecordIter-fed steps' under ``data_fed``,
+    the small hybridized net's replayed step under ``cached_op`` and a
+    rank's profiled step of ``dist_train`` under ``dist_train``;
     flash_fwd's (the tensor-core route) per launch at the
     bf16 path's shape and flash_fwd_general's at the default f32 LM's,
     with that LM's launches; the tensor-core row also carries the general
@@ -319,6 +345,7 @@ repository beside it, it exits non-zero and prints no result.
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -6326,6 +6353,487 @@ def resnet_server_example(torch, mt):
     return out
 
 
+# ---------------------------------------------------------------------------
+# data-parallel training over torch.distributed: dist_train
+# ---------------------------------------------------------------------------
+
+DT_STEPS = 5
+DT_VARIANTS = ("dist_sync", "zero", "zero_overlap", "compress")
+DT_ENV = {"dist_sync": {},
+          "zero": {"MXTPU_ZERO": "1"},
+          "zero_overlap": {"MXTPU_ZERO": "1", "MXTPU_COMM_OVERLAP": "on"},
+          "compress": {}}
+DT_COMPRESSION = {"type": "2bit", "threshold": 0.05}
+DT_MEGA_WORLD, DT_MEGA_IMAGES = 4, 128
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _dt_batch(torch, mt, step, rank):
+    """Rank ``rank``'s batch of step ``step`` (the same in every process
+    on this card)."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + 10 * step + rank)
+    x = torch.rand((GT_BATCH, IMG, IMG, 3), generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (GT_BATCH,), generator=gen,
+                      device="cuda").float()
+    return mt.nd.from_torch(x), mt.nd.from_torch(y)
+
+
+def _dt_net(mt):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    net = get_model("resnet50_v1", layout="NHWC")
+    net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+    net.hybridize()
+    return net
+
+
+def _dt_setup(torch):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = "4"
+
+
+def dist_rank(argv):
+    """One rank of dist_train (b), started by ``python -m
+    mxnet_tpu_torch.launch -n 2 python3 chip_smoke.py --dist-rank DIR``:
+    the ResNet-50 v1 step over ``mx.kv.create("dist_sync")`` in each
+    variant, from the same start (weights and running statistics put
+    back in place), DT_STEPS steps each; the final weights and running
+    statistics go to DIR, the numbers to DIR/rank<r>.json."""
+    import torch
+    _dt_setup(torch)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import kvstore_server
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    from mxnet_tpu_torch.parallel import collectives as coll
+    out_dir = argv[0]
+    if not kvstore_server.init_distributed():
+        fail("dist_rank: no group in the environment")
+    info = kvstore_server.group_info()
+    rank = info["rank"]
+    net = _dt_net(mt)
+    lossfn = gloss.SoftmaxCrossEntropyLoss()
+    named = sorted(net._collect_params_with_prefix().items())
+    start = {k: p.tensor.detach().clone() for k, p in named}
+    tk.reset_launches()
+    rows = {}
+    for variant in DT_VARIANTS:
+        for k in ("MXTPU_ZERO", "MXTPU_COMM_OVERLAP"):
+            os.environ.pop(k, None)
+        os.environ.update(DT_ENV[variant])
+        with torch.no_grad():
+            for k, p in named:
+                p.tensor.copy_(start[k])
+        kv = mt.kv.create("dist_sync")
+        trainer = mt.gluon.Trainer(
+            net.collect_params(), "sgd", dict(GT_OPT), kvstore=kv,
+            compression_params=DT_COMPRESSION
+            if variant == "compress" else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per = []
+        for s in range(DT_STEPS):
+            x, y = _dt_batch(torch, mt, s, rank)
+            t0 = time.perf_counter()
+            with mt.autograd.record():
+                loss = lossfn(net(x), y)
+            with trainer.overlap_scope() as scope:
+                loss.backward()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.allreduce_grads()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            trainer.update(GT_BATCH)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if s == 0:
+                # the steady peak: after the first step (in the first
+                # variant the CachedOp's capture)
+                torch.cuda.reset_peak_memory_stats()
+            per.append({"step_ms": 1e3 * (t3 - t0),
+                        "forward_backward_ms": 1e3 * (t1 - t0),
+                        "allreduce_grads_ms": 1e3 * (t2 - t1),
+                        "update_ms": 1e3 * (t3 - t2),
+                        "loss": float(loss.tensor.mean()),
+                        "launched_in_backward":
+                            getattr(scope, "launched_in_backward", 0)})
+        peak = torch.cuda.max_memory_allocated()
+        resident = torch.cuda.memory_allocated()
+        live = [p for _, p in named if p.grad_req != "null"]
+        state = sum(t.numel() * t.element_size()
+                    for t in _state_tensors(trainer))
+        unsharded = sum(p.tensor.numel() * p.tensor.element_size()
+                        for p in live)
+        torch.save({"weights": {k: p.tensor.detach().cpu()
+                                for k, p in named if p.grad_req != "null"},
+                    "aux": {k: p.tensor.detach().cpu()
+                            for k, p in named if p.grad_req == "null"}},
+                   os.path.join(out_dir, f"{variant}_r{rank}.pt"))
+        warm = per[1:]
+
+        def median(f):
+            return sorted(f(r) for r in warm)[len(warm) // 2]
+        zero = variant.startswith("zero")
+        rows[variant] = {
+            "steps": per,
+            "step_ms_median": median(lambda r: r["step_ms"]),
+            "forward_backward_ms_median":
+                median(lambda r: r["forward_backward_ms"]),
+            "allreduce_grads_ms_median":
+                median(lambda r: r["allreduce_grads_ms"]),
+            "update_ms_median": median(lambda r: r["update_ms"]),
+            # ZeRO's allgather runs inside the update
+            "comm_ms_median": median(lambda r: r["allreduce_grads_ms"] + (
+                r["update_ms"] if zero else 0.0)),
+            "collectives": {
+                "allreduce": trainer.last_allreduce_collectives,
+                "reduce_scatter": trainer.last_reduce_scatter_collectives,
+                "allgather": trainer.last_allgather_collectives},
+            # after step 1: the transient peak over what stays (the
+            # graphs' pools were allocated at the first variant's capture)
+            "peak_allocated_gib": peak / 2.0 ** 30,
+            "resident_gib": resident / 2.0 ** 30,
+            "optimizer_state_bytes": state,
+            "unsharded_state_bytes": unsharded,
+            "state_share": state / unsharded,
+            "wire_bytes_last_key": getattr(kv, "_last_wire_bytes", 0)}
+        kv.barrier()
+    wrappers = dict(tk.launches)
+    # one more forward and backward, profiled: the BN kernels' device
+    # launches in a replayed step (the weights are saved already)
+    x, y = _dt_batch(torch, mt, 0, rank)
+
+    def fwd_bwd():
+        with mt.autograd.record():
+            loss = lossfn(net(x), y)
+        loss.backward()
+    prof, wall = _profiled(torch, fwd_bwd)
+    summary = _summary(f"dist_train rank {rank}: forward + backward",
+                       _device_kernels(prof), wall, {})
+    out = {"rank": rank, "group": info, "variants": rows,
+           "wrapper_launches": wrappers,
+           "device_launches_per_step": summary["epilogue_device_launches"],
+           "device_idle_share": summary["device_idle_share"],
+           "routes": dict(coll.routes)}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"dist_rank {rank}: done", flush=True)
+
+
+def nccl_check(argv):
+    """dist_train (a), in a child process: a one-rank NCCL group on the
+    card (the backend rule: one rank, one card), each collective of
+    ``parallel/collectives.py`` on CUDA tensors held to its definition at
+    world 1, the tiled reduce-scatter route taken."""
+    import numpy as np
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import kvstore_server
+    from mxnet_tpu_torch.parallel import collectives as coll
+    info = kvstore_server.join_group(f"127.0.0.1:{_free_port()}", 1, 0)
+    checks = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(1 << 20, generator=gen, device="cuda")
+    for op in ("sum", "mean", "max", "min"):
+        t = x.clone()
+        coll.cross_process_allreduce(t, op=op)
+        checks[f"allreduce_{op}"] = bool(torch.equal(t, x))
+    checks["allgather"] = bool(torch.equal(coll.cross_process_allgather(x),
+                                           x[None]))
+    parts = [(0, 1000), (5000, 70000), (70000, 1 << 20)]
+    routes0 = dict(coll.routes)
+    got = coll.cross_process_reduce_scatter(x, parts, all_parts=[parts])
+    checks["reduce_scatter_tiled"] = all(
+        torch.equal(g, x[lo:hi]) for g, (lo, hi) in zip(got, parts)) and \
+        coll.routes["tiled"] == routes0["tiled"] + 1
+    got = coll.cross_process_reduce_scatter(x, parts)
+    checks["reduce_scatter_allreduce"] = all(
+        torch.equal(g, x[lo:hi]) for g, (lo, hi) in zip(got, parts))
+    rag = coll.cross_process_allgather_ragged(x[:777])
+    checks["allgather_ragged"] = len(rag) == 1 and bool(
+        torch.equal(rag[0], x[:777]))
+    checks["exchange_bytes"] = coll.cross_process_exchange_bytes(
+        b"\x00abc") == [b"\x00abc"]
+    checks["allgather_object"] = coll.cross_process_allgather_object(
+        {"k": np.arange(3).tolist()}) == [{"k": [0, 1, 2]}]
+    checks["reform"] = [m["rank"] for m in
+                        coll.cross_process_reform("c", expect=1)] == [0]
+    coll.barrier()
+    checks["barrier"] = True
+    kv = mt.kv.create("dist_sync")
+    kv.init(0, mt.nd.from_torch(x))
+    kv.push(0, mt.nd.from_torch(x * 2))
+    o = mt.nd.from_torch(torch.empty_like(x))
+    kv.pull(0, out=o)
+    checks["kvstore_push_pull"] = kv.num_workers == 1 and bool(
+        torch.equal(o.tensor, x * 2))
+    emit({"phase": "dist_train", "what": "nccl", "group": info,
+          "backend": coll.backend(), "checks": checks,
+          "routes": dict(coll.routes)})
+    if coll.backend() != "nccl" or not all(checks.values()):
+        fail(f"nccl_check: {coll.backend()} {checks}")
+
+
+def example_rank(argv):
+    """dist_train (d): one rank of ``examples/distributed_training/
+    cifar10_dist.py`` with ``mxnet_tpu`` and ``mxnet_tpu.kvstore_server``
+    resolved to the port."""
+    import runpy
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import kvstore_server
+    sys.modules.update({"mxnet_tpu": mt,
+                        "mxnet_tpu.kvstore_server": kvstore_server,
+                        "mxnet_tpu.gluon": mt.gluon})
+    script = os.path.join(here, argv[0])
+    sys.argv = [script] + argv[1:]
+    runpy.run_path(script, run_name="__main__")
+
+
+def _dt_launch(args, timeout, what):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.perf_counter()
+    proc = subprocess.run(args, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+        fail(f"dist_train {what}: exit {proc.returncode}")
+    return proc, wall
+
+
+def _dt_reference(torch, mt, compress):
+    """The one-process reference of dist_train (b) on the card: rank 0's
+    and rank 1's batches through two copies of the net (each its own
+    BatchNorm statistics), the gradients summed g0 + g1 (through the
+    port's compressor first when ``compress``: each rank's payload
+    decoded), one step on copy 0, its weights copied into copy 1."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gradient_compression import GradientCompression
+    nets = [_dt_net(mt), _dt_net(mt)]
+    lossfn = gloss.SoftmaxCrossEntropyLoss()
+    trainer = mt.gluon.Trainer(nets[0].collect_params(), "sgd",
+                               dict(GT_OPT), kvstore="device")
+    comps = [GradientCompression(**DT_COMPRESSION) for _ in nets]
+    named = [sorted(n._collect_params_with_prefix().items()) for n in nets]
+    live = [[p for _, p in nd if p.grad_req != "null"] for nd in named]
+    for s in range(DT_STEPS):
+        grads = []
+        for r, net in enumerate(nets):
+            x, y = _dt_batch(torch, mt, s, r)
+            with mt.autograd.record():
+                loss = lossfn(net(x), y)
+            loss.backward()
+            gs = [p.grad().tensor.clone() for p in live[r]]
+            if compress:
+                gs = [comps[r].roundtrip(i, g) for i, g in enumerate(gs)]
+            grads.append(gs)
+        with torch.no_grad():
+            for p, a, b in zip(live[0], *grads):
+                p.grad().tensor.copy_(a + b)
+        trainer.step(GT_BATCH)
+        with torch.no_grad():
+            for p0, p1 in zip(live[0], live[1]):
+                p1.tensor.copy_(p0.tensor)
+    return ({k: p.tensor.detach().cpu() for k, p in named[0]
+             if p.grad_req != "null"},
+            [{k: p.tensor.detach().cpu() for k, p in nd
+              if p.grad_req == "null"} for nd in named])
+
+
+def _dt_megastep(torch, mt):
+    """dist_train (c): ``MXTPU_ZERO=1`` with ``MXTPU_ZERO_WORLD=4`` on the
+    megastep cell's workload (ResNet-50 v1 f32 b32 through FitLoop, 4
+    steps): the megastep's one-graph step, whose loopback reduce-scatter
+    runs inside the graph, against the composed ZeRO step bit for bit
+    (losses, weights, running statistics, every shard's momenta)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    rng = np.random.default_rng(3)
+    X = rng.random((DT_MEGA_IMAGES, IMG, IMG, 3), dtype=np.float32)
+    Y = rng.integers(0, 1000, DT_MEGA_IMAGES).astype(np.float32)
+    os.environ.update({"MXTPU_ZERO": "1",
+                       "MXTPU_ZERO_WORLD": str(DT_MEGA_WORLD)})
+    out = {}
+    try:
+        for mega in (False, True):
+            os.environ["MXTPU_MEGASTEP"] = "on" if mega else "off"
+            net = get_model("resnet50_v1", layout="NHWC")
+            net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+            trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                       dict(GT_OPT),
+                                       kvstore=mt.kv.create("local"))
+            itr = mt.io.DeviceStagingIter(mt.io.NDArrayIter(
+                X, Y, batch_size=GT_BATCH))
+            loop = mt.fit.FitLoop(net, trainer,
+                                  gloss.SoftmaxCrossEntropyLoss(), itr,
+                                  ckpt_dir=None, heartbeat=False)
+            res = loop.fit(epochs=1)
+            out[mega] = (res, _fit_state(torch, net, trainer))
+            del net, trainer, loop, itr
+            torch.cuda.empty_cache()
+    finally:
+        for k in ("MXTPU_ZERO", "MXTPU_ZERO_WORLD", "MXTPU_MEGASTEP"):
+            os.environ.pop(k, None)
+    (res_c, st_c), (res_m, st_m) = out[False], out[True]
+    bad = _not_bitwise(torch, st_m, st_c)
+    row = {"phase": "dist_train", "what": "megastep_zero_world4",
+           "world": DT_MEGA_WORLD, "steps": res_c.step,
+           "zero": res_m.zero, "losses_composed": res_c.losses,
+           "losses_megastep": res_m.losses, "tensors": len(st_c),
+           "not_bitwise": bad[:8]}
+    emit(row)
+    if bad or res_c.losses != res_m.losses or not res_m.zero or \
+            res_m.zero["world"] != DT_MEGA_WORLD:
+        fail(f"dist_train (c): megastep under ZeRO world {DT_MEGA_WORLD} "
+             f"against the composed step: {row}")
+    return row
+
+
+def dist_train(torch, mt, card):
+    """(a) NCCL on the card in a one-rank child; (b) two ranks sharing the
+    card over gloo through ``mxnet_tpu_torch.launch``: the Gluon
+    ResNet-50 v1 step (``gluon_train``'s net, optimizer and batch 32 a
+    rank, each rank's data from its own seed, hybridized, deterministic
+    cuDNN, TF32 off) for DT_STEPS steps in each of dist_sync with the
+    default buckets, MXTPU_ZERO=1, ZeRO with MXTPU_COMM_OVERLAP=on, and
+    2-bit compression: both ranks' weights bit for bit alike and equal to
+    the one-process reference (through the compressor in the last), each
+    rank's running statistics equal to its reference copy's, 48 device
+    launches of each BN kernel a rank a step; (c) the megastep under a
+    simulated ZeRO world of 4 against the composed ZeRO step; (d)
+    ``examples/distributed_training/cifar10_dist.py`` as two ranks."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            os.environ.get("MXTPU_OPTIMIZER_AGGREGATION"))
+    _dt_setup(torch)
+    walls = {}
+    try:
+        proc, walls["nccl"] = _dt_launch(
+            [sys.executable, os.path.abspath(__file__), "--nccl-check"],
+            300, "(a) nccl")
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+        with tempfile.TemporaryDirectory(dir=here) as out_dir:
+            proc, walls["ranks"] = _dt_launch(
+                [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
+                 sys.executable, os.path.abspath(__file__), "--dist-rank",
+                 out_dir], 600, "(b) ranks")
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            t = time.perf_counter()
+            refs = {False: _dt_reference(torch, mt, False),
+                    True: _dt_reference(torch, mt, True)}
+            walls["reference"] = time.perf_counter() - t
+            results = {}
+            for v in DT_VARIANTS:
+                got = [torch.load(os.path.join(out_dir, f"{v}_r{r}.pt"))
+                       for r in range(2)]
+                want_w, want_aux = refs[v == "compress"]
+                results[v] = {
+                    "ranks_alike": _not_bitwise(torch, got[1]["weights"],
+                                                got[0]["weights"]),
+                    "vs_reference": _not_bitwise(torch, got[0]["weights"],
+                                                 want_w),
+                    "running_stats_vs_reference": [
+                        _not_bitwise(torch, got[r]["aux"], want_aux[r])
+                        for r in range(2)],
+                    "weights": len(want_w)}
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        mega = _dt_megastep(torch, mt)
+        walls["megastep"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        proc, walls["example"] = _dt_launch(
+            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
+             sys.executable, os.path.abspath(__file__), "--example-rank",
+             os.path.join("examples", "distributed_training",
+                          "cifar10_dist.py"), "--epochs", "1",
+             "--num-batches", "2"], 300, "(d) example")
+        # both ranks write to one pipe: their lines may interleave
+        example = sorted(re.findall(r"worker \d+: DONE", proc.stdout))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev[:2]
+        if prev[2] is None:
+            os.environ.pop("MXTPU_OPTIMIZER_AGGREGATION", None)
+        else:
+            os.environ["MXTPU_OPTIMIZER_AGGREGATION"] = prev[2]
+    row = {"phase": "dist_train", "card": card,
+           "model": 'get_model("resnet50_v1", layout="NHWC"), hybridized',
+           "ranks": 2, "backend": ranks[0]["group"]["backend"],
+           "batch_per_rank": GT_BATCH, "steps": DT_STEPS,
+           "optimizer": "gluon.Trainer sgd lr 0.05 momentum 0.9, "
+                        "aggregation 4, f32, TF32 off",
+           "compression": DT_COMPRESSION,
+           "per_rank": [{v: {k: val for k, val in
+                             ranks[r]["variants"][v].items()
+                             if k != "steps"} for v in DT_VARIANTS}
+                        for r in range(2)],
+           "losses_rank0": {v: [s["loss"] for s in
+                                ranks[0]["variants"][v]["steps"]]
+                            for v in DT_VARIANTS},
+           "launched_in_backward": {v: [s["launched_in_backward"] for s in
+                                        ranks[0]["variants"][v]["steps"]]
+                                    for v in DT_VARIANTS},
+           "bitwise": results,
+           "wrapper_launches": [ranks[r]["wrapper_launches"]
+                                for r in range(2)],
+           "device_launches_per_step": [ranks[r][
+               "device_launches_per_step"] for r in range(2)],
+           "routes": [ranks[r]["routes"] for r in range(2)],
+           "megastep": {"not_bitwise": mega["not_bitwise"]},
+           "example": example, "walls_s": walls}
+    emit(row)
+    bad = [v for v, res in results.items()
+           if res["ranks_alike"] or res["vs_reference"] or
+           any(res["running_stats_vs_reference"])]
+    if row["backend"] != "gloo" or bad:
+        fail(f"dist_train (b): variants not bit for bit: {bad} "
+             f"{ {v: results[v] for v in bad} }")
+    for r in range(2):
+        dl = ranks[r]["device_launches_per_step"]
+        wl = ranks[r]["wrapper_launches"]
+        if any(n != 48 for n in dl.values()) or \
+                any(n != 48 for n in wl.values()):
+            fail(f"dist_train (b): rank {r}: 48 launches of each BN kernel "
+                 f"expected, device {dl}, wrappers {wl}")
+    for v in ("zero", "zero_overlap"):
+        shares = [ranks[r]["variants"][v]["state_share"] for r in range(2)]
+        if not all(0.3 < s < 0.7 for s in shares) or \
+                abs(sum(shares) - 1.0) > 1e-9:
+            fail(f"dist_train (b): ZeRO state shares {shares}")
+    if not any(row["launched_in_backward"]["zero_overlap"]):
+        fail("dist_train (b): no bucket launched from backward under "
+             "MXTPU_COMM_OVERLAP=on")
+    if example != ["worker 0: DONE", "worker 1: DONE"]:
+        fail(f"dist_train (d): the example's ranks printed {example}")
+    return {k: ranks[0]["device_launches_per_step"][k]
+            for k in ranks[0]["device_launches_per_step"]}, row
+
+
 def main():
     try:
         import torch
@@ -6459,6 +6967,10 @@ def main():
     torch.cuda.empty_cache()
     timed("serving", serving_phase, torch, mt, card)
     torch.cuda.empty_cache()
+    # data-parallel training over torch.distributed, after every earlier
+    # phase
+    dt_launches, _ = timed("dist_train", dist_train, torch, mt, card)
+    torch.cuda.empty_cache()
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -6471,11 +6983,13 @@ def main():
     a19 = ("random_ops", "flash_registry", "ssd_example", "ssd300_decode")
     a20 = ("image_ops", "input_pipeline", "imagenet_example")
     a12 = ("cached_op", "serving")
+    a10 = ("dist_train",)
     emit({"phase": "walls", "seconds": walls,
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
                                   if k not in v2 + gluon + fits + f16
-                                  + moe_remat + a19 + a20 + a12),
+                                  + moe_remat + a19 + a20 + a12 + a10),
+          "a10_phases_s": sum(walls[k] for k in a10),
           "a12_phases_s": sum(walls[k] for k in a12),
           "a20_phases_s": sum(walls[k] for k in a20),
           "a19_phases_s": sum(walls[k] for k in a19),
@@ -6557,7 +7071,14 @@ def main():
                           "per": f"device launches in one replayed "
                                  f"training step of cached_op's "
                                  f"hybridized small ResNetV1 "
-                                 f"({CO_SITES} sites)"}})
+                                 f"({CO_SITES} sites)"},
+            "dist_train": {"launches": dt_launches[name],
+                           "per": "device launches in one profiled "
+                                  "forward + backward of rank 0 of the "
+                                  "two ranks sharing the card "
+                                  "(dist_train; rank 1 the same), CUDA "
+                                  "graph replays of the hybridized "
+                                  "ResNet-50 v1, f32 batch 32"}})
     tcr, gnr = flash["tc"], flash["general"]
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
@@ -6631,5 +7152,11 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+SUBCOMMANDS = {"--dist-rank": dist_rank, "--nccl-check": nccl_check,
+               "--example-rank": example_rank}
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] in SUBCOMMANDS:
+        SUBCOMMANDS[sys.argv[1]](sys.argv[2:])
+    else:
+        main()

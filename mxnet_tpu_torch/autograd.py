@@ -12,10 +12,17 @@ torch accumulates into the variable's own gradient buffer by its
 delivered buffer is marked fresh (``_fresh_grad``) until an optimizer
 step consumes it.
 
+:class:`grad_ready_scope` hands each gradient buffer to a callback once
+backward delivered its final value: the hook is the same
+``register_post_accumulate_grad_hook`` that delivers it, so it fires once
+per gradient a backward, later layers first (a hybridized block's
+training call is one autograd node: its gradients all land when the
+backward graph's replay returns). ``gluon.Trainer.overlap_scope``
+launches gradient communication from it.
+
 Not ported: ``capture`` (the free-variable probe of
-``contrib/control_flow.py``, ROADMAP A14), ``grad_ready_scope``
-(comm overlap, A10), ``get_symbol`` (symbol, A14) and row-sparse
-gradients (A11).
+``contrib/control_flow.py``, ROADMAP A14), ``get_symbol`` (symbol, A14)
+and row-sparse gradients (A11).
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from .telemetry import efficiency as _efficiency
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "Function"]
+           "backward", "grad", "Function", "grad_ready_scope"]
 
 
 class _State(threading.local):
@@ -111,7 +118,34 @@ def _deliver(var):
             else:
                 buf._data.copy_(g)
         buf._fresh_grad = True
+        if _grad_ready:
+            _grad_ready[-1](buf)
     return hook
+
+
+#: the callbacks of the open grad_ready_scopes, innermost last. Not
+#: thread-local: a CUDA backward runs its hooks on autograd's device
+#: threads, not on the thread that called backward.
+_grad_ready: list = []
+
+
+class grad_ready_scope:
+    """Call ``fn(grad_buffer)`` during backward, once each variable's
+    gradient buffer holds its final value for this backward (ref: the
+    reference engine scheduling each kvstore push once its gradient's
+    write dependency resolves). It runs on the thread that runs the
+    hook, in autograd's order of finality: later layers first."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __enter__(self):
+        _grad_ready.append(self._fn)
+        return self
+
+    def __exit__(self, *a):
+        _grad_ready.remove(self._fn)
+        return False
 
 
 def mark_variables(variables: Sequence, gradients: Sequence,

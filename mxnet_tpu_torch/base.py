@@ -69,6 +69,10 @@ class EnvRegistry:
         else:
             os.environ[name] = str(value)
 
+    def snapshot(self) -> Dict[str, str]:
+        """A copy of the whole environment, for a child process's."""
+        return dict(os.environ)
+
     def default_for(self, name: str) -> Any:
         """The declared default (None for an undeclared name)."""
         decl = self._defaults.get(name)
@@ -112,15 +116,18 @@ env.declare("MXTPU_OPTIMIZER_AGGREGATION", int, 4,
             "reference's MXNET_OPTIMIZER_AGGREGATION_SIZE, default 4). 0 "
             "disables (per-parameter updates).")
 env.declare("MXTPU_GRAD_BUCKET_MB", float, 25.0,
-            "Gradient-allreduce bucketing: same-dtype dense gradients in "
-            "flat buffers of at most this many MB, one push/pull each. "
-            "0: one push/pull per key. Flat buckets of several gradients "
-            "are not ported yet (raise); a single gradient takes its own "
-            "key.")
+            "Gradient-allreduce bucketing: Trainer.allreduce_grads "
+            "concatenates same-dtype dense gradients in parameter order "
+            "into flat buffers of at most this many MB and issues one "
+            "kvstore push/pull (one collective) per bucket; the ZeRO "
+            "plane reduce-scatters the same buckets. 0: one push/pull "
+            "per key.")
 env.declare("MXTPU_COMM_OVERLAP", str, "off",
-            "Overlap gradient communication with backward ('on'/'off'). "
-            "Not ported yet: 'on' raises in Trainer.overlap_scope. Unknown "
-            "values raise.")
+            "Overlap gradient communication with backward ('on'/'off'): "
+            "inside Trainer.overlap_scope() each bucket's collective is "
+            "launched, on a side CUDA stream, once its gradients are "
+            "final; under MXTPU_ZERO the weight allgathers follow each "
+            "bucket's shard update. Unknown values raise.")
 env.declare("MXTPU_MEGASTEP", str, "off",
             "One-graph training step ('on'/'off'): FitLoop runs forward, "
             "backward, sentinel and grouped update as one CUDA graph "
@@ -155,9 +162,11 @@ env.declare("MXTPU_SERVE_REPLAY", str, "",
             "batch) signature; serving.warm_from_replay prewarms a "
             "cache from it.")
 env.declare("MXTPU_ZERO", str, "off",
-            "ZeRO-1 sharded optimizer state ('on'/'off'). Not ported yet: "
-            "'on' raises when a gluon.Trainer is built. Unknown values "
-            "raise.")
+            "ZeRO-1 sharded optimizer state ('on'/'off', "
+            "parallel/zero.py): the gradient buckets are reduce-scattered, "
+            "each rank steps only its parameter shard (optimizer state "
+            "1/N a rank) and the updated weights are allgathered. Needs a "
+            "kvstore object. Unknown values raise.")
 env.declare("MXTPU_NUMERICS", str, "",
             "In-graph numerics observability plane ('on[,every=N]...'). "
             "Not ported yet: a value other than empty/off raises when a "
@@ -224,14 +233,44 @@ env.declare("MXTPU_COLL_TIMEOUT_S", float, 0.0,
             "a value > 0 raises when FitLoop.fit starts; unparseable values "
             "raise.")
 env.declare("MXTPU_ZERO_WORLD", int, 0,
-            "Simulated ZeRO-1 world size. Not ported yet: a value > 1 "
-            "raises where the topology is read (parallel/elastic.py).")
+            "Simulated ZeRO-1 world size for single-worker runs: this "
+            "process plays all N ranks in turn (the same partition, "
+            "collective pattern and trajectory as a real N-rank group). "
+            "0/1 = no simulation; ignored when kvstore.num_workers > 1. "
+            "Unparseable values raise.")
 env.declare("MXTPU_ELASTIC", str, "off",
             "Elastic world-size resume ('on'/'off'): a checkpoint whose "
             "recorded world differs from this process's raises "
             "elastic.TopologyMismatchError with 'off'; with 'on' the "
             "resize needs a process group, which is not ported yet "
             "(raises). Unknown values raise.")
+
+env.declare("MXTPU_COORDINATOR", str, "",
+            "host:port of rank 0's TCPStore, set per worker by "
+            "mxnet_tpu_torch.launch (alias: DMLC_PS_ROOT_URI and "
+            "DMLC_PS_ROOT_PORT). Empty = single-process run "
+            "(kvstore_server.init_distributed is a no-op).")
+env.declare("MXTPU_NUM_WORKERS", int, 1,
+            "Process count of the distributed group (alias: "
+            "DMLC_NUM_WORKER).")
+env.declare("MXTPU_WORKER_HOSTS", str, "",
+            "Comma-separated worker hostnames in rank order (the "
+            "launcher's placement): each rank's command-channel endpoint "
+            "and which ranks share a host. Empty = loopback.")
+env.declare("MXTPU_CMD_PORT_BASE", int, 0,
+            "Base TCP port of the per-worker command channel (port = "
+            "base + rank). 0 = the coordinator port + 100.")
+env.declare("MXTPU_CMD_TOKEN", str, "",
+            "Shared job token every worker command must carry (the "
+            "launcher makes one per job). Empty = command endpoints bind "
+            "loopback only.")
+env.declare("MXTPU_COORD_TIMEOUT_MS", int, 120000,
+            "Timeout of the distributed group (TCPStore and every "
+            "collective), in milliseconds: a rank whose peer died fails "
+            "after this long instead of hanging. Strict parse: > 0.")
+env.declare("DMLC_ROLE", str, "worker",
+            "Launcher-assigned process role (reference ps-lite parity); "
+            "every process of the port is a worker.")
 
 env.declare("MXNET_HOME", str, "",
             "Root directory for datasets and model artifacts "

@@ -95,10 +95,21 @@ def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
 
 
+#: the card a distributed rank runs on (``kvstore_server.join_group``)
+_process_gpu = [0]
+
+
+def set_process_device(dev: torch.device) -> None:
+    """Make ``gpu(dev.index)`` this process's default context (a rank of
+    a group with a card each)."""
+    _process_gpu[0] = int(dev.index or 0)
+
+
 def current_context() -> Context:
-    """The innermost ``with ctx:`` scope of this thread, else ``gpu(0)``."""
+    """The innermost ``with ctx:`` scope of this thread, else this
+    process's card (``gpu(0)`` unless a distributed rank set another)."""
     ctx = getattr(Context._default_ctx, "value", None)
-    return ctx if ctx is not None else Context("gpu", 0)
+    return ctx if ctx is not None else Context("gpu", _process_gpu[0])
 
 
 def num_gpus() -> int:

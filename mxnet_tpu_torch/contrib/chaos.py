@@ -85,7 +85,8 @@ In the port the training events fire (``nan_grad``, ``inf_grad``, ``kill``,
 workers, once per dispatched batch. ``registry_corrupt``,
 ``replica_kill`` and ``kv_hang`` parse and keep their plan state, but
 nothing calls their hooks yet: the serving fleet (ROADMAP A23) and the
-process group (A10) are not ported.
+collective ledger of the process group (the second half of A10) are not
+ported.
 """
 from __future__ import annotations
 

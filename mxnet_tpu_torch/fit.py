@@ -40,11 +40,14 @@ is an efficiency window), ``MXTPU_AUTOTUNE`` (the probe-then-lock tuner;
 the environment and the staging depth are restored when ``fit()``
 returns) and ``MXTPU_RUN_REPORT_DIR`` (a run report written at fit end).
 They fill ``FitResult.numerics``, ``.efficiency``, ``.tuning_report`` and
-``.run_report``. Not ported, each raising ``NotPortedError`` naming
-ROADMAP A10 when its environment variable asks for it, at ``fit()``
-start — before any step runs and before the signal handlers install:
-``MXTPU_COLL_HEALTH`` / ``MXTPU_COLL_TIMEOUT_S`` (the comm planes) and
-``MXTPU_ZERO``.
+``.run_report``; a ZeRO-1 trainer (``MXTPU_ZERO``) fills ``.zero`` with
+its plane's world, ranks and shard size. Not ported, raising
+``NotPortedError`` naming ROADMAP A10 when their environment variables
+ask for them, at ``fit()`` start — before any step runs and before the
+signal handlers install: ``MXTPU_COLL_HEALTH`` / ``MXTPU_COLL_TIMEOUT_S``
+(the comm planes) and ``MXTPU_RUN_REPORT_DIR`` in a group of more than
+one process; the numerics plane's sampled step under a distributed ZeRO
+plane raises at that step.
 """
 from __future__ import annotations
 
@@ -103,9 +106,11 @@ def _refuse_unported_planes() -> None:
             _number("MXTPU_COLL_TIMEOUT_S", float) > 0:
         raise _not_ported("the comm-health planes (MXTPU_COLL_HEALTH / "
                           "MXTPU_COLL_TIMEOUT_S)", "A10")
-    if _switch("MXTPU_ZERO"):
-        raise _not_ported("ZeRO-1 sharded optimizer state (MXTPU_ZERO)",
-                          "A10")
+    _switch("MXTPU_ZERO")
+    from .parallel import collectives as _coll
+    if _run_report.report_dir() is not None and _coll.world() > 1:
+        raise _not_ported("run reports of a group (MXTPU_RUN_REPORT_DIR at "
+                          "a world above 1)", "A10")
     _numerics.spec()
     _efficiency.spec()
 
@@ -682,6 +687,14 @@ class FitLoop:
         # the efficiency axis: MFU / roofline / goodput (None when off)
         result.efficiency = _efficiency.summary(
             tokens_per_sample=self._tokens_per_sample)
+        plane = getattr(self._trainer, "_zero", None)
+        if plane:
+            # the ZeRO-1 plane beside the memory numbers it shrinks
+            result.zero = plane.describe()
+            _LOG.info("ZeRO-1: optimizer state sharded across %d rank(s) "
+                      "(this process: %s, %d/%d params)",
+                      result.zero["world"], result.zero["ranks"],
+                      result.zero["shard_params"], result.zero["params"])
         # the run report, written last so it holds every summary above; a
         # failed write is diagnosed, never fatal
         if _run_report.report_dir() is not None:

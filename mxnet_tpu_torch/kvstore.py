@@ -10,11 +10,23 @@ installs an ``Updater`` (the optimizer round-trips through pickle, as it
 would to reach a server), and push then updates the stored weight in
 place, as ``kvstore_dist_server.h`` ApplyUpdates does.
 
-The port runs on one card in one process: ``num_devices`` and
-``num_workers`` are 1, so ``gluon.Trainer`` drops a store it creates from
-a name and updates directly. Not ported, each raising
-``NotPortedError``: the ``dist_*`` stores and gradient compression
-(ROADMAP A10), ``row_sparse_pull`` (A11).
+``create("dist_sync")`` (and ``dist``, ``dist_device_sync``,
+``dist_sync_device``, ``dist_tpu_sync``; ``dist_async`` is the
+documented synchronous emulation) gives :class:`KVStoreDistTPU`, a store
+over the ``torch.distributed`` group that ``kvstore_server``
+joined: ``rank`` / ``num_workers`` are the group's, ``init`` takes rank
+0's value (the reference's servers hold rank 0's init), a push reduces
+the merged value across the workers (``parallel/collectives.py``) before
+it is stored or handed to the updater, and with gradient compression
+only the packed 2-bit codes cross the wire (``gradient_compression.py``:
+each worker's payload is gathered, decoded and summed in rank order). The
+ZeRO-1 plane's collectives (``zero_reduce_scatter``, ``zero_allgather``,
+``zero_all_finite``) and the worker command channel
+(``send_command_to_servers``, ``send_profiler_command``) are its too.
+Outside a group the dist store is one worker, like the local one.
+Gradient compression on a one-worker store quantizes and dequantizes in
+place of the wire (the numeric effect without the hop). Not ported:
+``row_sparse_pull`` and row-sparse pushes (ROADMAP A11).
 
 Each key's push or pull runs under a bounded retry: a
 :class:`TransientKVError` is retried with exponential backoff
@@ -34,9 +46,10 @@ import torch
 from .base import MXNetError, check, env
 from .ndarray import ndarray as _nd
 from .ops.registry import NotPortedError
+from .telemetry.tracer import tracer as _tracer
 
 __all__ = ["KVStore", "KVStoreBase", "KVStoreLocal", "KVStoreDevice",
-           "TransientKVError", "create"]
+           "KVStoreDistTPU", "TransientKVError", "create"]
 
 
 class TransientKVError(MXNetError):
@@ -70,6 +83,15 @@ def _retry_op(what: str, fn):
                     f"kvstore {what} still failing after {max_retries} "
                     f"retries: {e}") from e
             time.sleep(base * (2 ** (attempt - 1)))
+
+
+def _traced_retry(what: str, k, fn):
+    """One key's op under retry, inside a ``kv_<op>:<key>`` comm span
+    when the tracer records comm (one flag check when it does not)."""
+    if _tracer.wants("comm"):
+        with _tracer.span(f"kv_{what}:{k}", "comm"):
+            return _retry_op(what, fn)
+    return _retry_op(what, fn)
 
 
 def _chaos_kv(op: str, key) -> None:
@@ -113,6 +135,8 @@ class KVStoreBase:
         self._store: Dict[Any, _nd.NDArray] = {}
         self._updater = None
         self._optimizer = None
+        self._compression_params = None
+        self._compressor = None
 
     # -- identity -------------------------------------------------------
     @property
@@ -132,13 +156,20 @@ class KVStoreBase:
         return 1
 
     # -- core ops -------------------------------------------------------
-    def init(self, key, value) -> None:
+    def init(self, key, value, shard: bool = True) -> None:
+        """Copy each key's value into the store. ``shard`` is the JAX
+        package's big-array row-sharding opt-out; one card has nothing to
+        shard across."""
         for k, vals in _group(key, value):
             if k in self._store:
                 continue
             v = vals[0]
             self._store[k] = v.copy() if isinstance(v, _nd.NDArray) \
                 else _nd.array(v)
+            self._init_global(self._store[k])
+
+    def _init_global(self, stored: _nd.NDArray) -> None:
+        """A distributed store's init takes rank 0's value."""
 
     @staticmethod
     def _merge(vals: List[_nd.NDArray]) -> _nd.NDArray:
@@ -155,7 +186,8 @@ class KVStoreBase:
 
     def push(self, key, value, priority: int = 0) -> None:
         for k, vals in _group(key, value):
-            _retry_op("push", lambda k=k, vals=vals: self._push_one(k, vals))
+            _traced_retry("push", k,
+                          lambda k=k, vals=vals: self._push_one(k, vals))
 
     def _push_one(self, k, vals) -> None:
         _chaos_kv("push", k)
@@ -166,18 +198,40 @@ class KVStoreBase:
                     "row-sparse pushes are not ported yet (ROADMAP.md, "
                     "queue A11)")
         merged = self._merge(vals)
+        if self._compressor is not None and not self._wire_compresses():
+            # no wire hop (one worker): the compress / decompress round
+            # trip with error feedback gives the numeric effect
+            merged = _nd.NDArray(self._compressor.roundtrip(k, merged._data))
         store = self._store[k]
         if self._updater is not None:
-            self._updater(_key_int(k), merged, store)
+            self._updater(_key_int(k), self._reduce_global(merged, k),
+                          store)
         else:
-            with torch.no_grad():
-                store._data.copy_(merged._data.to(store._data.device))
+            self._reduce_into(merged, k, store)
+
+    def _wire_compresses(self) -> bool:
+        """True when ``_reduce_global`` itself moves the compressed
+        payload (a distributed store), so the local round trip is
+        skipped."""
+        return False
+
+    def _reduce_global(self, merged: _nd.NDArray, key=None) -> _nd.NDArray:
+        """The merged value summed across the workers (one worker: as
+        it is)."""
+        return merged
+
+    def _reduce_into(self, merged: _nd.NDArray, key, store) -> None:
+        """Write the reduced ``merged`` into ``store`` in place."""
+        with torch.no_grad():
+            store._data.copy_(self._reduce_global(merged, key)._data
+                              .to(store._data.device))
 
     def pull(self, key, out=None, priority: int = 0,
              ignore_sparse: bool = True) -> None:
         check(out is not None, "pull requires out=")
         for k, outs in _group(key, out):
-            _retry_op("pull", lambda k=k, outs=outs: self._pull_one(k, outs))
+            _traced_retry("pull", k,
+                          lambda k=k, outs=outs: self._pull_one(k, outs))
 
     def _pull_one(self, k, outs) -> None:
         _chaos_kv("pull", k)
@@ -211,8 +265,14 @@ class KVStoreBase:
         self._updater = opt_mod.get_updater(optimizer)
 
     def set_gradient_compression(self, compression_params) -> None:
-        raise NotPortedError("gradient compression is not ported yet "
-                             "(ROADMAP.md, queue A10)")
+        """(ref: mx.kv.set_gradient_compression, gradient_compression.cc)
+        ``{'type': '2bit', 'threshold': t}``."""
+        from .gradient_compression import GradientCompression
+        params = dict(compression_params)
+        self._compression_params = params
+        self._compressor = GradientCompression(
+            type=params.get("type", "2bit"),
+            threshold=float(params.get("threshold", 0.5)))
 
     def save_optimizer_states(self, fname, dump_optimizer=False) -> None:
         check(self._updater is not None, "no optimizer set")
@@ -225,7 +285,65 @@ class KVStoreBase:
             self._updater.set_states(f.read())
 
     def barrier(self) -> None:
-        """One worker: nothing to wait for."""
+        """One worker: wait for the card's queued work."""
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    # -- ZeRO-1 plane ops (parallel/zero.py) ---------------------------
+    # One retry scope and one chaos entry per bucket key, as push / pull
+    # have: each is a pure read of its inputs (no store mutation), so a
+    # retried kv_flake never applies a shard update twice.
+
+    def zero_reduce_scatter(self, key, value, parts, all_parts=None):
+        """Reduce the flat ``_gbkt`` wire buffer ``value`` across the
+        workers and return the reduced ``[lo, hi)`` slices named by
+        ``parts`` (this rank's segments) as NDArrays. ``all_parts``
+        (every rank's segments) lets a distributed store run a true
+        reduce-scatter. A one-worker store slices: its gradient already
+        is the group's sum (a simulated world)."""
+        out: List[_nd.NDArray] = []
+
+        def run():
+            out.clear()
+            _chaos_kv("reduce_scatter", key)
+            out.extend(self._zero_reduce_scatter_impl(key, value, parts,
+                                                      all_parts))
+        _traced_retry("reduce_scatter", key, run)
+        return out
+
+    def _zero_reduce_scatter_impl(self, key, value, parts, all_parts=None):
+        data = value._data
+        return [_nd.NDArray(data[lo:hi]) for lo, hi in parts]
+
+    def zero_allgather(self, key, payloads, sizes=None):
+        """Allgather one bucket's updated weight segments: ``payloads``
+        maps rank -> flat NDArray (a real group gives its own rank's, a
+        simulated world every rank's); ``sizes``, every rank's element
+        count, saves the size exchange. Returns rank -> tensor for every
+        rank (a one-worker store echoes the payloads)."""
+        out: Dict[int, Any] = {}
+
+        def run():
+            out.clear()
+            _chaos_kv("allgather", key)
+            out.update(self._zero_allgather_impl(key, payloads, sizes))
+        _traced_retry("allgather", key, run)
+        return out
+
+    def _zero_allgather_impl(self, key, payloads, sizes=None):
+        return {r: v._data for r, v in payloads.items()}
+
+    def zero_all_finite(self, ok):
+        """AND of the shard-local all-finite verdict across the workers
+        (one worker: as it is), before any shard applies. ``ok`` is a
+        bool, or a 0-d bool tensor that stays on its device."""
+        return self._zero_all_finite_impl(ok)
+
+    def _zero_all_finite_impl(self, ok):
+        return ok
+
+    def _send_command_to_servers(self, head, body) -> None:
+        pass
 
 
 class KVStoreLocal(KVStoreBase):
@@ -248,6 +366,139 @@ class KVStoreDevice(KVStoreLocal):
         return "device"
 
 
+class KVStoreDistTPU(KVStoreBase):
+    """Synchronous data-parallel store over the ``torch.distributed``
+    group (the JAX package's ``dist_tpu_sync``). Every process is a
+    worker and reduction is a collective; there are no server
+    processes (module docstring)."""
+
+    def __init__(self, contexts=None):
+        super().__init__()
+        from .parallel import collectives as _coll
+        self._nproc = _coll.world()
+        self._rank = _coll.rank()
+        self._last_wire_bytes = 0
+
+    @property
+    def type(self):
+        return "dist_tpu_sync"
+
+    @property
+    def rank(self):
+        return self._rank
+
+    @property
+    def num_workers(self):
+        return self._nproc
+
+    def _init_global(self, stored: _nd.NDArray) -> None:
+        if self._nproc > 1:
+            import torch.distributed as dist
+            dist.broadcast(stored._data, 0)
+
+    def _wire_compresses(self) -> bool:
+        return self._nproc > 1 and self._compressor is not None
+
+    def _reduce_global(self, merged: _nd.NDArray, key=None) -> _nd.NDArray:
+        if self._nproc <= 1:
+            return merged
+        from .parallel import collectives as _coll
+        if self._compressor is not None:
+            # the wire carries the packed 2-bit codes (n/4 bytes against
+            # 4n); every worker's payload is decoded and summed in rank
+            # order
+            data = merged._data
+            packed, nelem = self._compressor.compress_packed(key, data)
+            gathered = _coll.cross_process_allgather(packed)
+            self._last_wire_bytes = int(packed.numel())
+            total = None
+            for row in gathered:
+                dec = self._compressor.decode_packed(row, nelem, data.shape,
+                                                     data.dtype)
+                total = dec if total is None else total + dec
+            return _nd.NDArray(total)
+        return _nd.NDArray(_coll.cross_process_allreduce(
+            merged._data.clone()))
+
+    def _reduce_into(self, merged: _nd.NDArray, key, store) -> None:
+        if self._nproc <= 1 or self._compressor is not None:
+            super()._reduce_into(merged, key, store)
+            return
+        from .parallel import collectives as _coll
+        with torch.no_grad():
+            store._data.copy_(merged._data)
+            _coll.cross_process_allreduce(store._data)
+
+    def _zero_reduce_scatter_impl(self, key, value, parts, all_parts=None):
+        if self._nproc <= 1:
+            return super()._zero_reduce_scatter_impl(key, value, parts,
+                                                     all_parts)
+        from .parallel import collectives as _coll
+        return [_nd.NDArray(t) for t in _coll.cross_process_reduce_scatter(
+            value._data, parts, all_parts=all_parts)]
+
+    def _zero_allgather_impl(self, key, payloads, sizes=None):
+        if self._nproc <= 1:
+            return super()._zero_allgather_impl(key, payloads, sizes)
+        check(len(payloads) == 1,
+              "distributed zero_allgather takes exactly this rank's "
+              "payload")
+        from .parallel import collectives as _coll
+        ((_r, v),) = payloads.items()
+        return dict(enumerate(_coll.cross_process_allgather_ragged(
+            v._data, sizes)))
+
+    def _zero_all_finite_impl(self, ok):
+        if self._nproc <= 1:
+            return ok
+        from .parallel import collectives as _coll
+        if isinstance(ok, torch.Tensor):
+            t = ok.reshape(1).to(torch.float32)
+            _coll.cross_process_allreduce(t, op="min")
+            return t[0] > 0.5
+        t = torch.tensor([1.0 if ok else 0.0])
+        if _coll.backend() == "nccl":
+            t = t.cuda()
+        _coll.cross_process_allreduce(t, op="min")
+        return bool(t.item() > 0.5)
+
+    def barrier(self) -> None:
+        from .parallel.collectives import barrier as _barrier
+        _barrier()
+
+    # -- worker command channel (ref: kvstore_dist.h SendCommandToServers,
+    # the profiler commands of kvstore.h:49) ------------------------------
+    def _send_command_to_servers(self, head, body) -> None:
+        """A command to every worker's endpoint (the reference sends to
+        server processes; here the workers are the servers)."""
+        for r in range(self._nproc):
+            self._command_rank(r, str(head), str(body))
+
+    def _command_rank(self, r: int, head: str, body: str) -> str:
+        """One command to rank r: in process for this rank, over the
+        command channel for a peer."""
+        from . import kvstore_server
+        if r == self._rank:
+            return kvstore_server._handle_command(head, body)
+        return kvstore_server.send_command(r, head, body)
+
+    def send_command_to_servers(self, head, body) -> None:
+        """(ref: MXKVStoreSendCommmandToServers)"""
+        self._send_command_to_servers(head, body)
+
+    def send_profiler_command(self, cmd: str, body: str = "",
+                              rank=None) -> list:
+        """Remote-control the profiler of worker ``rank`` (default every
+        worker): ``cmd`` in {set_config, state, pause, resume, dump,
+        dumps}, the KVStoreServerProfilerCommand set. Returns the
+        replies (``dump`` / ``dumps`` return the remote trace / table)."""
+        check(cmd in ("set_config", "state", "pause", "resume", "dump",
+                      "dumps"), f"unknown profiler command {cmd!r}")
+        ranks = range(self._nproc) if rank is None else [int(rank)]
+        return [self._command_rank(r, f"profiler.{cmd}", body)
+                for r in ranks]
+
+
 KVStore = KVStoreBase  # surface alias (ref: python/mxnet/kvstore.py KVStore)
 
 _TYPES = {
@@ -257,19 +508,24 @@ _TYPES = {
     "device": KVStoreDevice,
     "local_allreduce_device": KVStoreDevice,
     "nccl": KVStoreDevice,
+    "dist": KVStoreDistTPU,
+    "dist_sync": KVStoreDistTPU,
+    "dist_device_sync": KVStoreDistTPU,
+    "dist_sync_device": KVStoreDistTPU,
+    "dist_async": KVStoreDistTPU,   # documented sync emulation
+    "dist_tpu_sync": KVStoreDistTPU,
 }
-_DIST = ("dist", "dist_sync", "dist_device_sync", "dist_sync_device",
-         "dist_async", "dist_tpu_sync")
 
 
 def create(name: str = "local") -> KVStoreBase:
-    """String factory (ref: src/kvstore/kvstore.cc:40-75)."""
+    """String factory (ref: src/kvstore/kvstore.cc:40-75). A dist store
+    registers itself as the profiler's command transport."""
     check(isinstance(name, str), "kvstore name must be a string")
     key = name.lower()
-    if key in _DIST:
-        raise NotPortedError(
-            f"kvstore {name!r}: distributed stores are not ported yet "
-            "(ROADMAP.md, queue A10)")
     if key not in _TYPES:
         raise MXNetError(f"unknown KVStore type {name!r}")
-    return _TYPES[key]()
+    kv = _TYPES[key]()
+    if isinstance(kv, KVStoreDistTPU):
+        from . import profiler
+        profiler.set_kvstore_handle(kv)
+    return kv

@@ -55,9 +55,17 @@ Strictness (the JAX package's messages): ``skip_nonfinite`` is required,
 grouped rule and aggregation 0 are refused at construction, and a live
 parameter that gets no gradient raises at the first (eager) step, which
 is then rolled back. Sparse parameters cannot be built in the port
-(A11). Not ported, raising ``NotPortedError``: simulated ZeRO worlds
-(``MXTPU_ZERO_WORLD``, A10). ``MXTPU_COMM_OVERLAP`` is superseded, as in
-the JAX package.
+(A11). ``MXTPU_COMM_OVERLAP`` is superseded, as in the JAX package.
+
+A simulated ZeRO-1 world (``MXTPU_ZERO=1`` with ``MXTPU_ZERO_WORLD=N``)
+runs inside the graph: after the backward each bucket of the plane's
+layout is flattened, passed through ``collectives.loopback_psum`` (the
+collective site; one contribution, so the identity) and copied back into
+the gradients, then the update steps each rank's chunks under the one
+finiteness flag: bit for bit the composed ZeRO step. A real
+multi-worker group and a distributed plane raise at the first step, with
+the JAX package's words: their transport is host-side collectives, which
+a CUDA graph cannot hold.
 
 Telemetry. The eager body of the cold call runs under a counting scope
 (``telemetry.efficiency``): the graph's cost and footprint are recorded
@@ -86,8 +94,8 @@ from .cached_op import (SignatureLRU, _block_generators, capture_graph,
                         inline_scope, on_stream, trace_rw_for)
 from .log import get_logger
 from .ndarray.ndarray import NDArray
-from .ops.registry import NotPortedError
 from .optimizer import grouped as _grouped
+from .parallel import collectives as _coll
 from .telemetry import efficiency as _efficiency
 from .telemetry import memory as _memory
 from .telemetry import numerics as _numerics
@@ -134,10 +142,12 @@ class _Entry:
     stream, the tensors the graph captured, and the host ms its capture
     took."""
     __slots__ = ("ready", "x", "y", "scal", "flag", "loss", "smats",
-                 "graph", "stream", "ptrs", "states", "capture_ms", "label")
+                 "graph", "stream", "ptrs", "states", "capture_ms", "label",
+                 "comm")
 
     def __init__(self):
         self.ready = False
+        self.comm = ()
         self.graph = None
         self.stream = None
         self.capture_ms = None
@@ -177,12 +187,6 @@ class Megastep:
         check(_grouped.aggregation_size() > 0,
               "MXTPU_MEGASTEP=on requires MXTPU_OPTIMIZER_AGGREGATION > 0: "
               "the in-graph update is the grouped bucket program")
-        world = int(env.get("MXTPU_ZERO_WORLD") or 0)
-        if world > 1:
-            raise NotPortedError(
-                f"megastep: a simulated ZeRO world of {world} "
-                "(MXTPU_ZERO_WORLD) is not ported yet (ROADMAP.md, queue "
-                "A10)")
         if _switch("MXTPU_COMM_OVERLAP"):
             _LOG.info("MXTPU_COMM_OVERLAP superseded by MXTPU_MEGASTEP: "
                       "the whole step is one graph")
@@ -195,6 +199,35 @@ class Megastep:
         if cache is None:
             cache = net._mxtpu_megastep_cache = SignatureLRU()
         self._cache = cache
+        # the store and the ZeRO plane need the parameters: resolved at
+        # the first run, after the deferred-init forward
+        self._plane = None
+        self._world = 1
+        self._resolved = False
+
+    def _resolve_runtime(self) -> None:
+        if self._resolved:
+            return
+        tr = self._trainer
+        if not tr._kv_initialized:
+            tr._init_kvstore()
+        kv = tr._kvstore
+        if kv is not None and int(getattr(kv, "num_workers", 1) or 1) > 1:
+            raise MXNetError(
+                "MXTPU_MEGASTEP=on does not compose with a real "
+                "multi-worker group: the kvstore transport is a host-side "
+                "byte channel that cannot be traced into the program. Use "
+                "a simulated group (MXTPU_ZERO_WORLD) or unset "
+                "MXTPU_MEGASTEP")
+        self._plane = tr._zero_plane()
+        if self._plane is not None and self._plane.distributed:
+            raise MXNetError(
+                "MXTPU_MEGASTEP=on composes with simulated ZeRO worlds "
+                "only: a distributed plane's reduce-scatter rides the "
+                "host kvstore transport, which cannot be traced into the "
+                "program")
+        self._world = self._plane.world if self._plane is not None else 1
+        self._resolved = True
 
     # -- signature -------------------------------------------------------
     def _signature(self, rank_chunks, x, y, collect):
@@ -211,8 +244,9 @@ class Megastep:
             for chunks in rank_chunks)
         xsig = (tuple(x.shape), x.dtype, x.device)
         ysig = (tuple(y.shape), y.dtype) if y is not None else None
+        bucket_mb = tr._bucket_mb() if self._plane is not None else None
         return ("megastep", self._rule.name,
-                self._rule.statics(tr._optimizer),
+                self._rule.statics(tr._optimizer), self._world, bucket_mb,
                 _grouped.aggregation_size(), psig, plan_sig, xsig, ysig,
                 bool(env.get("MXTPU_FUSED_EPILOGUE")),
                 bool(env.get("MXNET_SAFE_ACCUMULATION")), bool(collect))
@@ -253,6 +287,13 @@ class Megastep:
             if grads:
                 g = grads[0]
                 g.copy_(torch.where(poison, fill.to(g.dtype), g))
+            # the simulated world's reduce-scatter, through the collective
+            # site: the plane's flatten / slice walk, copied back in place
+            for bucket, parts in e.comm:
+                flat = _coll.loopback_psum(
+                    torch.cat([gb._data.reshape(-1) for _i, gb in bucket]))
+                for _i, gb, lo, hi in parts:
+                    gb._data.copy_(flat[lo:hi].view(gb._data.shape))
             flag = _grouped.global_finite_flag(grads)
         updater = tr._updaters[0]
         stats = [] if e.smats is not None else None
@@ -306,8 +347,10 @@ class Megastep:
         if any(p.tensor is None for p in tr._params):
             with autograd.pause(), inline_scope():
                 net(x_nd)
-        if not tr._kv_initialized:
-            tr._init_kvstore()
+        self._resolve_runtime()
+        plane = self._plane
+        if plane is not None:
+            plane.check_comm_round()
         # chaos: the event is consumed here (the counters Plan.poison_grads
         # bumps); the fill is applied in the graph through its inputs
         poison, fill = False, 0.0
@@ -336,8 +379,12 @@ class Megastep:
         if not e.ready:
             self._rw.acquire_write()
             try:
-                e.label = (f"megastep:{self._rule.name}:"
+                e.label = (f"megastep:{self._rule.name}:w{self._world}:"
                            f"{_grouped._digest(sig)}")
+                if plane is not None:
+                    # the layout is read on the host, once a signature
+                    e.comm = [(bucket, plane._bucket_parts(bucket)[0])
+                              for _key, bucket in plane._bucket_layout(tr)]
                 if collect:
                     e.smats = [torch.empty((len(chunk), 6),
                                            dtype=torch.float32, device=dev)
@@ -360,8 +407,11 @@ class Megastep:
             names = [tuple(ent[1].name for ent in chunk)
                      for chunks in rank_chunks for chunk in chunks]
             tr.last_numerics_stats = list(zip(names, e.smats))
+        # one graph: its collectives are in-graph, not host collectives
         tr.last_update_dispatches = 1
         tr.last_allreduce_collectives = 0
+        tr.last_reduce_scatter_collectives = 0
+        tr.last_allgather_collectives = 0
         from .gluon.trainer import _update_dispatch_counter
         _update_dispatch_counter().inc(1)
         if _efficiency.notes_on():

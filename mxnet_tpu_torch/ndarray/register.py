@@ -28,6 +28,7 @@ from .. import autograd
 from ..base import MXNetError
 from ..context import Context
 from ..ops import registry as _reg
+from ..ops.opdoc import signature_and_doc
 from . import ndarray as _nd
 
 
@@ -73,7 +74,12 @@ def make_nd_function(name: str, opdef):
     generic.__name__ = name
     generic.__qualname__ = name
     generic.__module__ = "mxnet_tpu_torch.ndarray.op"
-    generic.__doc__ = opdef.doc
+    # the typed signature and numpydoc docstring from the registry entry
+    # (ref: python/mxnet/ndarray/register.py): help(nd.Convolution)
+    # lists the op's parameters
+    sig, doc = signature_and_doc(name, opdef, creation=opdef.creation)
+    generic.__signature__ = sig
+    generic.__doc__ = doc
     return generic
 
 

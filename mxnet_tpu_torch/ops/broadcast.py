@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from .elemwise import _named
 from .registry import register
 
 
@@ -35,7 +36,7 @@ _BCAST = {
 }
 
 for _name, _fn in _BCAST.items():
-    register(_name)(_fn)
+    register(_name)(_named(_fn, 2))
 
 register("broadcast_plus")(lambda a, b: a + b)
 register("broadcast_minus")(lambda a, b: a - b)

@@ -14,6 +14,7 @@ promotion treats like a python scalar (a float32 array stays float32).
 from __future__ import annotations
 
 import functools
+import inspect
 
 import numpy as np
 import torch
@@ -86,8 +87,18 @@ _UNARY = {
                                           device=x.device),
 }
 
+def _named(fn, arity: int):
+    """A torch builtin as a Python function of ``x`` (or ``a, b``), so
+    the op's signature names its inputs (``ops/opdoc.py``)."""
+    if not inspect.isbuiltin(fn):
+        return fn
+    if arity == 1:
+        return lambda x: fn(x)
+    return lambda a, b: fn(a, b)
+
+
 for _name, _fn in _UNARY.items():
-    register(_name)(_fn)
+    register(_name)(_named(_fn, 1))
 
 
 @register("copy", aliases=("identity", "_copy"))
@@ -183,7 +194,7 @@ _BINARY = {
 }
 
 for _name, _fn in _BINARY.items():
-    register(_name)(_fn)
+    register(_name)(_named(_fn, 2))
 
 alias("_add", "elemwise_add")
 alias("_plus", "elemwise_add")

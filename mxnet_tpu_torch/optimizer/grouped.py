@@ -454,13 +454,18 @@ def apply_chunk(updater, rule, chunk, lrs, wds, rescale,
 
 
 def grouped_update(updater, items, agg_size: int, sentinel: bool = False,
-                   sentinel_grads=None, stats_out=None):
+                   sentinel_grads=None, sentinel_flag=None, stats_out=None):
     """One aggregated optimizer step over ``items`` ([(index, Parameter)]
     with fresh dense gradients).
 
     ``sentinel_grads``: the gradient tensors the finiteness flag covers
     (the caller's whole live set, which may be wider than ``items``);
     default the items' own.
+
+    ``sentinel_flag``: a precomputed all-finite verdict (a 0-d bool
+    tensor) that replaces the bucket's own reduction: the ZeRO-1 plane
+    passes the verdict AND-reduced across the ranks, so every shard's
+    update is guarded by the same one.
 
     ``stats_out``: a list collecting each bucket's numerics stats
     (:func:`apply_chunk`); None for the stats-free programs.
@@ -474,9 +479,12 @@ def grouped_update(updater, items, agg_size: int, sentinel: bool = False,
     chunks = chunk_prepared(prepared, agg_size)
     flag = None
     if sentinel:
-        if sentinel_grads is None:
-            sentinel_grads = [_grad_nd(p)._data for _, p in items]
-        flag = global_finite_flag(sentinel_grads)
+        if sentinel_flag is not None:
+            flag = sentinel_flag
+        else:
+            if sentinel_grads is None:
+                sentinel_grads = [_grad_nd(p)._data for _, p in items]
+            flag = global_finite_flag(sentinel_grads)
     handled = []
     for chunk in chunks:
         handled += apply_chunk(updater, rule, chunk, [e[4] for e in chunk],

@@ -12,17 +12,17 @@ re-splits the data position (:func:`resplit_batches`), and a world
 change raises :class:`TopologyMismatchError` unless
 ``MXTPU_ELASTIC=on``.
 
-Not ported (ROADMAP A10): the process group. The port runs one process
-on one card, so its world is 1; a world change under ``MXTPU_ELASTIC=on``
-(the group's re-formation, :func:`begin_resize` / :func:`reform_group` /
-:func:`reset_comm_state`) and a simulated world (``MXTPU_ZERO_WORLD`` >
-1) raise ``NotPortedError``.
+The world is the kvstore's group (``num_workers`` > 1), else a simulated
+ZeRO world (``MXTPU_ZERO_WORLD``), else 1. Not ported (the second half of
+ROADMAP A10): a world change under ``MXTPU_ELASTIC=on`` (the group's
+re-formation, :func:`begin_resize` / :func:`reform_group` /
+:func:`reset_comm_state`) raises ``NotPortedError``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from ..base import MXNetError, env, env_switch
+from ..base import MXNetError, env_switch
 from ..ops.registry import NotPortedError
 
 __all__ = ["TopologyMismatchError", "elastic_enabled", "current_topology",
@@ -50,14 +50,6 @@ def elastic_enabled() -> bool:
 def _no_group(what: str) -> NotPortedError:
     return NotPortedError(f"elastic: {what} needs a process group, which "
                           "is not ported yet (ROADMAP.md, queue A10)")
-
-
-def _simulated_world() -> int:
-    """``MXTPU_ZERO_WORLD``: 0 / 1 mean no simulation; more raises."""
-    n = int(env.get("MXTPU_ZERO_WORLD") or 0)
-    if n > 1:
-        raise _no_group(f"a simulated world of {n} (MXTPU_ZERO_WORLD)")
-    return 1
 
 
 def _shard_source(data_iter):
@@ -95,7 +87,8 @@ def current_topology(trainer=None, data_iter=None) -> Dict[str, Any]:
     if nw > 1:
         world, rank, distributed = nw, int(kv.rank), True
     else:
-        world = _simulated_world()
+        from . import zero as _zero
+        world = _zero.simulated_world() or 1
     src = _shard_source(data_iter)
     return {
         "world": world,

@@ -10,9 +10,10 @@ The span store, ring buffer and exporters live in
 tracer. Device-level tracing (``start_xla_trace`` / ``stop_xla_trace``,
 the JAX package's names) wraps ``torch.profiler`` with the CPU and CUDA
 activities and writes a Chrome trace (``trace_<pid>_<n>.json``) into
-``logdir``. ``profile_process='server'`` routes commands over the dist
-kvstore's command channel, which comes with the process group: it raises
-``NotPortedError`` (ROADMAP A10).
+``logdir``. ``profile_process='server'`` sends the command to every
+worker of the job over the dist kvstore's command channel
+(``kvstore_server``; the store registers itself at creation,
+``set_kvstore_handle``), the reference's KVStoreServerProfilerCommand.
 """
 from __future__ import annotations
 
@@ -25,7 +26,6 @@ import itertools
 import os
 
 from .base import check, env
-from .ops.registry import NotPortedError
 from .telemetry import chrome_trace as _ct
 from .telemetry.tracer import tracer as _tracer
 
@@ -34,17 +34,24 @@ __all__ = ["set_config", "set_state", "state", "dump", "dumps", "pause",
            "Marker", "record_span", "events", "start_xla_trace",
            "stop_xla_trace", "set_kvstore_handle"]
 
+# the dist kvstore registered at creation: profile_process='server'
+# commands ride its command channel (ref: profiler_kvstore_handle)
+_kvstore = None
+
+
 def set_kvstore_handle(kv) -> None:
-    """(ref: profiler.set_kvstore_handle) A dist kvstore is ROADMAP A10."""
-    raise NotPortedError("profiler.set_kvstore_handle: the dist kvstore "
-                         "is not ported yet (ROADMAP.md, queue A10)")
+    """(ref: profiler.set_kvstore_handle)"""
+    global _kvstore
+    _kvstore = kv
 
 
-def _route_server(cmd: str, body: str = "") -> bool:
-    raise NotPortedError(
-        f"profiler {cmd} with profile_process='server' rides the dist "
-        "kvstore's command channel, which is not ported yet (ROADMAP.md, "
-        "queue A10)")
+def _route_server(cmd: str, body: str = "") -> None:
+    """Send one profiler command to every worker's endpoint."""
+    check(_kvstore is not None,
+          "profile_process='server' needs a dist kvstore (create one "
+          "first; ref: 'server can only be profiled when kvstore is of "
+          "type dist')")
+    _kvstore.send_profiler_command(cmd, body)
 
 
 _config = {"filename": "profile.json", "profile_all": False,

@@ -29,8 +29,7 @@
 
 ``mxnet_tpu_torch.profiler`` is the MXNet facade over this package and
 ``mxnet_tpu_torch.monitor`` the Monitor fed by the numerics plane. The
-collective ledger and comm health go with the process group (ROADMAP
-A10).
+collective ledger and comm health are the second half of ROADMAP A10.
 """
 from __future__ import annotations
 

@@ -1,11 +1,12 @@
 """Telemetry-driven knob autotuner (ref: the JAX package's
 ``telemetry/autotune.py``).
 
-The perf knobs the port has on one card are numerically neutral: any
-setting gives bit-identical updates, only the step time changes —
-``MXTPU_OPTIMIZER_AGGREGATION`` (the grouped update's bucket size,
-``agg``) and ``DeviceStagingIter``'s prefetch depth (``prefetch``). So
-they are safe to probe on live steps: the :class:`AutoTuner` spends a few
+The perf knobs are numerically neutral: any setting gives bit-identical
+updates, only the step time changes — ``MXTPU_GRAD_BUCKET_MB`` (the
+gradient buckets, ``bucket_mb``), ``MXTPU_OPTIMIZER_AGGREGATION`` (the
+grouped update's bucket size, ``agg``), ``DeviceStagingIter``'s prefetch
+depth (``prefetch``) and ``MXTPU_COMM_OVERLAP`` (``overlap``). So they
+are safe to probe on live steps: the :class:`AutoTuner` spends a few
 instrumented steps per candidate at train start, scores each with the
 step breakdown's records, locks the best configuration for the rest of
 the run and records every decision:
@@ -30,12 +31,18 @@ per-knob lists override the built-in candidate values. Candidates are
 one-factor-at-a-time: a baseline (the operator's settings) plus, per
 knob, each alternative with every other knob at baseline; the locked
 config takes, per knob, the best variant only if it beat baseline by more
-than ``MIN_GAIN`` (3 %, a noise fence). The communication knobs
-``bucket_mb`` and ``overlap`` come with the process group: they are not
-in the default plan, and asking for them (``knobs=`` or their value
-lists) raises ``NotPortedError`` naming ROADMAP A10. Probing mutates
-process env vars and the staging depth; the FitLoop restores both when
-``fit()`` returns — the decision persists in the report.
+than ``MIN_GAIN`` (3 %, a noise fence). ``overlap`` is the exception:
+it moves the same collectives into backward, so it is adopted when the
+exposed ``comm`` share drops by more than ``MIN_GAIN`` (the wall can
+neither justify nor veto it at this resolution), and only toward on.
+The comm knobs are probed only with a kvstore to communicate through (a
+store object, or a ``dist_*`` name; a one-card store named by a string
+is dropped by the Trainer, so its knobs would probe nothing), and
+``bucket_mb`` not under gradient compression (the bucket layout is
+part of the residuals' numerics); under ``MXTPU_ZERO=1`` they steer the
+reduce-scatter / allgather round. Probing mutates process env vars and
+the staging depth; the FitLoop restores both when ``fit()`` returns —
+the decision persists in the report.
 """
 from __future__ import annotations
 
@@ -44,7 +51,6 @@ import time
 from typing import Dict, List, Optional
 
 from ..base import MXNetError, env
-from ..ops.registry import NotPortedError
 from ..log import get_logger
 from .tracer import tracer as _tracer
 
@@ -58,14 +64,17 @@ MIN_GAIN = 0.03
 
 #: the grammar's knobs (the JAX package's)
 _KNOBS = ("bucket_mb", "agg", "prefetch", "overlap")
-#: the knobs a one-card port probes (the others need the process group)
-_PORTED_KNOBS = ("agg", "prefetch")
 
 #: env var behind each env-backed knob
-_KNOB_ENV = {"agg": "MXTPU_OPTIMIZER_AGGREGATION"}
+_KNOB_ENV = {"bucket_mb": "MXTPU_GRAD_BUCKET_MB",
+             "agg": "MXTPU_OPTIMIZER_AGGREGATION",
+             "overlap": "MXTPU_COMM_OVERLAP"}
 
 #: step-breakdown segments each knob's lever acts on (note_action targets)
-_KNOB_SEGMENTS = {"agg": ("optimizer",), "prefetch": ("data_wait", "h2d")}
+_KNOB_SEGMENTS = {"bucket_mb": ("comm", "comm_overlapped"),
+                  "agg": ("optimizer",),
+                  "prefetch": ("data_wait", "h2d"),
+                  "overlap": ("comm", "comm_overlapped")}
 
 
 def _spec() -> str:
@@ -95,8 +104,7 @@ def requested() -> bool:
 def parse_spec(spec: str) -> Dict[str, object]:
     """Parse one MXTPU_AUTOTUNE spec string (module docstring grammar).
     Returns {'on', 'probe', 'warmup', 'knobs', 'values': {knob: [v,...]}}.
-    Unknown tokens/keys/values raise MXNetError; the communication knobs
-    raise NotPortedError (ROADMAP A10)."""
+    Unknown tokens/keys/values raise MXNetError."""
     out: Dict[str, object] = {"on": False, "probe": 2, "warmup": 1,
                               "knobs": None, "values": {}}
     for tok in (spec or "").split(","):
@@ -159,12 +167,6 @@ def parse_spec(spec: str) -> Dict[str, object]:
             raise MXNetError(
                 f"MXTPU_AUTOTUNE: unknown key {key!r} (known: probe, "
                 f"warmup, knobs, {', '.join(_KNOBS)})")
-    asked = set(out["knobs"] or ()) | set(out["values"])
-    comm = sorted(asked - set(_PORTED_KNOBS))
-    if comm:
-        raise NotPortedError(
-            f"MXTPU_AUTOTUNE: the communication knob(s) {comm} are not "
-            "ported yet (ROADMAP.md, queue A10)")
     return out
 
 
@@ -231,6 +233,16 @@ class AutoTuner:
 
     # -- knob plumbing ---------------------------------------------------
     def _current(self, knob: str):
+        if knob == "bucket_mb":
+            try:
+                return float(env.get("MXTPU_GRAD_BUCKET_MB"))
+            except (TypeError, ValueError):
+                return 0.0
+        if knob == "overlap":
+            # the Trainer's own strict parse: the tuner must not overwrite
+            # a value the trainer rejects
+            from ..gluon.trainer import _overlap_requested
+            return 1 if _overlap_requested() else 0
         if knob == "agg":
             from ..optimizer.grouped import aggregation_size
             return aggregation_size()
@@ -253,7 +265,12 @@ class AutoTuner:
         name = _KNOB_ENV[knob]
         if name not in self._saved_env:
             self._saved_env[name] = env.raw(name)
-        env.set(name, str(int(value)))
+        if knob == "overlap":
+            env.set(name, "on" if int(value) else "off")
+        elif knob == "bucket_mb":
+            env.set(name, repr(float(value)))
+        else:
+            env.set(name, str(int(value)))
 
     def restore_env(self) -> None:
         """Reinstate the operator's environment — env vars AND the
@@ -270,15 +287,50 @@ class AutoTuner:
             self._saved_depth = None
 
     # -- candidate plan --------------------------------------------------
+    @staticmethod
+    def _store_compresses(t) -> bool:
+        """True when the trainer's kvstore compresses gradients (read
+        without creating a lazy store)."""
+        if getattr(t, "_compression_params", None):
+            return True
+        kv = getattr(t, "_kvstore", None)
+        if kv is None:
+            arg = getattr(t, "_kvstore_arg", None)
+            kv = arg if not isinstance(arg, str) else None
+        return bool(getattr(kv, "_compressor", None) or
+                    getattr(kv, "_compression_params", None))
+
     def _applicable_knobs(self) -> List[str]:
-        knobs = list(self._knob_filter or _PORTED_KNOBS)
+        knobs = list(self._knob_filter or _KNOBS)
         # prefetch needs a depth-adjustable staging iterator
         if "prefetch" in knobs and \
                 getattr(self._data_iter, "set_depth", None) is None:
             knobs.remove("prefetch")
+        t = self._trainer
+        if t is not None:
+            # the comm knobs need a kvstore to communicate through: none,
+            # or a one-process store named by a string, which the Trainer
+            # drops on one card (the JAX package probes them there too,
+            # to no effect)
+            arg = getattr(t, "_kvstore_arg", None)
+            if not arg or (isinstance(arg, str) and
+                           not arg.lower().startswith("dist")) or (
+                    getattr(t, "_kv_initialized", False) and
+                    getattr(t, "_kvstore", None) is None):
+                for k in ("bucket_mb", "overlap"):
+                    if k in knobs:
+                        knobs.remove(k)
+            elif "bucket_mb" in knobs and self._store_compresses(t):
+                # the residuals are per bucket key: re-bucketing mid-run
+                # would change the numerics probing assumes unchanged
+                knobs.remove("bucket_mb")
         return knobs
 
     def _default_values(self, knob: str, cur) -> List:
+        if knob == "bucket_mb":
+            return [v for v in (4.0, 100.0) if v != cur]
+        if knob == "overlap":
+            return [1] if not cur else [0]
         if knob == "agg":
             return [v for v in (16,) if v != cur]
         if knob == "prefetch":
@@ -366,7 +418,24 @@ class AutoTuner:
             if not variants:
                 continue
             best = min(variants, key=_Candidate.score)
-            if base_score > 0 and \
+            if knob == "overlap":
+                # the same collectives, launched during backward: adopted
+                # when the exposed comm share drops by more than the
+                # fence, and only toward on (module docstring)
+                if base is not None and best.knobs[knob] and \
+                        not self._baseline[knob] and \
+                        base.seg_share("comm") - best.seg_share("comm") \
+                        > MIN_GAIN:
+                    self.chosen[knob] = best.knobs[knob]
+                    changed[knob] = {
+                        "from": self._baseline[knob],
+                        "to": best.knobs[knob],
+                        "gain_frac": round(1.0 - best.score() / base_score,
+                                           4) if base_score > 0 else None,
+                        "comm_share_from": round(base.seg_share("comm"), 4),
+                        "comm_share_to": round(best.seg_share("comm"), 4),
+                    }
+            elif base_score > 0 and \
                     best.score() < base_score * (1.0 - MIN_GAIN):
                 self.chosen[knob] = best.knobs[knob]
                 changed[knob] = {
@@ -425,6 +494,11 @@ class AutoTuner:
     # -- the protocol dump ----------------------------------------------
     def report(self) -> Dict[str, object]:
         """The full tuning protocol (lands in FitResult.tuning_report)."""
+        try:
+            from ..parallel.zero import zero_requested
+            zero_on = zero_requested()
+        except Exception:
+            zero_on = False
         cands = self._cands or []
         base = cands[0] if cands else None
         base_score = base.score() if base and base.walls else None
@@ -433,8 +507,8 @@ class AutoTuner:
             "probe_steps": self.probe,
             "warmup_steps": self.warmup,
             "min_gain_frac": MIN_GAIN,
-            # the ZeRO plane comes with the process group (A10)
-            "zero": False,
+            # which comm round the knobs steered
+            "zero": zero_on,
             "locked_at_step": self.locked_at_step,
             "baseline": dict(self._baseline),
             "chosen": dict(self.chosen),

@@ -378,12 +378,18 @@ def track_optimizer_state(updater, index, state, param=None,
                 _state_arrays(state[1]) and \
                 wdt is not None and wdt != torch.float32:
             inner, master = state
+        # a ZeRO-1 plane stamps the updater with its partition: each
+        # entry names its owning rank ('state:zr<r>/<N>:'), so per-rank
+        # bytes are a queryable prefix
+        zs = getattr(updater, "_zero_shard", None)
+        tag = zs.get(index) if zs else None
+        shard = f"zr{tag}:" if tag is not None else ""
         inner_bytes = sum(nd_bytes(a) for a in _state_arrays(inner))
         _LEDGER.set("optimizer", (utok, index), inner_bytes,
-                    owner=f"state:{name}")
+                    owner=f"state:{shard}{name}")
         if master is not None:
             _LEDGER.set("masters", (utok, index), nd_bytes(master),
-                        owner=f"master:{name}")
+                        owner=f"master:{shard}{name}")
         else:
             _LEDGER.drop("masters", (utok, index))
     except Exception:

@@ -468,8 +468,9 @@ def record_step(step: int, items, loss_scale: Optional[float] = None,
     grad norm / update ratio, the pattern-filtered per-parameter stat
     dicts, feeds the gauges, Perfetto counters, stat history and attached
     Monitors, and appends the record to the recent window. (The JAX
-    package's cross-rank merge under a distributed ZeRO plane comes with
-    the process group, ROADMAP A10.)"""
+    package's cross-rank merge under a distributed ZeRO plane is the
+    second half of ROADMAP A10: such a sampled step raises in the
+    Trainer.)"""
     import numpy as _np
     s = spec()
     if s is None:

@@ -160,9 +160,9 @@ def _env_fingerprint() -> Dict[str, Any]:
         fp["device_count"] = torch.cuda.device_count() if cuda else 1
     except Exception:
         pass
-    # topology identity: the world size this run trained at (one card and
-    # no process group in the port until ROADMAP A10), so run_compare
-    # flags a cross-topology comparison
+    # topology identity: the world size this run trained at (a report of
+    # a group is the second half of ROADMAP A10: FitLoop refuses it), so
+    # run_compare flags a cross-topology comparison
     fp["world_size"] = 1
     return fp
 

@@ -106,11 +106,19 @@ def test_fit_restores_env_and_keeps_the_trajectory(monkeypatch, mega):
     "on,knobs=bucket_mb", "on,knobs=agg|overlap", "on,bucket_mb=4|100",
     "on,overlap=1"])
 def test_comm_knobs_raise_a10(spec, monkeypatch):
-    with pytest.raises(NotPortedError, match="A10"):
-        tat.parse_spec(spec)
+    """The comm knobs are ported (A10's first half; the name and cases
+    are kept from when they raised): the spec parses as in the JAX
+    package, and a fit without a kvstore drops them from the plan in
+    both packages, with the same report."""
+    assert tat.parse_spec(spec) == jat.parse_spec(spec)
     monkeypatch.setenv("MXTPU_AUTOTUNE", spec)
-    with pytest.raises(NotPortedError, match="A10"):
-        C.fit("port", "mlp", epochs=1)
+    reps = {pkg: C.fit(pkg, "mlp", epochs=1)[2].tuning_report
+            for pkg in ("port", "jax")}
+    assert [c["label"] for c in reps["port"]["candidates"]] == \
+        [c["label"] for c in reps["jax"]["candidates"]]
+    assert reps["port"]["baseline"] == reps["jax"]["baseline"]
+    assert "bucket_mb" not in reps["port"]["baseline"]
+    assert "overlap" not in reps["port"]["baseline"]
 
 
 @pytest.mark.parametrize("spec", ["wat", "on,probe=0", "probe=4",

@@ -46,6 +46,15 @@ FIT_FLAGS = {"MXNET_IS_RECOVERY": ["1", "0", "False", "", None],
              "MXTPU_COLL_TIMEOUT_S": ["0", "2.5", None],
              "MXTPU_ZERO_WORLD": ["0", "2", None],
              "MXTPU_ELASTIC": ["on", "off", None]}
+# the distributed group, the launcher and the command channel
+# (kvstore_server, launch, parallel/collectives)
+DIST_FLAGS = {"MXTPU_COORDINATOR": ["127.0.0.1:29500", "", None],
+              "MXTPU_NUM_WORKERS": ["1", "4", None],
+              "MXTPU_WORKER_HOSTS": ["h0,h1", "", None],
+              "MXTPU_CMD_PORT_BASE": ["0", "23000", None],
+              "MXTPU_CMD_TOKEN": ["abc", "", None],
+              "MXTPU_COORD_TIMEOUT_MS": ["120000", "5", None],
+              "DMLC_ROLE": ["worker", "server", None]}
 # the megastep's signature cache (cached_op.SignatureLRU)
 MEGASTEP_FLAGS = {"MXTPU_CACHEDOP_CACHE_SIZE": ["0", "8", "256", None]}
 # CachedOp's bulk-exec bypass and the serving core
@@ -98,13 +107,14 @@ def test_safe_acc_upcast_decision_matches_jax(monkeypatch, value):
 def test_declarations_match_jax():
     for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS) + \
             tuple(MEGASTEP_FLAGS) + tuple(MIRROR_FLAGS) + \
-            tuple(RANDOM_FLAGS) + tuple(DATA_FLAGS) + tuple(SERVING_FLAGS):
+            tuple(RANDOM_FLAGS) + tuple(DATA_FLAGS) + tuple(SERVING_FLAGS) + \
+            tuple(DIST_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
     assert {n for n, *_ in tbase.env.items()} == \
         set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS) | \
         set(MEGASTEP_FLAGS) | set(MIRROR_FLAGS) | set(RANDOM_FLAGS) | \
-        set(DATA_FLAGS) | set(SERVING_FLAGS)
+        set(DATA_FLAGS) | set(SERVING_FLAGS) | set(DIST_FLAGS)
 
 
 @pytest.mark.parametrize("name,value", [
@@ -153,6 +163,13 @@ def test_trainer_flag_get_matches_jax(monkeypatch, name, value):
 @pytest.mark.parametrize("name,value", [
     (n, v) for n, vs in FIT_FLAGS.items() for v in vs])
 def test_fit_flag_get_matches_jax(monkeypatch, name, value):
+    _set(monkeypatch, name, value)
+    assert tbase.env.get(name) == jbase.env.get(name)
+
+
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, vs in DIST_FLAGS.items() for v in vs])
+def test_dist_flag_get_matches_jax(monkeypatch, name, value):
     _set(monkeypatch, name, value)
     assert tbase.env.get(name) == jbase.env.get(name)
 

@@ -481,6 +481,14 @@ def test_resplit_and_restore_gate_match_jax(monkeypatch):
         with pytest.raises(mt.MXNetError if el is telastic
                            else mx.base.MXNetError):
             el.elastic_enabled()
+    # a simulated ZeRO world is ported (A10's first half): the topology
+    # reads it as the JAX package does
     monkeypatch.setenv("MXTPU_ZERO_WORLD", "2")
-    with pytest.raises(NotPortedError, match="A10"):
-        telastic.current_topology(None, None)
+    assert telastic.current_topology(None, None) == \
+        jelastic.current_topology(None, None)
+    assert telastic.current_topology(None, None)["world"] == 2
+    monkeypatch.setenv("MXTPU_ZERO_WORLD", "two")
+    for el in (jelastic, telastic):
+        with pytest.raises(mt.MXNetError if el is telastic
+                           else mx.base.MXNetError, match="integer"):
+            el.current_topology(None, None)

@@ -520,15 +520,46 @@ def test_fitloop_ignore_stale_grad_passthrough():
     ("MXTPU_RUN_REPORT_DIR", "reports", "A9"),
     ("MXTPU_COLL_HEALTH", "4", "A10"),
     ("MXTPU_COLL_TIMEOUT_S", "30", "A10"),
-    ("MXTPU_ZERO", "on", "A10"),
+    ("MXTPU_ZERO", "on", "zero"),
 ])
 def test_unported_planes_raise_before_any_step(tmp_path, monkeypatch, flag,
                                                value, item):
-    """A10's planes raise before any step runs (nothing written, no step,
-    the handlers untouched). A9's are ported (the name and the cases are
-    kept from when they raised): the same flag runs ``FitLoop.fit`` in
-    both packages to the same trajectory and fills the same result
-    field."""
+    """A10's comm-health planes raise before any step runs (nothing
+    written, no step, the handlers untouched). A9's are ported (the name
+    and the cases are kept from when they raised): the same flag runs
+    ``FitLoop.fit`` in both packages to the same trajectory and fills the
+    same result field. ``MXTPU_ZERO`` is ported (A10's first half): with
+    no kvstore both packages refuse at the first step with the same
+    error, nothing updated; with a store object both run the sharded
+    trajectory and report the same plane in ``FitResult.zero``."""
+    if item == "zero":
+        monkeypatch.setenv("MXTPU_OPTIMIZER_AGGREGATION", "4")
+        monkeypatch.setenv(flag, value)
+        monkeypatch.setenv("MXTPU_ZERO_WORLD", "2")
+        errs, out = {}, {}
+        for pkg in ("jax", "port"):
+            m, fit, io = PKGS[pkg][:3]
+            _, trainer, loop = _build(pkg, None)
+            with pytest.raises(m.base.MXNetError) as e:
+                loop.fit(epochs=1)
+            errs[pkg] = str(e.value)
+            assert not trainer._updaters[0].states
+            net = _net(pkg)
+            trainer = m.gluon.Trainer(
+                net.collect_params(), "sgd",
+                {"learning_rate": 0.05, "momentum": 0.9},
+                kvstore=m.kv.create("local"))
+            X, Y, bs = _data()
+            loop = fit.FitLoop(net, trainer, _mse, io.NDArrayIter(
+                X, Y, batch_size=bs, shuffle=True, seed=13),
+                heartbeat=False)
+            out[pkg] = (net, loop.fit(epochs=2))
+        assert errs["port"] == errs["jax"]
+        assert "requires a kvstore" in errs["port"]
+        _same_result(out["port"], out["jax"])
+        assert out["port"][1].zero == out["jax"][1].zero
+        assert out["port"][1].zero["world"] == 2
+        return
     if item == "A9":
         monkeypatch.setenv("MXTPU_OPTIMIZER_AGGREGATION", "4")
         monkeypatch.setenv(flag, value)

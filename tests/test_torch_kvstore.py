@@ -1,7 +1,8 @@
-"""The port's one-card KVStore against the JAX package's (the one-process
-cases of ``tests/test_kvstore.py``), on the CPU: the same numpy values
-through both stores, results compared exactly (a copy or a sum of a few
-f32 values), or at 1e-6 after an optimizer update."""
+"""The port's one-process KVStore against the JAX package's (the
+one-process cases of ``tests/test_kvstore.py``), on the CPU: the same
+numpy values through both stores, results compared exactly (a copy or a
+sum of a few f32 values), or at 1e-6 after an optimizer update. The
+distributed store on several ranks is ``tests/test_torch_dist_kvstore.py``."""
 import numpy as np
 import pytest
 import torch
@@ -30,8 +31,9 @@ def test_create_types():
     with pytest.raises(mt.MXNetError):
         tkv.create("bogus")
     for name in ["dist_sync", "dist_tpu_sync", "dist_async", "dist"]:
-        with pytest.raises(NotPortedError, match="A10"):
-            tkv.create(name)
+        kv = tkv.create(name)         # outside a group: one worker
+        assert kv.type == jkv.create(name).type == "dist_tpu_sync"
+        assert kv.num_workers == 1 and kv.rank == 0
     assert mt.kv is tkv
 
 
@@ -147,22 +149,41 @@ def test_trainer_drops_a_named_one_card_store():
 
 
 def test_flat_gradient_buckets_are_not_ported(monkeypatch):
-    net = mt.gluon.nn.Dense(2, in_units=3, device="cpu")
-    net.initialize()
-    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
-                               {"learning_rate": 0.1},
-                               kvstore=tkv.create("local"))
-    with pytest.raises(NotPortedError, match="A10"):
-        trainer.allreduce_grads()          # weight and bias: one bucket
-    monkeypatch.setenv("MXTPU_GRAD_BUCKET_MB", str(31 / (1 << 20)))
-    trainer.allreduce_grads()              # 24 + 8 bytes > 31: no bucket
-    assert trainer.last_allreduce_collectives == 2
-    monkeypatch.setenv("MXTPU_GRAD_BUCKET_MB", str(32 / (1 << 20)))
-    with pytest.raises(NotPortedError, match="A10"):
-        trainer.allreduce_grads()
-    monkeypatch.setenv("MXTPU_GRAD_BUCKET_MB", "0")
-    trainer.allreduce_grads()              # one push/pull per key
-    assert trainer.last_allreduce_collectives == 2
+    """Flat buckets are ported: the JAX Trainer's bucket count under each
+    cap (weight and bias in one bucket, each alone, per key), and the
+    same weights as the JAX Trainer after the step."""
+    def run(pkg):
+        if pkg == "port":
+            net = mt.gluon.nn.Dense(2, in_units=3, device="cpu")
+            net.initialize(mt.init.Constant(0.5))
+            tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": 0.1},
+                                  kvstore=tkv.create("local"))
+            x = _t(np.arange(12.0).reshape(4, 3))
+            with mt.autograd.record():
+                loss = net(x).sum()
+        else:
+            net = mx.gluon.nn.Dense(2, in_units=3)
+            net.initialize(mx.init.Constant(0.5))
+            tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": 0.1},
+                                  kvstore=jkv.create("local"))
+            x = nd.array(np.arange(12.0).reshape(4, 3).astype(np.float32))
+            with mx.autograd.record():
+                loss = net(x).sum()
+        loss.backward()
+        tr.step(4)
+        return tr.last_allreduce_collectives, sorted(
+            np.ravel(p.data().asnumpy()).tolist()
+            for p in net.collect_params().values())
+
+    for mb, n in (("25", 1), (str(31 / (1 << 20)), 2),
+                  (str(32 / (1 << 20)), 1), ("0", 2)):
+        monkeypatch.setenv("MXTPU_GRAD_BUCKET_MB", mb)
+        got, want = run("port"), run("jax")
+        assert got[0] == want[0] == n, mb
+        for a, b in zip(got[1], want[1]):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
 
 
 def test_not_ported_surfaces_raise():
@@ -171,8 +192,8 @@ def test_not_ported_surfaces_raise():
     with pytest.raises(NotPortedError, match="A11"):
         kv.row_sparse_pull("emb", out=_t(np.zeros((2, 3))),
                            row_ids=_t([1, 3]))
-    with pytest.raises(NotPortedError, match="A10"):
-        kv.set_gradient_compression({"type": "2bit"})
+    kv.set_gradient_compression({"type": "2bit"})    # ported
+    assert kv._compressor.threshold == 0.5
     kv.barrier()
     with pytest.raises(mt.MXNetError, match="no optimizer"):
         kv.save_optimizer_states("unused")

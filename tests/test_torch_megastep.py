@@ -10,8 +10,8 @@ path bit for bit. Here, on ``tests/test_megastep.py``'s MLP (Dense 16
 ReLU, Dense 4, L2 loss, batch 4, aggregation 8):
 
 - the strict parse and every knob it refuses, each as the JAX package
-  refuses it (the port refuses compression and sparse parameters where
-  they are built, naming A10 / A11);
+  refuses it, gradient compression included (the port refuses sparse
+  parameters where they are built, naming A11);
 - megastep against the port's composed path, bit for bit, for the six
   ``tests/test_zero.py`` OPTS, and against the JAX package's megastep on
   the same numpy data and weights within ``RTOL`` (1e-5, the JAX tests'
@@ -27,7 +27,12 @@ ReLU, Dense 4, L2 loss, batch 4, aggregation 8):
   by the next step, and a checkpoint, kill and resume equal to the
   fault-free run;
 - the composed grouped update bit for bit before and after
-  ``apply_chunk`` learnt to take device-tensor scalars.
+  ``apply_chunk`` learnt to take device-tensor scalars;
+- under a simulated ZeRO world of 4 (``MXTPU_ZERO=1``,
+  ``MXTPU_ZERO_WORLD=4``, a kvstore object) the megastep, whose loopback
+  reduce-scatter runs inside the step, bit for bit against the composed
+  ZeRO step for the six OPTS and within ``RTOL`` of the JAX megastep at
+  world 4 (JAX ``tests/test_megastep.py:202``).
 """
 import numpy as np
 import pytest
@@ -134,12 +139,15 @@ def _states(tr):
 
 
 def _fit(monkeypatch, mega, opt=ADAM, steps=4, chaos_spec=None,
-         loss_scale=1.0, net=None, on_step_end=None, **kw):
-    """One port FitLoop run; the megastep switch is the only delta."""
+         loss_scale=1.0, net=None, on_step_end=None, store=False, **kw):
+    """One port FitLoop run; the megastep switch is the only delta
+    (``store``: a kvstore object, which ZeRO needs)."""
     _mega(monkeypatch, mega)
     name, okw = opt
     net = net if net is not None else _port_net()
-    tr = mt.gluon.Trainer(net.collect_params(), name, dict(okw))
+    tr = mt.gluon.Trainer(net.collect_params(), name, dict(okw),
+                          kvstore=mt.kv.create("local") if store
+                          else "device")
     X, Y = _data(steps)
     loop = mt.fit.FitLoop(net, tr, mt.gluon.loss.L2Loss(),
                           mt.io.NDArrayIter(X, Y, batch_size=4),
@@ -159,7 +167,7 @@ def _fit(monkeypatch, mega, opt=ADAM, steps=4, chaos_spec=None,
 
 
 def _jax_fit(monkeypatch, opt=ADAM, steps=4, chaos_spec=None,
-             loss_scale=1.0):
+             loss_scale=1.0, store=False):
     """The JAX package's megastep on the same data and weights."""
     _mega(monkeypatch, True)
     name, okw = opt
@@ -168,7 +176,9 @@ def _jax_fit(monkeypatch, opt=ADAM, steps=4, chaos_spec=None,
         net(mx.nd.ones((1, 16)))
     for k, p in net._collect_params_with_prefix().items():
         p.set_data(mx.nd.array(_jax_init()[k]))
-    tr = jgluon.Trainer(net.collect_params(), name, dict(okw))
+    tr = jgluon.Trainer(net.collect_params(), name, dict(okw),
+                        kvstore=mx.kv.create("local") if store
+                        else "device")
     X, Y = _data(steps)
     loop = jfit.FitLoop(net, tr, jgluon.loss.L2Loss(prefix="l2_"),
                         JNDArrayIter(X, Y, batch_size=4), ckpt_dir=None,
@@ -242,7 +252,9 @@ def _refusal(pkg, knob, monkeypatch):
     m, ms = (mx, jmegastep) if pkg == "jax" else (mt, tmegastep)
     net = _jax_net() if pkg == "jax" else _port_net()
     opt = "adagrad" if knob == "no_rule" else "adam"
-    tr = m.gluon.Trainer(net.collect_params(), opt, {"learning_rate": 1e-3})
+    tr = m.gluon.Trainer(net.collect_params(), opt, {"learning_rate": 1e-3},
+                         compression_params={"type": "2bit"}
+                         if knob == "compression" else None)
     kw = {"skip_nonfinite": knob != "skip_nonfinite",
           "ignore_stale_grad": knob == "ignore_stale_grad"}
     if knob == "aggregation":
@@ -256,7 +268,8 @@ def _refusal(pkg, knob, monkeypatch):
     ("skip_nonfinite", "skip_nonfinite"),
     ("ignore_stale_grad", "ignore_stale_grad"),
     ("no_rule", "no grouped-update rule"),
-    ("aggregation", "AGGREGATION")])
+    ("aggregation", "AGGREGATION"),
+    ("compression", "gradient compression")])
 def test_megastep_incompatible_knobs_raise_as_in_jax(monkeypatch, knob,
                                                      match):
     """Every statically checkable incompatibility raises at construction,
@@ -268,22 +281,27 @@ def test_megastep_incompatible_knobs_raise_as_in_jax(monkeypatch, knob,
 
 
 def test_megastep_refusals_the_port_raises_earlier(monkeypatch):
-    """Compression and sparse parameters cannot be built in the port
-    (A10, A11); simulated ZeRO worlds under the megastep raise naming
-    A10. The efficiency and numerics planes run under the megastep: one
-    dispatch note a step, the stats variant on sampled steps, and the
-    trajectory of the plane-off run."""
+    """Sparse parameters cannot be built in the port (A11). Gradient
+    compression is ported: the megastep refuses it as the JAX package
+    does (the knob case above), and a simulated ZeRO world runs under
+    the megastep (A10's first half; the world-4 tests below). The
+    efficiency and numerics planes run under the megastep: one dispatch
+    note a step, the stats variant on sampled steps, and the trajectory
+    of the plane-off run."""
     _mega(monkeypatch, True)
     net = _port_net()
-    with pytest.raises(NotPortedError, match="A10"):
-        mt.gluon.Trainer(net.collect_params(), "adam",
-                         compression_params={"type": "2bit"})
+    tr = mt.gluon.Trainer(net.collect_params(), "adam",
+                          compression_params={"type": "2bit"})
+    with pytest.raises(mt.MXNetError, match="gradient compression"):
+        tmegastep.Megastep(net, tr, mt.gluon.loss.L2Loss())
     with pytest.raises(NotPortedError, match="A11"):
         mt.gluon.nn.Embedding(10, 4, sparse_grad=True)
-    tr = mt.gluon.Trainer(net.collect_params(), "adam")
+    monkeypatch.setenv("MXTPU_ZERO", "1")
     monkeypatch.setenv("MXTPU_ZERO_WORLD", "4")
-    with pytest.raises(NotPortedError, match="A10"):
-        tmegastep.Megastep(net, tr, mt.gluon.loss.L2Loss())
+    res = _fit(monkeypatch, True, store=True)
+    assert res.zero["world"] == 4 and res._trainer.last_update_dispatches == 1
+    assert res._trainer.last_reduce_scatter_collectives == 0
+    monkeypatch.delenv("MXTPU_ZERO")
     monkeypatch.delenv("MXTPU_ZERO_WORLD")
     off = _fit(monkeypatch, True)
     for flag, value in (("MXTPU_EFFICIENCY", "on"),
@@ -313,6 +331,24 @@ def test_megastep_bitwise_parity(opt, kw, monkeypatch):
     res_m = _fit(monkeypatch, True, opt=(opt, kw))
     _assert_bitwise(res_c, res_m)
     assert res_m._trainer.last_update_dispatches == 1
+
+
+@pytest.mark.parametrize("opt,kw", OPTS)
+def test_megastep_zero_world4_bitwise_parity(opt, kw, monkeypatch):
+    """Under a simulated ZeRO world of 4 the in-graph loopback
+    reduce-scatter reproduces the plane's round bit for bit for the six
+    configurations, and the JAX megastep at world 4 within RTOL."""
+    monkeypatch.setenv("MXTPU_ZERO", "1")
+    monkeypatch.setenv("MXTPU_ZERO_WORLD", "4")
+    res_c = _fit(monkeypatch, False, opt=(opt, kw), store=True)
+    res_m = _fit(monkeypatch, True, opt=(opt, kw), store=True)
+    _assert_bitwise(res_c, res_m)
+    assert res_c.zero == res_m.zero and res_m.zero["world"] == 4
+    assert res_c._trainer.last_reduce_scatter_collectives >= 1
+    net = _port_net(jax_weights=True)
+    _assert_close_to_jax(
+        _fit(monkeypatch, True, opt=(opt, kw), store=True, net=net),
+        _jax_fit(monkeypatch, opt=(opt, kw), store=True))
 
 
 @pytest.mark.parametrize("opt,kw", OPTS)

@@ -79,13 +79,25 @@ def test_device_trace_and_refusals(tmp_path):
     assert os.path.dirname(path) == str(tmp_path / "dev")
     names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
     assert "aten::mm" in names
-    for call in (lambda: tprof.set_state("run", profile_process="server"),
-                 lambda: tprof.set_config(profile_process="server"),
-                 lambda: tprof.dump(profile_process="server"),
-                 lambda: tprof.pause(profile_process="server"),
-                 lambda: tprof.set_kvstore_handle(None)):
-        with pytest.raises(NotPortedError, match="A10"):
-            call()
+    # profile_process='server' is ported (A10's first half): without a
+    # dist kvstore both packages refuse with the same words; with a
+    # one-worker dist store the command reaches this process
+    for prof, err in ((tprof, mt.MXNetError), (jprof, mx.base.MXNetError)):
+        prof.set_kvstore_handle(None)
+        for call in (lambda: prof.set_state("run", profile_process="server"),
+                     lambda: prof.set_config(profile_process="server"),
+                     lambda: prof.dump(profile_process="server"),
+                     lambda: prof.pause(profile_process="server")):
+            with pytest.raises(err, match="needs a dist kvstore"):
+                call()
+    mt.kv.create("dist_sync")            # registers itself
+    tprof.set_state("run", profile_process="server")
+    assert tprof.state() == "run"
+    tprof.pause(profile_process="server")
+    tprof.resume(profile_process="server")
+    tprof.set_state("stop", profile_process="server")
+    assert tprof.state() == "stop"
+    tprof.set_kvstore_handle(None)
     with pytest.raises(NotPortedError, match="A14"):
         mt.monitor.Monitor(1).install(object())
 

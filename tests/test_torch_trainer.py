@@ -423,13 +423,25 @@ def test_ungrouped_optimizer_declines_the_sentinel(monkeypatch):
 
 
 def test_not_ported_halves_raise(monkeypatch):
+    """A10's Trainer halves are ported (the name is kept from when they
+    raised): compression_params turns on the store's 2-bit compression,
+    MXTPU_ZERO=on builds the plane at the first step (no store: the JAX
+    package's refusal), MXTPU_COMM_OVERLAP=on opens an active scope, and
+    a dist store by name is one worker outside a group (dropped)."""
     ws, gs = _values(0, 2, None, 1)
     params = _Port(ws, "float32").params
-    with pytest.raises(NotPortedError, match="A10"):
-        mt.gluon.Trainer(params, "sgd", compression_params={"type": "2bit"})
+    kv = mt.kv.create("local")
+    tr = mt.gluon.Trainer(params, "sgd", compression_params={
+        "type": "2bit", "threshold": 0.25}, kvstore=kv)
+    tr._init_kvstore()
+    assert kv._compressor.threshold == 0.25
     monkeypatch.setenv("MXTPU_ZERO", "on")
-    with pytest.raises(NotPortedError, match="A10"):
-        mt.gluon.Trainer(params, "sgd")
+    jp = _Jax(ws, "float32")
+    for ps, pkg in ((_Port(ws, "float32"), mt), (jp, mx)):
+        t = pkg.gluon.Trainer(ps.params, "sgd", kvstore=None)
+        ps.set_grads(gs[0])
+        with pytest.raises(pkg.base.MXNetError, match="requires a kvstore"):
+            t.step(1)
     monkeypatch.delenv("MXTPU_ZERO")
     # the numerics plane is ported: the Trainer takes the flag, as the
     # JAX package's does, and strict-parses it
@@ -449,10 +461,24 @@ def test_not_ported_halves_raise(monkeypatch):
     with tr.overlap_scope(chaos_step=3):       # chaos clock: a no-op too
         pass
     monkeypatch.setenv("MXTPU_COMM_OVERLAP", "on")
-    with pytest.raises(NotPortedError, match="A10"):
+    with mt.gluon.Trainer(params, "sgd", kvstore=None).overlap_scope() \
+            as scope:                          # no store: inactive
+        assert not scope.active
+    with tr.overlap_scope() as scope:          # "device": active, as in
+        assert scope.active                    # the JAX package; its
+    tr.allreduce_grads()                       # finalize finds no store
+    kvt = mt.gluon.Trainer(params, "sgd", kvstore=mt.kv.create("local"))
+    with kvt.overlap_scope() as scope:
+        assert scope.active
+    monkeypatch.setenv("MXTPU_COMM_OVERLAP", "sometimes")
+    with pytest.raises(mt.MXNetError, match="unknown value"):
         tr.overlap_scope()
-    with pytest.raises(NotPortedError, match="A10"):
-        mt.gluon.Trainer(params, "sgd", kvstore="dist_sync").step(1)
+    monkeypatch.delenv("MXTPU_COMM_OVERLAP")
+    ps = _Port(ws, "float32")
+    dt = mt.gluon.Trainer(ps.params, "sgd", kvstore="dist_sync")
+    ps.set_grads(gs[0])
+    dt.step(1)
+    assert dt._kvstore is None
     # the bucket programs' attribution: every signature that ran, counted
     # on its first execution, with the JAX package's memory fields
     monkeypatch.setenv("MXTPU_OPTIMIZER_AGGREGATION", "4")

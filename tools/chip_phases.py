@@ -11,7 +11,10 @@ PHASE is one of:
   ``telemetry_planes`` (about three minutes);
 - ``cached_op``: a hybridized small ResNetV1 and a flash-attention user
   block against the same blocks un-hybridized;
-- ``serving``: ResNet-50 v1 behind ``ModelServer``.
+- ``serving``: ResNet-50 v1 behind ``ModelServer``;
+- ``dist_train``: data-parallel training over ``torch.distributed``
+  (NCCL at one rank, two ranks sharing the card over gloo, the megastep
+  under a simulated ZeRO world, the distributed example).
 
 Builds the port's kernels, then runs the phases in the order given,
 printing their JSON lines as ``chip_smoke.py`` does, each phase's wall,
@@ -40,7 +43,8 @@ def _one(name, fn):
 PHASES = {"gluon_train": _one("gluon_train", "gluon_train"),
           "fit": _fit,
           "cached_op": _one("cached_op", "cached_op_phase"),
-          "serving": _one("serving", "serving_phase")}
+          "serving": _one("serving", "serving_phase"),
+          "dist_train": _one("dist_train", "dist_train")}
 
 
 def main():
