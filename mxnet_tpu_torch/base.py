@@ -222,16 +222,47 @@ env.declare("MXTPU_AUTOTUNE", str, "off",
             "Telemetry-driven knob autotuner. Not ported yet: a spec that "
             "turns it on raises when FitLoop.fit starts.")
 env.declare("MXTPU_RUN_REPORT_DIR", str, "",
-            "Directory for FitLoop's persistent run report. Not ported "
-            "yet: a non-empty value raises when FitLoop.fit starts.")
+            "Directory for FitLoop's persistent run report "
+            "(telemetry/run_report.py); every rank of a group writes its "
+            "own, stamped with the group's world size.")
 env.declare("MXTPU_COLL_HEALTH", int, 0,
-            "Cross-rank comm-health cadence in steps. Not ported yet: a "
-            "value > 0 raises when FitLoop.fit starts; unparseable values "
-            "raise.")
+            "Cross-rank comm-health cadence (telemetry/collective.py): "
+            "when N > 0, fit.FitLoop exchanges each rank's recent "
+            "collective-ledger digest over the group every N steps, "
+            "diagnoses a desynced collective order "
+            "(mxtpu_coll_desync_total) and attributes per-rank entry-time "
+            "skew (mxtpu_coll_skew_ms / mxtpu_coll_straggler_rank, "
+            "FitResult.comm_health); the ledger records every collective. "
+            "The exchange is itself a collective: every rank runs the "
+            "same cadence. 0 (default) = off; unparseable values raise.")
 env.declare("MXTPU_COLL_TIMEOUT_S", float, 0.0,
-            "Hung-collective watchdog timeout in seconds. Not ported yet: "
-            "a value > 0 raises when FitLoop.fit starts; unparseable values "
-            "raise.")
+            "Hung-collective watchdog (telemetry/collective.py): when "
+            "> 0, a watchdog thread is armed at every collective entry; a "
+            "collective still in flight past this many seconds dumps a "
+            "flight record (the ledger ring, the hung (kind, key, seq), "
+            "the peer rank the arrival handshake waits on, all-thread "
+            "stacks) to MXTPU_MEM_DUMP_DIR. 0 (default) disarms; arming "
+            "also turns the ledger on. Unparseable values raise.")
+env.declare("MXTPU_COLL_RING", int, 4096,
+            "Collective-ledger ring capacity (telemetry/collective.py): "
+            "bounded per-process ring of (seq, kind, key, bytes, rank, "
+            "t_enter, t_exit) records, one per collective; evictions "
+            "are counted, never silent. Must be >= 1.")
+env.declare("MXTPU_SUPERVISE_MAX_RESTARTS", int, 8,
+            "Fleet supervisor (parallel/supervisor.py, launch "
+            "--supervise) restart budget: failure-driven relaunches "
+            "(shrink/resume after a crash, hang, or resumable exit) "
+            "beyond this fail the job loudly with a forensic bundle. "
+            "Capacity-driven grow relaunches do not count.")
+env.declare("MXTPU_SUPERVISE_CRASH_WINDOW_S", float, 300.0,
+            "Fleet supervisor crash-loop window: crashes of the SAME "
+            "rank slot within this many seconds count toward "
+            "MXTPU_SUPERVISE_CRASH_LIMIT.")
+env.declare("MXTPU_SUPERVISE_CRASH_LIMIT", int, 3,
+            "Fleet supervisor crash-loop threshold: this many "
+            "crash/signal deaths of the same rank slot within the "
+            "window exclude the slot (the fleet continues smaller) "
+            "instead of another same-size relaunch.")
 env.declare("MXTPU_ZERO_WORLD", int, 0,
             "Simulated ZeRO-1 world size for single-worker runs: this "
             "process plays all N ranks in turn (the same partition, "
@@ -241,9 +272,10 @@ env.declare("MXTPU_ZERO_WORLD", int, 0,
 env.declare("MXTPU_ELASTIC", str, "off",
             "Elastic world-size resume ('on'/'off'): a checkpoint whose "
             "recorded world differs from this process's raises "
-            "elastic.TopologyMismatchError with 'off'; with 'on' the "
-            "resize needs a process group, which is not ported yet "
-            "(raises). Unknown values raise.")
+            "elastic.TopologyMismatchError with 'off'; with 'on' FitLoop "
+            "re-forms the group (a membership roster over the group), "
+            "resets the comm planes, re-splits the data position and "
+            "counts the resize. Unknown values raise.")
 
 env.declare("MXTPU_COORDINATOR", str, "",
             "host:port of rank 0's TCPStore, set per worker by "

@@ -81,12 +81,12 @@ identically — chaos runs are regression tests, not flake generators.
 
 In the port the training events fire (``nan_grad``, ``inf_grad``, ``kill``,
 ``preempt``, ``resize``, ``ckpt_corrupt``, ``kv_flake``, ``kv_slow``,
-``mem_pressure``), and ``serve_slow`` fires in ``serving.ModelServer``'s
-workers, once per dispatched batch. ``registry_corrupt``,
-``replica_kill`` and ``kv_hang`` parse and keep their plan state, but
-nothing calls their hooks yet: the serving fleet (ROADMAP A23) and the
-collective ledger of the process group (the second half of A10) are not
-ported.
+``mem_pressure``), ``serve_slow`` fires in ``serving.ModelServer``'s
+workers, once per dispatched batch, and ``kv_hang`` in the kvstore's
+exchange entry (``kvstore._chaos_kv``: the named rank sleeps before its
+first exchange of the step). ``registry_corrupt`` and ``replica_kill``
+parse and keep their plan state, but nothing calls their hooks yet: the
+serving fleet (ROADMAP A23) is not ported.
 """
 from __future__ import annotations
 

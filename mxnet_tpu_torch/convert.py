@@ -63,7 +63,16 @@ def from_mxnet_tpu_params(net, params, prefix=None) -> None:
         p.set_data(arr)
 
 
-def from_transformer_params(params, config, device=None) -> dict:
+def from_transformer_params(params, config, device=None, mesh=None) -> dict:
+    """The JAX transformer's parameter pytree (numpy leaves) as the port's
+    tensors, checked against the configuration's names, shapes and
+    dtypes. ``mesh``: this rank's blocks under ``param_specs`` (``w_qkv``
+    in the head-wise layout of ``models/transformer.py``)."""
+    if mesh is not None:
+        from .models.transformer import shard_params
+        whole = from_transformer_params(params, config, device="cpu")
+        return {k: v for k, v in _to(shard_params(whole, config, mesh),
+                                     resolve_device(device)).items()}
     dev = resolve_device(device)
     got = flat_params(params)
     shapes = flat_params(param_shapes(config))
@@ -86,3 +95,8 @@ def from_transformer_params(params, config, device=None) -> dict:
         out[name] = torch.from_numpy(arr.astype(np.float32)).to(
             device=dev, dtype=dtypes[name])
     return nest_params(out)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

@@ -41,13 +41,14 @@ the environment and the staging depth are restored when ``fit()``
 returns) and ``MXTPU_RUN_REPORT_DIR`` (a run report written at fit end).
 They fill ``FitResult.numerics``, ``.efficiency``, ``.tuning_report`` and
 ``.run_report``; a ZeRO-1 trainer (``MXTPU_ZERO``) fills ``.zero`` with
-its plane's world, ranks and shard size. Not ported, raising
-``NotPortedError`` naming ROADMAP A10 when their environment variables
-ask for them, at ``fit()`` start — before any step runs and before the
-signal handlers install: ``MXTPU_COLL_HEALTH`` / ``MXTPU_COLL_TIMEOUT_S``
-(the comm planes) and ``MXTPU_RUN_REPORT_DIR`` in a group of more than
-one process; the numerics plane's sampled step under a distributed ZeRO
-plane raises at that step.
+its plane's world, ranks and shard size. The comm planes
+(``telemetry/collective.py``): ``MXTPU_COLL_HEALTH=N`` runs the
+cross-rank digest exchange every N steps (a collective: every rank runs
+the same cadence) and ``MXTPU_COLL_TIMEOUT_S`` arms the hung-collective
+watchdog; in a group the clock handshake runs at fit start, and
+``FitResult.comm_health`` holds the last comparison. A checkpoint of
+another world resumes under ``MXTPU_ELASTIC=on`` through
+``parallel/elastic.py begin_resize`` (``FitResult.elastic``).
 """
 from __future__ import annotations
 
@@ -66,9 +67,9 @@ from .log import get_logger
 from . import fault
 from . import megastep as _megastep
 from .contrib import chaos as _chaos
-from .ops.registry import NotPortedError
 from .parallel import elastic as _elastic
 from .telemetry import autotune as _autotune
+from .telemetry import collective as _collective
 from .telemetry import efficiency as _efficiency
 from .telemetry import memory as _memory
 from .telemetry import numerics as _numerics
@@ -80,37 +81,15 @@ __all__ = ["FitLoop", "FitResult", "resumable_exit_code"]
 _LOG = get_logger("mxnet_tpu_torch.fit")
 
 
-def _number(name: str, typ) -> float:
-    try:
-        v = typ(env.get(name))
-    except (TypeError, ValueError) as e:
-        raise MXNetError(f"{name}: not a number: {env.raw(name)!r}") from e
-    if v < 0:
-        raise MXNetError(f"{name} must be >= 0, got {v}")
-    return v
-
-
-def _not_ported(what: str, item: str) -> NotPortedError:
-    return NotPortedError(f"FitLoop: {what} is not ported yet "
-                          f"(ROADMAP.md, queue {item})")
-
-
-def _refuse_unported_planes() -> None:
-    """The environment flags of parts the port lacks, parsed where the JAX
-    package parses them (at fit start): a flag that asks for one raises
-    ``NotPortedError`` naming its ROADMAP item, a malformed value raises
-    ``MXNetError``; unset or off, nothing happens. The planes' own flags
-    get their strict parse here too, before any step runs."""
+def _parse_plane_flags() -> None:
+    """The planes' environment flags, strictly parsed where the JAX
+    package parses them (at fit start, before any step runs and before
+    the signal handlers install): a malformed value raises
+    ``MXNetError``."""
     _autotune.requested()
-    if _number("MXTPU_COLL_HEALTH", int) > 0 or \
-            _number("MXTPU_COLL_TIMEOUT_S", float) > 0:
-        raise _not_ported("the comm-health planes (MXTPU_COLL_HEALTH / "
-                          "MXTPU_COLL_TIMEOUT_S)", "A10")
+    _collective.health_interval()
+    _collective.timeout_s()
     _switch("MXTPU_ZERO")
-    from .parallel import collectives as _coll
-    if _run_report.report_dir() is not None and _coll.world() > 1:
-        raise _not_ported("run reports of a group (MXTPU_RUN_REPORT_DIR at "
-                          "a world above 1)", "A10")
     _numerics.spec()
     _efficiency.spec()
 
@@ -382,9 +361,9 @@ class FitLoop:
         a fresh start). Returns a :class:`FitResult`; on SIGTERM/SIGINT the
         process instead exits with :func:`resumable_exit_code` after a
         final synchronous checkpoint."""
-        # the planes the port lacks: a flag asking for one raises HERE,
-        # before any state loads, any step runs and the handlers install
-        _refuse_unported_planes()
+        # the planes' flags: a malformed one raises HERE, before any state
+        # loads, any step runs and the handlers install
+        _parse_plane_flags()
         cm = None
         if self._ckpt_dir is not None:
             cm = fault.CheckpointManager(self._ckpt_dir,
@@ -405,15 +384,16 @@ class FitLoop:
                     gate.clear()  # legacy checkpoint: nothing to compare
                     return
                 cur = _elastic.current_topology(self._trainer, self._iter)
-                _elastic.check_restore(topo, cur)
+                resized = _elastic.check_restore(topo, cur)
                 # the data re-split is validated here too, before any
-                # parameter or optimizer state loads
+                # parameter or optimizer state loads and before a resize
+                # re-forms the group
                 skip = _elastic.resplit_batches(
                     topo, cur,
                     int((meta.get("data_state") or {}).get("batch", 0)))
                 # restore_latest may fall back across checkpoints: the
                 # surviving (last) call's verdict is the one acted on
-                gate.update(skip=skip)
+                gate.update(topo=topo, cur=cur, resized=resized, skip=skip)
             restored = cm.restore_latest(net=self._net,
                                          trainer=self._trainer,
                                          meta_check=_topo_gate)
@@ -430,6 +410,18 @@ class FitLoop:
                     # the recorded global sample position over the current
                     # layout (unchanged layouts pass the count through)
                     skip_batches = int(gate["skip"])
+                if gate.get("resized"):
+                    # elastic resume: re-form the group and reset the comm
+                    # planes; the trainer states restored through the
+                    # portable format and ZeRO re-partitions at the first
+                    # allreduce
+                    topo, cur = gate["topo"], gate["cur"]
+                    result.elastic = _elastic.begin_resize(topo, cur)
+                    _LOG.warning(
+                        "elastic resume: world %s -> %s (rank %d): group "
+                        "re-formed, data re-split to %d local batches at "
+                        "epoch %d", topo.get("world"), cur["world"],
+                        cur["rank"], skip_batches, start_epoch)
                 _LOG.warning("resuming from checkpoint step %d "
                              "(epoch %d, %d batches consumed)",
                              step, start_epoch, skip_batches)
@@ -474,6 +466,20 @@ class FitLoop:
             if (self._collect_breakdown or tuner is not None) else None
         # comm/backward overlap: brackets backward; inactive scopes are free
         overlap_scope = getattr(self._trainer, "overlap_scope", None)
+        # comm health: the cadence, this fit's fresh comparison state, and
+        # in a group the clock handshake (a collective: the gate reads
+        # only launcher-forwarded flags, so every rank takes it alike)
+        coll_every = _collective.health_interval()
+        _collective.reset_health()
+        from .telemetry.tracer import tracer as _tr
+        if _collective.enabled() or _tr.enabled:
+            kv = getattr(self._trainer, "_kvstore", None)
+            if kv is None and getattr(self._trainer, "_kvstore_arg",
+                                      None) is not None:
+                self._trainer._init_kvstore()
+                kv = getattr(self._trainer, "_kvstore", None)
+            if int(getattr(kv, "num_workers", 1) or 1) > 1:
+                _collective.sync_clocks()
         try:
             for epoch in range(start_epoch, epochs):
                 # direct positioning consumes the skip in O(1) when the
@@ -646,6 +652,12 @@ class FitLoop:
                                                plan=plan)
                     except Exception as e:
                         _LOG.warning("memory pressure check failed: %s", e)
+                    # comm health: every rank runs the same cadence (the
+                    # digest exchange is itself a collective)
+                    if coll_every > 0 and result.step % coll_every == 0:
+                        _collective.health_check(
+                            getattr(self._trainer, "_kvstore", None),
+                            breakdown=bd)
                 skip_batches = 0
                 result.epoch = epoch + 1
                 pos_epoch, pos_batch = epoch + 1, 0
@@ -680,6 +692,10 @@ class FitLoop:
             result.memory.update(bd.memory_summary())
         if tuner is not None:
             result.tuning_report = tuner.report()
+        if coll_every > 0 or _collective.enabled():
+            # the comm axis: last skew comparison, ledger depth, watchdog
+            # firings and flight records of this fit
+            result.comm_health = _collective.health_summary()
         # the numbers axis: sampled-stat window, loss-scale timeline,
         # non-finite provenance (None when the plane is off and no
         # loss-scale event fired)

@@ -680,13 +680,9 @@ class Trainer:
         agg = max(1, _grouped.aggregation_size())
         # numerics plane: one sampling decision covers every shard's
         # grouped call this step
+        # grouped call this step; a real group merges the shard-local
+        # stats over the group when they are recorded (telemetry/numerics)
         stats_out = [] if _numerics.collect_spec() is not None else None
-        if stats_out is not None and plane.distributed:
-            from ..ops.registry import NotPortedError
-            raise NotPortedError(
-                "the numerics plane under a distributed ZeRO-1 plane needs "
-                "the cross-rank merge of the shards' stats, which is not "
-                "ported yet (ROADMAP.md, queue A10)")
         handled, created, n_disp = [], [], 0
 
         def shard_update(items):

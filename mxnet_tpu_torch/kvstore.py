@@ -46,6 +46,7 @@ import torch
 from .base import MXNetError, check, env
 from .ndarray import ndarray as _nd
 from .ops.registry import NotPortedError
+from .parallel import collectives as _coll
 from .telemetry.tracer import tracer as _tracer
 
 __all__ = ["KVStore", "KVStoreBase", "KVStoreLocal", "KVStoreDevice",
@@ -87,22 +88,34 @@ def _retry_op(what: str, fn):
 
 def _traced_retry(what: str, k, fn):
     """One key's op under retry, inside a ``kv_<op>:<key>`` comm span
-    when the tracer records comm (one flag check when it does not)."""
-    if _tracer.wants("comm"):
-        with _tracer.span(f"kv_{what}:{k}", "comm"):
-            return _retry_op(what, fn)
-    return _retry_op(what, fn)
+    when the tracer records comm (one flag check when it does not), and
+    one collective-ledger record when the comm plane is on
+    (``telemetry/collective.py``): the record brackets the whole op,
+    retries included, and arms the hung-collective watchdog."""
+    from .telemetry import collective as _cl
+    tok = _cl.enter(what, k, 0, _coll.rank()) if _cl.enabled() else None
+    try:
+        if _tracer.wants("comm"):
+            with _tracer.span(f"kv_{what}:{k}", "comm"):
+                return _retry_op(what, fn)
+        return _retry_op(what, fn)
+    finally:
+        if tok is not None:
+            _cl.exit_(tok)
 
 
 def _chaos_kv(op: str, key) -> None:
     """The chaos plan's kvstore entry: kv_flake may raise, kv_slow
     sleeps (the flake first, so a failed attempt costs only the
-    backoff)."""
+    backoff), and ``kv_hang:<rank>@N[:MS]`` makes the named rank withhold
+    its first exchange of step N for MS milliseconds (default 60 s):
+    every peer then waits on it inside the collective, and their
+    watchdogs name it."""
     from .contrib import chaos
     plan = chaos.active()
     if plan is not None:
         plan.kv_maybe_fail(op, key)
-        delay = plan.kv_delay_s()
+        delay = plan.kv_delay_s() + plan.kv_hang_delay_s(_coll.rank())
         if delay > 0.0:
             time.sleep(delay)
 
@@ -337,7 +350,14 @@ class KVStoreBase:
         """AND of the shard-local all-finite verdict across the workers
         (one worker: as it is), before any shard applies. ``ok`` is a
         bool, or a 0-d bool tensor that stays on its device."""
-        return self._zero_all_finite_impl(ok)
+        from .telemetry import collective as _cl
+        tok = _cl.enter("all_finite", "_sentinel", 4, _coll.rank()) \
+            if _cl.enabled() else None
+        try:
+            return self._zero_all_finite_impl(ok)
+        finally:
+            if tok is not None:
+                _cl.exit_(tok)
 
     def _zero_all_finite_impl(self, ok):
         return ok

@@ -50,11 +50,14 @@ from . import _build, kernel_cost
 from .registry import register
 
 __all__ = ["flash_attention", "flash_fwd", "flash_route", "launches",
-           "reset_launches"]
+           "launch_heads", "reset_launches"]
 
 #: kernel launches since the last reset_launches(): every launch, and those
 #: of each route
 launches = {"flash_fwd": 0, "flash_fwd_tc": 0, "flash_fwd_general": 0}
+#: launches since the last reset_launches(), by the head count H they ran
+#: at (a tensor-parallel rank runs its own heads)
+launch_heads = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TC_MAX_D = 256
@@ -64,6 +67,7 @@ _bound = False
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    launch_heads.clear()
 
 
 def _flash_plain(q, k, v, causal, scale):
@@ -186,6 +190,7 @@ def _ok(route, err, q):
                          f"{route} route (cudaError {err})")
     launches["flash_fwd"] += 1
     launches[f"flash_fwd_{route}"] += 1
+    launch_heads[q.shape[2]] = launch_heads.get(q.shape[2], 0) + 1
     if _efficiency.OPEN[0]:
         _efficiency.report_kernel(*kernel_cost.flash_report(
             *q.shape, q.element_size()), f"flash_fwd_{route}")

@@ -49,6 +49,9 @@ launch error during capture raises like any other.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import ctypes
 
 import torch
@@ -58,7 +61,8 @@ from ..telemetry import efficiency as _efficiency
 from . import _build, kernel_cost
 
 __all__ = ["fused_bn_act", "bn_stats", "bn_apply", "bn_bwd_stats",
-           "bn_bwd_apply", "launches", "reset_launches"]
+           "bn_bwd_apply", "launches", "reset_launches", "sync_scope",
+           "sync_reducer"]
 
 #: launches of each kernel since the last reset_launches()
 launches = {"bn_stats": 0, "bn_apply": 0, "bn_bwd_stats": 0,
@@ -80,6 +84,33 @@ _retired: list = []            # replaced counters a graph may still hold
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+_sync = threading.local()
+
+
+@contextlib.contextmanager
+def sync_scope(reduce, world: int):
+    """Global-batch BatchNorm statistics inside (a data-parallel mesh,
+    ``parallel/spmd.py``): ``reduce(t)`` returns the sum of ``t`` over the
+    ``world`` ranks of the data axis, each holding an equal batch. The
+    fused op all-reduces ``bn_stats``' ``(2, C)`` ``[sum x, sum x^2]``
+    before ``bn_apply`` and ``bn_bwd_stats``' ``[sum g, sum g*xhat]``
+    before ``bn_bwd_apply``, and normalises by the global row count; the
+    plain ``ops/nn.py`` BatchNorm does the same with its sums. gamma's and
+    beta's gradients stay the rank's own sums (the trainer sums the
+    parameter gradients over the axis)."""
+    prev = getattr(_sync, "cur", None)
+    _sync.cur = (reduce, int(world))
+    try:
+        yield
+    finally:
+        _sync.cur = prev
+
+
+def sync_reducer():
+    """``(reduce, world)`` of the innermost :func:`sync_scope`, or None."""
+    return getattr(_sync, "cur", None)
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +393,11 @@ class _FusedBNAct(torch.autograd.Function):
     def forward(ctx, x2d, res2d, g32, beta32, eps):
         n = float(x2d.shape[0])
         sums = bn_stats(x2d)
+        sync = sync_reducer()
+        ctx.sync = sync
+        if sync is not None:
+            sums = sync[0](sums)
+            n *= sync[1]
         mean = sums[0] / n
         var = torch.clamp_min(sums[1] / n - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
@@ -380,7 +416,15 @@ class _FusedBNAct(torch.autograd.Function):
         dy2d = dout.to(x2d.dtype).contiguous()
         sums = bn_bwd_stats(dy2d, out2d, x2d, torch.stack([mean, inv]))
         sum_g, sum_gxhat = sums[0], sums[1]
-        coef = torch.stack([mean, inv, g32 * inv, sum_g / n, sum_gxhat / n])
+        if ctx.sync is not None:
+            # dx takes the global sums; gamma / beta keep this rank's
+            tot = ctx.sync[0](sums.clone())
+            n *= ctx.sync[1]
+            coef = torch.stack([mean, inv, g32 * inv, tot[0] / n,
+                                tot[1] / n])
+        else:
+            coef = torch.stack([mean, inv, g32 * inv, sum_g / n,
+                                sum_gxhat / n])
         if ctx.has_res:
             dx, dres = bn_bwd_apply(dy2d, out2d, x2d, coef, True)
         else:

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from ..base import MXNetError, check, env, torch_dtype
 from ..random import default_generator
 from ..util import replayed
-from .fused_bn_act import fused_bn_act
+from .fused_bn_act import fused_bn_act, sync_reducer
 from .registry import register
 
 __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
@@ -309,6 +309,24 @@ class _BatchNormCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, g32, beta32, axis, eps):
         ax, red, bshape, n = _bn_shapes(data, axis)
+        sync = sync_reducer()
+        ctx.sync = sync
+        if sync is not None:
+            # global-batch statistics (fused_bn_act.sync_scope): the
+            # ranks' [sum x, sum x^2] summed, no per-rank shift
+            x32 = data.float()
+            sums = sync[0](torch.stack([x32.sum(dim=red),
+                                        (x32 * x32).sum(dim=red)]))
+            n_all = n * sync[1]
+            mean = sums[0] / n_all
+            var = torch.clamp_min(sums[1] / n_all - mean * mean, 0.0)
+            inv = torch.rsqrt(var + eps)
+            out = (x32 - mean.reshape(bshape)) \
+                * (inv * g32).reshape(bshape) + beta32.reshape(bshape)
+            ctx.save_for_backward(data, mean, inv, g32)
+            ctx.axis = axis
+            ctx.mark_non_differentiable(mean, var)
+            return out.to(data.dtype), mean, var
         # assumed-mean shift (one real sample per channel) keeps
         # E[d^2] - E[d]^2 free of cancellation when mean >> std
         shift = data
@@ -336,9 +354,15 @@ class _BatchNormCore(torch.autograd.Function):
         dy32 = dout.float()
         sum_dy = dy32.sum(dim=red)
         sum_dy_xhat = (dy32 * xhat).sum(dim=red)
+        tot_dy, tot_dy_xhat = sum_dy, sum_dy_xhat
+        if ctx.sync is not None:
+            # dx takes the global sums; gamma / beta keep this rank's
+            tot = ctx.sync[0](torch.stack([sum_dy, sum_dy_xhat]))
+            tot_dy, tot_dy_xhat = tot[0], tot[1]
+            n = n * ctx.sync[1]
         dx = (g32 * inv).reshape(bshape) * (
-            dy32 - (sum_dy / n).reshape(bshape)
-            - xhat * (sum_dy_xhat / n).reshape(bshape))
+            dy32 - (tot_dy / n).reshape(bshape)
+            - xhat * (tot_dy_xhat / n).reshape(bshape))
         return dx.to(data.dtype), sum_dy_xhat, sum_dy, None, None
 
 

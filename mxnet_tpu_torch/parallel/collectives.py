@@ -35,24 +35,45 @@ definition gives at one rank.
 Sums at world 2 are ``g0 + g1`` bit for bit in any order; at a larger
 world the order of addition is the backend's.
 
-The mesh-taking functions (``allreduce(x, mesh, axis)``,
-``ppermute_ring``, ``all_to_all``, ``measure_allreduce_bandwidth``...)
-need ``parallel/mesh.py``, the second half of ROADMAP A10, and raise
-``NotPortedError``.
+While the collective ledger is on (``MXTPU_COLL_HEALTH`` /
+``MXTPU_COLL_TIMEOUT_S``, ``telemetry/collective.py``) every function
+above is one ledger record, and inside a group it starts with an arrival
+handshake over the group's ``TCPStore`` (:func:`_arrive`): each rank sets
+its key for the call and waits for every peer's in rank order, stamping
+the peer it waits on, so a hung collective's flight record names the
+rank that never arrived. Off, the cost is one flag check a call.
+
+**The mesh collectives** (:func:`allreduce`, :func:`allgather`,
+:func:`reduce_scatter`, :func:`broadcast`, :func:`ppermute_ring`,
+:func:`all_to_all`, :func:`device_allreduce`,
+:func:`measure_allreduce_bandwidth`, ``barrier(mesh)``) take a
+``parallel/mesh.py`` mesh and run over the subgroup of one of its axes,
+on this rank's **local block** (the JAX functions take global arrays and
+split them by their specs). Each differentiable one is a
+``torch.autograd.Function`` whose backward is its transpose, as JAX
+differentiates its collectives: a rank's loss is its own contribution
+and the group's loss is their sum, so the sum all-reduce's backward is
+the sum all-reduce of the gradients, the all-gather's the reduce-scatter,
+the reduce-scatter's the all-gather, a ring shift's the inverse shift
+and an all-to-all's the all-to-all with the split and concat axes
+swapped. Over gloo a CUDA block is staged through a host copy, explicitly
+(gloo's point-to-point calls take host tensors only), and
+:data:`wire_bytes` counts the bytes each rank hands the backend.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import pickle
 import socket
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..base import check
-from ..ops.registry import NotPortedError
 
 __all__ = ["world", "rank", "backend", "cross_process_allreduce",
            "cross_process_allgather", "cross_process_allgather_ragged",
@@ -61,12 +82,25 @@ __all__ = ["world", "rank", "backend", "cross_process_allreduce",
            "cross_process_reform", "barrier", "loopback_psum",
            "allreduce", "allgather", "reduce_scatter", "broadcast",
            "ppermute_ring", "all_to_all", "device_allreduce",
-           "measure_allreduce_bandwidth", "make_host_mesh"]
+           "measure_allreduce_bandwidth", "make_host_mesh", "wire_bytes",
+           "reset_wire_bytes"]
 
 _seq = itertools.count()
 
 #: how many reductions each route took (tests and chip_smoke.py read it)
 routes = {"tiled": 0, "segments": 0, "allreduce_slice": 0}
+
+#: bytes this rank handed the backend in the mesh collectives, by op, and
+#: the bytes staged through host memory (gloo with CUDA blocks)
+wire_bytes = {"allreduce": 0, "allgather": 0, "reduce_scatter": 0,
+              "ppermute": 0, "all_to_all": 0, "host_staged": 0}
+
+_arrive_seq = itertools.count()
+
+
+def reset_wire_bytes() -> None:
+    for k in wire_bytes:
+        wire_bytes[k] = 0
 
 
 def _dist():
@@ -90,6 +124,55 @@ def backend() -> Optional[str]:
     return str(d.get_backend()) if d is not None else None
 
 
+def _store():
+    from .. import kvstore_server
+    return kvstore_server._group.get("store")
+
+
+def _arrive(tok, n: int) -> None:
+    """The arrival handshake of cross-process call ``n`` (ledger on, in a
+    group): set this rank's key, then wait for every peer's in rank
+    order, stamping the peer waited on into the ledger record. Each rank
+    deletes its key of call ``n - 2``: every peer read it before setting
+    its own key of call ``n - 1``, which this rank has seen."""
+    from ..telemetry import collective as _cl
+    st = _store()
+    if st is None:
+        return
+    me, nproc = rank(), world()
+    st.set(f"mxc/{n}/{me}", "1")
+    for r in range(nproc):
+        if r == me:
+            continue
+        _cl.note_waiting(tok, r)
+        st.wait([f"mxc/{n}/{r}"])
+    if n >= 2:
+        st.delete_key(f"mxc/{n - 2}/{me}")
+
+
+@contextlib.contextmanager
+def _collective(kind: str, nbytes: int = 0):
+    """One cross-process collective under the ledger (module docstring);
+    a bare ``yield`` when the plane is off."""
+    from ..telemetry import collective as _cl
+    if not _cl.enabled():
+        yield
+        return
+    n = next(_arrive_seq)
+    tok = _cl.enter(kind, f"c{n}", int(nbytes), rank())
+    try:
+        if _dist() is not None:
+            _arrive(tok, n)
+            _cl.note_waiting(tok, "backend")
+        yield
+    finally:
+        _cl.exit_(tok)
+
+
+def _nbytes(t) -> int:
+    return int(t.numel() * t.element_size())
+
+
 _OPS = {"sum": "SUM", "mean": "SUM", "max": "MAX", "min": "MIN"}
 
 
@@ -101,7 +184,8 @@ def cross_process_allreduce(local: torch.Tensor, op: str = "sum"):
     d = _dist()
     if d is None:
         return local
-    d.all_reduce(local, op=getattr(d.ReduceOp, _OPS[op]))
+    with _collective("allreduce", _nbytes(local)):
+        d.all_reduce(local, op=getattr(d.ReduceOp, _OPS[op]))
     if op == "mean":
         local.div_(d.get_world_size())
     return local
@@ -114,7 +198,8 @@ def cross_process_allgather(local: torch.Tensor) -> torch.Tensor:
     if d is None:
         return local.unsqueeze(0).clone()
     out = [torch.empty_like(local) for _ in range(d.get_world_size())]
-    d.all_gather(out, local.contiguous())
+    with _collective("allgather", _nbytes(local)):
+        d.all_gather(out, local.contiguous())
     return torch.stack(out)
 
 
@@ -142,7 +227,8 @@ def cross_process_allgather_ragged(local: torch.Tensor,
     buf = local.new_zeros(cap)
     buf[:local.numel()] = local.reshape(-1)
     bufs = [torch.empty_like(buf) for _ in range(nproc)]
-    d.all_gather(bufs, buf)
+    with _collective("allgather", _nbytes(buf)):
+        d.all_gather(bufs, buf)
     return [b[:n] for b, n in zip(bufs, sizes)]
 
 
@@ -204,8 +290,9 @@ def _coord_segment_reduce(local: torch.Tensor, all_parts) -> List:
     counts = [sum(hi - lo for lo, hi in all_parts[r]) for r in range(nproc)]
     mine = counts[me]
     recv = local.new_empty(mine * nproc)
-    d.all_to_all_single(recv, send, output_split_sizes=[mine] * nproc,
-                        input_split_sizes=counts)
+    with _collective("reduce_scatter", _nbytes(send)):
+        d.all_to_all_single(recv, send, output_split_sizes=[mine] * nproc,
+                            input_split_sizes=counts)
     blobs = recv.view(nproc, mine)
     total = blobs[0].clone()
     for s in range(1, nproc):
@@ -243,7 +330,8 @@ def cross_process_reduce_scatter(local: torch.Tensor, parts,
             wire = padded.index_select(
                 0, torch.from_numpy(perm).to(local.device))
             tile = local.new_empty(T)
-            d.reduce_scatter_tensor(tile, wire)
+            with _collective("reduce_scatter", _nbytes(wire)):
+                d.reduce_scatter_tensor(tile, wire)
             routes["tiled"] += 1
             return _segments(tile, parts)
     routes["allreduce_slice"] += 1
@@ -266,16 +354,17 @@ def cross_process_exchange_bytes(payload: bytes, tag: str = "") -> List:
     nproc, dev = d.get_world_size(), _byte_device()
     size = torch.tensor([len(payload)], dtype=torch.int64, device=dev)
     sizes = [torch.empty_like(size) for _ in range(nproc)]
-    d.all_gather(sizes, size)
-    sizes = [int(s.item()) for s in sizes]
-    cap = max(sizes + [1])
-    buf = torch.zeros(cap, dtype=torch.uint8)
-    if payload:
-        buf[:len(payload)] = torch.frombuffer(bytearray(payload),
-                                              dtype=torch.uint8)
-    buf = buf.to(dev)
-    bufs = [torch.empty_like(buf) for _ in range(nproc)]
-    d.all_gather(bufs, buf)
+    with _collective("exchange", len(payload)):
+        d.all_gather(sizes, size)
+        sizes = [int(s.item()) for s in sizes]
+        cap = max(sizes + [1])
+        buf = torch.zeros(cap, dtype=torch.uint8)
+        if payload:
+            buf[:len(payload)] = torch.frombuffer(bytearray(payload),
+                                                  dtype=torch.uint8)
+        buf = buf.to(dev)
+        bufs = [torch.empty_like(buf) for _ in range(nproc)]
+        d.all_gather(bufs, buf)
     return [bytes(b[:n].cpu().numpy().tobytes()) for b, n in
             zip(bufs, sizes)]
 
@@ -303,35 +392,318 @@ def cross_process_reform(tag: str = "", expect: Optional[int] = None):
 
 def barrier(mesh=None) -> None:
     """Global sync point (ref: ps::Postoffice::Barrier). One process:
-    wait for the card's queued work."""
-    check(mesh is None, "barrier over a mesh needs parallel/mesh.py "
-          "(ROADMAP A10)")
+    wait for the card's queued work. ``mesh``: every rank of the mesh
+    (the group it spans) meets."""
     d = _dist()
     if d is None:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
         return
-    if backend() == "nccl":
-        d.barrier(device_ids=[torch.cuda.current_device()])
+    with _collective("barrier"):
+        if backend() == "nccl":
+            d.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            d.barrier()
+
+
+# ---------------------------------------------------------------------------
+# Mesh collectives: over one axis of a parallel/mesh.py mesh, on local blocks
+# ---------------------------------------------------------------------------
+
+def _axis(mesh, axis: str):
+    """``(group, size, index)`` of this rank along ``axis``."""
+    check(mesh is not None and hasattr(mesh, "axis_size"),
+          f"a mesh collective needs a parallel/mesh.py Mesh, got "
+          f"{type(mesh).__name__}")
+    check(axis in mesh.axis_names,
+          f"mesh {mesh.shape} has no axis {axis!r}")
+    return mesh.group(axis), mesh.axis_size(axis), mesh.axis_index(axis)
+
+
+def _staged(group, t: torch.Tensor):
+    """``t`` as the backend of ``group`` takes it: a host copy under gloo
+    when ``t`` is on the card (counted), else ``t`` itself."""
+    if t.is_cuda and _group_backend(group) == "gloo":
+        wire_bytes["host_staged"] += _nbytes(t)
+        return t.detach().cpu()
+    return t
+
+
+def _group_backend(group) -> str:
+    d = _dist()
+    return str(d.get_backend(group))
+
+
+def _back(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return host.to(like.device, non_blocking=False) \
+        if host.device != like.device else host
+
+
+def _raw_allreduce(x, group, op="sum", kind="allreduce"):
+    d = _dist()
+    wire_bytes[kind] += _nbytes(x)
+    buf = _staged(group, x.contiguous().clone())
+    with _collective(kind, _nbytes(x)):
+        d.all_reduce(buf, op=getattr(d.ReduceOp, _OPS[op]), group=group)
+    return _back(buf, x)
+
+
+def _raw_allgather(x, group, n, dim):
+    d = _dist()
+    wire_bytes["allgather"] += _nbytes(x)
+    src = _staged(group, x.contiguous())
+    parts = [torch.empty_like(src) for _ in range(n)]
+    with _collective("allgather", _nbytes(x)):
+        d.all_gather(parts, src, group=group)
+    return _back(torch.cat(parts, dim=dim), x)
+
+
+def _raw_reduce_scatter(x, group, n, idx, dim):
+    check(x.shape[dim] % n == 0,
+          f"reduce_scatter: dimension {dim} of {tuple(x.shape)} does not "
+          f"split over {n} ranks")
+    full = _raw_allreduce(x, group, kind="reduce_scatter")
+    return full.chunk(n, dim=dim)[idx].contiguous()
+
+
+def _raw_ppermute(x, mesh, axis, shift):
+    """Rank at axis index i sends to i + shift, receives from i - shift
+    (mod n): one paired isend / irecv a rank."""
+    d = _dist()
+    group, n, idx = _axis(mesh, axis)
+    ranks = mesh.axis_ranks(axis)
+    dst, src = ranks[(idx + shift) % n], ranks[(idx - shift) % n]
+    send = _staged(group, x.contiguous())
+    recv = torch.empty_like(send)
+    wire_bytes["ppermute"] += _nbytes(x)
+    with _collective("ppermute", _nbytes(x)):
+        if dst == src == d.get_rank():
+            recv.copy_(send)
+        else:
+            reqs = d.batch_isend_irecv([
+                d.P2POp(d.isend, send, dst, group=group),
+                d.P2POp(d.irecv, recv, src, group=group)])
+            for r in reqs:
+                r.wait()
+    return _back(recv, x)
+
+
+def _raw_all_to_all(x, group, n, split_axis, concat_axis):
+    check(x.shape[split_axis] % n == 0,
+          f"all_to_all: dimension {split_axis} of {tuple(x.shape)} does "
+          f"not split over {n} ranks")
+    d = _dist()
+    src = _staged(group, x)
+    ins = [c.contiguous() for c in src.chunk(n, dim=split_axis)]
+    outs = [torch.empty_like(c) for c in ins]
+    wire_bytes["all_to_all"] += _nbytes(x)
+    with _collective("all_to_all", _nbytes(x)):
+        if src.is_cuda or _group_backend(group) != "gloo":
+            d.all_to_all(outs, ins, group=group)
+        else:
+            # gloo has no all_to_all of tensor lists on every build: one
+            # paired isend / irecv per peer, in rank order
+            ranks = d.get_process_group_ranks(group)
+            me = ranks.index(d.get_rank())
+            ops = []
+            for j, r in enumerate(ranks):
+                if j == me:
+                    outs[j].copy_(ins[j])
+                    continue
+                ops.append(d.P2POp(d.isend, ins[j], r, group=group))
+                ops.append(d.P2POp(d.irecv, outs[j], r, group=group))
+            if ops:
+                for req in d.batch_isend_irecv(ops):
+                    req.wait()
+    return _back(torch.cat(outs, dim=concat_axis), x)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum (or mean) over the group; backward: the same reduction of the
+    gradients (JAX's psum transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group, op):
+        ctx.group, ctx.op = group, op
+        n = _dist().get_world_size(group)
+        out = _raw_allreduce(x, group, "sum" if op == "mean" else op)
+        return out / n if op == "mean" else out
+
+    @staticmethod
+    def backward(ctx, g):
+        check(ctx.op in ("sum", "mean"),
+              f"allreduce op {ctx.op!r} has no gradient")
+        return _AllReduce.apply(g, ctx.group, ctx.op), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, idx, dim):
+        ctx.args = (group, n, idx, dim)
+        return _raw_allgather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, idx, dim = ctx.args
+        return _ReduceScatter.apply(g, group, n, idx, dim), None, None, \
+            None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, idx, dim):
+        ctx.args = (group, n, idx, dim)
+        return _raw_reduce_scatter(x, group, n, idx, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, idx, dim = ctx.args
+        return _AllGather.apply(g, group, n, idx, dim), None, None, None, \
+            None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.args = (mesh, axis, shift)
+        return _raw_ppermute(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, shift = ctx.args
+        return _PPermute.apply(g, mesh, axis, -shift), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split_axis, concat_axis):
+        ctx.args = (group, n, split_axis, concat_axis)
+        return _raw_all_to_all(x, group, n, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split_axis, concat_axis = ctx.args
+        return _AllToAll.apply(g, group, n, concat_axis, split_axis), \
+            None, None, None, None
+
+
+def allreduce(x, mesh, axis: str = "dp", op: str = "sum"):
+    """AllReduce this rank's value over ``axis`` (ref: the kvstore
+    push + pull round trip): every rank of the line gets the sum (mean,
+    max, min). Differentiable for sum and mean."""
+    check(op in _OPS, f"unknown reduce op {op}")
+    group, n, _ = _axis(mesh, axis)
+    if group is None:
+        return x
+    if op in ("max", "min"):
+        return _raw_allreduce(x.detach(), group, op)
+    return _AllReduce.apply(x, group, op)
+
+
+def device_allreduce(arrays, mesh, axis: str = "dp", op: str = "sum"):
+    """Fused allreduce of a list of tensors: one flat buffer, one
+    collective (the reference's grouped NCCL launches)."""
+    check(op in ("sum", "mean"), f"device_allreduce: op {op!r}")
+    arrays = list(arrays)
+    group, n, _ = _axis(mesh, axis)
+    if group is None or not arrays:
+        return tuple(arrays)
+    flat = torch.cat([a.reshape(-1) for a in arrays])
+    flat = _AllReduce.apply(flat, group, op)
+    out, off = [], 0
+    for a in arrays:
+        out.append(flat[off:off + a.numel()].view(a.shape))
+        off += a.numel()
+    return tuple(out)
+
+
+def allgather(x, mesh, axis: str = "dp", tiled_axis: int = 0):
+    """Concatenate the line's blocks along ``tiled_axis`` (every rank gets
+    the whole); backward: a reduce-scatter."""
+    group, n, idx = _axis(mesh, axis)
+    if group is None:
+        return x
+    return _AllGather.apply(x, group, n, idx, tiled_axis % x.dim())
+
+
+def reduce_scatter(x, mesh, axis: str = "dp", scatter_axis: int = 0):
+    """Sum the line's values and keep this rank's chunk along
+    ``scatter_axis``; backward: an all-gather."""
+    group, n, idx = _axis(mesh, axis)
+    if group is None:
+        return x
+    return _ReduceScatter.apply(x, group, n, idx, scatter_axis % x.dim())
+
+
+def broadcast(x, mesh, axis: str = "dp", root: int = 0):
+    """Every rank of the line gets the value of axis index ``root`` (ref:
+    kvstore pull): the masked sum of the JAX function (an all-reduce on
+    the wire), and its gradient."""
+    group, n, idx = _axis(mesh, axis)
+    if group is None:
+        return x
+    masked = x if idx == root else x * 0
+    return _AllReduce.apply(masked, group, "sum")
+
+
+def ppermute_ring(x, mesh, axis: str = "sp", shift: int = 1):
+    """Ring rotation along ``axis``: the block of axis index i moves to
+    i + shift (the building block of ring attention); backward: the
+    inverse rotation."""
+    group, n, _ = _axis(mesh, axis)
+    if group is None or shift % n == 0:
+        return x
+    return _PPermute.apply(x, mesh, axis, int(shift))
+
+
+def all_to_all(x, mesh, axis: str = "sp", split_axis: int = 1,
+               concat_axis: int = 0):
+    """Tiled all-to-all over ``axis``: this block splits into n chunks
+    along ``split_axis``, chunk j goes to axis index j, and the received
+    chunks are concatenated along ``concat_axis`` in axis order
+    (DeepSpeed-Ulysses' exchange, the expert dispatch of
+    ``parallel/moe.py``); backward: the swapped all-to-all."""
+    group, n, _ = _axis(mesh, axis)
+    if group is None:
+        return x
+    return _AllToAll.apply(x, group, n, split_axis % x.dim(),
+                           concat_axis % x.dim())
+
+
+def make_host_mesh():
+    """A 1-D ``hosts`` mesh of every rank of the group: the communication
+    domain of per-process values."""
+    from .mesh import Mesh, local_devices
+    return Mesh(np.asarray(local_devices()), ("hosts",))
+
+
+def measure_allreduce_bandwidth(mesh, size_mb: float = 64.0,
+                                axis: str = "dp", iters: int = 10,
+                                shapes=None, device=None):
+    """Allreduce bandwidth in GB/s a rank with the reference's formula
+    ``2(n-1)/n * size / t`` (ref: tools/bandwidth/measure.py:138), over
+    one flat ``size_mb`` f32 buffer or one buffer per shape in
+    ``shapes`` (fused into one collective). ``device``: where the
+    buffers live (default the current context's)."""
+    from ..context import resolve_device
+    dev = resolve_device(device)
+    group, n, _ = _axis(mesh, axis)
+    if shapes is None:
+        arrays = [torch.ones(int(size_mb * 1e6 / 4), device=dev)]
     else:
-        d.barrier()
-
-
-def _needs_mesh(name: str):
-    def fn(*args, **kwargs):
-        raise NotPortedError(
-            f"parallel.collectives.{name} runs over a device mesh, which "
-            "is not ported yet (ROADMAP.md, queue A10)")
-    fn.__name__ = name
-    return fn
-
-
-allreduce = _needs_mesh("allreduce")
-allgather = _needs_mesh("allgather")
-reduce_scatter = _needs_mesh("reduce_scatter")
-broadcast = _needs_mesh("broadcast")
-ppermute_ring = _needs_mesh("ppermute_ring")
-all_to_all = _needs_mesh("all_to_all")
-device_allreduce = _needs_mesh("device_allreduce")
-measure_allreduce_bandwidth = _needs_mesh("measure_allreduce_bandwidth")
-make_host_mesh = _needs_mesh("make_host_mesh")
+        arrays = [torch.ones(s, device=dev) for s in shapes]
+    total = sum(_nbytes(a) for a in arrays)
+    with torch.no_grad():
+        device_allreduce(arrays, mesh, axis=axis)    # warm
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = device_allreduce(arrays, mesh, axis=axis)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = (time.perf_counter() - t0) / iters
+    del out
+    if n <= 1:
+        return 0.0
+    return 2 * (n - 1) / n * total / dt / 1e9

@@ -13,22 +13,26 @@ change raises :class:`TopologyMismatchError` unless
 ``MXTPU_ELASTIC=on``.
 
 The world is the kvstore's group (``num_workers`` > 1), else a simulated
-ZeRO world (``MXTPU_ZERO_WORLD``), else 1. Not ported (the second half of
-ROADMAP A10): a world change under ``MXTPU_ELASTIC=on`` (the group's
-re-formation, :func:`begin_resize` / :func:`reform_group` /
-:func:`reset_comm_state`) raises ``NotPortedError``.
+ZeRO world (``MXTPU_ZERO_WORLD``), else 1. A world change under
+``MXTPU_ELASTIC=on`` is honoured by :func:`begin_resize`: the relaunched
+group (a ``torch.distributed`` group cannot change its size, so a resize
+is always a relaunch, by hand or by ``parallel/supervisor.py``) exchanges
+its membership roster (:func:`reform_group`, through
+``collectives.cross_process_reform``: a wrong-sized roster raises at
+resume, not at the first training collective), the comm planes reset
+(:func:`reset_comm_state`) and ``mxtpu_elastic_resizes_total`` counts the
+resize.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 from ..base import MXNetError, env_switch
-from ..ops.registry import NotPortedError
 
 __all__ = ["TopologyMismatchError", "elastic_enabled", "current_topology",
            "topology_record", "check_restore", "resplit_batches",
            "reform_group", "reset_comm_state", "begin_resize",
-           "resize_request"]
+           "resize_request", "world_for_fingerprint"]
 
 
 class TopologyMismatchError(MXNetError):
@@ -45,11 +49,6 @@ def elastic_enabled() -> bool:
     """Strict ``MXTPU_ELASTIC`` parse — a typo'd opt-in must not silently
     resume a resized run mis-split (the MXTPU_ZERO discipline)."""
     return env_switch("MXTPU_ELASTIC")
-
-
-def _no_group(what: str) -> NotPortedError:
-    return NotPortedError(f"elastic: {what} needs a process group, which "
-                          "is not ported yet (ROADMAP.md, queue A10)")
 
 
 def _shard_source(data_iter):
@@ -179,10 +178,7 @@ def check_restore(topo: Optional[Dict[str, Any]],
             f"is world {cur['world']}; set MXTPU_ELASTIC=on to resume "
             "across a world-size change (or relaunch at the original "
             "size). Refusing to silently resume mis-split.")
-    # raised here, before any state loads: honouring the change re-forms
-    # the group
-    raise _no_group(f"an elastic resume from world {old_world} to "
-                    f"{cur['world']} (MXTPU_ELASTIC=on)")
+    return True
 
 
 def resplit_batches(topo: Dict[str, Any], cur: Dict[str, Any],
@@ -222,16 +218,62 @@ def resplit_batches(topo: Dict[str, Any], cur: Dict[str, Any],
 
 
 def reform_group(cur: Dict[str, Any], tag: str = "") -> Dict[str, Any]:
-    """Re-form the collective group after a resize: needs the group."""
-    raise _no_group("re-forming the group")
+    """Re-form the collective group after a resize: every rank of a real
+    group publishes its membership record and reads the roster back
+    (``collectives.cross_process_reform``); the exchange is the
+    rendezvous, and a roster of another size than ``cur["world"]``
+    raises here. A simulated world (one process playing every rank)
+    re-forms trivially."""
+    if cur["distributed"]:
+        from .collectives import cross_process_reform
+        roster = cross_process_reform(tag or "elastic",
+                                      expect=cur["world"])
+        return {"reformed": True,
+                "members": [int(m["rank"]) for m in roster]}
+    return {"reformed": True, "members": list(range(cur["world"]))}
 
 
 def reset_comm_state() -> None:
-    """Drop the per-fit comm-health state across a resize: needs the
-    group's comm planes."""
-    raise _no_group("resetting the comm planes")
+    """Drop the per-fit comm-health and clock-sync state across a resize:
+    rank indices name other processes after it, so a skew table or clock
+    offset from before would fabricate stragglers. FitLoop re-runs the
+    clock handshake for the new group at fit start."""
+    from ..telemetry import collective as _coll
+    from ..telemetry.tracer import tracer as _tr
+    _coll.reset_health()
+    _coll.ledger.clock_offset_ms = 0.0
+    _tr.clock_offset_ms = 0.0
+
+
+def _resize_counter():
+    from ..telemetry import default_registry
+    return default_registry().counter(
+        "mxtpu_elastic_resizes_total",
+        "Elastic resumes honored across a world-size change.")
 
 
 def begin_resize(topo: Dict[str, Any], cur: Dict[str, Any]) -> Dict[str, Any]:
-    """Honor a detected world-size change: needs the group."""
-    raise _no_group("an elastic resize")
+    """Honour a detected world-size change (``check_restore`` returned
+    True): re-form the group, reset the comm planes, count the resize.
+    Returns the ``FitResult.elastic`` summary."""
+    membership = reform_group(cur, tag=f"rz{topo.get('world')}")
+    reset_comm_state()
+    _resize_counter().inc()
+    return {
+        "from_world": int(topo.get("world", 0)),
+        "world": int(cur["world"]),
+        "rank": int(cur["rank"]),
+        "members": membership["members"],
+        "resize_to": topo.get("resize_to"),
+    }
+
+
+def world_for_fingerprint() -> int:
+    """The world size stamped into the run report's fingerprint: the
+    group's size when this process is in one, else the simulated ZeRO
+    world, else 1."""
+    from . import collectives as _c
+    if _c.world() > 1:
+        return _c.world()
+    from . import zero as _zero
+    return _zero.simulated_world() or 1

@@ -23,7 +23,21 @@ none, as in JAX. The dispatch tensors hold ``N * E * C = N^2 *
 capacity_factor * k`` elements whatever E is; the temporaries autograd
 does not keep are freed as soon as they are used.
 
-``moe_param_specs`` shards over a mesh and raises (ROADMAP A10).
+Expert parallelism (``mesh`` with an ``ep`` axis). ``moe_param_specs``
+gives the JAX package's specs: the expert stacks split over ``ep`` (and
+the expert hidden dimension over ``tp`` when the mesh has one), the
+router replicated. Each rank holds its ``E / ep`` experts; the tokens are
+the same on every rank of ``ep`` (as the JAX specs leave them), so the
+routing is computed whole on every rank, exactly the one-device routing.
+Then each rank dispatches its own ``1 / ep`` slice of the tokens: their
+``(E, C, D)`` slot contributions go through ``collectives.all_to_all``
+to the rank that owns each expert (a slot holds one token, so summing
+the received contributions places it), the owner runs its experts
+(under ``tp`` the hidden dimension is split and the second product
+all-reduced over ``tp``), computes every token's combine for its experts,
+and a second ``all_to_all`` returns each rank its own tokens' outputs,
+summed over the experts' owners; an all-gather over ``ep`` restores the
+full token set for the replicated rest of the model.
 """
 from __future__ import annotations
 
@@ -34,7 +48,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.registry import NotPortedError
+from ..base import check
+
 
 __all__ = ["init_moe_params", "moe_param_specs", "moe_ffn", "route"]
 
@@ -69,10 +84,20 @@ def moe_param_shapes(d_model: int, d_ff: int, n_experts: int):
             "b_out": (n_experts, d_model)}
 
 
-def moe_param_specs(mesh):
-    """Not ported: expert parallelism shards over an 'ep' mesh."""
-    raise NotPortedError("moe_param_specs shards the experts over a mesh, "
-                         "which is not ported yet (ROADMAP A10)")
+def moe_param_specs(mesh) -> Dict[str, Any]:
+    """ep-sharded expert stacks, the router replicated; tp (if present)
+    splits the expert hidden dimension, composing ep x tp."""
+    from .sharding import P
+    names = mesh.axis_names if mesh is not None else ()
+    ep = "ep" if "ep" in names else None
+    tp = "tp" if "tp" in names else None
+    return {
+        "gate": P(),
+        "w_in": P(ep, None, tp),
+        "b_in": P(ep, tp),
+        "w_out": P(ep, tp, None),
+        "b_out": P(ep, None),
+    }
 
 
 @contextlib.contextmanager
@@ -128,9 +153,16 @@ def route(xf, gate, n_experts: int, capacity_factor: float = 1.25,
 
 def moe_ffn(x, params: Dict[str, Any], n_experts: int,
             capacity_factor: float = 1.25, k: int = 1,
-            act=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            act=None, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, D) -> (out (B, T, D), f32 scalar aux loss); ``act``
-    defaults to the tanh GELU (``jax.nn.gelu``'s default)."""
+    defaults to the tanh GELU (``jax.nn.gelu``'s default). ``mesh``: with
+    an ``ep`` (or ``tp``) axis of size > 1, ``params`` are this rank's
+    blocks under :func:`moe_param_specs` and the experts run expert
+    parallel (module docstring)."""
+    if mesh is not None and (mesh.axis_size("ep") > 1 or
+                             mesh.axis_size("tp") > 1):
+        return _moe_ffn_mesh(x, params, n_experts, capacity_factor, k, act,
+                             mesh)
     b, t, d = x.shape
     n, e = b * t, n_experts
     xf = x.reshape(n, d)
@@ -146,3 +178,40 @@ def moe_ffn(x, params: Dict[str, Any], n_experts: int,
     comb = (disp * combine_w[..., None]).to(x.dtype)            # (N, E, C)
     out = torch.matmul(comb.reshape(n, ec), ye.reshape(ec, d))  # (N, D)
     return out.reshape(b, t, d), aux
+
+
+def _moe_ffn_mesh(x, params, n_experts, capacity_factor, k, act, mesh):
+    from .collectives import allgather, allreduce, all_to_all
+    b, t, d = x.shape
+    n, e = b * t, n_experts
+    ep, tp = mesh.axis_size("ep"), mesh.axis_size("tp")
+    check(e % ep == 0, f"moe: {e} experts do not split over ep={ep}")
+    check(n % ep == 0, f"moe: {n} tokens do not split over ep={ep}")
+    xf = x.reshape(n, d)
+    disp, combine_w, aux = route(xf, params["gate"], e, capacity_factor, k)
+    cap = disp.shape[2]
+    e_loc, n_loc = e // ep, n // ep
+    q = mesh.axis_index("ep")
+    # dispatch: this rank's token slice into every expert's slots
+    rows = slice(q * n_loc, (q + 1) * n_loc)
+    d_loc = disp[rows].to(x.dtype).reshape(n_loc, e * cap)
+    xe = torch.matmul(d_loc.t(), xf[rows])                     # (E*C, D)
+    xe = all_to_all(xe.reshape(e, cap, d), mesh, "ep", split_axis=0,
+                    concat_axis=0)                           # (ep*E_l,C,D)
+    xe = xe.reshape(ep, e_loc, cap, d).sum(dim=0)              # my experts
+    h = torch.bmm(xe, params["w_in"]) + params["b_in"][:, None, :]
+    h = act(h) if act is not None else F.gelu(h, approximate="tanh")
+    ye = torch.bmm(h, params["w_out"])                         # tp partial
+    if tp > 1:
+        ye = allreduce(ye, mesh, "tp")
+    ye = ye + params["b_out"][:, None, :]                      # (E_l, C, D)
+    # combine on the owner for every token, then each token slice home
+    experts = slice(q * e_loc, (q + 1) * e_loc)
+    comb = (disp[:, experts] * combine_w[:, experts, None]).to(x.dtype)
+    part = torch.matmul(comb.reshape(n, e_loc * cap),
+                        ye.reshape(e_loc * cap, d))           # (N, D)
+    if ep > 1:
+        part = all_to_all(part, mesh, "ep", split_axis=0, concat_axis=0)
+        part = part.reshape(ep, n_loc, d).sum(dim=0)          # my tokens
+        part = allgather(part, mesh, "ep", tiled_axis=0)      # (N, D)
+    return part.reshape(b, t, d), aux

@@ -71,8 +71,30 @@ gradients enabled (``gluon/block.py``), so their parameters get gradients
 here as under ``autograd.record()``.
 
 Each call returns a clone of the static losses. On the CPU ``run_steps``
-is a loop over ``step``. Only ``mesh=None`` is ported; ``plan=`` (a
-sharding plan over a mesh) raises ``NotPortedError`` (ROADMAP A10).
+is a loop over ``step``.
+
+Over a mesh (``mesh=``, ``parallel/mesh.py``; ``plan=``, a
+``sharding.ShardingPlan``). ``step`` / ``run_steps`` take the **global**
+batch (``run_steps``: ``(K, batch, ...)``) and each rank trains on its
+``dp`` block (``sharding.shard_batch``, batch axis 0, or 1 for
+``run_steps``), as the JAX trainer's ``shard_batch`` places it. A
+parameter whose plan spec splits it over a mesh axis is held as this
+rank's block (its optimizer state too) and gathered for the forward with
+the differentiable ``collectives.allgather``, so its gradient comes back
+as the sum over that axis; every gradient is then summed over the mesh
+axes its spec does not split (all of them for a replicated parameter).
+BatchNorm computes global-batch statistics over ``dp``, as GSPMD does for
+the JAX trainer: the forward runs in ``ops.fused_bn_act.sync_scope``, so
+the fused kernels' ``(2, C)`` sums (and the plain BatchNorm's) are
+all-reduced over ``dp`` before they normalise. Each rank's loss is its
+share of the global mean; the returned loss is the global mean.
+``run_steps`` over a mesh of more than one rank runs its K steps eagerly,
+one after another, and says so: ``run_steps_mode`` is ``"eager"`` and
+``eager_mesh_steps`` counts the steps run that way (a gloo collective
+cannot be captured in a CUDA graph, and NCCL at a world above 1 is
+unverified). :meth:`SPMDTrainer.sync_block_params` writes the gathered
+global values of the plan-sharded parameters back into the block's
+parameters.
 
 Telemetry. The first call of a signature (the K eager steps before the
 capture; on the CPU the first loop) runs under a counting scope
@@ -95,7 +117,6 @@ from .. import autograd
 from ..base import MXNetError, check
 from ..cached_op import capture_graph, inline_scope, on_stream
 from ..ndarray.ndarray import NDArray
-from ..ops.registry import NotPortedError
 from ..telemetry import efficiency as _efficiency
 from ..telemetry import memory as _memory
 from ..telemetry.registry import note_compile
@@ -122,12 +143,21 @@ class _StepGraph:
 class SPMDTrainer:
     def __init__(self, block, loss_fn, mesh=None, optimizer: str = "sgd",
                  optimizer_params=None, plan=None, dtype=None, remat=None):
-        check(mesh is None, "SPMDTrainer: only mesh=None (one device) is "
-              "ported")
-        if plan is not None:
-            raise NotPortedError("SPMDTrainer(plan=...) shards parameters "
-                                 "over a mesh, which is not ported yet "
-                                 "(ROADMAP A10)")
+        check(mesh is None or (hasattr(mesh, "axis_size") and
+                               hasattr(mesh, "group")),
+              f"SPMDTrainer: mesh must be a parallel.mesh.Mesh, got "
+              f"{type(mesh).__name__}")
+        check(plan is None or mesh is not None,
+              "SPMDTrainer: plan= needs a mesh")
+        self.mesh = mesh
+        self.plan = plan
+        self._blocks = {}        # name -> this rank's block (plan-sharded)
+        self._specs = {}         # name -> spec
+        #: "graph" (one CUDA graph of K steps on the card), "loop" (the
+        #: CPU), or "eager" (a mesh over more than one rank)
+        self.run_steps_mode = None
+        #: steps run_steps ran eagerly over a mesh of several ranks
+        self.eager_mesh_steps = 0
         check(optimizer in ("sgd", "adam"),
               f"SPMDTrainer supports sgd/adam, not {optimizer!r}")
         opt = dict(optimizer_params or {})
@@ -172,6 +202,8 @@ class SPMDTrainer:
             self._trainable.append(
                 (name, p, f"{path}.{p.attr}" if path else p.attr))
         self._aux = [p for _, p in items if p.grad_req == "null"]
+        if self.mesh is not None:
+            self._place()
         weights = self._weights()
         if self.optimizer == "adam":
             self._state = ([torch.zeros_like(w) for w in weights],
@@ -191,7 +223,60 @@ class SPMDTrainer:
             self.block(x)
 
     def _weights(self):
-        return [p.tensor for _, p, _ in self._trainable]
+        """The masters the optimizer updates: a plan-sharded parameter's
+        block, else the parameter's tensor."""
+        return [self._blocks.get(n, p.tensor) for n, p, _ in self._trainable]
+
+    # ------------------------------------------------------------------
+    # mesh
+    # ------------------------------------------------------------------
+    def _place(self):
+        """Specs of the trainable parameters and this rank's blocks of
+        those the plan splits over an axis of size > 1."""
+        from .sharding import P, _axes_of, local_block
+        for name, p, _ in self._trainable:
+            spec = self.plan.spec_for(name, tuple(p.tensor.shape)) \
+                if self.plan is not None else P()
+            self._specs[name] = spec
+            if any(self.mesh.axis_size(a) > 1
+                   for e in tuple(spec) for a in _axes_of(e)):
+                self._blocks[name] = local_block(
+                    p.tensor.detach(), spec, self.mesh).clone() \
+                    .requires_grad_()
+
+    def _full(self, name, w):
+        """The global value of a master for the forward (differentiable)."""
+        from .collectives import allgather
+        from .sharding import _axes_of
+        if name not in self._blocks:
+            return w
+        spec = tuple(self._specs[name])
+        for dim in reversed(range(len(spec))):
+            for ax in reversed(_axes_of(spec[dim])):
+                if self.mesh.axis_size(ax) > 1:
+                    w = allgather(w, self.mesh, ax, tiled_axis=dim)
+        return w
+
+    def _bn_scope(self):
+        """Global-batch BatchNorm over dp (a no-op scope without one)."""
+        import contextlib
+        from ..ops.fused_bn_act import sync_scope
+        from .collectives import _raw_allreduce
+        if self.mesh is None or self.mesh.axis_size("dp") == 1:
+            return contextlib.nullcontext()
+        group = self.mesh.group("dp")
+        return sync_scope(lambda t: _raw_allreduce(t, group),
+                          self.mesh.axis_size("dp"))
+
+    def sync_block_params(self) -> None:
+        """Write the global values of the plan-sharded parameters into the
+        block's parameters, in place (every rank of the mesh calls it)."""
+        from .sharding import gather
+        with torch.no_grad():
+            for name, p, _ in self._trainable:
+                if name in self._blocks:
+                    p.tensor.copy_(gather(self._blocks[name],
+                                          self._specs[name], self.mesh))
 
     @property
     def optimizer_state(self) -> dict:
@@ -207,22 +292,32 @@ class SPMDTrainer:
     # ------------------------------------------------------------------
     # one step
     # ------------------------------------------------------------------
-    def _loss(self, data, label):
+    def _loss(self, data, label, weights=None):
         dt = self._compute_dtype
         prev = autograd.set_training(True)
         try:
-            if dt is None:
-                out = self.block(data)
+            if dt is None and not self._blocks:
+                with self._bn_scope():
+                    out = self.block(data)
             else:
                 params = {}
-                for _, p, path in self._trainable:
-                    w = p.tensor
-                    params[path] = w.to(dt) if w.dtype == torch.float32 \
-                        else w
-                out = functional_call(self.block, params, (data.to(dt),))
+                for (name, p, path), w in zip(self._trainable,
+                                              weights or self._weights()):
+                    w = self._full(name, w)
+                    params[path] = w.to(dt) if dt is not None and \
+                        w.dtype == torch.float32 else w
+                with self._bn_scope():
+                    out = functional_call(
+                        self.block, params,
+                        (data.to(dt) if dt is not None else data,))
         finally:
             autograd.set_training(prev)
-        return self.loss_fn(out, label).float().mean()
+        per = self.loss_fn(out, label).float()
+        if self.mesh is None:
+            return per.mean()
+        # this rank's share of the global mean: its samples over the global
+        # batch, over the ranks outside dp that compute the same samples
+        return per.sum() / (per.shape[0] * self.mesh.size)
 
     def _update(self, weights, grads):
         """The optimizer step, in place on the weights and the state."""
@@ -260,10 +355,18 @@ class SPMDTrainer:
         # tie it into a reference cycle that holds its device memory. A
         # hybridized block runs inline: the step is the trainer's program
         with inline_scope():
-            loss = self._mirror(self._loss)(data, label)
+            loss = self._mirror(self._loss)(data, label, weights)
         grads = list(torch.autograd.grad(loss, weights))
+        if self.mesh is not None:
+            from .sharding import reduce_unsplit
+            grads = reduce_unsplit(
+                grads, [self._specs[n] for n, _, _ in self._trainable],
+                self.mesh)
         with torch.no_grad():
             self._update(weights, grads)
+        if self.mesh is not None:
+            from .collectives import cross_process_allreduce
+            loss = cross_process_allreduce(loss.detach().clone())
         return loss.detach()
 
     def _inputs(self, data, label, steps):
@@ -284,8 +387,22 @@ class SPMDTrainer:
         ``data`` / ``label`` may be tensors, NDArrays or numpy arrays."""
         data, label = self._inputs(data, label, steps=False)
         dev = self._trainable[0][1].tensor.device
+        data, label = self._shard(data, label, 0)
         return self._step(data.to(dev, non_blocking=True),
                           label.to(dev, non_blocking=True))
+
+    def _shard(self, data, label, batch_dim):
+        """This rank's dp block of a global batch (as it is without a
+        mesh)."""
+        if self.mesh is None or self.mesh.axis_size("dp") == 1:
+            return data, label
+        from .sharding import P, local_block
+        out = []
+        for a in (data, label):
+            spec = [None] * a.dim()
+            spec[batch_dim] = "dp"
+            out.append(local_block(a, P(*spec), self.mesh))
+        return tuple(out)
 
     # ------------------------------------------------------------------
     # K steps
@@ -297,8 +414,21 @@ class SPMDTrainer:
         module docstring)."""
         data, label = self._inputs(data, label, steps=True)
         dev = self._trainable[0][1].tensor.device
+        data, label = self._shard(data, label, 1)
         sig = ("multi", tuple((tuple(a.shape), a.dtype)
                               for a in (data, label)))
+        eager = self.mesh is not None and self.mesh.size > 1
+        if eager:
+            # a mesh of several ranks: K eager steps (module docstring)
+            self.run_steps_mode = "eager"
+            out = []
+            for k in range(data.shape[0]):
+                out.append(self._step(data[k].to(dev), label[k].to(dev)))
+                self.eager_mesh_steps += 1
+            losses = torch.stack(out)
+            self._last_program = None
+            return losses
+        self.run_steps_mode = "graph" if dev.type == "cuda" else "loop"
         if dev.type != "cuda":
             def loop(count_first=False):
                 out, first = [], None

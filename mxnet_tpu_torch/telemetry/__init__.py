@@ -26,10 +26,12 @@
 - :mod:`.run_report` — the persistent per-run verdict
   (``MXTPU_RUN_REPORT_DIR``), read by ``tools/run_compare.py``.
 - :mod:`.autotune` — the probe-then-lock knob tuner (``MXTPU_AUTOTUNE``).
+- :mod:`.collective` — the collective ledger, the cross-rank comm-health
+  exchange (``MXTPU_COLL_HEALTH``) and the hung-collective watchdog and
+  flight records (``MXTPU_COLL_TIMEOUT_S``).
 
 ``mxnet_tpu_torch.profiler`` is the MXNet facade over this package and
-``mxnet_tpu_torch.monitor`` the Monitor fed by the numerics plane. The
-collective ledger and comm health are the second half of ROADMAP A10.
+``mxnet_tpu_torch.monitor`` the Monitor fed by the numerics plane.
 """
 from __future__ import annotations
 
@@ -51,6 +53,8 @@ from .efficiency import (EfficiencyRollup, compiled_program_stats,
 from . import run_report
 from .run_report import write_run_report, load_run_report
 from . import autotune
+from . import collective
+from .collective import CollectiveLedger, ledger as collective_ledger
 
 __all__ = [
     "Tracer", "tracer", "span", "instant", "counter_event", "enabled",
@@ -63,4 +67,5 @@ __all__ = [
     "efficiency", "EfficiencyRollup", "compiled_program_stats",
     "efficiency_rollup",
     "run_report", "write_run_report", "load_run_report", "autotune",
+    "collective", "CollectiveLedger", "collective_ledger",
 ]

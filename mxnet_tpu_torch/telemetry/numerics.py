@@ -79,6 +79,7 @@ HIST = 16
 PROV_BUCKET = 16
 
 _dump_seq = itertools.count(1)
+_xchg_seq = itertools.count(1)
 
 
 class NumericsSpec:
@@ -467,16 +468,27 @@ def record_step(step: int, items, loss_scale: Optional[float] = None,
     ``RAW_FIELDS``; a host array or nested list). Computes the global
     grad norm / update ratio, the pattern-filtered per-parameter stat
     dicts, feeds the gauges, Perfetto counters, stat history and attached
-    Monitors, and appends the record to the recent window. (The JAX
-    package's cross-rank merge under a distributed ZeRO plane is the
-    second half of ROADMAP A10: such a sampled step raises in the
-    Trainer.)"""
+    Monitors, and appends the record to the recent window. Under a
+    distributed ZeRO plane the shard-local stats are allgathered over the
+    group first (a collective, recorded in the collective ledger), so
+    every rank publishes the same global numbers."""
     import numpy as _np
     s = spec()
     if s is None:
         return None
-    if not items:
+    zp = getattr(trainer, "_zero", None) if trainer is not None else None
+    distributed = bool(zp and getattr(zp, "distributed", False))
+    if not items and not distributed:
         return None
+    if distributed:
+        from ..parallel.collectives import cross_process_allgather_object
+        shipped = [(list(n), _np.asarray(m, dtype=_np.float64).tolist())
+                   for n, m in items]
+        gathered = cross_process_allgather_object(
+            shipped, f"numst{next(_xchg_seq)}_")
+        items = [(tuple(n), m) for part in gathered for n, m in part]
+        if not items:
+            return None  # every shard empty this step: nothing to record
     g2 = w2 = u2 = 0.0
     nonfinite_params = 0
     per_param: Dict[str, Dict[str, Any]] = {}
@@ -620,17 +632,32 @@ def nonfinite_step(step: int, trainer,
     write the forensics record and name the culprit in an ERROR log.
     Returns the dump path (None when the plane is off). Runs AFTER the
     skip verdict is host-known, so its extra syncs cost nothing a clean
-    step pays."""
+    step pays. Under distributed ZeRO each rank scans its reduced shard
+    and the offender lists are merged over the group, so every rank names
+    the same global culprit."""
     s = spec()
     if s is None:
         return None
+    zp = getattr(trainer, "_zero", None)
+    distributed = bool(zp and getattr(zp, "distributed", False))
     named = []
     for i, p in enumerate(getattr(trainer, "_params", ())):
         g = _grad_of(p)
         if g is None:
             continue
+        if distributed and i not in zp.local_indices():
+            # non-local gradients are unreduced between the reduce-scatter
+            # and the update: only the local shard carries the global sums
+            continue
         named.append((i, p.name, g))
     culprit, offenders, bcounts = _provenance_scan(named)
+    if distributed:
+        from ..parallel.collectives import cross_process_allgather_object
+        merged = cross_process_allgather_object(
+            offenders, f"numprov{next(_xchg_seq)}_")
+        offenders = sorted((o for part in merged for o in part),
+                           key=lambda o: o["index"])
+        culprit = offenders[0] if offenders else culprit
     try:
         from .registry import default_registry
         default_registry().counter(

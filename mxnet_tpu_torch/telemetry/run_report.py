@@ -160,10 +160,11 @@ def _env_fingerprint() -> Dict[str, Any]:
         fp["device_count"] = torch.cuda.device_count() if cuda else 1
     except Exception:
         pass
-    # topology identity: the world size this run trained at (a report of
-    # a group is the second half of ROADMAP A10: FitLoop refuses it), so
-    # run_compare flags a cross-topology comparison
-    fp["world_size"] = 1
+    # topology identity: the (real or simulated) world size this run
+    # trained at, so run_compare flags a cross-topology comparison instead
+    # of diffing an N-rank run against an M-rank one
+    from ..parallel import elastic as _elastic
+    fp["world_size"] = _elastic.world_for_fingerprint()
     return fp
 
 

@@ -9,8 +9,8 @@ definitions and the JAX package.
 - ``GradientCompression``: the packed bytes and the residuals equal the
   JAX package's on the same seeded gradients, f32 and bf16, across steps
   of error feedback; ``unpack`` inverts ``pack``.
-- Outside a group each collective is its one-rank identity; the
-  mesh-taking functions raise naming A10.
+- Outside a group each collective is its one-rank identity, the
+  mesh-taking ones over a one-rank mesh too.
 """
 import os
 import sys
@@ -25,7 +25,6 @@ from mxnet_tpu.gradient_compression import GradientCompression as JGC
 from mxnet_tpu.parallel import collectives as jcoll
 
 from mxnet_tpu_torch.gradient_compression import GradientCompression as TGC
-from mxnet_tpu_torch.ops.registry import NotPortedError
 from mxnet_tpu_torch.parallel import collectives as tcoll
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -123,6 +122,29 @@ def test_one_rank_identities_outside_a_group():
                                   "measure_allreduce_bandwidth",
                                   "make_host_mesh"])
 def test_mesh_functions_raise_a10(name):
+    """The mesh-taking functions are ported (the name is kept from when
+    they raised naming A10): at world 1 each runs over a one-rank mesh as
+    its definition gives (the identity; the bandwidth probe measures
+    nothing to move), and without a mesh each refuses, as the JAX
+    functions need one."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.parallel.mesh import make_mesh
     assert callable(getattr(jcoll, name))
-    with pytest.raises(NotPortedError, match="A10"):
-        getattr(tcoll, name)(torch.zeros(2), None)
+    fn = getattr(tcoll, name)
+    with mt.cpu():
+        mesh = make_mesh({"dp": 1})
+        x = torch.arange(4.0)
+        if name == "make_host_mesh":
+            assert fn().shape == {"hosts": 1}
+            return
+        if name == "measure_allreduce_bandwidth":
+            assert fn(mesh, size_mb=0.01, axis="dp", iters=1) == 0.0
+            with pytest.raises(mt.MXNetError, match="Mesh"):
+                fn(None)
+            return
+        if name == "device_allreduce":
+            assert fn([x], mesh, axis="dp")[0] is x
+        else:
+            assert fn(x, mesh, "dp") is x
+        with pytest.raises(mt.MXNetError, match="Mesh"):
+            fn([x] if name == "device_allreduce" else x, None)

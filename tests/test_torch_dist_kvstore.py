@@ -28,7 +28,6 @@ from mxnet_tpu import kvstore as jkv
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import kvstore as tkv
-from mxnet_tpu_torch.ops.registry import NotPortedError
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests", "dist"))
@@ -292,10 +291,26 @@ def test_launcher_passes_the_drain_code_through(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--launcher", "ssh"],
                                    ["--launcher", "mpi"], ["--supervise"]])
-def test_launcher_modes_not_ported(flags):
+def test_launcher_modes_not_ported(flags, tmp_path, monkeypatch):
+    """The remote and supervised modes are ported (the name and the cases
+    are kept from when they raised naming A10): ``ssh`` through a stub
+    that runs the remote command locally, ``supervise`` a fleet whose
+    workers exit 0 at once, both return 0; ``mpi`` without an MPI
+    runtime returns 127 (a stub ``mpirun`` is tested in
+    ``test_torch_launch_remote.py``)."""
+    import shutil
     from mxnet_tpu_torch import launch as tlaunch
-    with pytest.raises(NotPortedError, match="A10"):
-        tlaunch.main(["-n", "2"] + flags + ["true"])
+    if flags[-1] == "ssh":
+        stub = tmp_path / "fake_ssh"
+        stub.write_text("#!/bin/sh\nshift\nexec sh -c \"$@\"\n")
+        stub.chmod(0o755)
+        flags = flags + ["--ssh-cmd", str(stub)]
+    if flags[-1] == "mpi" and (shutil.which("mpirun") or
+                               shutil.which("mpiexec")):
+        pytest.skip("an MPI runtime is installed here")
+    monkeypatch.setenv("MXTPU_MEM_DUMP_DIR", str(tmp_path))
+    rc = tlaunch.main(["-n", "2"] + flags + ["true"])
+    assert rc == (127 if flags[-1] == "mpi" else 0)
 
 
 def test_launcher_manual_prints_the_jax_launchers_environment(

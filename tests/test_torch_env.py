@@ -26,7 +26,7 @@ TRAINER_FLAGS = {"MXTPU_OPTIMIZER_AGGREGATION": ["0", "1", "4", "64", None],
                  "MXTPU_ZERO": ["on", "off", "1", None],
                  "MXTPU_NUMERICS": ["on,every=2", "off", "", None]}
 # the FitLoop path's flags (fit, fault, chaos, kvstore retry, telemetry,
-# elastic), with values of their types
+# elastic, the comm planes, the supervisor), with values of their types
 FIT_FLAGS = {"MXNET_IS_RECOVERY": ["1", "0", "False", "", None],
              "DMLC_RANK": ["0", "3", None],
              "MXTPU_WORKER_ID": ["0", "2", None],
@@ -44,6 +44,10 @@ FIT_FLAGS = {"MXNET_IS_RECOVERY": ["1", "0", "False", "", None],
              "MXTPU_RUN_REPORT_DIR": ["reports", "", None],
              "MXTPU_COLL_HEALTH": ["0", "4", None],
              "MXTPU_COLL_TIMEOUT_S": ["0", "2.5", None],
+             "MXTPU_COLL_RING": ["4096", "8", None],
+             "MXTPU_SUPERVISE_MAX_RESTARTS": ["8", "0", None],
+             "MXTPU_SUPERVISE_CRASH_WINDOW_S": ["300", "2.5", None],
+             "MXTPU_SUPERVISE_CRASH_LIMIT": ["3", "1", None],
              "MXTPU_ZERO_WORLD": ["0", "2", None],
              "MXTPU_ELASTIC": ["on", "off", None]}
 # the distributed group, the launcher and the command channel

@@ -15,7 +15,7 @@ the CPU.
   with the same plan state; the seeded ``kv_flake`` firing sequence, the
   kvstore's bounded retry and its exhaustion match the JAX package's.
 - The topology record, the data re-split and the restore gate match the
-  JAX package's; a simulated world raises ``NotPortedError`` (A10).
+  JAX package's, the elastic resize of a simulated world too.
 """
 import json
 import os
@@ -36,7 +36,6 @@ from mxnet_tpu_torch import fault as tfault
 from mxnet_tpu_torch import io as tio
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.contrib import chaos as tchaos
-from mxnet_tpu_torch.ops.registry import NotPortedError
 from mxnet_tpu_torch.parallel import elastic as telastic
 
 
@@ -469,13 +468,14 @@ def test_resplit_and_restore_gate_match_jax(monkeypatch):
         with pytest.raises(el.TopologyMismatchError, match="NON-portable"):
             el.check_restore({"world": 2, "portable_states": False}, cur)
     monkeypatch.setenv("MXTPU_ELASTIC", "on")
-    with pytest.raises(NotPortedError, match="A10"):
-        telastic.check_restore({"world": 2}, cur)
-    for fn in (lambda: telastic.begin_resize({}, cur),
-               lambda: telastic.reform_group(cur),
-               telastic.reset_comm_state):
-        with pytest.raises(NotPortedError, match="A10"):
-            fn()
+    # the group half is ported: the gate lets the change through and the
+    # resize re-forms a (simulated) group, as in the JAX package
+    for el in (jelastic, telastic):
+        assert el.check_restore({"world": 2}, cur) is True
+        el.reset_comm_state()
+    assert telastic.reform_group(cur) == jelastic.reform_group(cur)
+    assert telastic.begin_resize({"world": 2}, cur) == \
+        jelastic.begin_resize({"world": 2}, cur)
     monkeypatch.setenv("MXTPU_ELASTIC", "maybe")
     for el in (jelastic, telastic):
         with pytest.raises(mt.MXNetError if el is telastic

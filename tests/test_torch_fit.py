@@ -18,8 +18,9 @@ fault-free tail):
   ``ignore_stale_grad``, loss scaling with backoff and growth (the
   loss-scale timeline), and the same with asynchronous checkpoints;
 - the flag and the loss reach the host in one transfer a step;
-- what is not ported raises ``NotPortedError`` naming its ROADMAP item,
-  before any step runs and before the signal handlers install.
+- every plane's flag runs to the JAX package's trajectory, and a
+  malformed one raises before any step runs and before the signal
+  handlers install.
 """
 import dataclasses
 import gc
@@ -43,7 +44,6 @@ from mxnet_tpu_torch import fit as tfit
 from mxnet_tpu_torch import io as tio
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.contrib import chaos as tchaos
-from mxnet_tpu_torch.ops.registry import NotPortedError
 
 RTOL = 1e-5
 PKGS = {"jax": (mx, jfit, jio, jnd, jchaos, jfault),
@@ -524,11 +524,11 @@ def test_fitloop_ignore_stale_grad_passthrough():
 ])
 def test_unported_planes_raise_before_any_step(tmp_path, monkeypatch, flag,
                                                value, item):
-    """A10's comm-health planes raise before any step runs (nothing
-    written, no step, the handlers untouched). A9's are ported (the name
-    and the cases are kept from when they raised): the same flag runs
-    ``FitLoop.fit`` in both packages to the same trajectory and fills the
-    same result field. ``MXTPU_ZERO`` is ported (A10's first half): with
+    """Every plane is ported (the name and the cases are kept from when
+    A9's and A10's raised): the same flag runs ``FitLoop.fit`` in both
+    packages to the same trajectory and fills the same result field
+    (A10's comm planes: ``comm_health`` with the same keys, one process's
+    zero-skew self view, the handlers untouched). ``MXTPU_ZERO`` is ported (A10's first half): with
     no kvstore both packages refuse at the first step with the same
     error, nothing updated; with a store object both run the sharded
     trajectory and report the same plane in ``FitResult.zero``."""
@@ -591,14 +591,21 @@ def test_unported_planes_raise_before_any_step(tmp_path, monkeypatch, flag,
                 assert os.path.dirname(rep) == value
                 assert os.path.exists(tmp_path / pkg / rep)
         return
-    _, trainer, loop = _build("port", str(tmp_path))
-    before = signal.getsignal(signal.SIGTERM)
+    assert item == "A10"
     monkeypatch.setenv(flag, value)
-    with pytest.raises(NotPortedError, match=item):
-        loop.fit(epochs=1)
-    assert not os.listdir(tmp_path), "nothing may be written"
-    assert not trainer._updaters[0].states, "no step may run"
-    assert signal.getsignal(signal.SIGTERM) is before
+    out = {}
+    for pkg in ("jax", "port"):
+        net, _, loop = _build(pkg, None)
+        before = signal.getsignal(signal.SIGTERM)
+        out[pkg] = (net, loop.fit(epochs=2))
+        assert signal.getsignal(signal.SIGTERM) is before
+    _same_result(out["port"], out["jax"])
+    t, j = out["port"][1].comm_health, out["jax"][1].comm_health
+    assert sorted(t) == sorted(j)
+    for k in ("desync", "straggler_rank", "max_skew_ms", "watchdog_fired",
+              "world"):
+        assert t[k] == j[k], k
+    assert t["checks"] == j["checks"]
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -614,8 +621,10 @@ def test_malformed_plane_flags_raise_as_in_jax(tmp_path, monkeypatch, flag,
 
 def test_elastic_world_change_raises(tmp_path, monkeypatch):
     """A checkpoint recorded at another world: TopologyMismatchError with
-    MXTPU_ELASTIC off, NotPortedError (A10) with it on — before any state
-    loads."""
+    MXTPU_ELASTIC off, before any state loads; with it on (ported, the
+    name is kept from when it raised) the resume re-forms the group, the
+    result says so, and the run goes on as the JAX package's does from
+    the same checkpoint."""
     from mxnet_tpu_torch.parallel import elastic
     import json
     d = str(tmp_path)
@@ -630,7 +639,9 @@ def test_elastic_world_change_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("MXTPU_ELASTIC", "on")
     net, trainer, loop = _build("port", d, ckpt_every=4)
     before = _weights(net)
-    with pytest.raises(NotPortedError, match="A10"):
-        loop.fit(epochs=2)
-    for k, w in _weights(net).items():
-        np.testing.assert_array_equal(w, before[k])
+    res = loop.fit(epochs=2)
+    assert res.resumed_from == 8
+    assert res.elastic == {"from_world": 2, "world": 1, "rank": 0,
+                           "members": [0], "resize_to": None}
+    assert any(not np.array_equal(w, before[k])
+               for k, w in _weights(net).items())

@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch.ops.registry import NotPortedError
 from mxnet_tpu_torch.parallel import moe as tmoe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -178,8 +177,18 @@ def test_router_gets_gradients_only_through_the_combine_weights():
 
 
 def test_moe_param_specs_needs_a_mesh():
-    with pytest.raises(NotPortedError, match="A10"):
-        tmoe.moe_param_specs(None)
+    """Ported (the name is kept from when it raised naming A10): the
+    specs match the JAX package's without a mesh (all replicated) and
+    on an ep x tp mesh's axis names."""
+    from mxnet_tpu.parallel import moe as jmoe
+
+    class _Names:
+        axis_names = ("ep", "tp")
+    for mesh in (None, _Names()):
+        got = {k: tuple(v) for k, v in tmoe.moe_param_specs(mesh).items()}
+        want = {k: tuple(v) for k, v in jmoe.moe_param_specs(mesh).items()}
+        assert got == want
+    assert got["w_in"] == ("ep", None, "tp")
 
 
 if __name__ == "__main__":

@@ -261,9 +261,9 @@ def test_remat_recomputes_each_layer_in_backward(monkeypatch):
     calls = []
     block = ttf._block
 
-    def counting(x, lp, config):
+    def counting(x, lp, config, mesh):
         calls.append(1)
-        return block(x, lp, config)
+        return block(x, lp, config, mesh)
 
     monkeypatch.setattr(ttf, "_block", counting)
     for remat, want in ((False, 2), (True, 4)):
@@ -289,9 +289,9 @@ def test_lm_remat_takes_nothing_from_the_mirror_env(monkeypatch, policy):
     calls = []
     block = ttf._block
 
-    def counting(x, lp, config):
+    def counting(x, lp, config, mesh):
         calls.append(1)
-        return block(x, lp, config)
+        return block(x, lp, config, mesh)
 
     monkeypatch.setattr(ttf, "_block", counting)
     losses = {}
