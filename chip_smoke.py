@@ -7951,6 +7951,858 @@ def mesh_lm(torch, mt, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# A11: sparse storage and the sparse embedding plane
+# ---------------------------------------------------------------------------
+
+SP_FEATURES, SP_BATCH, SP_NNZ = 10000, 256, 32      # linear_classification
+SP_TOL = 1e-6           # f32 values: relative to the output's magnitude
+MF_DEFAULTS = dict(users=100000, items=50000, dim=16, batch=4096, lr=0.02,
+                   true_rank=4, noise=0.1)
+MF_STEPS, MF_TIMED = 3, 20
+MF_TOL = 1e-5
+MF_SMOKE = ["--iters", "150", "--users", "800", "--items", "400",
+            "--batch-size", "1024", "--lr", "0.02"]   # the JAX smoke test's
+TT = dict(users=4096, items=4096, dim=16, proj=16, batch=256, iters=400,
+          lr=0.05, world=4, true_rank=4, init_scale=0.3)  # two_tower full
+TT_SMOKE = dict(TT, users=128, items=128, dim=8, iters=150, batch=128)
+GIANT = dict(rows=1 << 23, dim=64, world=4, users=8192, items=8192,
+             steps=20, cap=16384, check_at=3)
+SE_ROWS, SE_DIM, SE_IDS = 1 << 20, 64, 8192          # ShardedEmbedding
+SP_RECIPE_LINEAR = "examples/sparse/linear_classification.py"
+SP_RECIPE_MF = "examples/recommenders/matrix_fact_sparse.py"
+
+
+def _card_device(torch):
+    """Where the sparse phases compute: the card."""
+    return torch.device("cuda", 0)
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _wall_ms(torch, fn, iters=20):
+    """Mean host-clock ms of ``fn`` over ``iters`` calls ending in a
+    synchronize: a sparse op is host-orchestrated, so its host work is
+    part of a call."""
+    fn()
+    _sync(torch)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(torch)
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def _rel_err(torch, got, want):
+    """max |got - want| over max(1, max |want|)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if want.numel() == 0:
+        return 0.0
+    return float((got - want).abs().max() / max(1.0, float(
+        want.abs().max())))
+
+
+def _sp_parts(x):
+    """(storage type, coordinate tensors, value tensor) of an output."""
+    st = getattr(x, "stype", "default")
+    if st == "csr":
+        return st, (x._indices.cpu(), x._indptr.cpu()), x._data
+    if st == "row_sparse":
+        return st, (x._indices.cpu(),), x._data
+    return st, (), x._data
+
+
+def _sp_compare(torch, got, want):
+    """(storage and coordinates exactly equal, max relative error) of
+    two outputs or tuples of them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    same, err = len(got) == len(want), 0.0
+    for g, w in zip(got, want):
+        gs, gc, gv = _sp_parts(g)
+        ws, wc, wv = _sp_parts(w)
+        same = same and gs == ws and len(gc) == len(wc) and all(
+            torch.equal(a, b) for a, b in zip(gc, wc)) and \
+            tuple(gv.shape) == tuple(wv.shape)
+        if tuple(gv.shape) == tuple(wv.shape):
+            err = max(err, _rel_err(torch, gv, wv))
+    return same, err
+
+
+def _linear_data(np):
+    """A batch at the linear recipe's shape: (cols, vals) of 256 rows x
+    32 nonzeros over 10000 features, drawn as its synthetic_libsvm draws
+    them."""
+    rs = np.random.RandomState(0)
+    cols = np.stack([rs.choice(SP_FEATURES, SP_NNZ, replace=False)
+                     for _ in range(SP_BATCH)])
+    vals = rs.randn(SP_BATCH, SP_NNZ).astype(np.float32)
+    return cols, vals
+
+
+def sparse_op_cases(mt, np, ctx):
+    """name -> fn() giving the op's output on ``ctx``, its inputs made
+    there once from the same numpy arrays: each sparse op at the linear
+    recipe's shapes."""
+    sp = mt.nd.sparse
+    cols, vals = _linear_data(np)
+    rs = np.random.RandomState(1)
+    w = rs.randn(SP_FEATURES, 1).astype(np.float32) * 0.1
+    h = rs.randn(SP_BATCH, 1).astype(np.float32)
+    h2 = rs.randn(SP_BATCH, 1).astype(np.float32)
+    keep = np.sort(rs.choice(SP_FEATURES, 2048, replace=False))
+    mom = rs.randn(SP_FEATURES, 1).astype(np.float32)
+    var = np.abs(rs.randn(SP_FEATURES, 1)).astype(np.float32)
+    F = SP_FEATURES
+
+    X = sp.CSRNDArray(vals.reshape(-1), cols.reshape(-1).astype(np.int32),
+                      np.arange(SP_BATCH + 1) * SP_NNZ, (SP_BATCH, F),
+                      ctx=ctx)
+    W, H, H2, K, M, V = (mt.nd.array(a, ctx=ctx)
+                         for a in (w, h, h2, keep, mom, var))
+    G = sp.dot(X, H, transpose_a=True)
+    G2 = sp.dot(X, H2, transpose_a=True)
+    Gd = G.todense()
+    dense_x = np.zeros((SP_BATCH, F), np.float32)
+    np.put_along_axis(dense_x, cols, vals, axis=1)
+    Xd = mt.nd.array(dense_x, ctx=ctx)
+    lazy = mt.nd._internal
+    return {
+        "dot_csr_dense": lambda: sp.dot(X, W),
+        "dot_csrT_dense_rsp": lambda: sp.dot(X, H, transpose_a=True),
+        "cast_storage_dense_to_csr": lambda: mt.nd.cast_storage(
+            Xd, stype="csr"),
+        "cast_storage_csr_to_dense": lambda: mt.nd.cast_storage(
+            X, stype="default"),
+        "cast_storage_dense_to_rsp": lambda: mt.nd.cast_storage(
+            Gd, stype="row_sparse"),
+        "cast_storage_rsp_to_dense": lambda: mt.nd.cast_storage(
+            G, stype="default"),
+        "sparse_retain": lambda: mt.nd.sparse_retain(G, K),
+        "add_rsp_rsp": lambda: sp.add(G, G2),
+        "sum_csr": lambda: tuple(mt.nd.sum(X, axis=a)
+                                 for a in (None, 0, 1)),
+        "_sparse_sgd_update": lambda: lazy._sparse_sgd_update(
+            W, G.data, G.indices, lr=0.5, wd=1e-4),
+        "_sparse_sgd_mom_update": lambda: lazy._sparse_sgd_mom_update(
+            W, G.data, G.indices, M, lr=0.5, momentum=0.9, wd=1e-4),
+        "_sparse_adam_update": lambda: lazy._sparse_adam_update(
+            W, G.data, G.indices, M, V, lr=0.01, wd=1e-4),
+        "_sparse_adagrad_update": lambda: lazy._sparse_adagrad_update(
+            W, Gd, V, lr=0.1),
+    }
+
+
+def sparse_ops_phase(torch, mt, card):
+    """Each sparse op on the card at the linear recipe's shapes (a batch
+    of 256 x 10000 features, 32 nonzeros a row), held to the port's host
+    path on the same inputs (which the CPU tests hold to the JAX
+    package): coordinates exactly, values within 1e-6 of the output's
+    magnitude; host-clock ms a call on the card (host work included),
+    and two card runs bit for bit."""
+    import numpy as np
+    gpu = mt.gpu(0)
+    rows, bad = {}, []
+    with mt.cpu():
+        host = sparse_op_cases(mt, np, mt.cpu())
+    with gpu:
+        card_cases = sparse_op_cases(mt, np, gpu)
+    for name, fn in card_cases.items():
+        with mt.cpu():
+            want = host[name]()
+        with gpu:
+            got = fn()
+            again = fn()
+            ms = _wall_ms(torch, fn)
+        same, err = _sp_compare(torch, got, want)
+        rerun_same, rerun_err = _sp_compare(torch, again, got)
+        rows[name] = {"coords_exact": same, "max_rel_err": err,
+                      "rerun_bitwise": rerun_same and rerun_err == 0.0,
+                      "ms": ms}
+        if not same or err > SP_TOL or rows[name]["rerun_bitwise"] is False:
+            bad.append(name)
+    emit({"phase": "sparse_ops", "card": card, "shape": {
+        "batch": SP_BATCH, "features": SP_FEATURES, "nnz_a_row": SP_NNZ},
+        "tolerance_rel": SP_TOL, "ops": rows})
+    if bad:
+        fail(f"sparse_ops: {bad} disagree with the host path")
+    return rows
+
+
+def _sparse_profile(prof, wall_ms):
+    """Wall and device-busy ms of one profiled sparse step, the device's
+    idle share and its largest kernels."""
+    kern = _device_kernels(prof)
+    busy = sum(ms for ms, _ in kern.values())
+    top = sorted(((ms, n, name[:80]) for name, (ms, n) in kern.items()),
+                 reverse=True)[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "launches": sum(n for _, n in kern.values()),
+            "top_kernels": [[round(ms, 4), n, name] for ms, n, name in top]}
+
+
+def mf_net(mt, users, items, dim):
+    """``examples/recommenders/matrix_fact_sparse.py``'s MFNet, as it is
+    written there."""
+    nn = mt.gluon.nn
+
+    class MFNet(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.user_emb = nn.Embedding(users, dim, sparse_grad=True)
+            self.item_emb = nn.Embedding(items, dim, sparse_grad=True)
+            self.user_b = nn.Embedding(users, 1, sparse_grad=True)
+            self.item_b = nn.Embedding(items, 1, sparse_grad=True)
+
+        def hybrid_forward(self, F, user, item):
+            p = F.sum(self.user_emb(user) * self.item_emb(item), axis=-1)
+            return p + self.user_b(user).reshape((-1,)) + \
+                self.item_b(item).reshape((-1,))
+    return MFNet()
+
+
+def _mf_batches(np, n, cfg):
+    """The recipe's planted-structure batches (its sample_batch)."""
+    rs = np.random.RandomState(0)
+    u_true = rs.randn(cfg["users"], cfg["true_rank"]).astype(np.float32) \
+        * 0.7
+    i_true = rs.randn(cfg["items"], cfg["true_rank"]).astype(np.float32) \
+        * 0.7
+    out = []
+    for _ in range(n):
+        u = rs.randint(0, cfg["users"], cfg["batch"])
+        i = rs.randint(0, cfg["items"], cfg["batch"])
+        r = (u_true[u] * i_true[i]).sum(1) + \
+            rs.randn(cfg["batch"]).astype(np.float32) * cfg["noise"]
+        out.append((u, i, r.astype(np.float32)))
+    return out
+
+
+def _mf_build(torch, mt, ctx, cfg, start=None):
+    with ctx:
+        net = mf_net(mt, cfg["users"], cfg["items"], cfg["dim"])
+        net.initialize(mt.init.Normal(0.1), generator=mt.random.seed(0))
+        params = net._collect_params_with_prefix()
+        if start is not None:
+            for k, p in params.items():
+                p.set_data(start[k])
+        tr = mt.gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": cfg["lr"],
+                               "lazy_update": True})
+    return net, params, tr
+
+
+def _mf_step(mt, net, tr, batch, ctx):
+    u, i, r = batch
+    with ctx:
+        with mt.autograd.record():
+            loss = mt.gluon.loss.L2Loss()(net(mt.nd.array(u),
+                                              mt.nd.array(i)),
+                                          mt.nd.array(r))
+        loss.backward()
+        grads = {k: p.weight.grad() for k, p in
+                 (("user_emb", net.user_emb), ("item_emb", net.item_emb),
+                  ("user_b", net.user_b), ("item_b", net.item_b))}
+        tr.step(len(u))
+    return loss, grads
+
+
+def _mf_state(tr, params):
+    """Per structural name, (weight, mean, var) clones."""
+    by_name = {p.name: i for i, p in enumerate(tr._params)}
+    out = {}
+    for k, p in params.items():
+        st = tr._updaters[0].states.get(by_name[p.name])
+        out[k] = (p.tensor.detach().clone(),) + (
+            tuple(s._data.clone() for s in st) if st else ())
+    return out
+
+
+def _run_recipe(mt, script, argv, aliases):
+    """Run ``script``'s ``main()`` with ``mxnet_tpu`` (and ``aliases``)
+    resolved to the port; returns (main's return, its stdout)."""
+    import contextlib
+    import io
+    import runpy
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = {k: sys.modules.get(k) for k in ["mxnet_tpu"] + list(aliases)}
+    sys.modules.update({"mxnet_tpu": mt, **aliases})
+    argv0 = sys.argv
+    buf = io.StringIO()
+    try:
+        sys.argv = [os.path.join(here, script)] + list(argv)
+        with contextlib.redirect_stdout(buf):
+            g = runpy.run_path(os.path.join(here, script), run_name="recipe")
+            ret = g["main"]()
+    finally:
+        sys.argv = argv0
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    print(buf.getvalue()[-2000:], end="", flush=True)
+    return ret, buf.getvalue()
+
+
+def sparse_mf(torch, mt, card):
+    """``examples/recommenders/matrix_fact_sparse.py`` against the port at
+    its defaults (100000 users x 50000 items, dim 16, batch 4096, lazy
+    Adam lr 0.02, f32): every embedding gradient row_sparse with exactly
+    the batch's unique rows; across a step every row outside the batch
+    keeps its weight and both Adam moments bit for bit; 3 card steps
+    within 1e-5 of the same 3 steps on the host from one start; ms a
+    step, unique rows and gradient bytes a step, host syncs a step. Then
+    the recipe file itself on the card: at the JAX smoke test's config
+    (held-out RMSE < 0.3) and at its defaults."""
+    import numpy as np
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+    from mxnet_tpu_torch.telemetry.memory import nd_bytes
+    cfg = MF_DEFAULTS
+    gpu = mt.gpu(0)
+    batches = _mf_batches(np, MF_STEPS + MF_TIMED + 1, cfg)
+    net_h, params_h, tr_h = _mf_build(torch, mt, mt.cpu(), cfg)
+    start = {k: p.data().asnumpy() for k, p in params_h.items()}
+    net_c, params_c, tr_c = _mf_build(torch, mt, gpu, cfg, start)
+    rows_ok, untouched_ok, uniq = True, True, []
+    for s in range(MF_STEPS):
+        u, i, _ = batches[s]
+        before = _mf_state(tr_c, params_c) if s else None
+        _mf_step(mt, net_h, tr_h, batches[s], mt.cpu())
+        _, grads = _mf_step(mt, net_c, tr_c, batches[s], gpu)
+        for name, g in grads.items():
+            ids = u if name.startswith("user") else i
+            want = np.unique(ids)
+            rows_ok = rows_ok and g.stype == "row_sparse" and \
+                g._data.shape[0] == len(want) and \
+                np.array_equal(g.indices.asnumpy(), want)
+        if before is not None:
+            after = _mf_state(tr_c, params_c)
+            for k, tensors in after.items():
+                ids = u if k.startswith("user") else i
+                keep = torch.ones(tensors[0].shape[0], dtype=torch.bool,
+                                  device=tensors[0].device)
+                keep[torch.from_numpy(np.unique(ids)).to(keep.device)] = \
+                    False
+                for a, b in zip(tensors, before[k]):
+                    untouched_ok = untouched_ok and torch.equal(a[keep],
+                                                                b[keep])
+    err = max(_rel_err(torch, params_c[k].tensor, params_h[k].tensor)
+              for k in params_c)
+    # timed warm steps, and the host syncs of one
+    ms, grad_bytes = [], []
+    for s in range(MF_STEPS, MF_STEPS + MF_TIMED):
+        _sync(torch)
+        tsp.reset_host_syncs()
+        t = time.perf_counter()
+        _, grads = _mf_step(mt, net_c, tr_c, batches[s], gpu)
+        _sync(torch)
+        ms.append((time.perf_counter() - t) * 1e3)
+        syncs = dict(tsp.host_syncs)
+        uniq.append(int(grads["user_emb"]._data.shape[0]) +
+                    int(grads["item_emb"]._data.shape[0]))
+        grad_bytes.append(sum(nd_bytes(g) for g in grads.values()))
+    dense_bytes = (cfg["users"] + cfg["items"]) * cfg["dim"] * 4
+    prof, wall = _profiled(torch, lambda: _mf_step(mt, net_c, tr_c,
+                                                   batches[-1], gpu))
+    row = {"card": card, "config": cfg, "profiled_step": _sparse_profile(
+        prof, wall), "grads_row_sparse_batch_rows":
+           rows_ok, "untouched_rows_bitwise": untouched_ok,
+           "card_vs_host_max_rel_err_3_steps": err, "tolerance": MF_TOL,
+           "ms_a_step_median": sorted(ms)[len(ms) // 2],
+           "ms_a_step_mean": sum(ms) / len(ms),
+           "unique_rows_a_step": sum(uniq) / len(uniq),
+           "grad_bytes_a_step": sum(grad_bytes) / len(grad_bytes),
+           "dense_table_grad_bytes": dense_bytes,
+           "host_syncs_a_step": syncs,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    del net_c, net_h, tr_c, tr_h
+    aliases = {"mxnet_tpu.gluon": mt.gluon, "mxnet_tpu.gluon.nn": mt.gluon.nn}
+    with gpu:
+        t = time.perf_counter()
+        rmse, out = _run_recipe(mt, SP_RECIPE_MF, MF_SMOKE, aliases)
+        row["recipe_smoke"] = {"args": MF_SMOKE, "rmse": rmse,
+                               "grad_stype_line": "grad stype=row_sparse"
+                               in out,
+                               "seconds": time.perf_counter() - t}
+        t = time.perf_counter()
+        rmse_d, out_d = _run_recipe(mt, SP_RECIPE_MF, [], aliases)
+        row["recipe_defaults"] = {"rmse": rmse_d,
+                                  "grad_stype_line": "grad stype=row_sparse"
+                                  in out_d,
+                                  "seconds": time.perf_counter() - t}
+    emit({"phase": "sparse_mf", **row})
+    if not (rows_ok and untouched_ok and err <= MF_TOL):
+        fail(f"sparse_mf: rows {rows_ok} untouched {untouched_ok} "
+             f"err {err}")
+    if not (rmse < 0.3 and row["recipe_smoke"]["grad_stype_line"] and
+            row["recipe_defaults"]["grad_stype_line"]):
+        fail(f"sparse_mf: recipe RMSE {rmse} (needs < 0.3)")
+    return row
+
+
+def sparse_rank(argv):
+    """One rank of sparse_dist, started by ``python -m
+    mxnet_tpu_torch.launch -n 2 python3 chip_smoke.py --sparse-rank DIR``:
+    ``examples/sparse/linear_classification.py`` at its defaults with
+    ``mxnet_tpu`` resolved to the port and every push recorded (its rows,
+    values, wire and touched bytes, time); then ShardedEmbedding on
+    {mp: 2}: a 2^20 x 64 f32 table, a lookup and a scatter-add of 8192
+    ids with repeats. Results to DIR/rank<r>.pt."""
+    import numpy as np
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import kvstore_server
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel import sharded_embedding as se
+    out_dir = argv[0]
+    if not kvstore_server.init_distributed():
+        fail("sparse_rank: no group in the environment")
+    rank = kvstore_server.group_info()["rank"]
+    stores, pushes = [], []
+    create = mt.kvstore.create
+
+    def recording_create(name="local"):
+        kv = create(name)
+        push = kv.push
+
+        def rec(key, value, priority=0):
+            push(key, value, priority)
+            _sync(torch)
+            pushes.append({"ids": value._indices.cpu(),
+                           "rows": value._data.cpu(),
+                           "wire": kv.last_rsp_wire_bytes,
+                           "touched": kv.last_rsp_touched_bytes,
+                           "t": time.perf_counter()})
+        kv.push = rec
+        stores.append(kv)
+        return kv
+    mt.kvstore.create = recording_create
+    try:
+        _, out = _run_recipe(mt, SP_RECIPE_LINEAR, [], {
+            "mxnet_tpu.ndarray": mt.ndarray,
+            "mxnet_tpu.ndarray.sparse": mt.ndarray.sparse,
+            "mxnet_tpu.kvstore": mt.kvstore})
+    finally:
+        mt.kvstore.create = create
+    table = mt.nd.zeros((SP_FEATURES, 1))
+    stores[0].pull("weight", out=table)
+    acc = [float(m) for m in re.findall(r"accuracy ([0-9.]+)", out)]
+    # ShardedEmbedding over {mp: 2}
+    mesh = make_mesh({"mp": 2})
+    emb = se.ShardedEmbedding(SE_ROWS, SE_DIM, mesh, axis="mp", seed=5)
+    ids_c, rows_c = _se_inputs(torch)
+    looked = emb(ids_c)
+    _sync(torch)
+    lookup_ms = _wall_ms(torch, lambda: emb(ids_c), 10)
+    se.sharded_scatter_add(emb.weight, ids_c, rows_c, mesh, "mp")
+    after = emb(ids_c)
+    _sync(torch)
+    t = time.perf_counter()
+    se.sharded_scatter_add(emb.weight.clone(), ids_c, rows_c, mesh, "mp")
+    _sync(torch)
+    scatter_ms = (time.perf_counter() - t) * 1e3
+    torch.save({"table": table._data.cpu(), "accuracy": acc,
+                "pushes": pushes, "lookup": looked.cpu(),
+                "after": after.cpu(), "block": emb.weight.cpu(),
+                "lookup_ms": lookup_ms, "scatter_ms": scatter_ms},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    stores[0].barrier()
+
+
+def _se_inputs(torch):
+    """ShardedEmbedding's ids (every one twice) and rows, on the card."""
+    gen = torch.Generator().manual_seed(7)
+    half = torch.randint(0, SE_ROWS, (SE_IDS // 2,), generator=gen)
+    ids = torch.cat([half, half])
+    rows = torch.randn(SE_IDS, SE_DIM, generator=gen)
+    return ids.to(_card_device(torch)), rows.to(_card_device(torch))
+
+
+def _se_reference(torch, mt):
+    """ShardedEmbedding's one-process table on the card ({mp: 1}): the
+    same seed, ids and rows as sparse_rank's."""
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel import sharded_embedding as se
+    mesh = make_mesh({"mp": 1})
+    with mt.gpu(0):
+        emb = se.ShardedEmbedding(SE_ROWS, SE_DIM, mesh, axis="mp", seed=5)
+    ids, rows = _se_inputs(torch)
+    looked = emb(ids).cpu()
+    se.sharded_scatter_add(emb.weight, ids, rows, mesh, "mp")
+    return looked, emb(ids).cpu(), emb.weight.cpu()
+
+
+def sparse_dist(torch, mt, card):
+    """``examples/sparse/linear_classification.py`` as two ranks sharing
+    the card over gloo (``python -m mxnet_tpu_torch.launch -n 2``,
+    ``--kvstore dist_tpu_sync``, its defaults: 10000 features, batch 256,
+    3 epochs, lr 0.5): accuracy rising from the first epoch to the last on
+    both ranks, both ranks' final tables alike and bit for bit a
+    one-process replay that pushes both ranks' recorded row-sparse
+    gradients, in the same order, into a local store with the same lazy
+    SGD; the recipe in one process on the card too. ShardedEmbedding on
+    {mp: 2} (2^20 x 64 f32, 8192 ids with repeats): lookup and
+    scatter-add bit for bit the one-process table's. ms a step a rank,
+    wire and touched bytes a push."""
+    import tempfile
+    import numpy as np
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as out_dir:
+        _, wall = _dt_launch(
+            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
+             sys.executable, os.path.abspath(__file__), "--sparse-rank",
+             out_dir], 600, "sparse_dist ranks")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    gpu = mt.gpu(0)
+    with gpu:
+        kv = mt.kvstore.create("local")
+        kv.init("weight", mt.nd.zeros((SP_FEATURES, 1)))
+        kv.set_optimizer(mt.optimizer.SGD(learning_rate=0.5,
+                                          lazy_update=True))
+        for p0, p1 in zip(ranks[0]["pushes"], ranks[1]["pushes"]):
+            kv.push("weight", [tsp.RowSparseNDArray(
+                p["rows"].to(_card_device(torch)), p["ids"].to(_card_device(torch)), (SP_FEATURES, 1))
+                for p in (p0, p1)])
+        replay = mt.nd.zeros((SP_FEATURES, 1))
+        kv.pull("weight", out=replay)
+        _, one_out = _run_recipe(mt, SP_RECIPE_LINEAR, [], {
+            "mxnet_tpu.ndarray": mt.ndarray,
+            "mxnet_tpu.ndarray.sparse": mt.ndarray.sparse,
+            "mxnet_tpu.kvstore": mt.kvstore})
+    one_acc = [float(m) for m in re.findall(r"accuracy ([0-9.]+)", one_out)]
+    ref_lookup, ref_after, ref_table = _se_reference(torch, mt)
+    r0, r1 = ranks
+    tables_alike = torch.equal(r0["table"], r1["table"])
+    replay_bitwise = torch.equal(r0["table"], replay._data.cpu())
+    rising = [r["accuracy"][-1] > r["accuracy"][0] for r in ranks]
+    pushes = r0["pushes"]
+    steps = len(pushes)
+    per_epoch = steps // 3
+    times = [p["t"] for p in pushes[per_epoch:]]
+    ms_step = (times[-1] - times[0]) * 1e3 / max(len(times) - 1, 1)
+    se_ok = {
+        "lookup_bitwise": all(torch.equal(r["lookup"], ref_lookup)
+                              for r in ranks),
+        "after_scatter_lookup_bitwise": all(torch.equal(r["after"],
+                                                        ref_after)
+                                            for r in ranks),
+        "blocks_bitwise": torch.equal(torch.cat([r0["block"],
+                                                 r1["block"]]), ref_table)}
+    row = {"card": card, "launch_s": wall, "accuracy_rank0": r0["accuracy"],
+           "accuracy_rank1": r1["accuracy"],
+           "accuracy_one_process": one_acc, "accuracy_rises": rising,
+           "tables_alike": tables_alike, "replay_bitwise": replay_bitwise,
+           "pushes_a_rank": steps, "ms_a_step_a_rank": ms_step,
+           "wire_bytes_a_push": float(np.mean([p["wire"] for p in pushes])),
+           "touched_bytes_a_push": float(np.mean([p["touched"]
+                                                  for p in pushes])),
+           "sharded_embedding": {"rows": SE_ROWS, "dim": SE_DIM,
+                                 "ids": SE_IDS, **se_ok,
+                                 "lookup_ms_a_rank": [r["lookup_ms"]
+                                                      for r in ranks],
+                                 "scatter_ms_a_rank": [r["scatter_ms"]
+                                                       for r in ranks]}}
+    emit({"phase": "sparse_dist", **row})
+    if not (all(rising) and tables_alike and replay_bitwise and
+            all(se_ok.values())):
+        fail(f"sparse_dist: {row}")
+    return row
+
+
+def _tt_tower(mt, dim, proj):
+    """``examples/recsys/two_tower.py``'s TwoTower, as written there."""
+    nn = mt.gluon.nn
+
+    class TwoTower(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self._dim = dim
+            self.u = nn.Dense(proj, in_units=dim)
+            self.i = nn.Dense(proj, in_units=dim)
+
+        def hybrid_forward(self, F, x):
+            uv = F.slice_axis(x, axis=1, begin=0, end=self._dim)
+            iv = F.slice_axis(x, axis=1, begin=self._dim,
+                              end=2 * self._dim)
+            return F.sum(self.u(uv) * self.i(iv), axis=-1)
+    return TwoTower()
+
+
+def _plane_snapshot(torch, plane):
+    return ([s.clone() for s in plane._shards],
+            [None if st is None else tuple(a.clone() for a in st)
+             for st in plane._state])
+
+
+def _plane_equal(torch, plane, snap):
+    shards, states = snap
+    same = all(torch.equal(a, b) for a, b in zip(plane._shards, shards))
+    for st, old in zip(plane._state, states):
+        if st is not None and old is None:    # created by the step
+            same = same and not any(bool(a.any()) for a in st)
+        elif st is not None:
+            same = same and all(torch.equal(a, b) for a, b in zip(st, old))
+    return same
+
+
+def _plane_reference_step(torch, mt, plane, snap, ids, grad, t_count):
+    """The dense-gather reference of one Adam plane step on the full
+    table: the same packed rows, the same rule kernel on the gathered
+    touched rows (JAX ``grouped.py:791-793``); bit for bit the plane?"""
+    import math
+    import numpy as np
+    from mxnet_tpu_torch.ndarray.sparse import segment_sum
+    from mxnet_tpu_torch.optimizer import grouped
+    opt = plane.optimizer
+    full = torch.cat(snap[0])
+    state = [torch.cat([st[k] if st is not None else torch.zeros_like(s)
+                        for st, s in zip(snap[1], snap[0])])
+             for k in range(2)]
+    _, summed, uids = segment_sum(grad, ids)
+    lr = opt._get_lr(0) * math.sqrt(1 - opt.beta2 ** t_count) / \
+        (1 - opt.beta1 ** t_count)
+    kernel = grouped._rule_for(opt).make_kernel(opt, True)
+    u = torch.from_numpy(uids).to(full.device)
+    nw, ns = kernel([full[u]], [summed], [[s[u]] for s in state], [lr],
+                    [opt._get_wd(0)], float(opt.rescale_grad))
+    full[u] = nw[0]
+    for s, n in zip(state, ns):
+        s[u] = n[0]
+    got = torch.cat(plane._shards)
+    got_state = [torch.cat([st[k] if st is not None else
+                            torch.zeros_like(s)
+                            for st, s in zip(plane._state, plane._shards)])
+                 for k in range(2)]
+    return torch.equal(got, full) and all(
+        torch.equal(a, b) for a, b in zip(got_state, state))
+
+
+def _two_tower(torch, mt, c, checks):
+    """The training half of ``examples/recsys/two_tower.py`` (its code up
+    to the eval, on the card) at config ``c``; with ``checks`` also the
+    plane's gates: step 0 against the dense-gather reference, a step
+    under a false flag and its rollback, timing and host syncs."""
+    import numpy as np
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+    from mxnet_tpu_torch.parallel.embedding_plane import EmbeddingPlane
+    rs = np.random.RandomState(0)
+    mt.random.seed(0)
+    vocab = c["users"] + c["items"]
+    rows = ((vocab + c["world"] - 1) // c["world"]) * c["world"]
+    plane = EmbeddingPlane(
+        "two_tower", rows=rows, dim=c["dim"], world=c["world"],
+        optimizer=mt.optimizer.Adam(learning_rate=c["lr"]),
+        init_scale=c["init_scale"])
+    u_true = rs.randn(c["users"], c["true_rank"]).astype(np.float32) * 0.7
+    i_true = rs.randn(c["items"], c["true_rank"]).astype(np.float32) * 0.7
+
+    def sample_batch(n):
+        u = rs.randint(0, c["users"], n)
+        i = rs.randint(0, c["items"], n)
+        return u, i, (u_true[u] * i_true[i]).sum(1).astype(np.float32)
+
+    tower = _tt_tower(mt, c["dim"], c["proj"])
+    tower.initialize(mt.init.Xavier())
+    trainer = mt.gluon.Trainer(tower.collect_params(), "adam",
+                               {"learning_rate": c["lr"]})
+    l2 = mt.gluon.loss.L2Loss()
+    eu, ei, er = sample_batch(512)
+
+    def eval_loss():
+        with mt.autograd.pause():
+            x = mt.nd.concat(plane.lookup(eu),
+                             plane.lookup(ei + c["users"]), dim=1)
+            return float(l2(tower(x), mt.nd.array(er)).mean().asnumpy())
+
+    eval_first = eval_loss()
+    out = {"config": c}
+    ms, uniq = [], []
+    for k in range(c["iters"]):
+        u, i, r = sample_batch(c["batch"])
+        ids = np.concatenate([u, i + c["users"]])
+        uvec = plane.lookup(u)
+        ivec = plane.lookup(i + c["users"])
+        uvec.attach_grad()
+        ivec.attach_grad()
+        with mt.autograd.record():
+            pred = tower(mt.nd.concat(uvec, ivec, dim=1))
+            loss = l2(pred, mt.nd.array(r)).mean()
+        loss.backward()
+        trainer.step(c["batch"])
+        grad = mt.nd.concat(uvec.grad, ivec.grad, dim=0)
+        if checks and k == 0:
+            snap = _plane_snapshot(torch, plane)
+            plane.step(ids, grad)
+            out["step0_dense_gather_bitwise"] = _plane_reference_step(
+                torch, mt, plane, snap, ids, grad._data,
+                plane.optimizer._index_update_count[0])
+            continue
+        if checks and k == c["iters"] // 2:
+            # a non-finite step: nothing on the card changes, and the
+            # rollback restores the update count
+            snap = _plane_snapshot(torch, plane)
+            count = plane.optimizer._index_update_count[0]
+            plane.step(ids, grad, flag=torch.tensor(
+                False, device=_card_device(torch)))
+            out["nonfinite_step_untouched_bitwise"] = _plane_equal(
+                torch, plane, snap)
+            plane.rollback_step()
+            out["rollback_restores_count"] = \
+                plane.optimizer._index_update_count[0] == count
+        _sync(torch)
+        tsp.reset_host_syncs()
+        t = time.perf_counter()
+        plane.step(ids, grad)
+        _sync(torch)
+        ms.append((time.perf_counter() - t) * 1e3)
+        uniq.append(plane.last_unique_rows)
+    out.update(host_syncs_a_plane_step=dict(tsp.host_syncs),
+               eval_first=eval_first, eval_last=eval_loss(),
+               plane_ms_a_step_median=sorted(ms)[len(ms) // 2],
+               unique_rows_a_step=sum(uniq) / len(uniq),
+               per_rank_bytes=[plane.rank_bytes(r)
+                               for r in range(c["world"])],
+               want_per_rank_bytes=[3 * rows * c["dim"] * 4 // c["world"]]
+               * c["world"])
+    out["learns"] = out["eval_last"] < 0.6 * out["eval_first"]
+    out["one_world_bytes"] = out["per_rank_bytes"] == \
+        out["want_per_rank_bytes"]
+    plane.close()
+    return out
+
+
+def recsys_plane(torch, mt, card):
+    """(a) the training half of ``examples/recsys/two_tower.py`` on the
+    card (one table for both vocabularies through EmbeddingPlane at a
+    simulated world 4 with plane Adam lr 0.05, the dense tower through a
+    Trainer): at its ``full`` config (4096 + 4096 rows, dim 16, batch 256,
+    400 iterations) per-rank bytes exactly 3 * rows * dim * 4 / world
+    each, step 0 bit for bit the dense-gather reference update, a step
+    under a false finiteness flag leaving every shard and state bit for
+    bit and rollback_step restoring the host half, and the eval loss
+    reported; the recipe's own learning assert (eval loss below 0.6 x its
+    start) at its ``--smoke`` config, where its test runs it (at the full
+    config 400 iterations do not meet it in the JAX package either). (b)
+    a giant table: 2^23 x 64 f32, world 4, 8192 users + 8192 items a
+    step, MXTPU_SPARSE_MAX_ROWS=16384, 20 steps: after 3 steps the
+    world-4 table bit for bit the world-1 table's, per-rank bytes 1/4 of
+    the unsharded bytes; ms a step, unique rows a step, peak memory, host
+    syncs a step."""
+    prev = {k: os.environ.get(k) for k in ("MXTPU_SPARSE_PLANE",
+                                           "MXTPU_SPARSE_MAX_ROWS")}
+    os.environ["MXTPU_SPARSE_PLANE"] = "on"
+    try:
+        with mt.gpu(0):
+            full = _two_tower(torch, mt, TT, True)
+            smoke = _two_tower(torch, mt, TT_SMOKE, False)
+        row = {"card": card, "full": full,
+               "smoke": {k: smoke[k] for k in ("config", "eval_first",
+                                               "eval_last", "learns",
+                                               "one_world_bytes")}}
+        emit({"phase": "recsys_plane", "what": "two_tower", **row})
+        if not (smoke["learns"] and full["one_world_bytes"] and
+                smoke["one_world_bytes"] and
+                full["step0_dense_gather_bitwise"] and
+                full["nonfinite_step_untouched_bitwise"] and
+                full["rollback_restores_count"]):
+            fail(f"recsys_plane (a): {row}")
+        giant = _giant_plane(torch, mt, card)
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return row, giant
+
+
+def _giant_plane(torch, mt, card):
+    """recsys_plane (b): the 2^23 x 64 table at world 4 against world 1."""
+    import numpy as np
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+    from mxnet_tpu_torch.parallel.embedding_plane import EmbeddingPlane
+    g = GIANT
+    os.environ["MXTPU_SPARSE_MAX_ROWS"] = str(g["cap"])
+    half = g["rows"] // 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with mt.gpu(0):
+        planes = {w: EmbeddingPlane(
+            f"giant{w}", rows=g["rows"], dim=g["dim"], world=w,
+            optimizer=mt.optimizer.Adam(learning_rate=0.01), seed=3)
+            for w in (g["world"], 1)}
+        init_same = torch.equal(torch.cat(planes[1]._shards),
+                                torch.cat(planes[g["world"]]._shards))
+        gen = torch.Generator(device=_card_device(torch)).manual_seed(11)
+        rs = np.random.RandomState(11)
+        ms, uniq, same_at = [], [], None
+        for s in range(g["steps"]):
+            ids = np.concatenate([rs.randint(0, half, g["users"]),
+                                  half + rs.randint(0, half, g["items"])])
+            grad = torch.randn((len(ids), g["dim"]), generator=gen,
+                               device=_card_device(torch))
+            _sync(torch)
+            tsp.reset_host_syncs()
+            t = time.perf_counter()
+            planes[g["world"]].step(ids, grad)
+            _sync(torch)
+            ms.append((time.perf_counter() - t) * 1e3)
+            syncs = dict(tsp.host_syncs)
+            uniq.append(planes[g["world"]].last_unique_rows)
+            if s < g["check_at"]:
+                planes[1].step(ids, grad)
+            if s == g["check_at"] - 1:
+                same_at = torch.equal(torch.cat(planes[1]._shards),
+                                      torch.cat(planes[g["world"]]._shards))
+        p = planes[g["world"]]
+        prof, wall = _profiled(torch, lambda: p.step(ids, grad))
+        per_rank = [p.rank_bytes(r) for r in range(g["world"])]
+        unsharded = planes[1].rank_bytes(0)
+        lookup_ms = _wall_ms(torch, lambda: p.lookup(ids), 10)
+        for pl in planes.values():
+            pl.close()
+        del planes, p
+    row = {"card": card, "config": g, "init_world_invariant": init_same,
+           f"world{g['world']}_vs_world1_bitwise_after_{g['check_at']}":
+           same_at, "per_rank_bytes": per_rank,
+           "world1_bytes_after_3_steps": unsharded,
+           "per_rank_quarter_of_unsharded": all(
+               4 * b == 3 * g["rows"] * g["dim"] * 4 for b in per_rank),
+           "ms_a_step_median": sorted(ms)[len(ms) // 2],
+           "ms_a_step_first": ms[0], "unique_rows_a_step":
+           sum(uniq) / len(uniq), "host_syncs_a_step": syncs,
+           "lookup_ms_16384_ids": lookup_ms,
+           "profiled_step": _sparse_profile(prof, wall),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    emit({"phase": "recsys_plane", "what": "giant_table", **row})
+    torch.cuda.empty_cache()
+    if not (init_same and same_at and row["per_rank_quarter_of_unsharded"]):
+        fail(f"recsys_plane (b): {row}")
+    return row
+
+
+A11_PHASES = ("sparse_ops", "sparse_mf", "sparse_dist", "recsys_plane")
+
+
+def a11_phases(torch, mt, card, timed):
+    """The sparse phases, in order."""
+    out = {}
+    for name, fn in zip(A11_PHASES, (sparse_ops_phase, sparse_mf,
+                                     sparse_dist, recsys_plane)):
+        out[name] = timed(name, fn, torch, mt, card)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -8094,6 +8946,9 @@ def main():
     torch.cuda.empty_cache()
     mesh = timed("mesh_lm", mesh_lm, torch, mt, card)
     torch.cuda.empty_cache()
+    # sparse storage and the sparse embedding plane (A11), after every
+    # earlier phase
+    a11_phases(torch, mt, card, timed)
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -8111,7 +8966,9 @@ def main():
           "total_s": sum(walls.values()),
           "earlier_phases_s": sum(v for k, v in walls.items()
                                   if k not in v2 + gluon + fits + f16
-                                  + moe_remat + a19 + a20 + a12 + a10),
+                                  + moe_remat + a19 + a20 + a12 + a10
+                                  + A11_PHASES),
+          "a11_phases_s": sum(walls[k] for k in A11_PHASES),
           "a10_phases_s": sum(walls[k] for k in a10),
           "a10_second_half_s": walls["fleet_train"] + walls["mesh_lm"],
           "a12_phases_s": sum(walls[k] for k in a12),
@@ -8298,9 +9155,13 @@ def main():
 def run_phases(argv):
     """``chip_smoke.py --phases NAME [NAME ...]``: build the kernels and run
     only the named phases of A10's second half (``fleet_train``,
-    ``mesh_lm``), in the order given, with their ``wall`` lines and a last
-    ``walls`` line. Any failure exits non-zero."""
-    phases = {"fleet_train": fleet_train, "mesh_lm": mesh_lm}
+    ``mesh_lm``) and of A11 (``sparse_ops``, ``sparse_mf``,
+    ``sparse_dist``, ``recsys_plane``), in the order given, with their
+    ``wall`` lines and a last ``walls`` line. Any failure exits
+    non-zero."""
+    phases = {"fleet_train": fleet_train, "mesh_lm": mesh_lm,
+              "sparse_ops": sparse_ops_phase, "sparse_mf": sparse_mf,
+              "sparse_dist": sparse_dist, "recsys_plane": recsys_plane}
     unknown = sorted(set(argv) - set(phases))
     if not argv or unknown:
         fail(f"name phases from {', '.join(phases)} (unknown: {unknown})")
@@ -8330,7 +9191,8 @@ def run_phases(argv):
 
 SUBCOMMANDS = {"--dist-rank": dist_rank, "--nccl-check": nccl_check,
                "--example-rank": example_rank, "--fleet-rank": fleet_rank,
-               "--mesh-rank": mesh_rank, "--phases": run_phases}
+               "--mesh-rank": mesh_rank, "--sparse-rank": sparse_rank,
+               "--phases": run_phases}
 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] in SUBCOMMANDS:

@@ -20,9 +20,23 @@ training call is one autograd node: its gradients all land when the
 backward graph's replay returns). ``gluon.Trainer.overlap_scope``
 launches gradient communication from it.
 
+Row-sparse gradients (ref: the JAX package's ``_RspGrad`` and its
+delivery into a row_sparse buffer). The row-sparse ``Embedding`` and
+``dot(csr, w)`` give their weight a torch sparse COO gradient of the
+weight's shape that holds one row per looked-up id, repeats allowed
+(``ops/sparse_ops.py``); torch accumulates two of them by concatenation
+and a sparse with a dense one into a dense one, as the JAX tape does.
+The delivery hook then sums the repeated rows once
+(``ndarray/sparse.segment_sum``, a fixed order of addition) into a
+``RowSparseNDArray`` buffer (``attach_grad(stype="row_sparse")``, a
+Parameter's ``grad_stype``), keeping only the touched rows; a dense
+gradient delivered there keeps every row. A dense buffer takes the
+densified sum. No step builds the dense ``(vocab, dim)`` gradient unless
+the buffer is dense.
+
 Not ported: ``capture`` (the free-variable probe of
-``contrib/control_flow.py``, ROADMAP A14), ``get_symbol`` (symbol, A14)
-and row-sparse gradients (A11).
+``contrib/control_flow.py``, ROADMAP A14) and ``get_symbol`` (symbol,
+A14).
 """
 from __future__ import annotations
 
@@ -104,6 +118,38 @@ def predict_mode() -> _RecordingStateScope:
     return _RecordingStateScope(None, False)
 
 
+def _sparse_rows(g: torch.Tensor):
+    """(row ids, rows) of a gradient: a sparse COO gradient's own, every
+    row of a dense one."""
+    if g.is_sparse:
+        return g._indices()[0], g._values()
+    return torch.arange(g.shape[0], device=g.device), g
+
+
+def densify(g: torch.Tensor) -> torch.Tensor:
+    """A sparse COO gradient as a dense tensor, its repeated rows summed
+    in a fixed order; a dense one as it is."""
+    if not g.is_sparse:
+        return g
+    from .ndarray.sparse import segment_sum
+    ids, rows = _sparse_rows(g)
+    uniq, summed, _ = segment_sum(rows, ids)
+    return torch.zeros(g.shape, dtype=rows.dtype,
+                       device=rows.device).index_copy_(0, uniq, summed)
+
+
+def _deliver_rsp(buf, g: torch.Tensor, req: str) -> None:
+    """Write gradient ``g`` into the row_sparse buffer ``buf``: its rows,
+    repeats summed; with ``add`` the buffer's rows join them."""
+    from .ndarray.sparse import segment_sum
+    ids, rows = _sparse_rows(g)
+    if req == "add" and buf._data.shape[0]:
+        ids = torch.cat([buf._indices.to(ids.device), ids])
+        rows = torch.cat([buf._data.to(rows.dtype), rows])
+    uniq, summed, _ = segment_sum(rows, ids)
+    buf._update(summed.to(buf._data.dtype), uniq)
+
+
 def _deliver(var):
     """The hook that hands a leaf's accumulated gradient to ``var``'s
     gradient buffer by ``var``'s grad_req, both read when it fires."""
@@ -113,10 +159,12 @@ def _deliver(var):
         if g is None or buf is None or req == "null":
             return
         with torch.no_grad():
-            if req == "add":
-                buf._data.add_(g)
+            if getattr(buf, "stype", "default") == "row_sparse":
+                _deliver_rsp(buf, g, req)
+            elif req == "add":
+                buf._data.add_(densify(g))
             else:
-                buf._data.copy_(g)
+                buf._data.copy_(densify(g))
         buf._fresh_grad = True
         if _grad_ready:
             _grad_ready[-1](buf)
@@ -246,8 +294,17 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         res = _run(torch.autograd.grad, outs, [v._data for v in variables],
                    grads, retain_graph=retain_graph,
                    create_graph=create_graph, allow_unused=True)
-    return [NDArray(g if g is not None else torch.zeros_like(v._data))
-            for g, v in zip(res, variables)]
+    out = []
+    for g, v in zip(res, variables):
+        if g is None:
+            out.append(NDArray(torch.zeros_like(v._data)))
+        elif g.is_sparse:
+            from .ndarray import sparse as _sp
+            ids, rows = _sparse_rows(g)
+            out.append(_sp.segment_sum_rows(rows, ids, tuple(g.shape)))
+        else:
+            out.append(NDArray(g))
+    return out
 
 
 class _FunctionBridge(torch.autograd.Function):

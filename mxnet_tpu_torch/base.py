@@ -308,6 +308,23 @@ env.declare("MXNET_HOME", str, "",
             "Root directory for datasets and model artifacts "
             "(default ~/.mxnet; ref: docs/faq/env_var.md MXNET_HOME).")
 
+# sparse storage (ndarray/sparse.py, parallel/embedding_plane.py)
+env.declare("MXNET_STORAGE_FALLBACK_LOG_VERBOSE", bool, True,
+            "Warn when an op without a sparse kernel densifies its inputs "
+            "(storage fallback).")
+env.declare("MXTPU_SPARSE_PLANE", str, "off",
+            "Sparse embedding plane (parallel/embedding_plane.py): 'on' "
+            "opts a row-sparse embedding table into the row-sharded "
+            "plane (deduplicated gradient rows in a fixed (max_rows, dim) "
+            "bucket, per-row optimizer state only on the rank owning the "
+            "row, 1/world bytes a rank). Off (default): EmbeddingPlane "
+            "refuses to build. Unknown values raise.")
+env.declare("MXTPU_SPARSE_MAX_ROWS", int, 4096,
+            "Sparse-plane bucket ceiling: touched-row counts are padded "
+            "up to the next power of two, capped at this many rows a "
+            "step. A minibatch touching more unique rows than the cap "
+            "raises. Must be >= 1; unparseable values raise.")
+
 
 def data_dir() -> str:
     """Dataset / model root: ``$MXNET_HOME``, else ``~/.mxnet`` (ref:

@@ -75,6 +75,7 @@ import contextlib
 import hashlib
 import threading
 import time
+import warnings
 from collections import OrderedDict, namedtuple
 from typing import Any, Dict, List, Optional
 
@@ -499,6 +500,22 @@ class CachedOp:
                 out.append(t)
         return out
 
+    def _warn_sparse_grads(self) -> None:
+        """Warn about parameters with row_sparse gradients (the JAX
+        package's warning): this op's backward is one program of fixed
+        shapes, so their gradient comes out dense (``embedding_rows``
+        inside an :func:`inline_scope`) and is delivered into the
+        row_sparse buffers whole, every row kept."""
+        sparse = [p.name for p in self._params()
+                  if getattr(p, "grad_stype", "default") != "default"]
+        if sparse:
+            warnings.warn(
+                f"hybridize(): parameters {sparse} request row_sparse "
+                "gradients, but the whole-graph backward produces dense "
+                "gradients (they are still delivered correctly to the "
+                "row_sparse buffers). Run the block un-hybridized to keep "
+                "gradients compact.", stacklevel=4)
+
     def _trained(self) -> List[torch.Tensor]:
         """The parameters that take a gradient."""
         return [t for t in self._tensors() if t.requires_grad]
@@ -579,6 +596,7 @@ class CachedOp:
         leaves, spec = pytree.tree_flatten((args, kwargs))
         ins = [x for x in leaves if isinstance(x, torch.Tensor)]
         if not self._resolved:
+            self._warn_sparse_grads()
             self._resolved = all(p.tensor is not None
                                  for p in self._params())
             if not self._resolved:

@@ -25,6 +25,15 @@ is transposed; MoE layers' leaves sit a level deeper
 (``param_dtypes``: ``config.dtype`` as float32 arrays or the ``bfloat16``
 arrays that ``np.asarray`` makes of JAX bf16 arrays, and float32 for every
 MoE router ``gate``) must match exactly, or it raises.
+
+``load_embedding_plane(plane, npz_or_dict, states=None)`` takes a JAX
+``EmbeddingPlane``'s shards in its ``save_npz`` layout (``meta`` = rows,
+dim, world and ``shard_<r>``) and, where given, each rank's optimizer
+state (a tuple of arrays per rank, the rule's slot order, None for a rank
+no step touched) into the port's plane of the same layout.
+``sparse_from_parts`` makes a port ``CSRNDArray`` from ``(data, indices,
+indptr)`` or a ``RowSparseNDArray`` from ``(data, indices)`` numpy arrays
+(a JAX sparse array's ``.data`` / ``.indices`` / ``.indptr``).
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ from .context import resolve_device
 from .models.transformer import (flat_params, nest_params,
                                  param_dtypes, param_shapes)
 
-__all__ = ["from_mxnet_tpu_params", "from_transformer_params"]
+__all__ = ["from_mxnet_tpu_params", "from_transformer_params",
+           "load_embedding_plane", "sparse_from_parts"]
 
 
 def from_mxnet_tpu_params(net, params, prefix=None) -> None:
@@ -100,3 +110,30 @@ def from_transformer_params(params, config, device=None, mesh=None) -> dict:
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+def load_embedding_plane(plane, arrays, states=None) -> None:
+    """Load a JAX plane's ``save_npz`` arrays (a path or a mapping) and
+    optional per-rank states into ``plane``; the layout must match."""
+    if isinstance(arrays, (str, bytes)):
+        with np.load(arrays) as z:
+            arrays = {k: z[k] for k in z.files}
+    rows, dim, world = (int(x) for x in np.asarray(arrays["meta"]))
+    if (rows, dim, world) != (plane.rows, plane.dim, plane.world):
+        raise MXNetError(f"plane layout {(rows, dim, world)} does not match "
+                         f"{(plane.rows, plane.dim, plane.world)}")
+    plane.load_arrays([np.asarray(arrays[f"shard_{r}"])
+                       for r in range(world)], states)
+
+
+def sparse_from_parts(data, indices, indptr=None, shape=None, ctx=None):
+    """A port sparse array from its parts: csr with ``indptr``, else
+    row_sparse."""
+    from .ndarray import sparse as _sp
+    if shape is None:
+        raise MXNetError("sparse_from_parts needs the array's shape")
+    if indptr is not None:
+        return _sp.csr_matrix((np.asarray(data), np.asarray(indices),
+                               np.asarray(indptr)), shape=shape, ctx=ctx)
+    return _sp.row_sparse_array((np.asarray(data), np.asarray(indices)),
+                                shape=shape, ctx=ctx)

@@ -229,22 +229,25 @@ class Block(nn.Module):
             p._block, p._attr = self, short
 
     def _new_param(self, name, shape, grad_req="write", init=None,
-                   dtype=torch.float32, allow_deferred_init=False
-                   ) -> Parameter:
+                   dtype=torch.float32, allow_deferred_init=False,
+                   stype="default", grad_stype="default",
+                   attr=None) -> Parameter:
         """Declare ``self.<name>`` on this block's device: an
         ``nn.Parameter`` if trained, a buffer if ``grad_req == 'null'``.
         A shape with a 0 (allowed with ``allow_deferred_init``) leaves the
         attribute ``None`` until the first forward knows it. Values are set
-        by :meth:`initialize` or by weight conversion."""
+        by :meth:`initialize` or by weight conversion. ``attr``: the
+        attribute that holds the tensor, when it is not ``name``."""
         shape = tuple(int(s) for s in shape)
         check(all(s > 0 for s in shape) or allow_deferred_init,
               f"{self._prefix}{name}: shape {shape} must be fully known "
               "(this layer cannot defer it)")
         p = Parameter(self._prefix + name, grad_req=grad_req, shape=shape,
                       dtype=dtype, init=init,
-                      allow_deferred_init=allow_deferred_init)
+                      allow_deferred_init=allow_deferred_init, stype=stype,
+                      grad_stype=grad_stype)
         self._params[p.name] = p
-        p._bind(self, name)
+        p._bind(self, attr or name)
         if not p._shape_known():
             self._deferred.append(p)
         return p

@@ -52,6 +52,8 @@ class Loss(HybridBlock):
         ``mean(axis=batch_axis, exclude=True)``), f32 accumulation."""
         batch = self._batch_axis % loss.dim()
         axes = [a for a in range(loss.dim()) if a != batch]
+        if not axes:        # (batch,): per sample already (torch would
+            return loss     # take an empty dim list as every dim)
         return loss.float().mean(dim=axes).to(loss.dtype)
 
     def extra_repr(self):

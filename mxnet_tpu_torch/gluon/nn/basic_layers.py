@@ -242,25 +242,34 @@ class LayerNorm(HybridBlock):
 
 class Embedding(HybridBlock):
     """(ref: nn.Embedding) rows of an ``(input_dim, output_dim)`` table.
-    A row-sparse gradient (``sparse_grad=True``) is not ported (ROADMAP
-    A11)."""
+
+    With ``sparse_grad=True`` the weight's gradient is row_sparse: only
+    the looked-up rows, never the dense table (``grad_stype``; inside a
+    hybridized block the whole-graph backward gives the dense gradient,
+    with a warning, as in the JAX package, ``cached_op.py``). Whatever
+    ``sparse_grad`` is, the attribute ``weight`` is the
+    :class:`Parameter` record, as in MXNet (``weight.data()``,
+    ``weight.grad()``: a ``RowSparseNDArray``, which no torch tensor's
+    ``.grad`` could hold), and the tensor is the attribute
+    ``weight_table``."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  device=None):
         super().__init__(prefix=prefix, device=device)
-        if sparse_grad:
-            raise _reg.NotPortedError(
-                "Embedding(sparse_grad=True): row-sparse gradients are not "
-                "ported yet (see ROADMAP.md, queue A11)")
         self._input_dim = input_dim
         self._output_dim = output_dim
-        self._new_param("weight", (input_dim, output_dim),
-                        init=weight_initializer)
+        self._sparse_grad = bool(sparse_grad)
+        p = self._new_param("weight", (input_dim, output_dim),
+                            init=weight_initializer,
+                            grad_stype="row_sparse" if sparse_grad
+                            else "default", attr="weight_table")
+        object.__setattr__(self, "weight", p)
 
     def forward(self, x):
-        return F.embedding(x, self.weight, input_dim=self._input_dim,
-                           output_dim=self._output_dim)
+        return F.embedding(x, self.weight_table, input_dim=self._input_dim,
+                           output_dim=self._output_dim,
+                           sparse_grad=self._sparse_grad)
 
     def extra_repr(self):
         return f"{self._input_dim} -> {self._output_dim}"

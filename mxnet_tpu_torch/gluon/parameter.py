@@ -87,10 +87,16 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        check(stype == "default" and grad_stype == "default",
-              f"parameter {name}: sparse storage is not ported yet "
-              "(ROADMAP A11)")
+        for what, st in (("stype", stype), ("grad_stype", grad_stype)):
+            check(st in ("default", "row_sparse"),
+                  f"parameter {name}: {what} must be 'default' or "
+                  f"'row_sparse', not {st!r}")
         self.name = name
+        # storage types (ref: parameter.py): a row_sparse ``grad_stype``
+        # gives a row-sparse gradient buffer; ``stype`` marks the weight
+        # as a sparse table for the trainer (the tensor stays dense)
+        self.stype = stype
+        self.grad_stype = grad_stype
         self.init = init
         self.lr_mult = lr_mult       # scale the optimizer's lr / wd by these
         self.wd_mult = wd_mult
@@ -194,7 +200,13 @@ class Parameter:
             nd_._grad, nd_._grad_req = None, None
             _memory.drop_param_grad(self)
             return
-        grad = NDArray(torch.zeros_like(self.tensor.detach()))
+        if self.grad_stype == "row_sparse":
+            from ..ndarray import sparse as _sp
+            grad = _sp.zeros("row_sparse", self.tensor.shape,
+                             ctx=Context(self.tensor.device),
+                             dtype=self.tensor.dtype)
+        else:
+            grad = NDArray(torch.zeros_like(self.tensor.detach()))
         autograd.mark_variables([nd_], [grad], self._grad_req)
         _memory.track_param_grad(self, grad)
 
@@ -279,6 +291,8 @@ class Parameter:
             g = self.data()._grad
             if g is not None:
                 g._data = g._data.to(self._device)
+                if g.stype == "row_sparse":
+                    g._indices = g._indices.to(self._device)
 
     def var(self):
         raise NotPortedError("Parameter.var makes a symbol variable; "
@@ -354,8 +368,14 @@ class Parameter:
             return
         g = self.data()._grad
         if g is not None:
-            with torch.no_grad():
-                g._data.zero_()
+            if g.stype == "row_sparse":     # no rows: all zero
+                g._update(g._data[:0], g._indices[:0],
+                          g._indices_np[:0] if g._indices_np is not None
+                          else None)
+                _memory.track_param_grad(self, g)
+            else:
+                with torch.no_grad():
+                    g._data.zero_()
             g._fresh_grad = False
 
     @property

@@ -41,6 +41,10 @@ rank 0's: each trained parameter is pulled from the store when it is
 created (running statistics stay each rank's own, as in MXNet).
 ``compression_params`` turns on the store's 2-bit compression
 (``set_gradient_compression``, as the reference's Trainer does).
+A parameter with a row_sparse gradient (``grad_stype``) rides no bucket:
+its lazy update runs per parameter, and across workers its rows travel
+as a dense ``[rows | row mask]`` push / pull of their own key, so the
+reduced row set is the union over the workers.
 
 ZeRO-1 (``MXTPU_ZERO=1``, ``parallel/zero.py``): the same buckets are
 reduce-scattered instead, the grouped update steps only this rank's
@@ -180,6 +184,8 @@ class Trainer:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"invalid parameter {p!r}")
             self._params.append(p)
+        self._contains_sparse = any(p.stype != "default"
+                                    for p in self._params)
         self._compression_params = compression_params
         optimizer_params = optimizer_params or {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
@@ -337,8 +343,15 @@ class Trainer:
             return
         if self._kvstore is None:
             return
-        items = [(i, p.grad()) for i, p in enumerate(self._params)
-                 if p.grad_req != "null"]
+        items = []
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null":
+                continue
+            g = p.grad()
+            if g.stype == "row_sparse":
+                self._allreduce_rowsparse(i, g)
+            else:
+                items.append((i, g))
         bucket_mb = self._bucket_mb()
         if bucket_mb > 0:
             self._allreduce_bucketed(items, bucket_mb)
@@ -349,6 +362,24 @@ class Trainer:
                 self.last_allreduce_collectives += 1
         if self.last_allreduce_collectives:
             _allreduce_counter().inc(self.last_allreduce_collectives)
+
+    def _allreduce_rowsparse(self, i, g):
+        """Sum one row_sparse gradient across the workers (ref: the JAX
+        package's ``_allreduce_rowsparse``): a dense ``[rows | row mask]``
+        push / pull (``sparse.mask_pack``), so the rebuilt row set is the
+        union over the workers, a row whose summed gradient is exactly
+        zero included. One worker: the gradient is complete already."""
+        if self._kvstore.num_workers <= 1:
+            return
+        from ..ndarray import sparse as _sp
+        packed = _sp.mask_pack(g)
+        key = f"_rspgrad{i}"        # its own key: one column wider
+        self._kvstore.init(key, packed)
+        self._kvstore.push(key, packed)
+        self._kvstore.pull(key, packed)
+        reduced = _sp.mask_unpack(packed, g.shape)
+        g._update(reduced._data, reduced._indices, reduced._indices_np)
+        self.last_allreduce_collectives += 1
 
     def _zero_plane(self):
         """The ZeRO-1 plane, or None. Resolved once: ``MXTPU_ZERO`` is
@@ -792,6 +823,7 @@ class _OverlapScope:
         self._owner: Dict[int, int] = {}   # id(grad) -> bucket index
         self._pending: List[int] = []
         self._launched: List = []   # per bucket: None | True | result
+        self._sparse: List = []     # row_sparse (param_idx, grad)
         self._nostore = False
         self._zplane = None
         #: buckets launched from backward's hook (the rest at finalize)
@@ -844,6 +876,9 @@ class _OverlapScope:
         # whichever path runs
         items = [(i, p.grad()) for i, p in enumerate(t._params)
                  if p.grad_req != "null" and p.tensor is not None]
+        # row_sparse gradients take their own reduce at finalize
+        self._sparse = [(i, g) for i, g in items if g.stype != "default"]
+        items = [(i, g) for i, g in items if g.stype == "default"]
         bucket_mb = t._bucket_mb()
         self._buckets = t._grad_buckets(items, bucket_mb) \
             if bucket_mb > 0 else [[it] for it in items]
@@ -901,6 +936,8 @@ class _OverlapScope:
             r = self._launched[b]
             if r is not True:
                 t._split_bucket(bucket, *r)
+        for i, g in self._sparse:
+            t._allreduce_rowsparse(i, g)
         if t.last_allreduce_collectives:
             _allreduce_counter().inc(t.last_allreduce_collectives)
 

@@ -20,8 +20,9 @@ order are the same either way; ``reset()`` waits for a prefetched batch
 to finish before it drops it, as the JAX iterator does, so the augmenters
 draw the same random numbers in both.
 
-``LibSVMIter`` yields CSR batches and waits for the sparse port (ROADMAP
-A11).
+``LibSVMIter`` parses libsvm text into flat CSR arrays on the host and
+yields ``CSRNDArray`` data batches (values on the current context, the
+coordinates cached on the host), as the JAX iterator does.
 """
 from __future__ import annotations
 
@@ -32,10 +33,9 @@ from typing import List
 
 import numpy as _np
 
-from ..base import check
+from ..base import MXNetError, check
 from ..context import cpu, current_context
 from ..ndarray import ndarray as _nd
-from ..ops.registry import NotPortedError
 from .io import DataBatch, DataDesc, DataIter
 
 __all__ = ["ImageRecordIter", "ImageDetRecordIter", "LibSVMIter"]
@@ -284,9 +284,137 @@ class ImageDetRecordIter(ImageRecordIter):
 
 
 class LibSVMIter(DataIter):
-    """Sparse batches from libsvm text (ref: iter_libsvm.cc): CSR batches
-    need the sparse port."""
+    """Sparse batches from libsvm text (ref: iter_libsvm.cc; the JAX
+    package's ``io/image_record.py`` LibSVMIter):
+    ``label idx:val idx:val ...`` per line -> CSRNDArray data batches.
 
-    def __init__(self, *args, **kwargs):
-        raise NotPortedError("io.LibSVMIter yields CSR batches; sparse is "
-                             "not ported yet (ROADMAP.md, queue A11)")
+    `data_shape` is the feature-vector length; indices beyond it raise.
+    Labels may come from a separate `label_libsvm` file (multi-label rows
+    supported via `label_shape`).
+    """
+
+    def __init__(self, data_libsvm, data_shape, batch_size,
+                 label_libsvm=None, label_shape=None, part_index=0,
+                 num_parts=1, data_name="data", label_name="softmax_label"):
+        super().__init__(batch_size)
+        if isinstance(data_shape, (tuple, list)):
+            check(len(data_shape) == 1, "LibSVMIter data_shape must be 1-d")
+            data_shape = data_shape[0]
+        self._dim = int(data_shape)
+        self._data_name = data_name
+        self._label_name = label_name
+        values, indices, indptr, labels = self._parse(data_libsvm)
+        if label_libsvm is not None:
+            labels = self._parse_label_file(label_libsvm)
+            check(len(labels) == len(indptr) - 1,
+                  f"label_libsvm has {len(labels)} rows, data has "
+                  f"{len(indptr) - 1}")
+        self._label_width = 1
+        if label_shape is not None:
+            self._label_width = int(label_shape[0] if
+                                    isinstance(label_shape, (tuple, list))
+                                    else label_shape)
+        check(int(num_parts) >= 1 and 0 <= int(part_index) < int(num_parts),
+              "bad part_index/num_parts")
+        if int(num_parts) == 1:
+            self._values = values
+            self._indices = indices
+            self._indptr = _np.asarray(indptr, _np.int64)
+            self._labels = labels
+        else:
+            # keep only this part's rows (compact flat-CSR storage)
+            keep = list(range(int(part_index), len(indptr) - 1,
+                              int(num_parts)))
+            vs, ins, ptr = [], [], [0]
+            for r in keep:
+                lo, hi = indptr[r], indptr[r + 1]
+                vs.append(values[lo:hi])
+                ins.append(indices[lo:hi])
+                ptr.append(ptr[-1] + (hi - lo))
+            self._values = _np.concatenate(vs) if vs else \
+                _np.zeros((0,), _np.float32)
+            self._indices = _np.concatenate(ins) if ins else \
+                _np.zeros((0,), _np.int64)
+            self._indptr = _np.asarray(ptr, _np.int64)
+            self._labels = [labels[r] for r in keep]
+        self._cursor = 0
+
+    @staticmethod
+    def _parse_label_file(path):
+        """Each line is one row of (possibly multiple) label floats."""
+        labels = []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if parts:
+                    labels.append([float(p) for p in parts])
+        return labels
+
+    def _parse(self, path):
+        """Stream the file into flat CSR arrays (compact: one numpy
+        value/index per nonzero, not per-row Python objects)."""
+        values, indices, indptr, labels = [], [], [0], []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append([float(parts[0])])
+                feats = []
+                for tok in parts[1:]:
+                    idx_s, _, val_s = tok.partition(":")
+                    idx = int(idx_s)
+                    if idx >= self._dim:
+                        raise MXNetError(
+                            f"libsvm feature index {idx} >= data_shape "
+                            f"{self._dim}")
+                    feats.append((idx, float(val_s)))
+                feats.sort()
+                indices.extend(i for i, _ in feats)
+                values.extend(v for _, v in feats)
+                indptr.append(len(indices))
+        return (_np.asarray(values, _np.float32),
+                _np.asarray(indices, _np.int64), indptr, labels)
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self._data_name, (self.batch_size, self._dim))]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self._label_width == 1 \
+            else (self.batch_size, self._label_width)
+        return [DataDesc(self._label_name, shape)]
+
+    def reset(self):
+        self._cursor = 0
+
+    def __len__(self):
+        return len(self._indptr) - 1
+
+    def next(self):
+        n_rows = len(self._indptr) - 1
+        if self._cursor >= n_rows:
+            raise StopIteration
+        lo_row = self._cursor
+        hi_row = min(lo_row + self.batch_size, n_rows)
+        labs = self._labels[lo_row:hi_row]
+        self._cursor = hi_row
+        pad = self.batch_size - (hi_row - lo_row)
+        lo, hi = self._indptr[lo_row], self._indptr[hi_row]
+        indptr = self._indptr[lo_row:hi_row + 1] - lo
+        if pad:
+            indptr = _np.concatenate(
+                [indptr, _np.full((pad,), indptr[-1], _np.int64)])
+        from ..ndarray import sparse as _sp
+        ctx = current_context()
+        data = _sp.csr_matrix(
+            (self._values[lo:hi], self._indices[lo:hi], indptr),
+            shape=(self.batch_size, self._dim), ctx=ctx)
+        labels = _np.zeros((self.batch_size, self._label_width),
+                           _np.float32)
+        for i, row in enumerate(labs):
+            labels[i, :min(len(row), self._label_width)] = \
+                row[:self._label_width]
+        lab = labels[:, 0] if self._label_width == 1 else labels
+        return DataBatch([data], [_nd.array(lab, ctx=ctx)], pad=pad)

@@ -25,8 +25,24 @@ ZeRO-1 plane's collectives (``zero_reduce_scatter``, ``zero_allgather``,
 (``send_command_to_servers``, ``send_profiler_command``) are its too.
 Outside a group the dist store is one worker, like the local one.
 Gradient compression on a one-worker store quantizes and dequantizes in
-place of the wire (the numeric effect without the hop). Not ported:
-``row_sparse_pull`` and row-sparse pushes (ROADMAP A11).
+place of the wire (the numeric effect without the hop).
+
+Row-sparse (ref: KVStore::PullRowSparse, CommCPU::ReduceRowSparse,
+kvstore_dist_server.h DataHandleRowSparse): a push of row_sparse values
+merges them into one compact value (the union of the rows, repeats
+summed in a fixed order), which the updater applies lazily to those rows
+(or, with no updater, replaces the stored value: the other rows read as
+zero); no compression touches it. Across workers the merged rows ride the
+dense reduce packed as ``[rows | row mask]`` (``sparse.mask_pack``), so
+the reduced row set is the union over the workers, a row whose sum is
+exactly zero included, as in the JAX package: ``rows x (width + 1)``
+values on the wire whatever the touched rows (``last_rsp_wire_bytes``
+against ``last_rsp_touched_bytes``; over gloo the pack is staged through
+host memory explicitly). ``row_sparse_pull`` copies only the named rows.
+One process holds one card, so the store never shards a table across
+devices (the JAX package's big-array bound is not declared: it would
+have nothing to split); a table sharded over a mesh of ranks is
+``parallel.sharded_embedding``'s.
 
 Each key's push or pull runs under a bounded retry: a
 :class:`TransientKVError` is retried with exponential backoff
@@ -41,11 +57,11 @@ import pickle
 import time
 from typing import Any, Dict, List
 
+import numpy as _np
 import torch
 
 from .base import MXNetError, check, env
 from .ndarray import ndarray as _nd
-from .ops.registry import NotPortedError
 from .parallel import collectives as _coll
 from .telemetry.tracer import tracer as _tracer
 
@@ -150,6 +166,10 @@ class KVStoreBase:
         self._optimizer = None
         self._compression_params = None
         self._compressor = None
+        #: the last row_sparse push: bytes this rank put on the wire and
+        #: bytes of the rows it touched
+        self.last_rsp_wire_bytes = 0
+        self.last_rsp_touched_bytes = 0
 
     # -- identity -------------------------------------------------------
     @property
@@ -205,11 +225,9 @@ class KVStoreBase:
     def _push_one(self, k, vals) -> None:
         _chaos_kv("push", k)
         check(k in self._store, f"kvstore key {k} not initialized")
-        for v in vals:
-            if getattr(v, "stype", "default") != "default":
-                raise NotPortedError(
-                    "row-sparse pushes are not ported yet (ROADMAP.md, "
-                    "queue A11)")
+        if any(getattr(v, "stype", "default") != "default" for v in vals):
+            self._push_rsp(k, vals)
+            return
         merged = self._merge(vals)
         if self._compressor is not None and not self._wire_compresses():
             # no wire hop (one worker): the compress / decompress round
@@ -221,6 +239,46 @@ class KVStoreBase:
                           store)
         else:
             self._reduce_into(merged, k, store)
+
+    def _push_rsp(self, k, vals) -> None:
+        """A row_sparse push: merge, reduce across workers, then the lazy
+        update of the merged rows (or a replace of the stored value)."""
+        merged = self._reduce_global_rsp(self._merge_rsp(vals), k)
+        store = self._store[k]
+        if self._updater is not None:
+            self._updater(_key_int(k), merged, store)
+            return
+        with torch.no_grad():
+            store._data.zero_()
+            store._data.index_copy_(0, merged._indices,
+                                    merged._data.to(store._data.dtype))
+
+    @staticmethod
+    def _merge_rsp(vals):
+        """The row_sparse sum of the pushed values (dense ones cast to
+        row_sparse): the union of the rows, repeats summed."""
+        from .ndarray import sparse as _sp
+        vals = [v if isinstance(v, _sp.RowSparseNDArray)
+                else _sp.cast_storage(v, "row_sparse") for v in vals]
+        if len(vals) == 1:
+            return vals[0]
+        dev = vals[0]._data.device
+        data = torch.cat([v._data.to(dev) for v in vals])
+        if all(v._indices_np is not None for v in vals):
+            ids = _np.concatenate([v._indices_np for v in vals])
+        else:
+            ids = torch.cat([v._indices.to(dev) for v in vals])
+        return _sp.segment_sum_rows(data, ids, vals[0].shape)
+
+    def _reduce_global_rsp(self, merged, key=None):
+        """The merged row_sparse value summed across the workers (one
+        worker: as it is)."""
+        width = int(_np.prod(merged.shape[1:])) if len(merged.shape) > 1 \
+            else 1
+        self.last_rsp_touched_bytes = int(merged._data.shape[0]) * width * \
+            merged._data.element_size()
+        self.last_rsp_wire_bytes = 0
+        return merged
 
     def _wire_compresses(self) -> bool:
         """True when ``_reduce_global`` itself moves the compressed
@@ -261,8 +319,43 @@ class KVStoreBase:
 
     def row_sparse_pull(self, key, out=None, priority: int = 0,
                         row_ids=None) -> None:
-        raise NotPortedError("kvstore.row_sparse_pull is not ported yet "
-                             "(ROADMAP.md, queue A11)")
+        """Copy only the rows ``row_ids`` of the stored value (ref:
+        KVStore::PullRowSparse): into a row_sparse ``out`` as its rows
+        (ids as given), else into a dense ``out`` of that many rows."""
+        check(out is not None and row_ids is not None,
+              "row_sparse_pull requires out= and row_ids=")
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        rids = list(row_ids) if isinstance(row_ids, (list, tuple)) \
+            else [row_ids] * len(outs)
+        k = key[0] if isinstance(key, (list, tuple)) else key
+        check(k in self._store, f"kvstore key {k} not initialized")
+        src = self._store[k]._data
+        for o, rid in zip(outs, rids):
+            ids = rid._data if isinstance(rid, _nd.NDArray) \
+                else torch.as_tensor(_np.asarray(rid))
+            ids = ids.to(src.device, torch.int64).reshape(-1)
+            rows = src.index_select(0, ids.clamp(0, src.shape[0] - 1))
+            if getattr(o, "stype", "default") == "row_sparse":
+                o._update(rows.to(o._data.device), ids.to(o._data.device))
+            else:
+                o._write(rows.to(o._data.device))
+
+    def sparse_plane_exchange(self, key, ids, rows):
+        """The embedding plane's gradient exchange (ref: the JAX package's
+        ``sparse_plane_exchange``): the packed ``(max_rows,)`` ids and
+        ``(max_rows, dim)`` deduplicated rows, under the same retry and
+        chaos entry as a push. The plane plays every rank of its world in
+        this process, so the local buffer already is the union and the
+        exchange echoes it back (a pure read: a retried flake never
+        applies twice), in every store as in the JAX package."""
+        out: List = []
+
+        def run():
+            out.clear()
+            _chaos_kv("push", key)
+            out.extend((ids, rows))
+        _traced_retry("push", key, run)
+        return out[0], out[1]
 
     # -- optimizer / updater -------------------------------------------
     def set_updater(self, updater) -> None:
@@ -439,6 +532,23 @@ class KVStoreDistTPU(KVStoreBase):
             return _nd.NDArray(total)
         return _nd.NDArray(_coll.cross_process_allreduce(
             merged._data.clone()))
+
+    def _reduce_global_rsp(self, merged, key=None):
+        """Across the workers: the merged rows packed as ``[rows | row
+        mask]`` (dense, ``rows x (width + 1)``), copied to host memory
+        for gloo explicitly, summed, and unpacked to the union of the
+        rows."""
+        merged = super()._reduce_global_rsp(merged, key)
+        if self._nproc <= 1:
+            return merged
+        from .ndarray import sparse as _sp
+        packed = _sp.mask_pack(merged)._data
+        dev = packed.device
+        wire = packed.cpu() if (dev.type == "cuda" and
+                                _coll.backend() == "gloo") else packed
+        _coll.cross_process_allreduce(wire)
+        self.last_rsp_wire_bytes = int(wire.numel() * wire.element_size())
+        return _sp.mask_unpack(_nd.NDArray(wire.to(dev)), merged.shape)
 
     def _reduce_into(self, merged: _nd.NDArray, key, store) -> None:
         if self._nproc <= 1 or self._compressor is not None:

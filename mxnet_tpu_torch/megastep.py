@@ -54,8 +54,9 @@ Strictness (the JAX package's messages): ``skip_nonfinite`` is required,
 ``ignore_stale_grad``, gradient compression, an optimizer without a
 grouped rule and aggregation 0 are refused at construction, and a live
 parameter that gets no gradient raises at the first (eager) step, which
-is then rolled back. Sparse parameters cannot be built in the port
-(A11). ``MXTPU_COMM_OVERLAP`` is superseded, as in the JAX package.
+is then rolled back. A trainer with a sparse parameter (``stype``
+row_sparse: its updates take the per-parameter path) is refused too.
+``MXTPU_COMM_OVERLAP`` is superseded, as in the JAX package.
 
 A simulated ZeRO-1 world (``MXTPU_ZERO=1`` with ``MXTPU_ZERO_WORLD=N``)
 runs inside the graph: after the backward each bucket of the plane's
@@ -179,6 +180,9 @@ class Megastep:
               "compression: per-key error-feedback residuals are "
               "host-side kvstore state that cannot be traced into the "
               "program")
+        check(not trainer._contains_sparse,
+              "MXTPU_MEGASTEP=on requires dense parameters/gradients "
+              "(row_sparse updates take the per-parameter path)")
         rule = _grouped._rule_for(trainer._optimizer)
         check(rule is not None,
               f"MXTPU_MEGASTEP=on: optimizer "

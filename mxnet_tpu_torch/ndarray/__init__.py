@@ -5,9 +5,11 @@ The NDArray type, creation functions, save/load, and one generated
 function per registered op, with the ``_internal`` and ``op``
 sub-namespaces; ``contrib`` holds the ``_contrib_`` ops, ``linalg`` the
 ``_linalg_`` ops, ``random`` the ``_random_`` and ``_sample_`` ops and
-``image`` the ``_image_`` ops, with the prefix stripped. ``sparse`` holds
-nothing ported yet: any name asked of it, or of ``mx.nd`` itself, that the
-port lacks raises ``NotPortedError``.
+``image`` the ``_image_`` ops, with the prefix stripped. ``sparse`` is
+``ndarray/sparse.py`` (row_sparse and csr arrays); ``cast_storage``,
+``sparse_retain`` and ``contrib.getnnz`` take and return its containers,
+and the ``contrib`` graph ops are ``ndarray/graph_ops.py``. Any name asked
+of ``mx.nd`` that the port lacks raises ``NotPortedError``.
 """
 import sys
 import types
@@ -28,6 +30,7 @@ from ..ops import ordering as _ordering  # noqa: F401
 from ..ops import parity_ops as _parity_ops  # noqa: F401
 from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
+from ..ops import sparse_ops as _sparse_ops  # noqa: F401
 from . import register as _register
 from .ndarray import (NDArray, arange, array, concatenate, empty, eye,  # noqa
                       from_torch, full, imperative_invoke, linspace,
@@ -37,8 +40,7 @@ from .utils import (from_dlpack, load, save, to_dlpack_for_read,  # noqa
 
 _this = sys.modules[__name__]
 _submodules = {}
-for _n in ("_internal", "op", "random", "linalg", "contrib", "image",
-           "sparse"):
+for _n in ("_internal", "op", "random", "linalg", "contrib", "image"):
     _m = types.ModuleType(f"{__name__}.{_n}")
     _m.__getattr__ = _register.not_ported(f"mx.nd.{_n}")
     sys.modules[_m.__name__] = _m
@@ -46,6 +48,19 @@ for _n in ("_internal", "op", "random", "linalg", "contrib", "image",
     _submodules[_n] = _m
 
 _register.populate(_this, _submodules)
+
+from . import sparse  # noqa: E402
+_submodules["sparse"] = sparse
+# the storage ops work on the containers themselves (ref: the JAX
+# package's ndarray/__init__.py)
+cast_storage = sparse.cast_storage
+sparse_retain = sparse.sparse_retain
+_submodules["contrib"].getnnz = sparse.getnnz
+from . import graph_ops as _graph_ops  # noqa: E402
+for _g in ("edge_id", "dgl_adjacency", "dgl_subgraph",
+           "dgl_csr_neighbor_uniform_sample",
+           "dgl_csr_neighbor_non_uniform_sample", "dgl_graph_compact"):
+    setattr(_submodules["contrib"], _g, getattr(_graph_ops, _g))
 
 # creation helpers shadow ops of the same name
 from .ndarray import (arange, array, concatenate, empty, eye, full,  # noqa

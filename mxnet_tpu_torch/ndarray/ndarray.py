@@ -225,11 +225,17 @@ class NDArray:
     def attach_grad(self, grad_req: str = "write", stype=None) -> None:
         """Allocate a gradient buffer and mark the array as a variable
         (ref: Imperative::MarkVariables). ``grad_req``: write, add or
-        null."""
-        check(stype in (None, "default"),
-              f"attach_grad(stype={stype!r}): sparse gradients are not "
-              "ported yet (see ROADMAP.md)")
-        grad = NDArray(torch.zeros_like(self._data.detach()))
+        null. ``stype="row_sparse"`` gives a row-sparse buffer: backward
+        stores only the rows it touched (``autograd.py``)."""
+        if stype not in (None, "default"):
+            check(stype == "row_sparse",
+                  f"attach_grad: stype must be 'default' or 'row_sparse', "
+                  f"not {stype!r}")
+            from . import sparse as _sp
+            grad = _sp.zeros("row_sparse", self.shape, ctx=self.context,
+                             dtype=self._data.dtype)
+        else:
+            grad = NDArray(torch.zeros_like(self._data.detach()))
         autograd.mark_variables([self], [grad], grad_req)
 
     def detach(self) -> "NDArray":
@@ -413,10 +419,10 @@ class NDArray:
     def as_np_ndarray(self):
         return self
 
-    def tostype(self, stype: str) -> "NDArray":
-        check(stype == "default", "sparse storage is not ported yet "
-                                  "(see ROADMAP.md)")
-        return self
+    def tostype(self, stype: str):
+        """This array in storage ``stype`` (ref: cast_storage)."""
+        from . import sparse as _sp
+        return _sp.cast_storage(self, stype)
 
     def zeros_like(self):
         return imperative_invoke("zeros_like", (self,), {})

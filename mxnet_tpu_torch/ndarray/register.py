@@ -16,6 +16,12 @@ to ``mx.nd.linalg.<name>``, ``_random_<name>`` and ``_sample_<name>`` to
 every op is also in ``mx.nd.op``. A name the port does not have raises
 :class:`~mxnet_tpu_torch.ops.registry.NotPortedError` (an MXNetError)
 instead of being silently missing.
+
+Storage types (ref: the JAX package's ``register.py``; FInferStorageType
+then FComputeEx or the dense fallback in the reference): when an input is
+a sparse container, the op's kernel for the inputs' storage types
+(``ops/registry.stype_dispatch``) runs on the containers themselves; an
+op without one densifies them, warning once.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from ..context import Context
 from ..ops import registry as _reg
 from ..ops.opdoc import signature_and_doc
 from . import ndarray as _nd
+from . import sparse as _sp
 
 
 def _takes_training(fn) -> bool:
@@ -46,6 +53,14 @@ def make_nd_function(name: str, opdef):
         out = kwargs.pop("out", None)
         kwargs.pop("name", None)
         ctx = kwargs.pop("ctx", None)
+        if any(isinstance(a, _sp.BaseSparseNDArray) for a in args):
+            stypes = tuple(getattr(a, "stype", "default") for a in args)
+            impl = _reg.stype_dispatch(name, stypes)
+            if impl is not None:
+                return _write_out(impl(*args, **kwargs), out)
+            _reg.storage_fallback_warn(name, stypes)
+            args = tuple(a.todense() if isinstance(a, _sp.BaseSparseNDArray)
+                         else a for a in args)
         if takes_training and "_training" not in kwargs:
             kwargs["_training"] = autograd.is_training()
         home = next((a.context for a in args if isinstance(a, _nd.NDArray)),
@@ -81,6 +96,22 @@ def make_nd_function(name: str, opdef):
     generic.__signature__ = sig
     generic.__doc__ = doc
     return generic
+
+
+def _write_out(result, out):
+    """A storage kernel's result, written into ``out`` when given: a
+    row_sparse result into a row_sparse ``out`` keeps it compact, any
+    other into a dense one."""
+    if out is None:
+        return result
+    if isinstance(result, _sp.RowSparseNDArray) and \
+            isinstance(out, _sp.RowSparseNDArray):
+        out._update(result._data, result._indices, result._indices_np)
+    elif isinstance(result, _sp.BaseSparseNDArray):
+        out._write(result.todense()._data)
+    else:
+        out._write(result._data)
+    return out
 
 
 def not_ported(namespace: str):

@@ -5,8 +5,10 @@ The file format is the JAX package's, so an array saved by one package
 loads in the other: a numpy ``.npz`` whose keys are ``idx:name`` (list
 order and dict names both kept); a bfloat16 array is stored as its exact
 float32 widening under the key ``idx:__bf16__:name`` and cast back on
-load. Sparse payloads (the ``__csr__``/``__rsp__`` keys) wait for the
-sparse port (ROADMAP queue A 13) and raise.
+load. A sparse array is stored as its parts under the keys
+``idx:name__csr__:~data`` / ``~indices`` / ``~indptr`` / ``~shape`` (``__rsp__``
+for row_sparse; ``~data~bf16`` for bfloat16 values), with int32 indices,
+as the JAX package writes them.
 """
 from __future__ import annotations
 
@@ -19,13 +21,35 @@ from ..base import MXNetError
 from . import ndarray as _nd
 
 _BF16_PREFIX = "__bf16__:"
-_SPARSE_MARKS = ("__csr__:", "__rsp__:")
+_CSR_MARK = "__csr__:"
+_RSP_MARK = "__rsp__:"
+_SPARSE_MARKS = (_CSR_MARK, _RSP_MARK)
+
+
+def _sparse_payload(prefix: str, v, payload: dict) -> None:
+    from . import sparse as _sp
+    bf16 = v._data.dtype == torch.bfloat16
+    csr = isinstance(v, _sp.CSRNDArray)
+    mark = _CSR_MARK if csr else _RSP_MARK
+    payload[f"{prefix}{mark}~data" + ("~bf16" if bf16 else "")] = \
+        v.data.asnumpy()
+    if csr:
+        payload[f"{prefix}{mark}~indices"] = v._indices_np.astype(_np.int32)
+        payload[f"{prefix}{mark}~indptr"] = v._indptr_np.astype(_np.int32)
+    else:
+        payload[f"{prefix}{mark}~indices"] = \
+            v.indices_host().astype(_np.int32)
+    payload[f"{prefix}{mark}~shape"] = _np.asarray(v.shape, _np.int64)
 
 
 def _entry(i, k, v, payload):
+    from . import sparse as _sp
     if any(m in k for m in _SPARSE_MARKS):
         raise MXNetError(
             f"array name {k!r} contains a reserved storage marker")
+    if isinstance(v, _sp.BaseSparseNDArray):
+        _sparse_payload(f"{i}:{k}", v, payload)
+        return
     if not isinstance(v, _nd.NDArray):
         raise MXNetError("save expects NDArray values")
     bf16 = v._data.dtype == torch.bfloat16
@@ -52,13 +76,18 @@ def save(fname: str, data) -> None:
 def load(fname: str, ctx=None) -> Union[List, Dict]:
     """Load what :func:`save` wrote (either package's), onto ``ctx`` (the
     current context by default)."""
+    from . import sparse as _sp
     entries = []
+    sparse_parts: Dict[tuple, Dict[str, _np.ndarray]] = {}
     with _np.load(fname, allow_pickle=False) as z:
         for key in z.files:
             idx_s, _, name = key.partition(":")
-            if any(m in name for m in _SPARSE_MARKS):
-                raise MXNetError(f"{fname}: sparse arrays are not ported "
-                                 "yet (see ROADMAP.md, queue A 13)")
+            mark = next((m for m in _SPARSE_MARKS if m in name), None)
+            if mark is not None:
+                base, _, part = name.partition(mark)
+                sparse_parts.setdefault(
+                    (int(idx_s), base, mark), {})[part.lstrip("~")] = z[key]
+                continue
             arr = z[key]
             if name.startswith(_BF16_PREFIX):
                 name = name[len(_BF16_PREFIX):]
@@ -66,6 +95,19 @@ def load(fname: str, ctx=None) -> Union[List, Dict]:
             else:
                 nd = _nd.array(arr, ctx=ctx, dtype=arr.dtype)
             entries.append((int(idx_s), name, nd))
+    for (idx, base, mark), parts in sparse_parts.items():
+        shape = tuple(int(x) for x in parts["shape"])
+        bf16 = "data" not in parts
+        data = parts["data~bf16"] if bf16 else parts["data"]
+        vals = _nd.array(data, ctx=ctx, dtype=torch.bfloat16 if bf16
+                         else data.dtype)
+        if mark == _CSR_MARK:
+            nd = _sp.CSRNDArray(vals, parts["indices"], parts["indptr"],
+                                shape)
+        else:
+            ids = parts["indices"].astype(_np.int64)
+            nd = _sp.RowSparseNDArray(vals, ids, shape, indices_np=ids)
+        entries.append((idx, base, nd))
     entries.sort(key=lambda e: e[0])
     if any(name for _, name, _ in entries):
         return {name: nd for _, name, nd in entries}

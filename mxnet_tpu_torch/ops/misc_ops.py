@@ -1,8 +1,10 @@
 """The remaining dense reference ops (ref: the dense part of the JAX
 package's ``ops/misc_ops.py``): ``add_n``, the legacy ``Crop``, slice
 assignment, internal identity / zeros / concat helpers, the cross-device
-copy marker, and the legacy ``*_v1`` and ``_contrib_SparseEmbedding``
-names. ``cast_storage`` and ``sparse_retain`` are queue A11's.
+copy marker, the legacy ``*_v1`` and ``_contrib_SparseEmbedding``
+names, and the dense forms of ``cast_storage`` and ``sparse_retain`` (the
+front end's ``mx.nd.cast_storage`` / ``mx.nd.sparse_retain`` take and
+return the sparse containers, ``ndarray/sparse.py``).
 """
 from __future__ import annotations
 
@@ -117,9 +119,28 @@ def _cross_device_copy(data):
     return data
 
 
-# SparseEmbedding's dense forward and gradient are Embedding's, as in the
-# JAX package; its row-sparse gradient is queue A11's
+# SparseEmbedding's dense forward is Embedding's, as in the JAX package;
+# with sparse_grad=True its gradient is row-sparse (ops/sparse_ops.py)
 alias("_contrib_SparseEmbedding", "Embedding")
+
+
+@register("cast_storage")
+def _cast_storage_op(data, stype="default"):
+    """The dense form of cast_storage (ref: cast_storage.cc): every tensor
+    here is dense, so every target is the identity; on sparse containers
+    the front end's storage dispatch converts them."""
+    return data
+
+
+@register("sparse_retain")
+def _sparse_retain_op(data, indices):
+    """The dense form of sparse_retain (ref: sparse_retain.cc): the listed
+    rows kept, the rest zeroed."""
+    keep = torch.zeros((data.shape[0],), dtype=torch.bool,
+                       device=data.device)
+    keep[indices.to(torch.int64).reshape(-1)] = True
+    return data * keep.reshape((-1,) + (1,) * (data.dim() - 1)).to(
+        data.dtype)
 # the reference's pre-NNVM implementations, kept under their *_v1 names
 alias("BatchNorm_v1", "BatchNorm")
 alias("Convolution_v1", "Convolution")

@@ -858,7 +858,12 @@ def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
     """Rows of ``weight`` at the integer indices ``data``, as a JAX gather
     takes them: negative indices count from the end, the rest are clamped
     into range for the values, and an index out of range passes no
-    gradient back to the row it was clamped to."""
+    gradient back to the row it was clamped to. With ``sparse_grad`` the
+    weight's gradient is row-sparse (``sparse_ops.embedding_rows``: one
+    row per index, at the index's clamped row)."""
+    if sparse_grad:
+        from .sparse_ops import embedding_rows
+        return embedding_rows(data, weight)
     n = weight.shape[0]
     idx = data.to(torch.int64)
     idx = torch.where(idx < 0, idx + n, idx)

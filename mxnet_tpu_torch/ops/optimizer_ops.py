@@ -29,8 +29,8 @@ rounds in bfloat16, as XLA does when it may not keep excess precision.
 
 The registered ops keep the JAX package's names, aliases, ``num_outputs``
 and ``variadic``. As in the JAX package they return new tensors; ``mx.nd``
-writes them into ``out=`` arrays when asked. ``_sparse_adagrad_update``
-needs row-sparse gradients and raises ``NotPortedError`` (ROADMAP A11).
+writes them into ``out=`` arrays when asked. The lazy row-sparse updates
+(``_sparse_sgd_update`` and its kin) are ``ops/sparse_ops.py``'s.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ import functools
 import numpy as np
 import torch
 
-from .registry import NotPortedError, register
+from .registry import register
 
 __all__ = ["scalar", "sqrt", "div", "commit", "prep_grad", "sgd", "sgd_mom", "nag_mom",
            "adam", "rmsprop", "rmspropalex", "mp"]
@@ -544,6 +544,15 @@ def _group_adagrad_update(weight, grad, history, lr=0.01, rescale_grad=1.0,
           num_outputs=2)
 def _sparse_adagrad_update(weight, grad, history, lr=0.01, rescale_grad=1.0,
                            clip_gradient=-1.0, epsilon=1e-7, wd=0.0):
-    raise NotPortedError(
-        "_sparse_adagrad_update takes row-sparse gradients, which are not "
-        "ported yet (ROADMAP.md, queue A11)")
+    """AdaGrad (ref: optimizer_op-inl.h AdagradDnsRspDnsKernel:1994):
+    ``history += g^2; w -= lr * g / sqrt(history + eps)``. The reference
+    takes a row-sparse gradient; on the dense form a row whose gradient
+    is zero keeps its weight and history (its g^2 is zero), as in the
+    JAX package."""
+    dt = weight.dtype
+    g = _raw_grad(grad, rescale_grad, clip_gradient)
+    if wd:
+        g = g + scalar(wd, dt) * weight
+    new_hist = history + torch.square(g)
+    return weight - scalar(lr, dt) * g / sqrt(new_hist + scalar(epsilon, dt)), \
+        new_hist

@@ -4,8 +4,12 @@ creation ops (``_zeros``, ``_ones``, ``_full``, ``_eye``, ``_arange``;
 ``mx.nd.zeros`` and the other helpers shadow them in ``mx.nd``),
 ``_grad_add``, ``_contrib_div_sqrt_dim`` and the ``_random_*_like``
 samplers, which draw an array shaped and typed like their input from
-``generator``, else from the input device's stream. The sparse and
-``dgl`` names are queue A11's.
+``generator``, else from the input device's stream; and the names that
+take sparse containers only (``_contrib_getnnz``, ``_sparse_retain``,
+``_contrib_edge_id`` and the ``_contrib_dgl_*`` graph ops of
+``ndarray/graph_ops.py``): their dense form raises, their storage kernel
+does the work, as in the reference (dgl_graph.cc, nnz.cc,
+sparse_retain.cc).
 """
 from __future__ import annotations
 
@@ -13,10 +17,11 @@ import math
 
 import torch
 
+from ..base import MXNetError
 from ..context import resolve_device
 from . import linalg  # noqa: F401  (registers histogram, aliased below)
 from .random_ops import gamma_draw, out_dtype, stream
-from .registry import alias, register
+from .registry import alias, register, register_sparse
 
 __all__ = []
 
@@ -144,3 +149,44 @@ def _random_gen_neg_binomial_like(data, mu=1.0, alpha=1.0, generator=None,
 # of histogram
 alias("_sample_unique_zipfian", "sample_unique_zipfian")
 alias("_histogram", "histogram")
+
+
+# --- ops over sparse containers only ----------------------------------------
+
+def _needs_sparse(name):
+    def fn(*a, **k):
+        raise MXNetError(f"{name} operates on sparse (csr/row_sparse) "
+                         "NDArrays; pass sparse inputs through mx.nd")
+    fn.__name__ = name
+    return fn
+
+
+def _graph(fn_name):
+    def impl(*args, **kw):
+        from ..ndarray import graph_ops
+        return getattr(graph_ops, fn_name)(*args, **kw)
+    return impl
+
+
+def _sparse_fn(fn_name):
+    def impl(*args, **kw):
+        from ..ndarray import sparse
+        return getattr(sparse, fn_name)(*args, **kw)
+    return impl
+
+
+for _name, _impl, _stypes in (
+        ("_contrib_edge_id", _graph("edge_id"), ("csr", "default", "default")),
+        ("_contrib_getnnz", _sparse_fn("getnnz"), ("csr",)),
+        ("_sparse_retain", _sparse_fn("sparse_retain"),
+         ("row_sparse", "default")),
+        ("_contrib_dgl_adjacency", _graph("dgl_adjacency"), ("csr",)),
+        ("_contrib_dgl_subgraph", _graph("dgl_subgraph"), ("csr", "*")),
+        ("_contrib_dgl_csr_neighbor_uniform_sample",
+         _graph("dgl_csr_neighbor_uniform_sample"), ("csr", "*")),
+        ("_contrib_dgl_csr_neighbor_non_uniform_sample",
+         _graph("dgl_csr_neighbor_non_uniform_sample"), ("csr", "*")),
+        ("_contrib_dgl_graph_compact", _graph("dgl_graph_compact"),
+         ("csr", "*"))):
+    register(_name, differentiable=False)(_needs_sparse(_name))
+    register_sparse(_name, _stypes)(_impl)

@@ -9,20 +9,30 @@ there is no compile cache, and autograd records it when the caller runs
 it under ``torch.enable_grad()`` (``ndarray.imperative_invoke`` decides
 that from ``autograd.record()``).
 
+Storage types (ref: the JAX package's ``register_sparse`` /
+``stype_dispatch``; ``FInferStorageType`` and ``FComputeEx`` in the
+reference): :func:`register_sparse` adds a kernel for an op and a
+signature of input storage types (``("csr", "default")``); the ``mx.nd``
+front end asks :func:`stype_dispatch` for it when an input is sparse and
+otherwise densifies the inputs, warning once per op and signature
+(:func:`storage_fallback_warn`).
+
 Not ported: the JAX package's jit cache, op islands and NaiveEngine
-switch (XLA plumbing), and ``register_sparse`` / ``stype_dispatch``
-(sparse storage; ROADMAP).
+switch (XLA plumbing).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError, coerce_param, env
 
 __all__ = ["OpDef", "register", "alias", "get_op", "list_ops", "invoke",
-           "normalize_params", "as_tuple_outputs", "NotPortedError"]
+           "normalize_params", "as_tuple_outputs", "NotPortedError",
+           "register_sparse", "stype_dispatch", "storage_fallback_warn"]
 
 _OPS: Dict[str, "OpDef"] = {}
+_SPARSE_IMPLS: Dict[Tuple[str, Tuple[str, ...]], Callable] = {}
+_FALLBACK_WARNED: set = set()
 
 
 class NotPortedError(MXNetError, AttributeError):
@@ -99,6 +109,53 @@ def register(name: str, aliases: Sequence[str] = (), **kw) -> Callable:
 
 def alias(name: str, target: str) -> None:
     _OPS[name] = _OPS[target]
+
+
+def register_sparse(name: str, stypes: Sequence[str]) -> Callable:
+    """Register the kernel of ``name`` for the input storage types
+    ``stypes``. It takes the front end's arrays (NDArray or sparse) as
+    they come and returns NDArray or sparse outputs (ref: FComputeEx)."""
+
+    def deco(fn: Callable) -> Callable:
+        _SPARSE_IMPLS[(name, tuple(stypes))] = fn
+        return fn
+
+    return deco
+
+
+def stype_dispatch(name: str, stypes: Sequence[str]) -> Optional[Callable]:
+    """The kernel of ``name`` for these input storage types, or None (the
+    dense fallback). Matching: the exact tuple, then signatures ending in
+    ``"*"`` (any further inputs) by their head, then ``("*",)``."""
+    stypes = tuple(stypes)
+    impl = _SPARSE_IMPLS.get((name, stypes))
+    if impl is not None:
+        return impl
+    for (n, sig), fn in _SPARSE_IMPLS.items():
+        if n != name or not sig or sig[-1] != "*":
+            continue
+        head = sig[:-1]
+        if stypes[:len(head)] == head:
+            return fn
+    return _SPARSE_IMPLS.get((name, ("*",)))
+
+
+def storage_fallback_warn(name: str, stypes: Sequence[str]) -> None:
+    """Warn once per (op, storage types) that sparse inputs were
+    densified (ref: LogStorageFallback); silenced by
+    ``MXNET_STORAGE_FALLBACK_LOG_VERBOSE=0``."""
+    key = (name, tuple(stypes))
+    if key in _FALLBACK_WARNED:
+        return
+    _FALLBACK_WARNED.add(key)
+    if not env.get("MXNET_STORAGE_FALLBACK_LOG_VERBOSE"):
+        return
+    import warnings
+    warnings.warn(
+        f"operator {name} has no sparse kernel for input storage types "
+        f"{tuple(stypes)}: falling back to dense compute (inputs densified). "
+        "Set MXNET_STORAGE_FALLBACK_LOG_VERBOSE=0 to silence.",
+        stacklevel=3)
 
 
 def get_op(name: str) -> OpDef:

@@ -3,8 +3,8 @@ package's ``optimizer/contrib.py``).
 
 GroupAdaGrad keeps ONE accumulator value per output row (useful for
 embedding tables where whole rows get sparse updates), through the
-``_contrib_group_adagrad_update`` op. Dense gradients only: row-sparse
-ones wait for ROADMAP A11.
+``_contrib_group_adagrad_update`` op. A row-sparse gradient is
+densified first, with the storage-fallback warning.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 from ..base import check
 from ..ndarray import ndarray as _nd
 from ..ops import optimizer_ops as _ops
-from .optimizer import Optimizer, _check_dense, _clip, register
+from .optimizer import Optimizer, _clip, _dense, register
 
 __all__ = ["GroupAdaGrad"]
 
@@ -32,7 +32,7 @@ class GroupAdaGrad(Optimizer):
         return _nd.zeros((weight.shape[0],), ctx=weight.context)
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr = self._get_lr(index)
         check(self._get_wd(index) == 0.0,

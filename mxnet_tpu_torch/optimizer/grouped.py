@@ -35,8 +35,15 @@ registry (kind ``optimizer``), which :func:`program_memory` reads; with
 ``stats_out`` (a ``MXTPU_NUMERICS`` sampled step) a bucket also computes
 its ``(n_params, 6)`` stats matrix (``telemetry.numerics.stats_rows``)
 from the tensors its update reads and the new weights it computed, before
-they are written. Not ported: ``sparse_rows_update`` (row-sparse tables,
-A11) raises ``NotPortedError``.
+they are written.
+
+Sparse: a parameter with a row_sparse gradient or storage never rides a
+dense bucket (:func:`eligible` is false for it, so the Trainer steps it
+through the per-parameter lazy update, and :func:`prepare_update` refuses
+it naming ``MXTPU_SPARSE_PLANE``). :func:`sparse_rows_update` is the
+row-gathered variant for one shard of a row-sharded table (the embedding
+plane, ``parallel/embedding_plane.py``): the SAME rule kernel on the
+gathered touched rows, written back with ``index_copy_``.
 """
 from __future__ import annotations
 
@@ -45,13 +52,14 @@ import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from ..base import MXNetError, check, env
 from ..cached_op import CacheInfo
 from ..ops import optimizer_ops as _ops
-from ..ops.registry import NotPortedError
+from ..ops import sparse_ops as _sparse
 from ..telemetry import efficiency as _efficiency
 from ..telemetry import memory as _memory
 from ..telemetry import numerics as _numerics
@@ -332,7 +340,10 @@ def _grad_nd(p):
 
 
 def _is_dense(p) -> bool:
-    return _grad_nd(p) is not None
+    if getattr(p, "stype", "default") != "default":
+        return False
+    g = _grad_nd(p)
+    return g is not None and getattr(g, "stype", "default") == "default"
 
 
 def eligible(updater, items) -> bool:
@@ -359,10 +370,21 @@ def prepare_update(updater, items):
     check(rule is not None,
           f"optimizer {type(opt).__name__} has no grouped-update rule")
     for _, p in items:
-        if not _is_dense(p):
+        if _grad_nd(p) is None:
             raise MXNetError(
                 f"grouped optimizer update requires dense parameters with a "
                 f"gradient; {p.name!r} has none (grad_req={p.grad_req!r})")
+        if not _is_dense(p):
+            raise MXNetError(
+                f"grouped optimizer update requires dense parameters and "
+                f"gradients; {p.name!r} (stype={p.stype!r}, grad_stype="
+                f"{p.grad_stype!r}) has no fused dense bucket. Sparse "
+                "tables opt into the row-gathered grouped path with "
+                "MXTPU_SPARSE_PLANE=on + parallel.embedding_plane."
+                "EmbeddingPlane (which calls sparse_rows_update); outside "
+                "the plane, sparse parameters take the per-parameter "
+                "lazy-update loop (Trainer routes them there "
+                "automatically).")
     is_adam = rule.name == "Adam"
     created = []
     for i, p in items:
@@ -494,11 +516,54 @@ def grouped_update(updater, items, agg_size: int, sentinel: bool = False,
     return handled, len(chunks), flag, created
 
 
+def _host_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        from ..ndarray.sparse import _host
+        return _host(x, "rows_update_lanes")
+    return np.asarray(x)
+
+
 def sparse_rows_update(opt, weight, states, grad_rows, idx, valid, lr, wd,
                        flag=None):
-    raise NotPortedError(
-        "grouped.sparse_rows_update (row-sparse tables) is not ported yet "
-        "(ROADMAP.md, queue A11)")
+    """The row-gathered grouped update of ONE shard of a row-sharded table
+    (ref: the JAX package's ``sparse_rows_update``): the embedding
+    plane's device half.
+
+    ``weight`` is the ``(rows_local, dim)`` shard and ``states`` its state
+    tensors (updated in place, and returned), ``grad_rows`` the
+    ``(max_rows, dim)`` deduplicated gradient rows, ``idx`` / ``valid``
+    the shard-local row of each lane and whether the lane is this shard's
+    (numpy, as the plane makes them on the host; a tensor is read back).
+    The valid lanes' rows are gathered, stepped by the SAME rule kernel as
+    the dense buckets (``sparse_ops.step_rows``, the one lazy row step of
+    the port), and written back with ``index_copy_`` (their rows are
+    unique): a plane step is bitwise the dense-gather reference update
+    on the touched rows, and no other row is written. ``flag`` (a 0-d
+    bool tensor) guards the write: ``where(flag, new, old)``, so a
+    non-finite step leaves every row of the weight and the state as it
+    was. ``lr`` / ``wd`` are the step's scalars (Adam's ``lr``
+    bias-corrected). Returns ``(weight, states)``."""
+    rule = _rule_for(opt)
+    check(rule is not None,
+          f"sparse_rows_update: optimizer {type(opt).__name__} has no "
+          "grouped-update rule")
+    states = tuple(states)
+    lanes = np.nonzero(_host_np(valid).reshape(-1))[0]
+    dev = weight.device
+    rows = torch.from_numpy(
+        _host_np(idx).reshape(-1)[lanes].astype(np.int64)).to(dev)
+    g = grad_rows.index_select(0, torch.from_numpy(lanes).to(dev))
+    sig = ("sparse_rows", rule.name, rule.statics(opt), len(states) > 0)
+    kernel = _get_or_build(sig, lambda: rule.make_kernel(opt,
+                                                         len(states) > 0))
+    with torch.no_grad():
+        old, new = _sparse.step_rows(kernel, (weight,) + states, rows, g,
+                                     lr, wd, opt.rescale_grad)
+        if flag is not None:
+            new = [torch.where(flag, n, o) for n, o in zip(new, old)]
+        for dst, rows_new in zip((weight,) + states, new):
+            dst.index_copy_(0, rows, rows_new)
+    return weight, states
 
 
 def rollback_counts(opt, indices: Sequence[int]) -> None:

@@ -12,8 +12,14 @@ to a new array, the port writes the new values into the tensor in place
 storage, so ``Parameter.data()`` and anything that holds the tensor stay
 valid. Updates run under ``torch.no_grad()``.
 
-Not ported: row-sparse gradients (the lazy ``_sparse_*`` updates) raise
-``NotPortedError`` naming ROADMAP A11. SGLD draws its noise from a
+Row-sparse gradients (ref: optimizer_op.cc SGDUpdateRspImpl /
+AdamUpdateRspImpl): SGD and Adam with ``lazy_update=True`` (the default)
+update only the gradient's rows of the weight and of their state: the
+dense update's rule on the gathered rows, written back with
+``index_copy_`` (``_run_rule``, ``ops/sparse_ops.step_rows``);
+``lazy_update=False`` densifies the gradient first, as in the JAX
+package. The other optimizers take the densified gradient, with the
+storage-fallback warning. SGLD draws its noise from a
 ``torch.Generator`` (``generator=``, else the weight's device's default
 generator): the two packages' random streams differ.
 """
@@ -29,7 +35,8 @@ from ..base import MXNetError
 from ..context import Context
 from ..ndarray import ndarray as _nd
 from ..ops import optimizer_ops as _ops
-from ..ops.registry import NotPortedError
+from ..ops import registry as _reg
+from ..ops import sparse_ops as _sparse
 from .. import random as _random
 from ..telemetry import memory as _memory
 
@@ -39,11 +46,21 @@ __all__ = ["Optimizer", "SGD", "Adam", "NAG", "RMSProp", "AdaGrad",
            "Updater", "get_updater"]
 
 
-def _check_dense(grad) -> None:
-    if getattr(grad, "stype", "default") != "default":
-        raise NotPortedError(
-            "row-sparse gradients are not ported yet (ROADMAP.md, queue "
-            "A11)")
+def _dense(grad, who: str):
+    """``grad`` as a dense array: a row-sparse one densified, with the
+    storage-fallback warning (an optimizer without a lazy update)."""
+    if getattr(grad, "stype", "default") == "default":
+        return grad
+    _reg.storage_fallback_warn(f"{who}.update", (grad.stype,))
+    return grad.todense()
+
+
+def _lazy(grad, lazy_update: bool):
+    """``grad`` for SGD / Adam: a row-sparse one as it is when the update
+    is lazy (``_run_rule`` steps its rows), densified otherwise."""
+    if getattr(grad, "stype", "default") != "row_sparse" or lazy_update:
+        return grad
+    return grad.todense()
 
 
 class Optimizer:
@@ -177,8 +194,18 @@ def _zeros(weight, dtype=None):
 
 
 def _run_rule(rule, weight, grad, states, lr, wd, rescale, **statics):
-    """One tensor through a multi-tensor rule, written in place."""
+    """One tensor through a multi-tensor rule, written in place. A
+    row-sparse ``grad`` steps only its rows of the weight and the states
+    (the lazy update, ``sparse_ops.step_rows``)."""
     with torch.no_grad():
+        if getattr(grad, "stype", "default") == "row_sparse":
+            tables = [weight._data] + [s._data for s in states]
+            rows = grad._indices
+            _, new = _sparse.step_rows(rule, tables, rows, grad._data, lr,
+                                       wd, rescale, **statics)
+            for t, n in zip(tables, new):
+                t.index_copy_(0, rows, n.to(t.dtype))
+            return
         nw, ns = rule([weight._data], [grad._data],
                       [[s._data] for s in states], [lr], [wd], rescale,
                       **statics)
@@ -206,10 +233,10 @@ class SGD(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         clip = _clip(self.clip_gradient)
+        grad = _lazy(grad, self.lazy_update)
         if state is None:
             _run_rule(_ops.sgd, weight, grad, (), lr, wd, self.rescale_grad,
                       clip=clip)
@@ -235,7 +262,7 @@ class SGLD(Optimizer):
         return d
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         w = weight._data
@@ -263,7 +290,7 @@ class Signum(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
@@ -299,7 +326,7 @@ class NAG(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         clip = _clip(self.clip_gradient)
@@ -333,12 +360,12 @@ class Adam(Optimizer):
         return (_zeros(weight), _zeros(weight))
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         t = self._index_update_count[index]
-        _run_rule(_ops.adam, weight, grad, state,
-                  adam_lr(lr, self.beta1, self.beta2, t), wd,
+        lr_t = adam_lr(lr, self.beta1, self.beta2, t)
+        grad = _lazy(grad, self.lazy_update)
+        _run_rule(_ops.adam, weight, grad, state, lr_t, wd,
                   self.rescale_grad, beta1=self.beta1, beta2=self.beta2,
                   epsilon=self.epsilon, clip=_clip(self.clip_gradient))
 
@@ -356,7 +383,7 @@ class Nadam(Optimizer):
         return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         t = self._index_update_count[index]
@@ -391,7 +418,7 @@ class AdaGrad(Optimizer):
         return _zeros(weight, torch.float32)
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         w = weight._data
@@ -416,7 +443,7 @@ class AdaDelta(Optimizer):
         return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         wd = self._get_wd(index)
         w = weight._data
@@ -451,7 +478,7 @@ class RMSProp(Optimizer):
         return _zeros(weight, torch.float32)
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         kw = dict(gamma1=self.gamma1, epsilon=self.epsilon,
@@ -476,7 +503,7 @@ class Ftrl(Optimizer):
         return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         z, n = state
@@ -500,7 +527,7 @@ class FTML(Optimizer):
                 _zeros(weight, torch.float32))
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         t = self._index_update_count[index]
@@ -536,7 +563,7 @@ class DCASGD(Optimizer):
         return (mom, weight.copy())
 
     def update(self, index, weight, grad, state):
-        _check_dense(grad)
+        grad = _dense(grad, type(self).__name__)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         w = weight._data

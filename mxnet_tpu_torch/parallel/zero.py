@@ -164,6 +164,16 @@ class ZeroPlane:
               f"MXTPU_ZERO=1: optimizer "
               f"{type(updater.optimizer).__name__} has no grouped-update "
               "rule (ZeRO-1 shards state through the grouped path)")
+        for p in trainer._params:
+            check(p.stype == "default" and p.grad_stype == "default",
+                  f"MXTPU_ZERO=1 requires dense parameters/gradients; "
+                  f"{p.name!r} is sparse. Sparse tables shard through "
+                  "the row-wise embedding plane instead "
+                  "(MXTPU_SPARSE_PLANE=on + parallel.embedding_plane."
+                  "EmbeddingPlane, state co-located with each rank's "
+                  "rows): keep the table OUT of the Trainer and the two "
+                  "planes compose in one loop — dense params ZeRO-"
+                  "sharded, embedding rows plane-sharded")
         self._kv = kv
         nw = int(kv.num_workers)
         if nw > 1:

@@ -26,7 +26,9 @@ Not ported yet, raising ``NotPortedError`` when used: the serving fleet
 (``ModelRegistry``, ``FleetServer`` / ``Fleet``, ``FleetRouter`` and its
 replica processes, ``Autoscaler`` / ``decide``, ``enable_compile_cache``;
 ROADMAP A23, after ``symbol/``) and the embedding lookup fleet
-(``LookupFleet``, ``LookupReplica``, ``publish_embedding``; ROADMAP A11).
+(``LookupFleet``, ``LookupReplica``, ``publish_embedding``; ROADMAP A23
+too: it publishes through ``ModelRegistry`` and ``net.export`` and loads
+through ``SymbolBlock.imports``).
 """
 from ..ops.registry import NotPortedError
 from .aot import ReplayLog, runtime_fingerprint, warm_from_replay
@@ -39,7 +41,7 @@ from .server import ActiveModel, ModelServer
 
 _FLEET = "the serving fleet, not ported yet (ROADMAP.md, queue A23)"
 _LOOKUP = ("the sparse embedding lookup fleet, not ported yet (ROADMAP.md, "
-           "queue A11)")
+           "queue A23)")
 
 
 def _class(name: str, what: str):

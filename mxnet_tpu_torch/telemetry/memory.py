@@ -68,12 +68,17 @@ _KEYS = itertools.count(1)
 
 def nd_bytes(x) -> int:
     """Bytes of a torch tensor, an NDArray (its tensor) or a numpy array,
-    from shape x itemsize."""
+    from shape x itemsize; a row_sparse array counts its values and its
+    row ids."""
     try:
+        n = 0
+        idx = getattr(x, "_indices", None)
+        if isinstance(idx, torch.Tensor):
+            n = int(idx.numel()) * int(idx.element_size())
         t = getattr(x, "_data", x)
         if isinstance(t, torch.Tensor):
-            return int(t.numel()) * int(t.element_size())
-        return int(t.size) * int(t.dtype.itemsize)
+            return n + int(t.numel()) * int(t.element_size())
+        return n + int(t.size) * int(t.dtype.itemsize)
     except Exception:
         return 0
 
@@ -403,6 +408,60 @@ def drop_optimizer_state(updater, index) -> None:
         if utok is not None:
             _LEDGER.drop("optimizer", (utok, index))
             _LEDGER.drop("masters", (utok, index))
+    except Exception:
+        pass
+
+
+# ---------------------------------------------------------------------------
+# The sparse embedding plane (parallel/embedding_plane.py; ref: the JAX
+# package's telemetry/memory.py): each rank's table shard under
+# ``params`` as ``emb<r>/<N>:<table>`` and its lazily created row
+# optimizer state under ``optimizer`` as ``state:emb<r>/<N>:<table>``, so
+# "per-rank bytes are exactly 1/world" is a ledger query. Stable keys:
+# the entry tracks the logical shard.
+# ---------------------------------------------------------------------------
+
+def plane_owner(rank: int, world: int, name: str,
+                state: bool = False) -> str:
+    """The ledger owner string of one plane shard (or its row state)."""
+    tag = f"emb{int(rank)}/{int(world)}:{name}"
+    return f"state:{tag}" if state else tag
+
+
+def track_plane_shard(name: str, rank: int, world: int, arr) -> None:
+    """Register (or resize) one rank's table shard."""
+    try:
+        _LEDGER.set("params", ("embshard", name, int(rank)),
+                    nd_bytes(arr), owner=plane_owner(rank, world, name))
+    except Exception:
+        pass
+
+
+def track_plane_state(name: str, rank: int, world: int, arrs) -> None:
+    """Register one rank's lazily created row optimizer state."""
+    try:
+        _LEDGER.set("optimizer", ("embstate", name, int(rank)),
+                    sum(nd_bytes(a) for a in arrs),
+                    owner=plane_owner(rank, world, name, state=True))
+    except Exception:
+        pass
+
+
+def drop_plane_state(name: str, rank: int, world: int) -> None:
+    """Free one rank's row-state entry (the rollback of a skipped step
+    that first created it)."""
+    try:
+        _LEDGER.drop("optimizer", ("embstate", name, int(rank)))
+    except Exception:
+        pass
+
+
+def drop_plane(name: str) -> None:
+    """Free every ledger entry of one plane."""
+    try:
+        _LEDGER.drop_matching(
+            lambda _cat, key, _own: isinstance(key, tuple) and len(key) == 3
+            and key[0] in ("embshard", "embstate") and key[1] == name)
     except Exception:
         pass
 

@@ -5,7 +5,8 @@ names).
 
 Every JAX registry name is in the port with the same ``num_outputs``,
 ``differentiable``, ``rng``, ``creation`` and ``variadic`` flags, except
-exactly the names that later queues own (listed below by queue), and
+exactly the names that later queues own (listed below by queue; the
+13 sparse names of A11 came with the sparse slice), and
 ``mx.nd.random`` / ``mx.nd.linalg`` / ``mx.nd.contrib`` / ``mx.nd.image``
 hold the JAX package's names less those (the 14 ``_image_*`` names came
 with the input pipeline).
@@ -20,13 +21,6 @@ from mxnet_tpu_torch.ops import registry as treg
 
 # the registry names still to port, by the ROADMAP queue that owns each
 NOT_YET = {
-    "A11": ["cast_storage", "sparse_retain", "_sparse_retain",
-            "_contrib_getnnz", "_contrib_edge_id", "_contrib_dgl_adjacency",
-            "_contrib_dgl_subgraph",
-            "_contrib_dgl_csr_neighbor_uniform_sample",
-            "_contrib_dgl_csr_neighbor_non_uniform_sample",
-            "_contrib_dgl_graph_compact", "_sparse_adam_update",
-            "_sparse_sgd_mom_update", "_sparse_sgd_update"],
     "A13": ["_contrib_dequantize", "_contrib_quantize",
             "_contrib_quantize_v2", "_contrib_quantized_concat",
             "_contrib_quantized_conv", "_contrib_quantized_flatten",
@@ -70,15 +64,15 @@ def _a19_names():
 
 
 def test_the_missing_names_are_exactly_the_later_queues():
-    assert len(MISSING) == 66
+    assert len(MISSING) == 53
     assert set(jreg.list_ops()) - set(treg.list_ops()) == MISSING
     assert not set(treg.list_ops()) - set(jreg.list_ops())
-    assert len(treg.list_ops()) == 430
+    assert len(treg.list_ops()) == 443
 
 
 def test_the_a19_names_are_ported():
     names = _a19_names()
-    assert len(names) == 153
+    assert len(names) == 163
     assert names <= set(treg.list_ops())
 
 

@@ -76,6 +76,11 @@ MIRROR_FLAGS = {"MXNET_BACKWARD_DO_MIRROR": ["1", "0", "true", "", None],
 RANDOM_FLAGS = {"MXNET_ENFORCE_DETERMINISM": ["1", "0", "true", "", None]}
 # base.data_dir, the vision datasets' default root
 DATA_FLAGS = {"MXNET_HOME": ["/data/mxnet", "", None]}
+# sparse storage and the embedding plane (read strictly where they are
+# used: parallel/embedding_plane.py)
+SPARSE_FLAGS = {"MXNET_STORAGE_FALLBACK_LOG_VERBOSE": ["0", "1", "", None],
+                "MXTPU_SPARSE_PLANE": ["on", "off", "", None],
+                "MXTPU_SPARSE_MAX_ROWS": ["1", "16384", None]}
 VALUES = ["on", "yes", "2", "1", "true", "0", "false", "False", "", None]
 
 
@@ -112,13 +117,21 @@ def test_declarations_match_jax():
     for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS) + \
             tuple(MEGASTEP_FLAGS) + tuple(MIRROR_FLAGS) + \
             tuple(RANDOM_FLAGS) + tuple(DATA_FLAGS) + tuple(SERVING_FLAGS) + \
-            tuple(DIST_FLAGS):
+            tuple(DIST_FLAGS) + tuple(SPARSE_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
     assert {n for n, *_ in tbase.env.items()} == \
         set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS) | \
         set(MEGASTEP_FLAGS) | set(MIRROR_FLAGS) | set(RANDOM_FLAGS) | \
-        set(DATA_FLAGS) | set(SERVING_FLAGS) | set(DIST_FLAGS)
+        set(DATA_FLAGS) | set(SERVING_FLAGS) | set(DIST_FLAGS) | \
+        set(SPARSE_FLAGS)
+
+
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, vs in SPARSE_FLAGS.items() for v in vs])
+def test_sparse_flag_get_matches_jax(monkeypatch, name, value):
+    _set(monkeypatch, name, value)
+    assert tbase.env.get(name) == jbase.env.get(name)
 
 
 @pytest.mark.parametrize("name,value", [

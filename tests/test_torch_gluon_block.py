@@ -474,8 +474,13 @@ def test_unported_block_parts_raise():
     assert hasattr(tmx.gluon, "data") and hasattr(tmx.gluon.contrib, "data")
     with pytest.raises(NotPortedError, match="A14"):
         tmx.gluon.contrib.rnn.Conv2DLSTMCell
-    with pytest.raises(NotPortedError, match="A11"):
-        tmx.gluon.contrib.nn.SparseEmbedding
+    # the row-sparse embedding came with sparse storage; the rest of
+    # contrib.nn is the long tail's
+    emb = tmx.gluon.contrib.nn.SparseEmbedding(8, 2, device="cpu")
+    w = emb.params[emb.prefix + "weight"]
+    assert (w.stype, w.grad_stype) == ("row_sparse", "row_sparse")
+    with pytest.raises(NotPortedError, match="A14"):
+        tmx.gluon.contrib.nn.Concurrent
 
 
 def test_split_and_load_and_clip_global_norm_match_jax():

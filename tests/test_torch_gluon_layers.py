@@ -229,8 +229,13 @@ def test_embedding_and_dropout_layers_match_jax():
         got = _loop(mt.nd, mt.autograd, tb, [idx], cot, {"weight"})
     np.testing.assert_allclose(got[0], want[0], **FWD)
     np.testing.assert_allclose(got[2]["weight"], want[2]["weight"], **GRAD)
-    with pytest.raises(NotPortedError, match="A11"):
-        tnn.Embedding(10, 4, sparse_grad=True, device="cpu")
+    # the weight attribute is the Parameter record whatever sparse_grad
+    # is; with it the gradient is row_sparse (test_torch_sparse_grad.py)
+    sb = tnn.Embedding(10, 4, sparse_grad=True, device="cpu")
+    assert sb.weight.grad_stype == "row_sparse"
+    assert tb.weight.grad_stype == "default"
+    for b in (sb, tb):
+        assert b.weight.tensor is b.weight_table
     # Dropout outside training is the identity in both
     x = _n((4, 6), 3)
     drop = tnn.Dropout(0.5, device="cpu")

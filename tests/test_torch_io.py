@@ -11,9 +11,8 @@
   ``fit_train``): the base iterator's batches on its device, ``depth`` /
   ``set_depth``, the memory ledger's ``staging`` bytes rising and
   falling as in the JAX package, the ``h2d`` segment.
-- ``LibSVMIter`` raises ``NotPortedError`` (A11, sparse); the RecordIO
-  iterators and ``MNISTIter`` are held to the JAX ones in
-  ``test_torch_image.py``.
+- ``LibSVMIter`` is held to the JAX one in ``test_torch_libsvm.py``, the
+  RecordIO iterators and ``MNISTIter`` in ``test_torch_image.py``.
 """
 import gc
 
@@ -247,13 +246,15 @@ def test_staging_charges_the_h2d_segment():
 
 
 def test_not_ported_iterators_raise():
-    """Only ``LibSVMIter`` (CSR batches) is left; it waits for sparse. The
-    record iterators and ``MNISTIter`` are ported
-    (``test_torch_image.py``)."""
-    with pytest.raises(NotPortedError, match="A11"):
-        tio.LibSVMIter(data_libsvm="x.libsvm", data_shape=(4,),
+    """Every iterator is ported now: the record iterators and
+    ``MNISTIter`` (``test_torch_image.py``) and ``LibSVMIter``
+    (``test_torch_libsvm.py``); a missing file raises as in the JAX
+    package."""
+    with pytest.raises(FileNotFoundError):
+        tio.LibSVMIter(data_libsvm="no-such.libsvm", data_shape=(4,),
                        batch_size=2)
-    for name in ("ImageRecordIter", "ImageDetRecordIter", "MNISTIter"):
+    for name in ("ImageRecordIter", "ImageDetRecordIter", "MNISTIter",
+                 "LibSVMIter"):
         assert not issubclass(getattr(tio, name), NotPortedError)
         assert getattr(tio, name).__module__.startswith("mxnet_tpu_torch.io")
     with pytest.raises(mt.MXNetError, match="not found"):

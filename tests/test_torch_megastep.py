@@ -10,8 +10,8 @@ path bit for bit. Here, on ``tests/test_megastep.py``'s MLP (Dense 16
 ReLU, Dense 4, L2 loss, batch 4, aggregation 8):
 
 - the strict parse and every knob it refuses, each as the JAX package
-  refuses it, gradient compression included (the port refuses sparse
-  parameters where they are built, naming A11);
+  refuses it, gradient compression included, and a trainer with a
+  sparse parameter;
 - megastep against the port's composed path, bit for bit, for the six
   ``tests/test_zero.py`` OPTS, and against the JAX package's megastep on
   the same numpy data and weights within ``RTOL`` (1e-5, the JAX tests'
@@ -281,7 +281,8 @@ def test_megastep_incompatible_knobs_raise_as_in_jax(monkeypatch, knob,
 
 
 def test_megastep_refusals_the_port_raises_earlier(monkeypatch):
-    """Sparse parameters cannot be built in the port (A11). Gradient
+    """A trainer with a sparse parameter is refused as in the JAX package
+    (its updates take the per-parameter path). Gradient
     compression is ported: the megastep refuses it as the JAX package
     does (the knob case above), and a simulated ZeRO world runs under
     the megastep (A10's first half; the world-4 tests below). The
@@ -294,8 +295,11 @@ def test_megastep_refusals_the_port_raises_earlier(monkeypatch):
                           compression_params={"type": "2bit"})
     with pytest.raises(mt.MXNetError, match="gradient compression"):
         tmegastep.Megastep(net, tr, mt.gluon.loss.L2Loss())
-    with pytest.raises(NotPortedError, match="A11"):
-        mt.gluon.nn.Embedding(10, 4, sparse_grad=True)
+    emb = mt.gluon.contrib.nn.SparseEmbedding(10, 4)
+    emb.initialize()
+    sparse_tr = mt.gluon.Trainer(emb.collect_params(), "sgd")
+    with pytest.raises(mt.MXNetError, match="requires dense parameters"):
+        tmegastep.Megastep(emb, sparse_tr, mt.gluon.loss.L2Loss())
     monkeypatch.setenv("MXTPU_ZERO", "1")
     monkeypatch.setenv("MXTPU_ZERO_WORLD", "4")
     res = _fit(monkeypatch, True, store=True)

@@ -244,8 +244,18 @@ def test_optimizer_ops_through_mx_nd_and_the_not_ported_op():
     mt.nd.sgd_mom_update(w, g, m, lr=0.1, momentum=0.9, out=(w, m))
     assert w.tensor.data_ptr() == ptr       # written in place
     assert torch.equal(w.tensor, want[0]) and torch.equal(m.tensor, want[1])
-    with pytest.raises(treg.NotPortedError, match="A11"):
-        mt.nd._internal._sparse_adagrad_update(w, g, m, lr=0.1)
+    # _sparse_adagrad_update is ported: the JAX op's values
+    from mxnet_tpu.ops import registry as jreg
+    h = np.abs(rs.randn(3, 4)).astype(np.float32)
+    args = [rs.randn(3, 4).astype(np.float32) for _ in range(2)] + [h]
+    want = jreg.get_op("_sparse_adagrad_update").fn(
+        *args, lr=0.1, wd=0.01, rescale_grad=0.5, clip_gradient=0.3)
+    got = mt.nd._internal._sparse_adagrad_update(
+        *(mt.nd.array(a, ctx=CPU) for a in args), lr=0.1, wd=0.01,
+        rescale_grad=0.5, clip_gradient=0.3)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.asnumpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
 
 
 def _bf16_jax_ops(out):

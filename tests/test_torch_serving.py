@@ -552,9 +552,9 @@ def test_not_ported_parts_name_their_queue_item():
         with pytest.raises(NotPortedError, match="A23"):
             getattr(serving, name)()
     for name in ("LookupFleet", "LookupReplica"):
-        with pytest.raises(NotPortedError, match="A11"):
+        with pytest.raises(NotPortedError, match="A23"):
             getattr(serving, name)()
-    with pytest.raises(NotPortedError, match="A11"):
+    with pytest.raises(NotPortedError, match="A23"):
         serving.publish_embedding()
     fp = serving.runtime_fingerprint()
     assert sorted(fp) == ["cuda", "device", "torch"]
