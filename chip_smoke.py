@@ -8803,6 +8803,728 @@ def a11_phases(torch, mt, card, timed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# int8 quantization and the symbolic graph (A13 and A14's symbol/)
+# ---------------------------------------------------------------------------
+
+A13_PHASES = ("int8_ops", "int8_resnet50", "resid8_train", "symbol_export",
+              "quant_recipes")
+Q_BATCH, Q_CALIB, Q_WARM_BN = 32, 4, 3   # images a batch, calib batches
+Q_HOST_ROWS = 8                          # rows of a batch held to the host
+Q_TIMED = 10                             # timed forwards a variant
+Q_CONV_CHECK_ROWS = 4                    # images of each conv site on host
+R8_RUNS = (("unset", {}), ("fp8", {"MXNET_RESID_DTYPE": "fp8"}),
+           ("int8", {"MXNET_CONV_COMPUTE": "int8"}),
+           ("fp8_composed", {"MXNET_RESID_DTYPE": "fp8",
+                             "MXTPU_FUSED_EPILOGUE": "0"}))
+A13_STATE = {}      # what a later A13 phase reuses from an earlier one
+Q_RECIPES = ("examples/quantization/quantize_model.py",
+             "examples/quantization/quantize_gluon.py",
+             "examples/quantization/quantize_resnet.py")
+
+
+def _q_op_cases(np):
+    """One case of each of the 22 quantization registry names (int8 data,
+    f32 ranges), the shapes of tests/test_torch_quantization.py scaled
+    up."""
+    rs = np.random.RandomState(3)
+
+    def i8(*shape):
+        return rs.randint(-127, 128, shape).astype(np.int8)
+
+    def f32(*shape, scale=1.0):
+        return ((rs.rand(*shape) - 0.5) * 2 * scale).astype(np.float32)
+
+    def s(v):
+        return np.asarray(v, np.float32)
+
+    x = f32(64, 256, scale=3)
+    acc = rs.randint(-40000, 40000, (64, 96)).astype(np.int32)
+    d8, w8, b8 = i8(64, 256), i8(96, 256), i8(96)
+    c8, k8 = i8(8, 32, 28, 28), i8(96, 32, 3, 3)
+    r = [s(-1.5), s(2.0)]
+    wr = [s(-0.4), s(0.5), s(-0.1), s(0.2)]
+    return [
+        ("_contrib_quantize_v2", [x], {}),
+        ("quantize_v2", [x], {"min_calib_range": -1.0,
+                              "max_calib_range": 2.0}),
+        ("_contrib_dequantize", [i8(64, 96), s(-0.7), s(1.3)], {}),
+        ("dequantize", [i8(4096), s(-3.0), s(3.0)], {}),
+        ("_contrib_requantize", [acc, s(-20.0), s(20.0)], {}),
+        ("requantize", [acc, s(-20.0), s(20.0)],
+         {"min_calib_range": -0.5, "max_calib_range": 0.25}),
+        ("_contrib_quantized_fully_connected", [d8, w8, b8] + r + wr,
+         {"num_hidden": 96}),
+        ("quantized_fully_connected", [i8(64, 16, 16), w8, b8] + r + wr[:2],
+         {"num_hidden": 96, "no_bias": True}),
+        ("_contrib_quantized_conv", [c8, k8, b8] + r + wr,
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+          "num_filter": 96}),
+        ("quantized_conv", [c8, i8(96, 16, 3, 3), b8] + r + wr[:2],
+         {"kernel": (3, 3), "dilate": (2, 2), "num_filter": 96,
+          "num_group": 2, "no_bias": True}),
+        ("_quantized_fc_static", [d8, s(-1.0), s(1.5), w8, f32(96)],
+         {"w_min": -0.3, "w_max": 0.7, "num_hidden": 96}),
+        ("_contrib_quantized_pooling", [c8] + r,
+         {"kernel": (2, 2), "stride": (2, 2), "pool_type": "max"}),
+        ("quantized_pooling", [c8] + r,
+         {"kernel": (3, 3), "pool_type": "avg", "pad": (1, 1),
+          "pooling_convention": "full"}),
+        ("_contrib_quantized_flatten", [c8] + r, {}),
+        ("quantized_flatten", [i8(16, 8, 8)] + r, {}),
+        ("_contrib_quantize", [x, s([-2.5]), s([2.9])],
+         {"out_type": "uint8"}),
+        ("quantize", [x, s([-2.5]), s([2.9])], {"out_type": "int8"}),
+        ("_quantize_static", [x], {"scale": 3.0 / 127}),
+        ("_quantized_conv_v2",
+         [i8(8, 28, 28, 64), i8(96, 3, 3, 32), np.abs(f32(96)) + 1e-3,
+          f32(96)],
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+          "num_filter": 96, "num_group": 2, "in_scale": 0.02,
+          "no_bias": False}),
+        ("_quantized_dense_v2",
+         [i8(64, 16, 16), w8, np.abs(f32(96)) + 1e-3, f32(96)],
+         {"num_hidden": 96, "in_scale": 0.05, "no_bias": False}),
+        ("_contrib_quantized_concat",
+         [i8(64, 30), i8(64, 50), s(-1.0), s(-0.5), s(2.0), s(0.25)],
+         {"dim": 1, "num_args": 2}),
+        ("quantized_concat",
+         [i8(2, 300), i8(7, 300), i8(3, 300), s(-1.0), s(-4.0), s(0.0),
+          s(1.0), s(0.1), s(0.3)], {"dim": 0, "num_args": 3}),
+    ]
+
+
+def _q_conv_sites(torch, mt):
+    """The distinct convolutions of ResNet-50 v1 NHWC (s2d stem) at batch
+    Q_BATCH, 224x224: {(input NHWC, weight OHWI, stride, pad): count}, read
+    by forward pre-hooks on a batch-1 forward."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+    net = resnet50_v1(layout="NHWC", stem_s2d=True)
+    net.initialize(generator=mt.random.seed(0))
+    sites = {}
+
+    def hook_of(conv):
+        def hook(_m, args):
+            k = ((Q_BATCH,) + tuple(args[0].shape[1:]),
+                 tuple(conv.weight.shape), tuple(conv._kwargs["stride"]),
+                 tuple(conv._kwargs["pad"]))
+            sites[k] = sites.get(k, 0) + 1
+        return hook
+
+    handles = [m.register_forward_pre_hook(hook_of(m))
+               for m in net.modules() if isinstance(m, _Conv)]
+    with torch.no_grad(), mt.autograd.pause():
+        net(torch.zeros((1, IMG, IMG, 3), device="cuda"))
+    for h in handles:
+        h.remove()
+    del net
+    return sites
+
+
+def _q_compare(torch, got, want):
+    """Worst error of ``got`` against ``want``: 0 / 1 for integer outputs
+    (bit for bit or not), max |diff| over the largest |want| for floats."""
+    if not want.is_floating_point():
+        return 0.0 if torch.equal(got.cpu(), want) else 1.0
+    got, want = got.float().cpu(), want.float()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def int8_ops_phase(torch, mt, card):
+    """Each of the 22 quantization ops card against host (int8 / int32
+    bit for bit, f32 within 1e-6 of the largest); then every distinct
+    convolution of ResNet-50 v1 NHWC at batch 32, 224x224, as the int8
+    product the card runs (``ops/quantization.int_conv``: an NHWC im2col
+    and ``torch._int_mm``), its int32 accumulators bit for bit with the
+    host's for the first Q_CONV_CHECK_ROWS images; per site the device ms
+    of the whole int8 route, of ``_int_mm`` alone on the columns, and of
+    cuDNN's bf16 convolution of the same shapes (channels-last), and
+    their totals over one forward's 53 convolutions."""
+    import numpy as np
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import quantization as q
+    from mxnet_tpu_torch.ops import registry as reg
+    bad, ops = [], {}
+    for name, arrays, params in _q_op_cases(np):
+        fn = reg.get_op(name).fn
+        host = fn(*[torch.from_numpy(a) for a in arrays], **params)
+        got = fn(*[torch.from_numpy(a).cuda() for a in arrays], **params)
+        host = host if isinstance(host, tuple) else (host,)
+        got = got if isinstance(got, tuple) else (got,)
+        errs = [_q_compare(torch, g, h) for g, h in zip(got, host)]
+        ops[name] = {"outputs": len(errs), "worst": max(errs),
+                     "dtypes": [str(g.dtype)[6:] for g in got]}
+        for g, h, e in zip(got, host, errs):
+            limit = 1e-6 if h.is_floating_point() else 0.0
+            if e > limit or g.dtype != h.dtype or g.shape != h.shape:
+                bad.append(f"{name}: {e} ({g.dtype} {tuple(g.shape)})")
+    emit({"phase": "int8_ops", "what": "ops card vs host", "ops": ops,
+          "card": card})
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, totals = [], {"int8_route_ms": 0.0, "int_mm_ms": 0.0,
+                        "cudnn_bf16_ms": 0.0, "convs": 0}
+    for (xs, ws, stride, pad), count in sorted(_q_conv_sites(torch,
+                                                            mt).items()):
+        x = torch.randint(-127, 128, xs, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, ws, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        q.launches["int_mm"] = 0
+        acc = q.int_conv(x, w, stride, pad, (1, 1), 1, channel_last=True)
+        torch.cuda.synchronize()
+        launched = q.launches["int_mm"]
+        n = Q_CONV_CHECK_ROWS
+        host = q.int_conv(x[:n].cpu(), w.cpu(), stride, pad, (1, 1), 1,
+                          channel_last=True)
+        exact = acc.dtype == torch.int32 and torch.equal(acc[:n].cpu(),
+                                                         host)
+        win, out = q._windows(x, ws[1:3], stride, pad, (1, 1))
+        cols = win.reshape(-1, ws[1] * ws[2] * ws[3])
+        wm = w.reshape(ws[0], -1)
+        xf = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wf = w.to(torch.bfloat16).permute(0, 3, 1, 2)
+        t_route = time_ms(torch, lambda: q.int_conv(
+            x, w, stride, pad, (1, 1), 1, channel_last=True), flush, 5)
+        t_mm = time_ms(torch, lambda: q._int_mm(cols, wm), flush, 5)
+        t_bf16 = time_ms(torch, lambda: F.conv2d(xf, wf, None, stride,
+                                                 pad), flush, 5)
+        k = ws[1] * ws[2] * ws[3]
+        row = {"input": list(xs), "weight": list(ws), "stride": stride,
+               "pad": pad, "count": count, "gemm_mnk": [
+                   xs[0] * out[0] * out[1], ws[0], k],
+               "int_mm_launches": launched, "bit_for_bit_rows": n,
+               "exact": exact, "int8_route_ms": t_route,
+               "int_mm_ms": t_mm, "cudnn_bf16_ms": t_bf16,
+               "int8_tops": 2 * xs[0] * out[0] * out[1] * ws[0] * k
+               / (t_mm * 1e9)}
+        rows.append(row)
+        totals["int8_route_ms"] += count * t_route
+        totals["int_mm_ms"] += count * t_mm
+        totals["cudnn_bf16_ms"] += count * t_bf16
+        totals["convs"] += count
+        if not exact or launched != 1:
+            bad.append(f"conv site {xs} x {ws}: exact {exact}, "
+                       f"{launched} _int_mm launches")
+        del x, w, acc, win, cols, xf, wf
+    del flush
+    emit({"phase": "int8_ops", "what": "ResNet-50 v1 conv sites, batch "
+          f"{Q_BATCH}, int8 im2col + _int_mm vs cuDNN bf16", "sites": rows,
+          "per_forward": totals, "card": card})
+    if totals["convs"] != 53:
+        bad.append(f"{totals['convs']} convolutions in a forward, not 53")
+    if bad:
+        fail(f"int8_ops: {bad}")
+    return totals
+
+
+def _q_forward_ms(torch, net, x, iters=Q_TIMED):
+    """Host ms a batch of ``iters`` synchronised forwards (after two warm
+    ones), and the last output."""
+    with torch.no_grad():
+        for _ in range(2):
+            out = net(x)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            out = net(x)
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / iters, out
+
+
+def _q_resnet(torch, mt, seed=0):
+    """Full-width ResNet-50 v1 NHWC (s2d stem), f32, seeded weights, its
+    running statistics moved by Q_WARM_BN training-mode forwards."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    net = resnet50_v1(layout="NHWC", stem_s2d=True)
+    net.initialize(mt.init.Xavier(), generator=mt.random.seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad(), mt.autograd.train_mode():
+        for _ in range(Q_WARM_BN):
+            net(torch.rand((Q_BATCH, IMG, IMG, 3), generator=gen,
+                           device="cuda"))
+    return net
+
+
+def int8_resnet50(torch, mt, card, tmp):
+    """Full-width ResNet-50 v1 NHWC f32 at batch 32: the float net
+    hybridized (one CUDA graph a signature), timed; ``quantize_net`` with
+    entropy calibration over Q_CALIB batches (BN folded into 53 int8
+    convolutions and the int8 Dense); the int8 net hybridized, timed, and
+    held to a host run of the same quantized net (its exported graph
+    through ``SymbolBlock`` on the CPU) on Q_HOST_ROWS images: within 1e-3
+    of the largest logit, top-1 agreement >= 0.99; int8 against float
+    top-1 agreement printed; bf16 timed (the same weights cast); then the
+    int8 net behind ModelServer: img/s and p50 / p99 under 8 closed-loop
+    clients, every response against an eager forward of its batch."""
+    import numpy as np
+    from mxnet_tpu_torch.contrib import quantization as tq
+    from mxnet_tpu_torch.serving import ModelServer
+    from mxnet_tpu_torch.ops import quantization as q
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    bad, row = [], {"model": "resnet50_v1 NHWC stem_s2d", "batch": Q_BATCH,
+                    "image": IMG, "card": card}
+    try:
+        net = _q_resnet(torch, mt)
+        gen = torch.Generator(device="cuda").manual_seed(30)
+        calib = [torch.rand((Q_BATCH, IMG, IMG, 3), generator=gen,
+                            device="cuda") for _ in range(Q_CALIB)]
+        x = torch.rand((Q_BATCH, IMG, IMG, 3), generator=gen, device="cuda")
+        net.save_parameters(os.path.join(tmp, "r50.params"))
+        net.hybridize()
+        ms, out_f = _q_forward_ms(torch, net, x)
+        row["f32"] = {"ms_per_batch": ms, "img_per_s": Q_BATCH * 1e3 / ms}
+        out_f = out_f.float().cpu()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tq.quantize_net(net, calib, calib_mode="entropy")
+        torch.cuda.synchronize()
+        row["quantize_net_s"] = time.perf_counter() - t
+        qb = [b for b in net.modules() if isinstance(b, tq._QuantizedLayer)]
+        row["quantized_layers"] = len(qb)
+        if len(qb) != 54 or not net._active:
+            bad.append(f"{len(qb)} int8 layers (54 expected), hybridized "
+                       f"{net._active}")
+        q.launches["int_mm"] = 0
+        with torch.no_grad():
+            net(x)
+        torch.cuda.synchronize()
+        row["int_mm_launches_first_call"] = q.launches["int_mm"]
+        q.launches["int_mm"] = 0
+        ms, out_q = _q_forward_ms(torch, net, x)
+        row["int8"] = {"ms_per_batch": ms, "img_per_s": Q_BATCH * 1e3 / ms,
+                       "int_mm_wrapper_launches_in_replays":
+                       q.launches["int_mm"]}
+        out_q = out_q.float().cpu()
+        row["int8_vs_f32_top1_agreement"] = float(
+            (out_q.argmax(1) == out_f.argmax(1)).float().mean())
+        # the host run of the same quantized net
+        prefix = os.path.join(tmp, "r50_int8")
+        net.export(prefix)
+        host = mt.gluon.SymbolBlock.imports(
+            prefix + "-symbol.json", ["data"], prefix + "-0000.params",
+            ctx=mt.cpu())
+        with torch.no_grad():
+            want = host(x[:Q_HOST_ROWS].cpu())
+        got = out_q[:Q_HOST_ROWS]
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+        row["card_vs_host"] = {"rows": Q_HOST_ROWS, "worst_of_max": err,
+                               "top1_agreement": agree}
+        if err > 1e-3 or agree < 0.99:
+            bad.append(f"int8 card vs host: {err} of the largest logit, "
+                       f"top-1 agreement {agree}")
+        A13_STATE["int8_net"] = net
+        A13_STATE["int8_x"] = x
+        # bf16: the float weights cast
+        from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+        net16 = resnet50_v1(layout="NHWC", stem_s2d=True)
+        net16.load_parameters(os.path.join(tmp, "r50.params"))
+        net16.cast("bfloat16")
+        net16.hybridize()
+        ms, _ = _q_forward_ms(torch, net16, x.to(torch.bfloat16))
+        row["bf16"] = {"ms_per_batch": ms, "img_per_s": Q_BATCH * 1e3 / ms}
+        del net16
+        torch.cuda.empty_cache()
+        # the int8 net behind the serving core
+        n_img = SERVE_CLIENTS * SERVE_PER_CLIENT
+        images = torch.rand((n_img, IMG, IMG, 3),
+                            generator=torch.Generator().manual_seed(17)
+                            ).numpy()
+        srv = ModelServer(net, bucket_shapes=[(IMG, IMG, 3)],
+                          name="resnet50_v1-int8")
+        srv.start()
+        try:
+            built = srv.warmup()
+            wall, done, errors = _serve_load(torch, srv, images, "int8")
+            m = srv.metrics_json()
+            worst, n_batches, exact = _serve_check_rows(
+                torch, mt, net, srv, images, done)
+        finally:
+            srv.stop()
+        row["serving"] = {"clients": SERVE_CLIENTS, "requests": len(done),
+                          "responses": m["responses_total"],
+                          "warmup_signatures": built, "wall_s": wall,
+                          "img_per_s": m["responses_total"] / wall,
+                          "latency_ms": m["latency_ms"]["total"],
+                          "mean_batch": m["batch_size"]["mean"],
+                          "rows_vs_eager_worst": worst,
+                          "batches_checked": n_batches,
+                          "batches_bit_for_bit": exact,
+                          "errors": errors[:4]}
+        if errors or m["responses_total"] != n_img or worst > 1e-3:
+            bad.append(f"int8 serving: {errors[:4]}, "
+                       f"{m['responses_total']} responses, worst {worst}")
+        del images
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    emit({"phase": "int8_resnet50", **row})
+    if bad:
+        fail(f"int8_resnet50: {bad}")
+    return row
+
+
+def _r8_saved_bytes(torch, step):
+    """Bytes of the distinct storages autograd saves during ``step()``
+    (saved-tensor hooks), in all and the fp8 / int8 share."""
+    seen = {}
+
+    def pack(t):
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = (s.nbytes(), t.dtype)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        step()
+    torch.cuda.synchronize()
+    small = (torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
+    return {"all": sum(n for n, _ in seen.values()),
+            "fp8_int8": sum(n for n, d in seen.values() if d in small)}
+
+
+def resid8_train(torch, mt, card):
+    """ResNet-50 v1 NHWC bf16 (f32 masters), batch 128, 224x224, SGD
+    momentum, ``SPMDTrainer.run_steps`` with K = 4 (the main path), under
+    each of R8_RUNS: flags unset, ``MXNET_RESID_DTYPE=fp8``,
+    ``MXNET_CONV_COMPUTE=int8``, and fp8 with ``MXTPU_FUSED_EPILOGUE=0``.
+    Each run: the first call (K eager steps, counted wrapper launches of
+    the four BN kernels: 48 x K each where the epilogue is fused, as
+    unset) and a timed replay; a second trainer from the same start takes
+    2 K eager steps, against which the replay's losses and weights must
+    agree (bit for bit, or within 1e-3 where cuDNN picked other algorithms
+    under capture); one more eager step under saved-tensor hooks gives
+    the bytes saved for backward and ``max_memory_allocated``. Gates:
+    finite losses, step-1 loss within 2e-2 of the unset run's."""
+    from mxnet_tpu_torch.base import env
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    data = torch.rand((K_STEPS, B, IMG, IMG, 3), generator=gen,
+                      device="cuda")
+    label = torch.randint(0, 1000, (K_STEPS, B), generator=gen,
+                          device="cuda").float()
+    src = resnet50_v1(layout="NHWC", stem_s2d=True)
+    src.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+    start = {k: p.tensor.detach().clone()
+             for k, p in src._collect_params_with_prefix().items()}
+    del src
+    gib = 2.0 ** 30
+    rows, bad = {}, []
+
+    def trainer():
+        net = resnet50_v1(layout="NHWC", stem_s2d=True)
+        for k, p in net._collect_params_with_prefix().items():
+            p.set_data(start[k])
+        tr = mt.parallel.SPMDTrainer(
+            net, gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+            dtype=torch.bfloat16)
+        return tr, net
+
+    try:
+        for name, flags in R8_RUNS:
+            saved_env = {k: env.raw(k) for k in flags}
+            for k, v in flags.items():
+                env.set(k, v)
+            try:
+                tr, net = trainer()
+                tk.reset_launches()
+                warm = tr.run_steps(data, label).float().cpu()
+                launches = dict(tk.launches)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                replay = tr.run_steps(data, label).float().cpu()
+                step_ms = 1e3 * (time.perf_counter() - t) / K_STEPS
+                got = _trainer_state(tr, net)
+                del tr, net
+                torch.cuda.empty_cache()
+                tr, net = trainer()
+                eager = [tr.step(data[k % K_STEPS], label[k % K_STEPS])
+                         for k in range(2 * K_STEPS)]
+                eager = torch.stack(eager).float().cpu()
+                want = _trainer_state(tr, net)
+                agree, worst = _agreement(
+                    torch, {**got, "losses": torch.cat([warm, replay])},
+                    {**want, "losses": eager})
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                saved = _r8_saved_bytes(torch, lambda: tr.step(data[0],
+                                                                label[0]))
+                peak = torch.cuda.max_memory_allocated() / gib
+                del tr, net
+                torch.cuda.empty_cache()
+            finally:
+                for k, v in saved_env.items():
+                    env.set(k, v)
+            row = {"flags": flags, "first_call_losses": warm.tolist(),
+                   "replay_losses": replay.tolist(),
+                   "replay_step_ms": step_ms,
+                   "img_per_s": B * 1e3 / step_ms,
+                   "replay_vs_eager": agree, "worst_of_max": worst,
+                   "first_call_bn_wrapper_launches": launches,
+                   "eager_step_max_memory_allocated_gib": peak,
+                   "saved_for_backward_bytes": saved}
+            rows[name] = row
+            emit({"phase": "resid8_train", "run": name, "batch": B,
+                  "k_steps": K_STEPS, "dtype": "bf16 compute, f32 masters",
+                  "card": card, **row})
+            if not (torch.isfinite(warm).all() and
+                    torch.isfinite(replay).all()):
+                bad.append(f"{name}: non-finite loss")
+            if agree is None:
+                bad.append(f"{name}: replay vs eager {worst}")
+            fused = env.get("MXTPU_FUSED_EPILOGUE") and \
+                flags.get("MXTPU_FUSED_EPILOGUE", "1") != "0"
+            if fused and any(v != 48 * K_STEPS for v in launches.values()):
+                bad.append(f"{name}: BN launches {launches}")
+            if not fused and any(launches.values()):
+                bad.append(f"{name}: the composed epilogue launched "
+                           f"{launches}")
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    base = rows["unset"]["first_call_losses"][0]
+    for name, row in rows.items():
+        d = abs(row["first_call_losses"][0] - base)
+        row["step1_vs_unset"] = d
+        if d > 2e-2:
+            bad.append(f"{name}: step-1 loss {d} from the unset run's")
+    emit({"phase": "resid8_train", "what": "summary", "card": card,
+          "step_ms": {k: r["replay_step_ms"] for k, r in rows.items()},
+          "saved_bytes": {k: r["saved_for_backward_bytes"]["all"]
+                          for k, r in rows.items()},
+          "peak_gib": {k: r["eager_step_max_memory_allocated_gib"]
+                       for k, r in rows.items()},
+          "step1_vs_unset": {k: r["step1_vs_unset"] for k, r in
+                             rows.items()}})
+    if bad:
+        fail(f"resid8_train: {bad}")
+    return rows
+
+
+def _sx_mlp(mt, hidden=512, classes=10):
+    data = mt.sym.var("data")
+    x = mt.sym.FullyConnected(data, name="fc1", num_hidden=hidden)
+    x = mt.sym.Activation(x, name="relu1", act_type="relu")
+    x = mt.sym.FullyConnected(x, name="fc2", num_hidden=classes)
+    return mt.sym.SoftmaxOutput(x, mt.sym.var("softmax_label"),
+                                name="softmax")
+
+
+def _sx_roundtrip(torch, mt, net, x, prefix):
+    """``net`` exported and imported on the card: its outputs against the
+    block's, eager and hybridized."""
+    was = net._active
+    net.hybridize(False)
+    with torch.no_grad():
+        eager = net(x)
+    net.export(prefix)
+    back = mt.gluon.SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                        prefix + "-0000.params")
+    with torch.no_grad():
+        b_eager = back(x)
+        net.hybridize()
+        back.hybridize()
+        hyb = [net(x) for _ in range(2)][-1]
+        b_hyb = [back(x) for _ in range(2)][-1]
+    net.hybridize(was)
+    torch.cuda.synchronize()
+    return {"eager_bit_for_bit": bool(torch.equal(b_eager, eager)),
+            "hybridized_bit_for_bit": bool(torch.equal(b_hyb, hyb)),
+            "eager_vs_hybridized_worst": float((hyb - eager).abs().max())
+            / max(float(eager.abs().max()), 1e-30)}, back
+
+
+def symbol_export(torch, mt, card, tmp):
+    """``export`` of the full-width ResNet-50 v1 (f32, batch 32) and of its
+    int8 twin, each imported on the card through ``SymbolBlock.imports``:
+    outputs bit for bit with the block's, eager and hybridized;
+    ``ModelServer.load`` of the exported float files answers requests
+    (every response against an eager forward of its batch); an Executor
+    forward / backward of an MLP symbol card against host within 1e-4;
+    ``quantize_model`` of it with entropy calibration, card against
+    host."""
+    import numpy as np
+    from mxnet_tpu_torch.contrib import quantization as tq
+    from mxnet_tpu_torch.serving import ModelServer
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    bad, row = [], {"card": card}
+    try:
+        net = _q_resnet(torch, mt, seed=2)
+        gen = torch.Generator(device="cuda").manual_seed(50)
+        x = torch.rand((Q_BATCH, IMG, IMG, 3), generator=gen, device="cuda")
+        t = time.perf_counter()
+        row["float"], _ = _sx_roundtrip(torch, mt, net,
+                                        x, os.path.join(tmp, "sx_f32"))
+        row["float"]["seconds"] = time.perf_counter() - t
+        qnet = A13_STATE.get("int8_net")
+        if qnet is None:
+            qnet = net
+            tq.quantize_net(qnet, [x], calib_mode="naive")
+        xq = A13_STATE.get("int8_x", x)
+        row["int8"], _ = _sx_roundtrip(torch, mt, qnet, xq,
+                                       os.path.join(tmp, "sx_int8"))
+        for what in ("float", "int8"):
+            r = row[what]
+            if not (r["eager_bit_for_bit"] and r["hybridized_bit_for_bit"]):
+                bad.append(f"{what} round trip: {r}")
+        # ModelServer.load of the exported float files
+        prefix = os.path.join(tmp, "sx_f32")
+        srv = ModelServer.load(prefix, bucket_shapes=[(IMG, IMG, 3)],
+                               max_batch_size=8, name="resnet50_v1-loaded")
+        images = x[:16].cpu().numpy()
+        ref = mt.gluon.SymbolBlock.imports(
+            prefix + "-symbol.json", ["data"], prefix + "-0000.params")
+        try:
+            futs = [(j, srv.submit(images[j])) for j in range(len(images))]
+            for _, f in futs:
+                f.result(timeout=120)
+            worst, n_batches, exact = _serve_check_rows(
+                torch, mt, ref, srv, images, futs)
+        finally:
+            srv.stop()
+        row["model_server_load"] = {"requests": len(futs),
+                                    "rows_vs_eager_worst": worst,
+                                    "batches": n_batches,
+                                    "batches_bit_for_bit": exact}
+        if worst > 1e-3:
+            bad.append(f"ModelServer.load: responses {worst} off")
+        del net, ref
+        A13_STATE.clear()
+        torch.cuda.empty_cache()
+        # an Executor MLP and quantize_model, card against host
+        sym = _sx_mlp(mt)
+        rs = np.random.RandomState(7)
+        shapes = {"data": (256, 784), "softmax_label": (256,)}
+        arg_shapes, _, _ = sym.infer_shape(**shapes)
+        args = {n: (rs.rand(*s).astype(np.float32) - 0.5) * 0.1
+                for n, s in zip(sym.list_arguments(), arg_shapes)}
+        args["softmax_label"] = rs.randint(0, 10, 256).astype(np.float32)
+        res = {}
+        for dev in ("cpu", "gpu"):
+            ctx = getattr(mt, dev)()
+            with ctx:
+                ex = sym.bind(ctx, {k: mt.nd.array(v) for k, v in
+                                    args.items()})
+                out = ex.forward(is_train=True)[0].asnumpy()
+                ex.backward()
+                grads = {k: g.asnumpy() for k, g in ex.grad_dict.items()}
+                params = {k: mt.nd.array(v) for k, v in args.items()
+                          if k not in shapes}
+                calib = [{"data": mt.nd.array(np.random.RandomState(s)
+                                              .rand(64, 784)
+                                              .astype(np.float32)),
+                          "softmax_label": mt.nd.zeros((64,))}
+                         for s in (8, 9)]
+                qsym, qargs, _ = tq.quantize_model(
+                    sym, params, {}, calib_mode="entropy",
+                    calib_data=calib)
+            res[dev] = (out, grads, qsym, qargs)
+        (o0, g0, qs0, qa0), (o1, g1, qs1, qa1) = res["cpu"], res["gpu"]
+        worst = max([float(np.abs(o1 - o0).max() / np.abs(o0).max())] +
+                    [float(np.abs(g1[k] - g0[k]).max()
+                           / max(np.abs(g0[k]).max(), 1e-30)) for k in g0])
+        # the calibrated ranges each device chose, and the host's int8
+        # graph run on both
+        ranges = {}
+        for qs in (qs0, qs1):
+            for n in qs._topo():
+                for k, v in n.attrs.items():
+                    if k.endswith("calib_range"):
+                        ranges.setdefault((n.name, k), []).append(float(v))
+        rworst = max(abs(a - b) / max(abs(a), 1e-30)
+                     for a, b in ranges.values())
+        qout = {}
+        for dev in ("cpu", "gpu"):
+            ctx = getattr(mt, dev)()
+            with ctx:
+                qout[dev] = qs0.bind(ctx, {
+                    "data": mt.nd.array(args["data"]),
+                    "softmax_label": mt.nd.array(args["softmax_label"]),
+                    **{k: v.as_in_context(ctx) for k, v in qa0.items()}}
+                ).forward()[0].asnumpy()
+        qworst = float(np.abs(qout["gpu"] - qout["cpu"]).max()
+                       / np.abs(qout["cpu"]).max())
+        row["executor_mlp"] = {"shape": "256 x 784 -> 512 -> 10",
+                               "worst_of_max": worst}
+        row["quantize_model"] = {
+            "calib_mode": "entropy", "int8_weights_bit_for_bit": all(
+                np.array_equal(qa0[k].asnumpy(), qa1[k].asnumpy())
+                for k in qa0),
+            "calib_ranges_worst_rel": rworst,
+            "outputs_worst_of_max": qworst,
+            "top1_agreement_vs_float": float(
+                (qout["gpu"].argmax(1) == o1.argmax(1)).mean())}
+        if worst > 1e-4:
+            bad.append(f"Executor card vs host: {worst}")
+        if qworst > 1e-4 or rworst > 1e-4 or not \
+                row["quantize_model"]["int8_weights_bit_for_bit"]:
+            bad.append(f"quantize_model card vs host: {row}")
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    emit({"phase": "symbol_export", **row})
+    if bad:
+        fail(f"symbol_export: {bad}")
+    return row
+
+
+def quant_recipes(torch, mt, card):
+    """The quantization recipes against the port (``mxnet_tpu`` aliased):
+    quantize_model.py and quantize_gluon.py with their own asserts, and
+    quantize_resnet.py at its defaults (resnet18_v1, 150 iterations):
+    float and int8 top-1."""
+    import re
+    aliases = {"mxnet_tpu.gluon": mt.gluon, "mxnet_tpu.gluon.nn": mt.gluon.nn,
+               "mxnet_tpu.gluon.model_zoo": mt.gluon.model_zoo,
+               "mxnet_tpu.gluon.model_zoo.vision":
+               mt.gluon.model_zoo.vision,
+               "mxnet_tpu.contrib": mt.contrib,
+               "mxnet_tpu.contrib.quantization": mt.contrib.quantization,
+               "mxnet_tpu.symbol": mt.symbol,
+               "mxnet_tpu.symbol.executor": mt.symbol.executor}
+    rows = {}
+    for script in Q_RECIPES:
+        t = time.perf_counter()
+        _, out = _run_recipe(mt, script, [], aliases)
+        rows[os.path.basename(script)] = {
+            "seconds": time.perf_counter() - t,
+            "last_lines": out.strip().splitlines()[-3:]}
+    m = re.search(r"top1 float ([0-9.]+) int8 ([0-9.]+) delta ([-0-9.]+)",
+                  rows["quantize_resnet.py"]["last_lines"][-1])
+    if m is None:
+        fail(f"quantize_resnet.py printed no top-1 line: {rows}")
+    rows["quantize_resnet.py"].update(
+        {"top1_float": float(m.group(1)), "top1_int8": float(m.group(2)),
+         "delta": float(m.group(3))})
+    emit({"phase": "quant_recipes", "recipes": rows, "card": card})
+    return rows
+
+
+def a13_phases(torch, mt, card, timed, names=A13_PHASES):
+    """The int8 / symbol phases, in order, with a scratch directory."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="mxt_a13_")
+    fns = {"int8_ops": lambda: int8_ops_phase(torch, mt, card),
+           "int8_resnet50": lambda: int8_resnet50(torch, mt, card, tmp),
+           "resid8_train": lambda: resid8_train(torch, mt, card),
+           "symbol_export": lambda: symbol_export(torch, mt, card, tmp),
+           "quant_recipes": lambda: quant_recipes(torch, mt, card)}
+    try:
+        for name in names:
+            timed(name, fns[name])
+            torch.cuda.empty_cache()
+    finally:
+        A13_STATE.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -8949,6 +9671,9 @@ def main():
     # sparse storage and the sparse embedding plane (A11), after every
     # earlier phase
     a11_phases(torch, mt, card, timed)
+    # int8 quantization and the symbolic graph (A13, symbol/), after every
+    # earlier phase
+    a13_phases(torch, mt, card, timed)
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -8967,8 +9692,9 @@ def main():
           "earlier_phases_s": sum(v for k, v in walls.items()
                                   if k not in v2 + gluon + fits + f16
                                   + moe_remat + a19 + a20 + a12 + a10
-                                  + A11_PHASES),
+                                  + A11_PHASES + A13_PHASES),
           "a11_phases_s": sum(walls[k] for k in A11_PHASES),
+          "a13_phases_s": sum(walls[k] for k in A13_PHASES),
           "a10_phases_s": sum(walls[k] for k in a10),
           "a10_second_half_s": walls["fleet_train"] + walls["mesh_lm"],
           "a12_phases_s": sum(walls[k] for k in a12),
@@ -9155,13 +9881,15 @@ def main():
 def run_phases(argv):
     """``chip_smoke.py --phases NAME [NAME ...]``: build the kernels and run
     only the named phases of A10's second half (``fleet_train``,
-    ``mesh_lm``) and of A11 (``sparse_ops``, ``sparse_mf``,
-    ``sparse_dist``, ``recsys_plane``), in the order given, with their
-    ``wall`` lines and a last ``walls`` line. Any failure exits
-    non-zero."""
+    ``mesh_lm``), of A11 (``sparse_ops``, ``sparse_mf``, ``sparse_dist``,
+    ``recsys_plane``) and of A13 (``int8_ops``, ``int8_resnet50``,
+    ``resid8_train``, ``symbol_export``, ``quant_recipes``; after the
+    others, in their own order), with their ``wall`` lines and a last
+    ``walls`` line. Any failure exits non-zero."""
     phases = {"fleet_train": fleet_train, "mesh_lm": mesh_lm,
               "sparse_ops": sparse_ops_phase, "sparse_mf": sparse_mf,
               "sparse_dist": sparse_dist, "recsys_plane": recsys_plane}
+    phases.update({n: None for n in A13_PHASES})
     unknown = sorted(set(argv) - set(phases))
     if not argv or unknown:
         fail(f"name phases from {', '.join(phases)} (unknown: {unknown})")
@@ -9180,12 +9908,20 @@ def run_phases(argv):
     t = time.perf_counter()
     _build.build()
     walls["build"] = time.perf_counter() - t
-    for name in argv:
+    def timed(name, fn, *args):
         t = time.perf_counter()
-        phases[name](torch, mt, card)
+        out = fn(*args)
         walls[name] = time.perf_counter() - t
         emit({"phase": "wall", "of": name, "seconds": walls[name]})
-        torch.cuda.empty_cache()
+        return out
+
+    for name in argv:
+        if name not in A13_PHASES:
+            timed(name, phases[name], torch, mt, card)
+            torch.cuda.empty_cache()
+    a13 = [n for n in argv if n in A13_PHASES]
+    if a13:
+        a13_phases(torch, mt, card, timed, a13)
     emit({"phase": "walls", "seconds": walls})
 
 

@@ -13,14 +13,15 @@ from . import (autograd, context, convert, gluon, initializer, kvstore,
                lr_scheduler, models, ndarray, optimizer, ops, parallel,
                random, rtc)
 from . import (cached_op, callback, contrib, fault, fit, image, io, log,
-               megastep, metric, monitor, profiler, recordio, serving,
-               telemetry, util)
+               megastep, metric, model, monitor, profiler, recordio, serving,
+               symbol, telemetry, util)
 from .base import MXNetError, check
 from .context import Context, cpu, current_context, gpu, num_gpus
 
 init = initializer
 kv = kvstore
 nd = ndarray
+sym = symbol
 
 __version__ = "0.1.0"
 
@@ -28,7 +29,8 @@ __all__ = ["Context", "MXNetError", "autograd", "cached_op", "callback",
            "check", "context", "contrib", "convert", "cpu",
            "current_context", "fault", "fit", "gpu", "gluon", "image",
            "init", "initializer", "io", "kv", "kvstore", "log",
-           "lr_scheduler", "megastep", "metric", "models", "monitor", "nd",
+           "lr_scheduler", "megastep", "metric", "model", "models", "monitor",
+           "nd",
            "ndarray", "num_gpus", "ops", "optimizer", "parallel",
-           "profiler", "random", "recordio", "rtc", "serving", "telemetry",
-           "util"]
+           "profiler", "random", "recordio", "rtc", "serving", "sym",
+           "symbol", "telemetry", "util"]

@@ -34,9 +34,10 @@ gradient delivered there keeps every row. A dense buffer takes the
 densified sum. No step builds the dense ``(vocab, dim)`` gradient unless
 the buffer is dense.
 
-Not ported: ``capture`` (the free-variable probe of
-``contrib/control_flow.py``, ROADMAP A14) and ``get_symbol`` (symbol,
-A14).
+``get_symbol`` raises ``NotImplementedError`` with the JAX package's
+words: the eager tape is not traced into a Symbol (``HybridBlock.export``
+is the way to a graph). Not ported: ``capture`` (the free-variable probe
+of ``contrib/control_flow.py``, ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ from .telemetry import efficiency as _efficiency
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "Function", "grad_ready_scope"]
+           "backward", "grad", "Function", "grad_ready_scope", "get_symbol"]
 
 
 class _State(threading.local):
@@ -363,3 +364,10 @@ class Function:
         if isinstance(out, torch.Tensor):
             return NDArray(out)
         return tuple(NDArray(o) for o in out)
+
+
+def get_symbol(x):
+    """(ref: MXAutogradGetSymbol) Not supported on the eager tape, as in the
+    JAX package."""
+    raise NotImplementedError("get_symbol on the eager tape is not supported; "
+                              "use HybridBlock.export / symbol tracing")

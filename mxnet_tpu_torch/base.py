@@ -94,8 +94,15 @@ env.declare("MXNET_RESID_DTYPE", str, "",
             "Store backward activation residuals 8-bit (fp8|e4m3|e5m2). "
             "Conv dx stays exact (needs only weights); conv dW, BN "
             "grads/dx (via fp8 xhat) and ReLU masks see small zero-mean "
-            "rounding (ops/resid8.py). Not ported yet: the port raises "
-            "when it is set.")
+            "rounding (ops/resid8.py).")
+env.declare("MXNET_CONV_COMPUTE", str, "",
+            "Set to 'int8' to run training convolutions int8 "
+            "(static activation range + per-channel weight scales; "
+            "int8 x int8 -> int32 products, exact dx against the weights; "
+            "ops/resid8.py conv_int8_train).")
+env.declare("MXNET_CONV_INT8_RANGE", float, 8.0,
+            "Symmetric activation clip range for MXNET_CONV_COMPUTE=int8 "
+            "(post-BN/ReLU activations are O(1); widen if a model clips).")
 env.declare("MXNET_BACKWARD_DO_MIRROR", bool, False,
             "Trade compute for memory in backward: recompute activations "
             "(torch.utils.checkpoint) instead of storing them.")

@@ -1,7 +1,7 @@
 """Training callbacks (ref: python/mxnet/callback.py; a copy of the JAX
-package's ``callback.py``). ``do_checkpoint`` and ``module_checkpoint``
-save through ``symbol`` / ``module``, which are not ported yet: they raise
-``NotPortedError`` (ROADMAP A14)."""
+package's ``callback.py``). ``module_checkpoint`` saves through
+``module``, which is not ported yet: it raises ``NotPortedError``
+(ROADMAP A14)."""
 from __future__ import annotations
 
 import logging
@@ -14,9 +14,16 @@ __all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
 
 
 def do_checkpoint(prefix, period=1):
-    """(ref: callback.py do_checkpoint): needs ``symbol`` / ``model``."""
-    raise NotPortedError("callback.do_checkpoint saves a symbol, which is "
-                         "not ported yet (ROADMAP.md, queue A14)")
+    """An epoch-end callback ``(iter_no, sym, arg, aux)`` that writes
+    ``model.save_checkpoint(prefix, iter_no + 1, ...)`` every ``period``
+    epochs (ref: callback.py do_checkpoint)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            from .model import save_checkpoint
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):

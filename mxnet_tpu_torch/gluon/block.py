@@ -47,10 +47,23 @@ backward graph under ``autograd.record()``; on the CPU the same cache,
 keys and counters over eager runs. Blocks nested in a hybridized block
 run inside its graphs. ``hybridize(mirror=)`` recomputes activations in
 the backward (``util.mirror_wrapper``; ``None`` follows
-``MXNET_BACKWARD_DO_MIRROR``). ``export`` and ``SymbolBlock`` need
-``symbol/`` and raise (ROADMAP A14). With ``MXTPU_EFFICIENCY`` on, the
+``MXNET_BACKWARD_DO_MIRROR``). With ``MXTPU_EFFICIENCY`` on, the
 CachedOp's forward and backward programs are the efficiency plane's
 ``cached_op`` programs.
+
+Symbols (ref: the JAX package's ``block.py:253-270, 298-363``). A block
+called with :class:`~mxnet_tpu_torch.symbol.Symbol` inputs returns a
+Symbol: ``hybrid_forward(mx.sym, *inputs, **params)`` with each parameter
+a variable of its full name (aux when it is not differentiable). A user
+block's ``hybrid_forward`` serves as it is; every built-in layer, the
+fused BN blocks, the ResNet blocks and the int8 blocks define a
+``hybrid_forward`` twin of their tensor ``forward`` that emits the JAX
+layer's ops and attributes, so ``export`` (``path-symbol.json`` +
+``path-NNNN.params`` with ``arg:`` / ``aux:`` keys) writes the JAX
+package's files. :class:`SymbolBlock` runs a symbol graph
+(``symbol.executor.walk_inputs``, inference mode as in the JAX package)
+with the graph's variables as its parameters; hybridized, it is a
+CachedOp like any block.
 
 Checkpoints: ``save_parameters`` / ``load_parameters`` write and read
 ``mx.nd.save`` files (the JAX package's format) keyed by the structural
@@ -70,8 +83,8 @@ from ..base import MXNetError, check
 from ..context import cpu
 from ..ndarray import utils as nd_utils
 from ..ndarray.ndarray import NDArray, _own
-from ..ops.registry import NotPortedError
 from ..cached_op import CachedOp
+from ..symbol.symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, _Holder)
 
@@ -363,10 +376,17 @@ class Block(nn.Module):
 
     # -- execution ------------------------------------------------------
     def __call__(self, *args, **kwargs):
-        """NDArrays in, NDArrays out; tensors in, tensors out."""
+        """NDArrays in, NDArrays out; tensors in, tensors out; Symbols in,
+        a Symbol out."""
+        if any(isinstance(a, Symbol) for a in args):
+            return self._symbolic_call(*args)
         if any(isinstance(a, NDArray) for a in (*args, *kwargs.values())):
             return self.forward(*args, **kwargs)
         return _nd_call(self.forward, args, kwargs)
+
+    def _symbolic_call(self, *args):
+        raise MXNetError(f"{type(self).__name__} is a Block: only a "
+                         "HybridBlock has a symbolic form")
 
     def forward(self, *args):
         raise NotImplementedError
@@ -385,9 +405,27 @@ class Block(nn.Module):
                 if p.tensor is not None)
         print(f"{type(self).__name__}: {n} parameters")
 
-    def export(self, path, epoch=0, *args, **kwargs):
-        raise NotPortedError("export writes a symbol graph; symbol/ is not "
-                             "ported yet (ROADMAP A14)")
+    def export(self, path: str, epoch: int = 0, input_names=("data",)):
+        """Write ``path-symbol.json`` and ``path-{epoch:04d}.params``
+        (``arg:`` / ``aux:`` keys; ref: block.py export), readable by
+        ``SymbolBlock.imports`` of either package. Returns the symbol."""
+        from .. import symbol as sym_mod
+        for p in self.collect_params().values():
+            if p.tensor is None:
+                raise DeferredInitializationError(
+                    f"export: parameter {p.name!r} is not initialized "
+                    "(run a forward first)")
+        sym = self._symbolic_call(*[sym_mod.var(n) for n in input_names])
+        if isinstance(sym, (list, tuple)):
+            sym = sym_mod.Group(list(sym))
+        sym.save(f"{path}-symbol.json")
+        aux_names = set(sym.list_auxiliary_states())
+        payload = {}
+        for _, p in sorted(self.collect_params().items()):
+            kind = "aux" if p.name in aux_names else "arg"
+            payload[f"{kind}:{p.name}"] = p.data()
+        nd_utils.save(f"{path}-{epoch:04d}.params", payload)
+        return sym
 
     def extra_repr(self) -> str:
         return f"prefix={self._prefix!r}"
@@ -406,7 +444,9 @@ class HybridBlock(Block):
 
     def __call__(self, *args, **kwargs):
         """NDArrays in, NDArrays out (see the module docstring); tensors
-        in, tensors out."""
+        in, tensors out; Symbols in, a Symbol out."""
+        if any(isinstance(a, Symbol) for a in args):
+            return self._symbolic_call(*args)
         if not any(isinstance(a, NDArray) for a in (*args,
                                                       *kwargs.values())):
             if self._deferred:
@@ -440,6 +480,22 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, *args, **kwargs):
         raise NotImplementedError
 
+    def _symbolic_call(self, *args):
+        """``hybrid_forward(mx.sym, *args, **params)`` with each own
+        parameter a variable of its full name (ref: the JAX package's
+        ``block.py:253-270``)."""
+        from .. import symbol as F
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            raise MXNetError(f"{type(self).__name__} defines no "
+                             "hybrid_forward: it has no symbolic form")
+        params = {}
+        for name, p in self._params.items():
+            v = F.var(p.name)
+            if not p._differentiable:
+                v._outputs[0][0].extra["aux"] = True
+            params[self._params._short(name)] = v
+        return self.hybrid_forward(F, *args, **params)
+
     def hybridize(self, active: bool = True, static_alloc: bool = False,
                   static_shape: bool = False, mirror=None,
                   **kwargs) -> None:
@@ -455,13 +511,61 @@ class HybridBlock(Block):
 
 
 class SymbolBlock(HybridBlock):
-    """A block over a symbol graph: needs ``symbol/`` (ROADMAP A14)."""
+    """A block over a symbol graph (ref: block.py SymbolBlock): ``inputs``
+    (Symbols or names) are its arguments, every other variable of
+    ``outputs`` one of its parameters (aux states with ``grad_req``
+    null), without a tensor until ``imports`` or ``set_data`` gives it
+    one."""
 
-    def __init__(self, outputs, inputs, params=None):
-        raise NotPortedError("SymbolBlock runs a symbol graph; symbol/ is "
-                             "not ported yet (ROADMAP A14)")
+    def __init__(self, outputs, inputs, params=None, device=None):
+        super().__init__(prefix="", params=params, device=device)
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._sym_outputs = outputs
+        self._sym_inputs = [i.name if isinstance(i, Symbol) else i
+                            for i in inputs]
+        aux = set(outputs.list_auxiliary_states())
+        for name in outputs.list_inputs():
+            if name in self._sym_inputs:
+                continue
+            self.params.get(name, grad_req="null" if name in aux else "write",
+                            allow_deferred_init=True,
+                            differentiable=name not in aux)
+
+    def _symbolic_call(self, *args):
+        # splice the graph into the caller's: inputs composed with its
+        # symbols, parameters kept as named variables
+        return self._sym_outputs(**dict(zip(self._sym_inputs, args)))
+
+    def forward(self, *args):
+        from ..symbol.executor import walk_inputs
+        params = {}
+        for name in self._params:
+            short = self._params._short(name)
+            params[name] = self._parameters[short] \
+                if short in self._parameters else self._buffers[short]
+        return walk_inputs(self._sym_outputs, self._sym_inputs, args,
+                           params)
 
     @classmethod
     def imports(cls, symbol_file, input_names, param_file=None, ctx=None):
-        raise NotPortedError("SymbolBlock.imports loads a symbol graph; "
-                             "symbol/ is not ported yet (ROADMAP A14)")
+        """Load an exported model (either package's files; ref: block.py
+        SymbolBlock.imports) on ``ctx`` (default: the current context)."""
+        from ..context import Context, current_context
+        from ..symbol import symbol as sym_mod
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        device = Context(ctx if ctx is not None else
+                         current_context()).torch_device
+        net = cls(sym_mod.load(symbol_file), list(input_names),
+                  device=device)
+        if param_file is not None:
+            for k, v in nd_utils.load(param_file, ctx=cpu()).items():
+                name = k.split(":", 1)[1] if ":" in k else k
+                if name in net._params:
+                    p = net._params[name]
+                    if p.tensor is None:
+                        p._dtype = v._data.dtype   # int8 weights stay int8
+                    p.set_data(v)
+            net._deferred = [p for p in net._deferred if p.tensor is None]
+        return net

@@ -9,7 +9,8 @@ built with every input width given; v2, as in the JAX package, leaves the
 image's channels and each bottleneck's ``conv1`` / ``conv3`` input
 (``in_channels=0``) to deferred initialisation, resolved by the first
 forward. Called with ``NDArray``s (the imperative loop) the model returns
-``NDArray``s (``HybridBlock.__call__``).
+``NDArray``s (``HybridBlock.__call__``). Each block's ``hybrid_forward`` is
+its symbolic twin for ``export``: the JAX block's ops in its order.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ class _ResidualV1(HybridBlock):
         return ops.relu(self.body(x) + residual)
 
 
+
 class BasicBlockV1(_ResidualV1):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", prefix=None, device=None):
@@ -86,6 +88,18 @@ class BasicBlockV1(_ResidualV1):
                                        device=device))
         self.downsample = _downsample(channels, stride, in_channels, layout,
                                       ax, device) if downsample else None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        if self.downsample:
+            residual = self.downsample(residual)
+        if self._fused:
+            kids = list(self.body)
+            for child in kids[:-1]:
+                x = child(x)
+            return kids[-1](x, residual)
+        x = self.body(x)
+        return F.Activation(residual + x, act_type="relu")
 
 
 class BottleneckV1(_ResidualV1):
@@ -120,11 +134,25 @@ class BottleneckV1(_ResidualV1):
         self.downsample = _downsample(channels, stride, in_channels, layout,
                                       ax, device) if downsample else None
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        if self.downsample:
+            residual = self.downsample(residual)
+        if self._fused:
+            kids = list(self.body)
+            for child in kids[:-1]:
+                x = child(x)
+            return kids[-1](x, residual)
+        x = self.body(x)
+        return F.Activation(x + residual, act_type="relu")
+
 
 class SpaceToDepthStem(HybridBlock):
     """The 7x7/2 stem as space-to-depth + a 4x4/1 convolution (ref: the JAX
     package's SpaceToDepthStem): 2x2 spatial blocks become channels
     (H, W, 3 -> H/2, W/2, 12), padded (2, 1) on each spatial axis."""
+
+    _tail_conv = True      # the block's output is its conv's (int8 folding)
 
     def __init__(self, channels, layout="NCHW", prefix=None, device=None):
         super().__init__(prefix=prefix, device=device)
@@ -146,6 +174,23 @@ class SpaceToDepthStem(HybridBlock):
             x = x.reshape(b, c, h // 2, 2, w // 2, 2)
             x = x.permute(0, 1, 3, 5, 2, 4).reshape(b, 4 * c, h // 2, w // 2)
             x = F.pad(x, (2, 1, 2, 1))
+        return self.conv(x)
+
+    def hybrid_forward(self, F, x):
+        if self._layout == "NHWC":
+            x = F.reshape(x, shape=(0, -4, -1, 2, -4, -1, 2, 0))
+            x = F.transpose(x, axes=(0, 1, 3, 2, 4, 5))
+            x = F.reshape(x, shape=(0, 0, 0, -3, 0))
+            x = F.reshape(x, shape=(0, 0, 0, -3))
+            x = F.pad(x, mode="constant",
+                      pad_width=(0, 0, 2, 1, 2, 1, 0, 0))
+        else:
+            x = F.reshape(x, shape=(0, 0, -4, -1, 2, -4, -1, 2))
+            x = F.transpose(x, axes=(0, 1, 3, 5, 2, 4))
+            x = F.reshape(x, shape=(0, -3, 0, 0, 0))
+            x = F.reshape(x, shape=(0, -3, 0, 0))
+            x = F.pad(x, mode="constant",
+                      pad_width=(0, 0, 0, 0, 2, 1, 2, 1))
         return self.conv(x)
 
 
@@ -201,6 +246,11 @@ class ResNetV1(HybridBlock):
     def forward(self, x):
         return self.output(self.features(x))
 
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        x = self.output(x)
+        return x
+
 
 def _bn_relu(ax, fused, device):
     """Pre-activation BN+ReLU: one fused block channel-last, a plain
@@ -237,6 +287,20 @@ class BasicBlockV2(_ResidualV2):
         x = self.conv2(self._pre(self.bn2, self.conv1(x)))
         return x + residual
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        if not self._fused:
+            x = F.Activation(x, act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        if not self._fused:
+            x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        return x + residual
+
 
 class BottleneckV2(_ResidualV2):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
@@ -264,6 +328,24 @@ class BottleneckV2(_ResidualV2):
             residual = self.downsample(x)
         x = self.conv2(self._pre(self.bn2, self.conv1(x)))
         x = self.conv3(self._pre(self.bn3, x))
+        return x + residual
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        if not self._fused:
+            x = F.Activation(x, act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        if not self._fused:
+            x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        x = self.bn3(x)
+        if not self._fused:
+            x = F.Activation(x, act_type="relu")
+        x = self.conv3(x)
         return x + residual
 
 
@@ -305,6 +387,11 @@ class ResNetV2(HybridBlock):
 
     def forward(self, x):
         return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        x = self.output(x)
+        return x
 
 
 _RESNET_SPEC = {

@@ -21,6 +21,9 @@ class Activation(HybridBlock):
     def forward(self, x):
         return F.activation(x, act_type=self._act_type)
 
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
     def extra_repr(self):
         return self._act_type
 
@@ -35,6 +38,9 @@ class LeakyReLU(HybridBlock):
     def forward(self, x):
         return F.leaky_relu(x, act_type="leaky", slope=self._alpha)
 
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
 
 class PReLU(HybridBlock):
     """Leaky ReLU with a learned slope ``alpha`` of shape (1,), starting at
@@ -48,6 +54,9 @@ class PReLU(HybridBlock):
     def forward(self, x):
         return F.leaky_relu(x, self.alpha, act_type="prelu")
 
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
 
 class ELU(HybridBlock):
     def __init__(self, alpha=1.0, prefix=None, device=None):
@@ -57,15 +66,24 @@ class ELU(HybridBlock):
     def forward(self, x):
         return F.leaky_relu(x, act_type="elu", slope=self._alpha)
 
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
 
 class SELU(HybridBlock):
     def forward(self, x):
         return F.leaky_relu(x, act_type="selu")
 
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
 
 class GELU(HybridBlock):
     def forward(self, x):
         return F.leaky_relu(x, act_type="gelu")
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
 
 
 class Swish(HybridBlock):
@@ -77,3 +95,6 @@ class Swish(HybridBlock):
 
     def forward(self, x):
         return x * F.activation(self._beta * x, act_type="sigmoid")
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)

@@ -2,7 +2,10 @@
 python/mxnet/gluon/nn/basic_layers.py).
 
 Each layer's ``forward`` calls the registered op functions of
-``ops/nn.py`` on tensors (other registered ops through ``_F``). A width
+``ops/nn.py`` on tensors (other registered ops through ``_F``). Its
+``hybrid_forward(F, x, **params)`` is the symbolic twin that
+``HybridBlock.export`` calls with ``F = mx.sym``: the JAX layer's ops and
+attributes, so both packages write the same graph. A width
 given as 0 (``in_units``, ``in_channels``) is deferred: the layer's
 ``infer_shape_from_inputs`` reads it from the first input, with the JAX
 package's rule.
@@ -42,6 +45,11 @@ class HybridSequential(HybridBlock):
             self.register_child(b)
 
     def forward(self, x):
+        for child in self.children():
+            x = child(x)
+        return x
+
+    def hybrid_forward(self, F, x):
         for child in self.children():
             x = child(x)
         return x
@@ -99,6 +107,17 @@ class Dense(HybridBlock):
             out = F.activation(out, act_type=self._activation)
         return out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        if bias is None:
+            out = F.FullyConnected(x, weight, num_hidden=self._units,
+                                   no_bias=True, flatten=self._flatten)
+        else:
+            out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   no_bias=False, flatten=self._flatten)
+        if self._activation is not None:
+            out = F.Activation(out, act_type=self._activation)
+        return out
+
     def extra_repr(self):
         return f"{self._units}, act={self._activation}"
 
@@ -118,6 +137,9 @@ class Dropout(HybridBlock):
         return F.dropout(x, p=self._rate, axes=self._axes,
                          _training=autograd.is_training(),
                          generator=self._generator)
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes)
 
     def extra_repr(self):
         return f"p={self._rate}"
@@ -145,6 +167,7 @@ class BatchNorm(HybridBlock):
         self._axis = axis
         self._momentum = momentum
         self._epsilon = epsilon
+        self._center = center
         self._scale = scale
         self._use_global_stats = use_global_stats
         c = (in_channels,)
@@ -187,6 +210,14 @@ class BatchNorm(HybridBlock):
         self._update_running_stats(training, mean, var)
         return out
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        out, _, _ = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var,
+            eps=self._epsilon, momentum=self._momentum,
+            fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis)
+        return out
+
     def extra_repr(self):
         return f"axis={self._axis}"
 
@@ -213,6 +244,9 @@ class InstanceNorm(HybridBlock):
     def forward(self, x):
         return F.instance_norm(x, self.gamma, self.beta, eps=self._epsilon)
 
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
 
 class LayerNorm(HybridBlock):
     """(ref: nn.LayerNorm) over ``axis``; ``in_channels=0`` is read from
@@ -237,6 +271,11 @@ class LayerNorm(HybridBlock):
     def forward(self, x):
         out, _, _ = F.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                                  eps=self._epsilon)
+        return out
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        out, _, _ = F.LayerNorm(x, gamma, beta, axis=self._axis,
+                                eps=self._epsilon)
         return out
 
 
@@ -271,6 +310,11 @@ class Embedding(HybridBlock):
                            output_dim=self._output_dim,
                            sparse_grad=self._sparse_grad)
 
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim,
+                           sparse_grad=self._sparse_grad)
+
     def extra_repr(self):
         return f"{self._input_dim} -> {self._output_dim}"
 
@@ -280,6 +324,9 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return _F.flatten(x)
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
 
 
 class Lambda(HybridBlock):
@@ -302,10 +349,12 @@ class HybridLambda(HybridBlock):
     def __init__(self, function, prefix=None, device=None):
         super().__init__(prefix=prefix, device=device)
         if isinstance(function, str):
-            op = getattr(_F, function)
-            self._func = lambda F, *args: op(*args)
+            self._func = lambda F, *args: getattr(F, function)(*args)
         else:
             self._func = function
 
     def forward(self, *args):
         return self._func(_F, *args)
+
+    def hybrid_forward(self, F, *args):
+        return self._func(F, *args)

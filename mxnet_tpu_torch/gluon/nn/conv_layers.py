@@ -7,6 +7,7 @@ Convolutions in 1, 2 and 3 dimensions and their transposes, over the
 convolution, ``(I, O/g, *k)`` for a transpose. ``in_channels=0`` is read
 from the first input's channel axis. Pooling layers (max, avg, global)
 over the ``Pooling`` op, with ``ceil_mode`` as the "full" convention.
+``hybrid_forward`` is each layer's symbolic twin (``export``).
 """
 from __future__ import annotations
 
@@ -76,6 +77,16 @@ class _Conv(HybridBlock):
         out = op(x, self.weight, *bias, **self._kwargs)
         if self._activation:
             out = F.activation(out, act_type=self._activation)
+        return out
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        op = F.Deconvolution if self._transpose else F.Convolution
+        if bias is None:
+            out = op(x, weight, **self._kwargs)
+        else:
+            out = op(x, weight, bias, **self._kwargs)
+        if self._activation:
+            out = F.Activation(out, act_type=self._activation)
         return out
 
     def extra_repr(self):
@@ -169,6 +180,9 @@ class _Pooling(HybridBlock):
     def forward(self, x):
         return F.pooling(x, **self._kwargs)
 
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, **self._kwargs)
+
     def extra_repr(self):
         return f"{self._kwargs['kernel']}"
 
@@ -261,3 +275,6 @@ class ReflectionPad2D(HybridBlock):
 
     def forward(self, x):
         return _F.Pad(x, mode="reflect", pad_width=self._padding)
+
+    def hybrid_forward(self, F, x):
+        return F.Pad(x, mode="reflect", pad_width=self._padding)

@@ -20,8 +20,20 @@ __all__ = ["FusedBatchNormReLU", "FusedBatchNormAddReLU"]
 class FusedBatchNormReLU(BatchNorm):
     """``relu(BatchNorm(x))`` in one op."""
 
+    _epilogue = "relu"          # the tail a BN fold leaves behind
+
     def forward(self, x):
         return self._fused(x, None)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        out, _, _ = F.contrib.fused_bn_relu(
+            x, gamma, beta, running_mean, running_var, **self._attrs())
+        return out
+
+    def _attrs(self):
+        return dict(eps=self._epsilon, momentum=self._momentum,
+                    fix_gamma=not self._scale,
+                    use_global_stats=self._use_global_stats, axis=self._axis)
 
     def _fused(self, x, residual):
         training = autograd.is_training()
@@ -38,5 +50,14 @@ class FusedBatchNormAddReLU(FusedBatchNormReLU):
     """``relu(BatchNorm(x) + residual)`` — the ResNet block tail, called
     as ``block(x, residual)``."""
 
+    _epilogue = "add_relu"
+
     def forward(self, x, residual):
         return self._fused(x, residual)
+
+    def hybrid_forward(self, F, x, residual, gamma, beta, running_mean,
+                       running_var):
+        out, _, _ = F.contrib.fused_bn_add_relu(
+            x, residual, gamma, beta, running_mean, running_var,
+            **self._attrs())
+        return out

@@ -39,8 +39,8 @@ attribute holds this record, the block's ``nn.Parameter`` or buffer is
 module of its own until a block adopts it (``block.x = param``); one
 taken from a ``shared`` dictionary is registered in the sharing block
 too, the same tensor under the same short name, so the trainers and
-``functional_call`` see one tied weight. ``Parameter.var`` needs
-``symbol/`` and raises (ROADMAP A14).
+``functional_call`` see one tied weight. ``Parameter.var`` is the
+parameter as a symbol variable.
 
 Each tensor and gradient buffer is registered with the memory ledger
 (``telemetry/memory.py``, categories ``params`` and ``grads``) where it
@@ -60,7 +60,6 @@ from ..base import MXNetError, check, torch_dtype
 from ..context import Context, current_context, resolve_device
 from ..ndarray import utils as nd_utils
 from ..ndarray.ndarray import NDArray
-from ..ops.registry import NotPortedError
 from ..random import init_generator
 from ..telemetry import memory as _memory
 
@@ -108,6 +107,7 @@ class Parameter:
         self._block = None
         self._attr = None
         self._device = None
+        self._differentiable = differentiable    # False: an aux state
         self._trained = differentiable and grad_req != "null"
         self._grad_req = "null"
         self._nd = None
@@ -295,8 +295,10 @@ class Parameter:
                     g._indices = g._indices.to(self._device)
 
     def var(self):
-        raise NotPortedError("Parameter.var makes a symbol variable; "
-                             "symbol/ is not ported yet (ROADMAP A14)")
+        """The parameter as a symbol variable of its name, shape and
+        dtype."""
+        from ..symbol import symbol as _sym
+        return _sym.var(self.name, shape=self.shape, dtype=self.dtype)
 
     # -- access -----------------------------------------------------------
     def data(self, ctx=None) -> NDArray:
@@ -348,8 +350,9 @@ class Parameter:
         self._home(src.device)
         dst = self.tensor
         if dst is None:
-            check(len(src.shape) == len(self._shape) and all(
-                s in (0, v) for s, v in zip(self._shape, src.shape)),
+            check(self._shape is None or len(src.shape) == len(self._shape)
+                  and all(s in (0, v) for s, v in zip(self._shape,
+                                                      src.shape)),
                 f"parameter {self.name}: shape {tuple(src.shape)} does not "
                 f"match {self._shape}")
             dst = self._create(src.shape)

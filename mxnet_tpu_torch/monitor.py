@@ -13,10 +13,10 @@ feeds fill the queue while the Monitor is activated and a name matches
   value)`` entries;
 - eager dispatch: :meth:`Monitor.wrap` wraps a callable (an ``mx.nd``
   op, a block) so each call's output goes through ``stat_func``
-  (:meth:`_stat_helper`, the executor callback's surface).
-
-``install(executor)`` needs the symbolic executor (ROADMAP A14) and
-raises ``NotPortedError``.
+  (:meth:`_stat_helper`, the executor callback's surface);
+- executors: :meth:`Monitor.install` sets an ``Executor``'s monitor
+  callback (its outputs after every forward), and ``toc`` evaluates the
+  installed executors' internal outputs.
 """
 from __future__ import annotations
 
@@ -24,8 +24,6 @@ import re
 from typing import Callable, List, Optional, Tuple
 
 import numpy as _np
-
-from .ops.registry import NotPortedError
 
 __all__ = ["Monitor"]
 
@@ -49,12 +47,12 @@ class Monitor:
         self.step = 0
         self.activated = False
         self.queue: List[Tuple[int, str, object]] = []
+        self._exes: List = []
 
     def install(self, exe) -> None:
-        """(ref: monitor.py install_to_executor) The executor is ROADMAP
-        A14."""
-        raise NotPortedError("Monitor.install: the symbolic executor is "
-                             "not ported yet (ROADMAP.md, queue A14)")
+        """(ref: monitor.py install_to_executor)"""
+        self._exes.append(exe)
+        exe.set_monitor_callback(self._stat_helper, self.monitor_all)
 
     def wrap(self, fn: Callable, name: Optional[str] = None) -> Callable:
         """``fn`` with each call's output (an NDArray, a tensor, or a
@@ -100,6 +98,27 @@ class Monitor:
         if not self.activated:
             self.step += 1
             return []
+        from .ndarray.ndarray import NDArray
+        from .symbol.executor import _walk
+        # the internal outputs of each installed executor
+        for exe in self._exes:
+            internals = exe._symbol.get_internals()
+            args = {n: a._data for n, a in exe.arg_dict.items()}
+            aux = {n: a._data for n, a in exe.aux_dict.items()}
+            try:
+                import torch
+                with torch.no_grad():
+                    outs = _walk(internals, args, aux, False)
+            except Exception as e:          # noqa: BLE001 - logged
+                import logging
+                logging.getLogger("mxnet_tpu_torch").warning(
+                    "Monitor: could not evaluate internals of executor "
+                    "%r: %s", exe, e)
+                continue
+            for name, val in zip(internals.list_outputs(), outs):
+                if self.re_prog.match(name):
+                    self.queue.append((self.step, name,
+                                       self.stat_func(NDArray(val))))
         self.activated = False
         res = []
         if self.sort:

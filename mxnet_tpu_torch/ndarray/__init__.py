@@ -28,6 +28,7 @@ from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import ordering as _ordering  # noqa: F401
 from ..ops import parity_ops as _parity_ops  # noqa: F401
+from ..ops import quantization as _quantization  # noqa: F401
 from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from ..ops import sparse_ops as _sparse_ops  # noqa: F401

@@ -121,7 +121,7 @@ def not_ported(namespace: str):
             raise AttributeError(attr)
         raise _reg.NotPortedError(
             f"{namespace}.{attr} is not in mxnet_tpu_torch: not ported yet "
-            "(see ROADMAP.md, queue A)")
+            "(see ROADMAP.md, queue A14)")
     return __getattr__
 
 

@@ -25,10 +25,11 @@ from the ``generator`` it is given, else the device's default generator.
 
 Flags (``base.env``): ``MXTPU_FUSED_EPILOGUE=0`` sends the fused epilogue
 op down the composed BatchNorm -> (add) -> ReLU chain, as in the JAX
-package. ``MXNET_RESID_DTYPE`` (8-bit saved residuals) is not ported: every
-op that reads it in the JAX package (convolution, training BatchNorm, the
-composed epilogue, ReLU) raises on float data while it is set, rather than
-compute something else.
+package. ``MXNET_RESID_DTYPE`` stores the saved residuals of convolution,
+training BatchNorm (the composed epilogue's too) and ReLU as fp8, and
+``MXNET_CONV_COMPUTE=int8`` runs floating convolutions as int8 products
+(``ops/resid8.py``); the fused epilogue kernels ignore both, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import torch.nn.functional as F
 from ..base import MXNetError, check, env, torch_dtype
 from ..random import default_generator
 from ..util import replayed
+from . import resid8
 from .fused_bn_act import fused_bn_act, sync_reducer
 from .registry import register
 
@@ -64,13 +66,10 @@ def _tuplify(v, n):
     return tuple(v)
 
 
-def _no_resid8(data, op):
-    """Raise while MXNET_RESID_DTYPE asks for the JAX package's 8-bit
-    residual lowering of ``op`` (ref: ops/resid8.py), which is not ported."""
-    rdt = env.get("MXNET_RESID_DTYPE")
-    if rdt and data.is_floating_point():
-        raise MXNetError(f"{op}: MXNET_RESID_DTYPE={rdt!r} (8-bit saved "
-                         "residuals) is not ported yet; unset it")
+def _resid8_of(data):
+    """The fp8 residual format while ``MXNET_RESID_DTYPE`` is set and
+    ``data`` is floating (ref: ops/resid8.py), else None."""
+    return resid8.resid_dtype() if data.is_floating_point() else None
 
 
 def _bias(maybe_bias, no_bias):
@@ -146,9 +145,9 @@ def convolution(data, weight, *maybe_bias, kernel=(), stride=(), dilate=(),
     check(data.dim() == nd + 2 and weight.dim() == nd + 2,
           f"convolution: {nd + 2}-d data and weight expected")
     layout = _conv_layout(layout, nd)
-    _no_resid8(data, "convolution")
     x, stride, pad = _to_cf(data, layout), _tuplify(stride, nd), \
         _tuplify(pad if pad else 0, nd)
+    whole = True
     if x.device.type == "cpu" and layout[-1] == "C" and \
             weight.shape[1:-1] == (1,) * nd and not any(pad) and \
             any(s > 1 for s in stride):
@@ -159,9 +158,19 @@ def convolution(data, weight, *maybe_bias, kernel=(), stride=(), dilate=(),
         # subsampled by the stride, which is right at every thread count.
         x = x[(slice(None),) * 2 + tuple(slice(None, None, s)
                                          for s in stride)]
-        stride = (1,) * nd
-    out = _CONV[nd](x, _to_cf(weight, layout), None, stride, pad,
-                    _tuplify(dilate, nd), num_group)
+        stride, whole = (1,) * nd, False
+    w, dilate = _to_cf(weight, layout), _tuplify(dilate, nd)
+    rdt = _resid8_of(data)
+    if data.is_floating_point() and resid8.conv_int8():
+        # int8 training convolution (ref: ops/nn.py:109-112)
+        out = resid8.conv_int8_train(x, w, stride, pad, dilate, num_group)
+    elif rdt is not None:
+        held = resid8.shared_fp8(data, rdt) if whole else None
+        out = resid8.conv_resid8(
+            x, w, _CONV[nd], stride, pad, dilate, num_group, rdt,
+            None if held is None else _to_cf(held, layout))
+    else:
+        out = _CONV[nd](x, w, None, stride, pad, dilate, num_group)
     out = _from_cf(out, layout)
     bias = _bias(maybe_bias, no_bias)
     return out if bias is None else _add_channel_bias(out, bias, layout)
@@ -307,10 +316,12 @@ class _BatchNormCore(torch.autograd.Function):
     ``sum_dy`` / ``sum_dy_xhat`` closed form."""
 
     @staticmethod
-    def forward(ctx, data, g32, beta32, axis, eps):
+    def forward(ctx, data, g32, beta32, axis, eps, rdt=None):
         ax, red, bshape, n = _bn_shapes(data, axis)
         sync = sync_reducer()
         ctx.sync = sync
+        ctx.axis = axis
+        ctx.rdt = None if rdt is None else resid8.fp8_dtype(rdt)
         if sync is not None:
             # global-batch statistics (fused_bn_act.sync_scope): the
             # ranks' [sum x, sum x^2] summed, no per-rank shift
@@ -323,8 +334,7 @@ class _BatchNormCore(torch.autograd.Function):
             inv = torch.rsqrt(var + eps)
             out = (x32 - mean.reshape(bshape)) \
                 * (inv * g32).reshape(bshape) + beta32.reshape(bshape)
-            ctx.save_for_backward(data, mean, inv, g32)
-            ctx.axis = axis
+            _BatchNormCore._save(ctx, data, mean, inv, g32, bshape)
             ctx.mark_non_differentiable(mean, var)
             return out.to(data.dtype), mean, var
         # assumed-mean shift (one real sample per channel) keeps
@@ -341,16 +351,34 @@ class _BatchNormCore(torch.autograd.Function):
         inv = torch.rsqrt(var + eps)
         out = (data.float() - mean.reshape(bshape)) \
             * (inv * g32).reshape(bshape) + beta32.reshape(bshape)
-        ctx.save_for_backward(data, mean, inv, g32)
-        ctx.axis = axis
+        _BatchNormCore._save(ctx, data, mean, inv, g32, bshape)
         ctx.mark_non_differentiable(mean, var)
         return out.to(data.dtype), mean, var
 
     @staticmethod
-    def backward(ctx, dout, _dmean, _dvar):
-        data, mean, inv, g32 = ctx.saved_tensors
-        _, red, bshape, n = _bn_shapes(data, ctx.axis)
+    def _save(ctx, data, mean, inv, g32, bshape):
+        """The backward's residuals: the input, or under
+        ``MXNET_RESID_DTYPE`` the fp8 normalised input (ref: ops/nn.py
+        :305-313)."""
+        if ctx.rdt is None:
+            ctx.save_for_backward(data, mean, inv, g32)
+            return
         xhat = (data.float() - mean.reshape(bshape)) * inv.reshape(bshape)
+        ctx.save_for_backward(resid8._sat_cast(xhat, ctx.rdt), inv, g32)
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        if ctx.rdt is None:
+            data, mean, inv, g32 = ctx.saved_tensors
+            _, red, bshape, n = _bn_shapes(data, ctx.axis)
+            xhat = (data.float() - mean.reshape(bshape)) \
+                * inv.reshape(bshape)
+            out_dtype = data.dtype
+        else:
+            xhat_q, inv, g32 = ctx.saved_tensors
+            _, red, bshape, n = _bn_shapes(xhat_q, ctx.axis)
+            xhat = xhat_q.float()
+            out_dtype = dout.dtype
         dy32 = dout.float()
         sum_dy = dy32.sum(dim=red)
         sum_dy_xhat = (dy32 * xhat).sum(dim=red)
@@ -363,7 +391,7 @@ class _BatchNormCore(torch.autograd.Function):
         dx = (g32 * inv).reshape(bshape) * (
             dy32 - (tot_dy / n).reshape(bshape)
             - xhat * (tot_dy_xhat / n).reshape(bshape))
-        return dx.to(data.dtype), sum_dy_xhat, sum_dy, None, None
+        return dx.to(out_dtype), sum_dy_xhat, sum_dy, None, None, None
 
 
 def _gamma32(gamma, fix_gamma):
@@ -394,8 +422,8 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     g32 = _gamma32(gamma, fix_gamma)
     b32 = beta.float()
     if _training and not use_global_stats:
-        _no_resid8(data, "batch_norm")
-        return _BatchNormCore.apply(data, g32, b32, axis, float(eps))
+        return _BatchNormCore.apply(data, g32, b32, axis, float(eps),
+                                    _resid8_of(data))
     out, mean, var = _inference_norm(data, g32, b32, moving_mean,
                                      moving_var, eps, axis)
     return out.to(data.dtype), mean, var
@@ -416,9 +444,8 @@ def fused_bn_act_impl(data, residual, gamma, beta, moving_mean, moving_var,
         if axis % data.dim() == data.dim() - 1 and data.is_floating_point() \
                 and env.get("MXTPU_FUSED_EPILOGUE"):
             return fused_bn_act(data, residual, g32, b32, float(eps))
-        _no_resid8(data, "fused_bn_act (composed)")
         out, mean, var = _BatchNormCore.apply(data, g32, b32, axis,
-                                              float(eps))
+                                              float(eps), _resid8_of(data))
         if residual is not None:
             out = out + residual
         return relu(out), mean, var
@@ -515,7 +542,9 @@ def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
 def relu(data):
     """(ref: Activation relu, ``jnp.maximum(data, 0)``) as ``maximum``, whose
     gradient splits an exact tie at 0 in halves as JAX's does."""
-    _no_resid8(data, "relu")
+    rdt = _resid8_of(data)
+    if rdt is not None:
+        return resid8.relu_resid8(data, rdt)
     return torch.maximum(data, data.new_zeros(()))
 
 

@@ -83,12 +83,11 @@ def _trace_time_flags() -> Tuple:
     and that change what a captured program computes (ref: the JAX
     package's ``ops/registry.py _trace_time_flags``). ``CachedOp`` keys
     its signatures on them, so toggling one captures anew instead of
-    replaying a graph of the other setting. The two quantization flags
-    (ROADMAP A13) are kept as their raw strings."""
+    replaying a graph of the other setting."""
     return (bool(env.get("MXNET_SAFE_ACCUMULATION")),
             env.get("MXNET_RESID_DTYPE") or "",
-            env.raw("MXNET_CONV_COMPUTE") or "",
-            env.raw("MXNET_CONV_INT8_RANGE") or "",
+            env.get("MXNET_CONV_COMPUTE") or "",
+            float(env.get("MXNET_CONV_INT8_RANGE")),
             bool(env.get("MXTPU_FUSED_EPILOGUE")))
 
 
@@ -164,7 +163,7 @@ def get_op(name: str) -> OpDef:
     except KeyError:
         raise NotPortedError(
             f"operator {name!r} is not in mxnet_tpu_torch: not ported yet "
-            "(see ROADMAP.md, queue A)") from None
+            "(see ROADMAP.md, queue A14)") from None
 
 
 def list_ops() -> List[str]:

@@ -42,7 +42,6 @@ import numpy as np
 
 from ..base import MXNetError, env
 from ..log import get_logger
-from ..ops.registry import NotPortedError
 from .batcher import (Batch, BucketTable, DeadlineExceeded, NoBucket,
                       PredictionFuture, QueueFull, Request, ServerClosed,
                       pad_rows)
@@ -386,12 +385,13 @@ class ModelServer:
     @classmethod
     def load(cls, prefix: str, epoch: int = 0, input_names=("data",),
              ctx=None, **kwargs) -> "ModelServer":
-        """Serve an exported checkpoint (``HybridBlock.export`` layout),
-        loaded through ``gluon.SymbolBlock.imports``: needs ``symbol/``,
-        not ported yet (ROADMAP A14)."""
-        raise NotPortedError("ModelServer.load reads an exported symbol "
-                             "graph through SymbolBlock.imports; symbol/ "
-                             "is not ported yet (ROADMAP.md, queue A14)")
+        """Serve an exported checkpoint (``HybridBlock.export`` layout:
+        ``prefix-symbol.json`` + ``prefix-NNNN.params``, either package's),
+        loaded through ``gluon.SymbolBlock.imports``."""
+        from ..gluon.block import SymbolBlock
+        net = SymbolBlock.imports(f"{prefix}-symbol.json", list(input_names),
+                                  f"{prefix}-{epoch:04d}.params", ctx=ctx)
+        return cls(net, **kwargs)
 
     # -- internals --------------------------------------------------------
     def _reject(self, req: Request, reason: str, err: Exception) -> None:

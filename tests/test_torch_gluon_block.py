@@ -438,8 +438,10 @@ def test_free_standing_parameter_and_constant():
     np.testing.assert_array_equal(p.data().asnumpy(), np.ones((3, 4)))
     assert p.list_ctx() == [CPU] and p.grad().shape == (3, 4)
     p.reset_ctx(CPU)
-    with pytest.raises(NotPortedError, match="A14"):
-        p.var()
+    v = p.var()                          # symbol/ came with A13's slice
+    jv = jmx.gluon.Parameter("w", shape=(3, 4)).var()
+    assert v.name == jv.name == "w" and v.list_arguments() == ["w"]
+    assert v.infer_shape()[0] == jv.infer_shape()[0] == [(3, 4)]
     c = tmx.gluon.Constant("c", [1.0, 2.0])
     c.initialize(ctx=CPU)
     jc = jmx.gluon.Constant("c", [1.0, 2.0])
@@ -459,13 +461,19 @@ def test_free_standing_parameter_and_constant():
     assert q.block is h and "holder_v" in h.params
 
 
-def test_unported_block_parts_raise():
-    with pytest.raises(NotPortedError, match="A14"):
-        tmx.gluon.SymbolBlock(None, None)
+def test_unported_block_parts_raise(tmp_path):
+    # export and SymbolBlock came with symbol/ (A13's slice): a user
+    # block exports through its hybrid_forward and imports back
     with tmx.cpu():
         net = make_constant(tmx)(prefix=f"exp{next(_ids)}_")
-    with pytest.raises(NotPortedError, match="A14"):
-        net.export("model")
+        net.initialize()
+        x = tmx.nd.array(np.arange(12, dtype=np.float32).reshape(2, 6))
+        want = net(x).asnumpy()
+        net.export(str(tmp_path / "model"))
+        back = tmx.gluon.SymbolBlock.imports(
+            str(tmp_path / "model-symbol.json"), ["data"],
+            str(tmp_path / "model-0000.params"))
+        np.testing.assert_array_equal(back(x).asnumpy(), want)
     assert tmx.gluon.nn.Block is tmx.gluon.Block
     assert tmx.gluon.nn_block_scope is tmx.gluon.block.name_scope
     # data and contrib.data came with the input pipeline; rnn and the

@@ -7,8 +7,9 @@ with its own NDArrays, with torch tensors and with numpy arrays: ``get``,
 ``get_global`` and ``get_name_value`` agree at 1e-6 relative, also after
 ``reset_local``. ``create`` resolves the same names and aliases, lists
 become composite metrics, and a callable becomes a ``CustomMetric``. The
-callbacks log the JAX package's lines; ``do_checkpoint`` and
-``module_checkpoint`` raise ``NotPortedError`` (A14).
+callbacks log the JAX package's lines; ``do_checkpoint`` writes the
+symbol checkpoint layout and ``module_checkpoint`` raises
+``NotPortedError`` (A14).
 """
 import logging
 
@@ -217,8 +218,17 @@ def test_speedometer_lines_match_jax(caplog):
     assert all("samples/sec" in l for l in t)
 
 
-def test_checkpoint_callbacks_need_symbol_and_module():
-    with pytest.raises(NotPortedError, match="A14"):
-        tcb.do_checkpoint("prefix")
+def test_checkpoint_callbacks_need_symbol_and_module(tmp_path):
+    # do_checkpoint came with symbol/; module_checkpoint waits for module/
+    cb = tcb.do_checkpoint(str(tmp_path / "m"), period=2)
+    with mt.cpu():
+        sym = mt.sym.FullyConnected(mt.sym.var("data"), num_hidden=2,
+                                    name="fc")
+        arg = {"fc_weight": mt.nd.ones((2, 3)), "fc_bias": mt.nd.zeros((2,))}
+    cb(0, sym, arg, {})
+    assert not (tmp_path / "m-0001.params").exists()
+    cb(1, sym, arg, {})
+    assert (tmp_path / "m-0002.params").exists()
+    assert (tmp_path / "m-symbol.json").read_text() == sym.tojson()
     with pytest.raises(NotPortedError, match="A14"):
         tcb.module_checkpoint(None, "prefix")

@@ -284,24 +284,27 @@ def test_fused_epilogue_flag_off_takes_the_composed_chain(
 
 
 def test_resid8_flag_raises_rather_than_compute_something_else(monkeypatch):
-    """MXNET_RESID_DTYPE (8-bit saved residuals) is not ported: every op
-    that reads it in the JAX package raises on float data."""
-    monkeypatch.setenv("MXNET_RESID_DTYPE", "fp8")
-    x = torch.ones(1, 4, 4, 2)
+    """MXNET_RESID_DTYPE (8-bit saved residuals, ported with A13,
+    tests/test_torch_resid8.py) changes what the backward reads, never
+    the forward: every op that reads it in the JAX package computes the
+    forward it computes without it; a bad value raises."""
+    x = torch.randn(1, 4, 4, 2, generator=torch.Generator().manual_seed(0))
     w = torch.ones(3, 1, 1, 2)
     g, b = torch.ones(2), torch.zeros(2)
     calls = [lambda: tops.convolution(x, w, layout="NHWC"),
              lambda: tops.relu(x),
              lambda: tops.batch_norm(x, g, b, g, g, axis=-1,
-                                     _training=True)]
+                                     _training=True)[0],
+             lambda: tops.fused_bn_act_impl(x, None, g, b, b, g,
+                                            _training=True)[0]]
     monkeypatch.setenv("MXTPU_FUSED_EPILOGUE", "0")
-    calls.append(lambda: tops.fused_bn_act_impl(x, None, g, b, b, g,
-                                                _training=True))
-    for call in calls:
-        with pytest.raises(MXNetError, match="not ported yet"):
-            call()
-    monkeypatch.delenv("MXNET_RESID_DTYPE")
-    assert tops.relu(x).shape == x.shape
+    want = [call() for call in calls]
+    monkeypatch.setenv("MXNET_RESID_DTYPE", "fp8")
+    for call, ref in zip(calls, want):
+        assert torch.equal(call(), ref)
+    monkeypatch.setenv("MXNET_RESID_DTYPE", "fp7")
+    with pytest.raises(MXNetError, match="expected fp8"):
+        tops.relu(x)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
