@@ -297,7 +297,7 @@ Phases, each printing JSON lines:
     ``--smoke`` path, and its zoo path up to the SIGTERM drain, exit 75);
 14i. then ``dist_train``, data-parallel training over
     ``torch.distributed``: (a) in a child (``chip_smoke.py
-    --nccl-check``) a one-rank NCCL group, every collective of
+    --nccl-check``, beside (b)) a one-rank NCCL group, every collective of
     ``parallel/collectives.py`` on CUDA tensors against its definition
     and the tiled reduce-scatter route taken; (b) two ranks sharing the
     card over gloo (``python -m mxnet_tpu_torch.launch -n 2 python3
@@ -357,6 +357,15 @@ Phases, each printing JSON lines:
     kernel a rank a step, ``run_steps`` eager; ms a step a rank, wire
     bytes a step, peak memory against the one-process step, and the
     flash kernel at the tp shape (H 4) with its bound and SDPA's time;
+14l. then the sparse phases (A11) and the int8 / symbol phases (A13),
+    each described in its function's docstring, and last
+    ``serving_fleet`` (A23, see its docstring): the registry, FleetServer
+    hot-swap of full-width ResNet-50 under load with the AOT signature
+    bundle, FleetRouter over replica processes on the card (a SIGKILL
+    with 24 requests in flight, a scale-up with no kernel build and no
+    signature miss, a rolling deploy, drain exit 75), the causal
+    self-attention model served on the tensor-core flash route,
+    ``make_scan_forward`` and the lookup tier;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
@@ -6646,18 +6655,37 @@ def example_rank(argv):
     runpy.run_path(script, run_name="__main__")
 
 
-def _dt_launch(args, timeout, what):
+def _dt_start(args):
+    """Start a dist_train child: (Popen, start time)."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-    t = time.perf_counter()
-    proc = subprocess.run(args, cwd=here, env=env, capture_output=True,
-                          text=True, timeout=timeout)
+    return subprocess.Popen(args, cwd=here, env=env, text=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE), time.perf_counter()
+
+
+def _dt_wait(started, timeout, what):
+    """Wait for a child of :func:`_dt_start`: (its completed process, its
+    wall from the start); a non-zero exit fails the run."""
+    popen, t = started
+    try:
+        out, err = popen.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        popen.kill()
+        popen.communicate()
+        fail(f"dist_train {what}: still running after {timeout} s")
     wall = time.perf_counter() - t
+    proc = subprocess.CompletedProcess(popen.args, popen.returncode, out,
+                                       err)
     if proc.returncode != 0:
         print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
         fail(f"dist_train {what}: exit {proc.returncode}")
     return proc, wall
+
+
+def _dt_launch(args, timeout, what):
+    return _dt_wait(_dt_start(args), timeout, what)
 
 
 def _dt_reference(torch, mt, compress):
@@ -6769,16 +6797,18 @@ def dist_train(torch, mt, card):
             os.environ.get("MXTPU_OPTIMIZER_AGGREGATION"))
     _dt_setup(torch)
     walls = {}
+    nccl = None
     try:
-        proc, walls["nccl"] = _dt_launch(
-            [sys.executable, os.path.abspath(__file__), "--nccl-check"],
-            300, "(a) nccl")
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+        # (a) runs beside (b): a one-rank check that times nothing
+        nccl = _dt_start([sys.executable, os.path.abspath(__file__),
+                          "--nccl-check"])
         with tempfile.TemporaryDirectory(dir=here) as out_dir:
             proc, walls["ranks"] = _dt_launch(
                 [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
                  sys.executable, os.path.abspath(__file__), "--dist-rank",
                  out_dir], 600, "(b) ranks")
+            nccl_proc, walls["nccl"] = _dt_wait(nccl, 300, "(a) nccl")
+            print(nccl_proc.stdout.strip().splitlines()[-1], flush=True)
             ranks = []
             for r in range(2):
                 with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -6815,6 +6845,9 @@ def dist_train(torch, mt, card):
         # both ranks write to one pipe: their lines may interleave
         example = sorted(re.findall(r"worker \d+: DONE", proc.stdout))
     finally:
+        if nccl is not None and nccl[0].poll() is None:
+            nccl[0].kill()
+            nccl[0].communicate()
         torch.backends.cudnn.deterministic, \
             torch.backends.cudnn.benchmark = prev[:2]
         if prev[2] is None:
@@ -9525,6 +9558,729 @@ def a13_phases(torch, mt, card, timed, names=A13_PHASES):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the serving fleet (A23): registry, hot-swap, router over replica
+# processes, the attention model, the scanned forward, the lookup tier
+# ---------------------------------------------------------------------------
+
+SF_MODEL = "resnet50_v1"
+SF_DRILL = "resnet50_v1_drill"   # (b)'s copy of the versions
+SF_MAX_BATCH = 8           # buckets 1, 2, 4, 8
+SF_CLIENTS = 8             # client threads of (a) and the router load
+SF_IMAGES = 16             # distinct images; eager references per version
+SF_SWAP_S = 0.5            # load before and after the deploy in (a)
+SF_KILL_BURST = 24         # requests in flight at the SIGKILL of (b)
+SF_ROUTER_PER_CLIENT = 16  # serial requests per client in (b)'s load
+SF_ATT = dict(units=512, heads=8, t=2048, max_batch=4, items=4,
+              requests=16)
+SF_ATT_REPLAYS = 3         # replays of the bucket-4 graph profiled
+SF_PROFILE_TRIES = 3       # profile windows until one records kernels
+SF_SCAN_K, SF_SCAN_B, SF_TIMED = 4, 8, 10
+
+
+def _sf_resnet(torch, mt, seed):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    net = get_model(SF_MODEL, layout="NHWC")
+    net.initialize(mt.init.Xavier(), generator=mt.random.seed(seed))
+    with mt.autograd.pause():
+        net(mt.nd.from_torch(torch.zeros((1, IMG, IMG, 3), device="cuda")))
+    return net
+
+
+def _sf_rel(np, got, want):
+    """Largest difference over the largest logit of the reference."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _sf_monotone(tags):
+    """Version tags in dispatch order: every v1 before every v2."""
+    nums = [int(v[1:]) for v in tags]
+    return nums == sorted(nums)
+
+
+def _sf_hot_swap(torch, mt, np, reg, images, refs, card, bad):
+    """(a) FleetServer: warm v1, publish_aot(v2), deploy(v2) under load
+    from SF_CLIENTS threads, rollback, a foreign-fingerprint bundle."""
+    import pickle
+    import threading
+    from mxnet_tpu_torch.serving import FleetServer
+    srv = FleetServer(reg, SF_MODEL, version="v1",
+                      max_batch_size=SF_MAX_BATCH, name="fleet-a").start()
+    row = {"cold_start": dict(srv.cold_start_stats)}
+    try:
+        row["aot_exported"] = srv.publish_aot(version="v2")
+        tags, errors = [], []
+        lock = threading.Lock()
+        stop = threading.Event()
+
+        def client(c):
+            i = c
+            while not stop.is_set():
+                idx = i % SF_IMAGES
+                i += SF_CLIENTS
+                try:
+                    fut = srv.submit(images[idx])
+                    out = fut.result(timeout=120)
+                    with lock:
+                        tags.append((fut.dispatch_seq, fut.version, idx,
+                                     out))
+                except Exception as e:
+                    with lock:
+                        errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SF_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(SF_SWAP_S)
+        report = srv.deploy("v2")
+        time.sleep(SF_SWAP_S)
+        stop.set()
+        for th in threads:
+            th.join(120)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads):
+            fail("serving_fleet (a): clients still waiting after 120 s")
+        tags.sort(key=lambda r: r[0])
+        versions = [v for _, v, _, _ in tags]
+        worst = max(_sf_rel(np, out, refs[v][idx])
+                    for _, v, idx, out in tags)
+        row["deploy"] = dict(report)
+        row["load"] = {"requests": len(tags), "errors": errors[:4],
+                       "wall_s": wall, "img_per_s": len(tags) / wall,
+                       "v1": versions.count("v1"),
+                       "v2": versions.count("v2"),
+                       "monotone": _sf_monotone(versions),
+                       "rows_vs_eager_worst": worst}
+        if errors or not row["load"]["monotone"] or \
+                not versions.count("v1") or not versions.count("v2"):
+            bad.append(f"(a) hot swap: {row['load']}")
+        if worst > 1e-3:
+            bad.append(f"(a) responses {worst} off their version's eager "
+                       "forward")
+        if report["aot_loaded"] != row["aot_exported"] or \
+                report["compiles"] != 0 or report["captures"] < 1:
+            bad.append(f"(a) deploy report {dict(report)}")
+        # rollback: CURRENT (v1 here) deployed again, with misses (no bundle)
+        back = srv.rollback("v1")
+        out = srv.predict(images[0], timeout=120)
+        row["rollback"] = dict(back, serves_v1=_sf_rel(np, out,
+                                                       refs["v1"][0]))
+        if back["version"] != "v1" or row["rollback"]["serves_v1"] > 1e-3:
+            bad.append(f"(a) rollback {row['rollback']}")
+        # a bundle of another runtime: 0 loaded, misses, still serving
+        v3 = reg.publish(SF_MODEL, prefix=reg.resolve(SF_MODEL, "v2").prefix,
+                         signature=reg.resolve(SF_MODEL, "v2").signature,
+                         set_current=False)
+        srv.publish_aot(version=v3)
+        aot = reg.resolve(SF_MODEL, v3).aot_path
+        with open(aot, "rb") as f:
+            bundle = pickle.load(f)
+        bundle["fingerprint"] = dict(bundle["fingerprint"], device="mars")
+        with open(aot, "wb") as f:
+            pickle.dump(bundle, f)
+        reg.attach(SF_MODEL, v3, "aot.bin", aot)
+        foreign = srv.deploy(v3)
+        out = srv.predict(images[1], timeout=120)
+        row["foreign_fingerprint"] = dict(
+            foreign, serves=_sf_rel(np, out, refs["v2"][1]))
+        if foreign["aot_loaded"] != 0 or foreign["compiles"] < 1 or \
+                row["foreign_fingerprint"]["serves"] > 1e-3:
+            bad.append(f"(a) foreign fingerprint {foreign}")
+    finally:
+        srv.stop()
+    emit({"phase": "serving_fleet", "what": "(a) hot swap", "card": card,
+          **row})
+    return row
+
+
+def _sf_seed_cache(tmp):
+    """A kernel-build cache holding this run's builds (same file names:
+    the libraries are keyed by their source and flags)."""
+    import shutil
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.serving import fingerprint_token
+    cache = os.path.join(tmp, "kcache")
+    eff = os.path.join(cache, fingerprint_token())
+    os.makedirs(eff, exist_ok=True)
+    for n in _build.SOURCES:
+        shutil.copy2(_build._lib_path(n), eff)
+    return cache
+
+
+_SF_CACHE_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from mxnet_tpu_torch.ops import _build
+from mxnet_tpu_torch.serving import enable_compile_cache
+from mxnet_tpu_torch.telemetry import default_registry
+eff = enable_compile_cache()
+for n in _build.SOURCES:
+    _build.load(n)
+by = default_registry().render_json().get("mxtpu_compile_total", {}).get(
+    "by_label", {})
+print("PROBE " + json.dumps({"cache": eff, "loaded": sorted(_build._loaded),
+                             "nvcc": by.get("nvcc", 0),
+                             "nvrtc": by.get("nvrtc", 0)}))
+"""
+
+
+def _sf_drill_start(reg, tmp):
+    """(b), first part: r1 (it publishes the bundle of what it serves) and
+    r2 start as processes beside (a), each in a thread of its own, on the
+    SF_DRILL copy of the model (so their bundle and (a)'s never meet)."""
+    import threading
+    from mxnet_tpu_torch.serving.serve_fleet import spawn_replica
+    cache = _sf_seed_cache(tmp)
+    # NVIDIA_TF32_OVERRIDE=0: the replicas' convolutions in f32, as the
+    # eager references'; their buckets (1, 2, 4, 8) are the bundles'
+    env = {"MXTPU_COMPILE_CACHE": cache, "NVIDIA_TF32_OVERRIDE": "0",
+           "MXTPU_SERVE_MAX_BATCH": str(SF_MAX_BATCH)}
+    st = {"cache": cache, "procs": {}, "row": {"replicas": {}},
+          "threads": {}, "errors": [], "router": None, "probe": None}
+
+    def spawn(name, publish_aot=False):
+        t = time.perf_counter()
+        try:
+            rp = spawn_replica(reg.root, SF_DRILL, publish_aot=publish_aot,
+                               timeout=300, env_extra=env)
+        except Exception as e:
+            st["errors"].append(f"{name}: {e!r}")
+            return
+        st["procs"][name] = rp
+        st["row"]["replicas"][name] = dict(
+            rp.info, ready_s=time.perf_counter() - t)
+
+    st["spawn"] = spawn
+    for name, aot in (("r1", True), ("r2", False)):
+        th = threading.Thread(target=spawn, args=(name, aot), daemon=True)
+        th.start()
+        st["threads"][name] = th
+    return st
+
+
+def _sf_join(st, names):
+    for name in names:
+        st["threads"][name].join(330)
+        if name not in st["procs"]:
+            fail(f"serving_fleet (b): replica {name} did not start: "
+                 f"{st['errors']}")
+
+
+def _sf_drill_kill(torch, mt, np, st, images, refs, bad):
+    """(b), second part: the router over r1 and r2, its load, the SIGKILL
+    of r1 with SF_KILL_BURST requests in flight; then r3 and a cold
+    process on the kernel cache start in the background."""
+    import signal
+    import threading
+    from mxnet_tpu_torch.serving import FleetRouter
+    here = os.path.dirname(os.path.abspath(__file__))
+    _sf_join(st, ("r1", "r2"))
+    procs, row = st["procs"], st["row"]
+    router = st["router"] = FleetRouter(heartbeat_ms=100)
+    for name in ("r1", "r2"):
+        router.add_replica(name, procs[name].addr,
+                           pid=procs[name].info["pid"])
+    router.predict(images[0], timeout=120)
+    # the router's load: SF_CLIENTS serial clients
+    lat, errs = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        for j in range(SF_ROUTER_PER_CLIENT):
+            idx = (c + j * SF_CLIENTS) % SF_IMAGES
+            t = time.perf_counter()
+            try:
+                out = router.predict(images[idx], timeout=120)
+                ok = _sf_rel(np, out, refs["v1"][idx])
+            except Exception as e:
+                with lock:
+                    errs.append(repr(e))
+                continue
+            with lock:
+                lat.append((1e3 * (time.perf_counter() - t), ok))
+
+    ths = [threading.Thread(target=client, args=(c,))
+           for c in range(SF_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(300)
+    wall = time.perf_counter() - t0
+    ms = sorted(m for m, _ in lat) or [0.0]
+    row["router_load"] = {
+        "requests": len(lat), "errors": errs[:4], "wall_s": wall,
+        "img_per_s": len(lat) / wall, "p50_ms": ms[len(ms) // 2],
+        "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+        "rows_vs_eager_worst": max((w for _, w in lat), default=1.0)}
+    if errs or len(lat) != SF_CLIENTS * SF_ROUTER_PER_CLIENT or \
+            row["router_load"]["rows_vs_eager_worst"] > 1e-3:
+        bad.append(f"(b) router load: {row['router_load']}")
+    # SIGKILL r1 with SF_KILL_BURST requests in flight
+    futs = [(i % SF_IMAGES, router.submit(images[i % SF_IMAGES]))
+            for i in range(SF_KILL_BURST)]
+    os.kill(procs["r1"].info["pid"], signal.SIGKILL)
+    answered, worst, kill_errs = 0, 0.0, []
+    for idx, f in futs:
+        try:
+            worst = max(worst, _sf_rel(np, f.result(timeout=120),
+                                       refs["v1"][idx]))
+            answered += 1
+        except Exception as e:
+            kill_errs.append(repr(e))
+    procs["r1"].proc.wait(60)
+    t = time.perf_counter()
+    while router.live_count() > 1 and time.perf_counter() - t < 10:
+        time.sleep(0.02)
+    row["kill"] = {"in_flight": SF_KILL_BURST, "answered": answered,
+                   "errors": kill_errs[:4],
+                   "retried": sum(f.retries > 0 for _, f in futs),
+                   "live_after": router.live_count(),
+                   "rows_vs_eager_worst": worst}
+    if answered != SF_KILL_BURST or worst > 1e-3 or \
+            router.live_count() != 1:
+        bad.append(f"(b) SIGKILL drill: {row['kill']}")
+    # scale up: r3 from the bundle and the cache, and beside it a cold
+    # process that loads every kernel library from the same cache
+    st["probe"] = subprocess.Popen(
+        [sys.executable, "-c", _SF_CACHE_PROBE, here],
+        stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, MXTPU_COMPILE_CACHE=st["cache"]))
+    th = threading.Thread(target=st["spawn"], args=("r3",), daemon=True)
+    th.start()
+    st["threads"]["r3"] = th
+
+
+def _sf_drill_finish(torch, mt, np, st, images, refs, card, bad):
+    """(b), last part: r3 joins (0 builds, 0 misses), the rolling deploy
+    to v2 under load, stop_fleet and the survivors' exit codes."""
+    import threading
+    procs, row, router = st["procs"], st["row"], st["router"]
+    out, _ = st["probe"].communicate(timeout=300)
+    lines = [ln for ln in out.splitlines() if ln.startswith("PROBE ")]
+    row["cache_probe"] = json.loads(lines[-1][6:]) if lines else \
+        {"rc": st["probe"].returncode}
+    _sf_join(st, ("r3",))
+    i3 = procs["r3"].info
+    if i3["nvcc_builds"] or i3["nvrtc_builds"] or \
+            i3["warm"]["aot_loaded"] < 1 or i3["warm"]["compiles"]:
+        bad.append(f"(b) r3 cold start: {i3}")
+    if row["cache_probe"].get("nvcc") != 0 or \
+            len(row["cache_probe"].get("loaded", ())) != 3:
+        bad.append(f"(b) cache probe: {row['cache_probe']}")
+    router.add_replica("r3", procs["r3"].addr, pid=i3["pid"])
+    # rolling deploy to v2 under load: each serial client's tags are
+    # monotone; every answer is its version's model
+    stop = threading.Event()
+    seen, roll_errs = {}, []
+
+    def roller(c):
+        tags = seen.setdefault(c, [])
+        j = 0
+        while not stop.is_set():
+            idx = (c + j) % SF_IMAGES
+            j += 1
+            try:
+                fut = router.submit(images[idx])
+                out = fut.result(timeout=120)
+                tags.append((fut.version,
+                             _sf_rel(np, out, refs[fut.version][idx])))
+            except Exception as e:
+                roll_errs.append(repr(e))
+
+    ths = [threading.Thread(target=roller, args=(c,)) for c in range(4)]
+    for th in ths:
+        th.start()
+    time.sleep(0.3)
+    t = time.perf_counter()
+    reports = router.rolling_deploy("v2")
+    roll_s = time.perf_counter() - t
+    time.sleep(0.3)
+    stop.set()
+    for th in ths:
+        th.join(120)
+    mono = all(_sf_monotone([v for v, _ in s]) for s in seen.values())
+    worst = max((w for s in seen.values() for _, w in s), default=1.0)
+    row["rolling_deploy"] = {
+        "seconds": roll_s, "reports": reports, "errors": roll_errs[:4],
+        "requests": sum(len(s) for s in seen.values()),
+        "monotone_per_client": mono, "rows_vs_eager_worst": worst,
+        "version_floor": router.metrics_json()["version_floor"]}
+    if roll_errs or not mono or worst > 1e-3 or \
+            row["rolling_deploy"]["version_floor"] != "v2" or \
+            any(r.get("compiles") for r in reports):
+        bad.append(f"(b) rolling deploy: {row['rolling_deploy']}")
+    router.stop_fleet(drain=True)
+    row["exit_codes"] = {n: procs[n].proc.wait(60) for n in ("r2", "r3")}
+    if row["exit_codes"] != {"r2": 75, "r3": 75}:
+        bad.append(f"(b) exit codes {row['exit_codes']}")
+    emit({"phase": "serving_fleet", "what": "(b) router drill",
+          "card": card, **row})
+    return row
+
+
+def _sf_drill_stop(st):
+    """Close the router, kill what is still running."""
+    if st.get("router") is not None:
+        st["router"].close()
+    for th in st.get("threads", {}).values():
+        th.join(330)
+    for rp in st.get("procs", {}).values():
+        if rp.proc.poll() is None:
+            rp.proc.kill()
+            rp.proc.wait(60)
+    if st.get("probe") is not None and st["probe"].poll() is None:
+        st["probe"].kill()
+        st["probe"].wait(60)
+
+
+def _sf_graph_seen(prof):
+    """Whether a profile recorded the attention graph's kernels (its
+    GEMMs or the flash kernel)."""
+    return any(k in name.lower() for name in _device_kernels(prof)
+               for k in ("gemm", "nvjet", "cutlass", "flash_fwd"))
+
+
+def _sf_attention_block(mt):
+    """A causal self-attention block (fused QKV Dense, flash attention,
+    output Dense) whose symbol exports: no shape is read."""
+    heads = SF_ATT["heads"]
+
+    class CausalSelfAttention(mt.gluon.HybridBlock):
+        def __init__(self, units, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.qkv = mt.gluon.nn.Dense(3 * units, flatten=False,
+                                             in_units=units)
+                self.proj = mt.gluon.nn.Dense(units, flatten=False,
+                                              in_units=units)
+
+        def hybrid_forward(self, F, x):
+            qkv = F.reshape(self.qkv(x), shape=(0, 0, 3, heads, -1))
+            q, k, v = F.split(qkv, num_outputs=3, axis=2, squeeze_axis=True)
+            o = F.contrib.flash_attention(q, k, v, causal=True)
+            return self.proj(F.reshape(o, shape=(0, 0, -1)))
+
+    return CausalSelfAttention(SF_ATT["units"], prefix="fleet_att_")
+
+
+def _sf_attention(torch, mt, np, reg, card, bad):
+    """(c) the attention model served by a FleetServer, f16, on the
+    tensor-core flash route, held to the host run of the same version."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.serving import FleetServer
+    c = SF_ATT
+    prev = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    for k in fa.launches:
+        fa.launches[k] = 0
+    try:
+        net = _sf_attention_block(mt)
+        net.initialize(mt.init.Xavier(), generator=mt.random.seed(5))
+        net.cast("float16")
+        v = reg.publish("attention", net=net, signature={
+            "bucket_shapes": [[c["t"], c["units"]]], "dtype": "float16"})
+        gen = torch.Generator().manual_seed(23)
+        items = (torch.randn((c["items"], c["t"], c["units"]),
+                             generator=gen) * 0.5).half().numpy()
+        res = reg.resolve("attention", v)
+        host = SymbolBlock.imports(f"{res.prefix}-symbol.json", ["data"],
+                                   f"{res.prefix}-0000.params", ctx=mt.cpu())
+        want = host(mt.nd.array(items, ctx=mt.cpu())).asnumpy()
+        srv = FleetServer(reg, "attention", max_batch_size=c["max_batch"],
+                          name="fleet-att").start()
+        try:
+            warm = dict(srv.cold_start_stats)
+            wrapper = dict(fa.launches)
+            srv.reset_metrics()
+            outs, errs = {}, []
+            lock = threading.Lock()
+
+            def client(cl):
+                for j in range(cl, c["requests"], 4):
+                    try:
+                        o = srv.predict(items[j % c["items"]], timeout=120)
+                        with lock:
+                            outs[j] = o
+                    except Exception as e:
+                        with lock:
+                            errs.append(repr(e))
+
+            ths = [threading.Thread(target=client, args=(cl,))
+                   for cl in range(4)]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join(120)
+                torch.cuda.synchronize()
+            batches = srv.metrics_json()["batches_total"]
+            # the same graphs replayed from this thread, as the profile
+            # phases count a replay's kernels. A window of graph replays
+            # sometimes records none of the graph's kernels (CUPTI; either
+            # window, in either order, in the whole run): such a window,
+            # without the graph's GEMMs, measured nothing and is taken
+            # again, up to SF_PROFILE_TRIES times
+            xb = srv.cache.batch(items[:c["max_batch"]])
+            for tries in range(1, SF_PROFILE_TRIES + 1):
+                replay, _ = _profiled(torch, lambda: [
+                    srv.cache(xb) for _ in range(SF_ATT_REPLAYS)])
+                if _sf_graph_seen(replay):
+                    break
+        finally:
+            srv.stop()
+
+        def flash_count(p):
+            return sum(n for name, (_, n) in _device_kernels(p).items()
+                       if "flash_fwd" in name)
+
+        device, device_replays = flash_count(prof), flash_count(replay)
+        tol_ok, worst = True, 0.0
+        for j, o in outs.items():
+            w = want[j % c["items"]].astype(np.float32)
+            err = np.abs(o.astype(np.float32) - w)
+            lim = 2e-5 + 2.0 ** -10 * np.abs(w) + 2.0 ** -8 * np.abs(w).max()
+            tol_ok = tol_ok and bool((err <= lim).all())
+            worst = max(worst, float(err.max() / np.abs(w).max()))
+        # the attention op itself at row 5's f16 tolerance: the served
+        # version's q, k, v on the card against the plain version on the
+        # host
+        card_net = SymbolBlock.imports(f"{res.prefix}-symbol.json", ["data"],
+                                       f"{res.prefix}-0000.params")
+        x = torch.from_numpy(items[:1]).cuda()
+        by_shape = {tuple(p.tensor.shape): p.tensor.detach() for p in
+                    card_net.collect_params().values()}
+        three = 3 * c["units"]
+        qkv = torch.nn.functional.linear(x, by_shape[(three, c["units"])],
+                                         by_shape[(three,)])
+        qkv = qkv.reshape(1, c["t"], 3, c["heads"], -1)
+        q, k_, v_ = (qkv[:, :, i] for i in range(3))
+        route = fa.flash_route(q, k_, v_)
+        with torch.no_grad():
+            got = fa.flash_fwd(q, k_, v_, True, 1.0 / 8.0).float().cpu()
+        ref = fa._flash_plain(q.cpu(), k_.cpu(), v_.cpu(), True,
+                              1.0 / 8.0).float()
+        lim = 2e-5 + 2.0 ** -10 * ref.abs() + 2.0 ** -11 * \
+            v_.float().abs().max().cpu()
+        op_ok = bool(((got - ref).abs() <= lim).all())
+        row = {"version": v, "items": [c["t"], c["units"]],
+               "dtype": "float16", "heads": c["heads"],
+               "buckets": [1, 2, 4], "warm": warm,
+               "requests": len(outs), "errors": errs[:4],
+               "batches": batches, "device_flash_launches": device,
+               "replays_profiled": SF_ATT_REPLAYS,
+               "replay_windows_taken": tries,
+               "request_window_saw_the_graph": _sf_graph_seen(prof),
+               "device_flash_launches_replays": device_replays,
+               "wrapper_launches_warmup": wrapper,
+               "wrapper_launches_phase": dict(fa.launches),
+               "outputs_vs_host_worst_over_max": worst,
+               "outputs_within_tolerance": tol_ok,
+               "tolerance": "2e-5 + 2^-10 |want| + 2^-8 max|want| (two "
+                            "f16 GEMMs around the attention)",
+               "op_route": route, "op_within_row5_tolerance": op_ok,
+               "op_max_abs_err": float((got - ref).abs().max())}
+    finally:
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+            prev
+    emit({"phase": "serving_fleet", "what": "(c) attention", "card": card,
+          **row})
+    if errs or len(outs) != c["requests"] or not tol_ok or not op_ok or \
+            route != "tc" or device_replays != SF_ATT_REPLAYS or \
+            device > batches or wrapper["flash_fwd_tc"] < 1 or \
+            wrapper["flash_fwd_general"]:
+        bad.append(f"(c) attention: {row}")
+    return row
+
+
+def _sf_scan(torch, mt, np, net, images, card, bad):
+    """(d) make_scan_forward: K batches as one graph replay."""
+    from mxnet_tpu_torch.cached_op import CachedOp, make_scan_forward
+    k, b = SF_SCAN_K, SF_SCAN_B
+    idx = np.arange(k * b) % SF_IMAGES
+    xs = torch.from_numpy(images[idx].reshape((k, b, IMG, IMG, 3))).cuda()
+    fn = make_scan_forward(net)
+    out = fn(xs)
+    r0 = fn.replays
+    out = fn(xs).cpu().numpy()
+    one_replay = fn.replays - r0 == 1 and fn.captures == 1
+    with mt.autograd.pause():
+        eager = [net(mt.nd.from_torch(xs[i])).asnumpy() for i in range(k)]
+    worst = max(_sf_rel(np, out[i], eager[i]) for i in range(k))
+    co = CachedOp(net)
+    xb = [mt.nd.from_torch(xs[i]) for i in range(k)]
+
+    def four():
+        for x in xb:
+            co(x)
+
+    def scan():
+        fn(xs)
+
+    row = {"k": k, "batch": b, "one_replay_a_call": one_replay,
+           "captures": fn.captures, "vs_eager_worst": worst,
+           "scan_median_ms": _sf_median_ms(torch, scan),
+           "cached_op_4_calls_median_ms": _sf_median_ms(torch, four)}
+    emit({"phase": "serving_fleet", "what": "(d) make_scan_forward",
+          "card": card, **row})
+    if not one_replay or worst > 1e-3:
+        bad.append(f"(d) scan forward: {row}")
+    return row
+
+
+def _sf_median_ms(torch, fn, iters=SF_TIMED):
+    """Median host-clock ms of ``fn`` ending in a synchronize, after one
+    untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return sorted(ms)[len(ms) // 2]
+
+
+def _sf_recipes(torch, mt, card, bad):
+    """(e) examples/recsys/two_tower.py (--smoke: its training half, then
+    the serving half: publish_embedding, a LookupFleet against the
+    plane's dense table, lookup QPS) and (f) examples/serving/
+    fleet_demo.py (--smoke), both under the port's names."""
+    from importlib import import_module
+    names = ("gluon", "gluon.nn", "optimizer", "parallel.embedding_plane",
+             "serving", "serving.lookup")
+    aliases = {f"mxnet_tpu.{n}": import_module(f"mxnet_tpu_torch.{n}")
+               for n in names}
+    prev = os.environ.get("MXTPU_SPARSE_PLANE")
+    os.environ["MXTPU_SPARSE_PLANE"] = "on"
+    row = {}
+    try:
+        for key, script in (("two_tower", "examples/recsys/two_tower.py"),
+                            ("fleet_demo", "examples/serving/fleet_demo.py")):
+            t = time.perf_counter()
+            with mt.gpu(0):
+                _, text = _run_recipe(mt, script, ["--smoke"], aliases)
+            lines = [ln for ln in text.splitlines() if ln.startswith(
+                ("lookup QPS", "served-table", "deploy:", "timeline",
+                 "rolled back", "TWO_TOWER", "SMOKE"))]
+            ok = ("TWO_TOWER OK" if key == "two_tower" else "SMOKE OK") \
+                in text
+            row[key] = {"ok": ok, "wall_s": time.perf_counter() - t,
+                        "lines": lines}
+            if not ok:
+                bad.append(f"({'e' if key == 'two_tower' else 'f'}) "
+                           f"{script}: {lines}")
+    finally:
+        if prev is None:
+            os.environ.pop("MXTPU_SPARSE_PLANE", None)
+        else:
+            os.environ["MXTPU_SPARSE_PLANE"] = prev
+    emit({"phase": "serving_fleet", "what": "(e) two_tower, (f) fleet_demo",
+          "card": card, **row})
+    return row
+
+
+def serving_fleet(torch, mt, card):
+    """The serving fleet (A23) on the card, at full width.
+    (a) get_model("resnet50_v1", layout="NHWC") at the published widths,
+    224x224x3 f32 items, TF32 off, deterministic cuDNN: v1 and v2 (seeds
+    0 and 1) published to a registry; a FleetServer warms v1 (buckets 1,
+    2, 4, 8), publish_aot(v2), deploy(v2) under load from 8 client
+    threads: aot_loaded, compiles (0), captures, capture_ms, warm_s,
+    drain_s; version tags monotone in dispatch order, zero errors, every
+    response within 1e-3 of its largest logit of its version's eager
+    forward; rollback; a version whose bundle carries a foreign
+    fingerprint: 0 loaded, misses, still serving. (b) FleetRouter over
+    replica processes sharing the card (python -m
+    mxnet_tpu_torch.serving.serve_fleet --replica, the kernel-build cache
+    seeded from this run's builds; r1 and r2 start while (a) runs, on a
+    copy of the versions, r3 while (c) and (d) run): r1 publishes the
+    bundle, r2 beside it; the router's img/s, p50, p99; SIGKILL r1 with 24 requests in
+    flight, all answered; r3 scales up with 0 nvcc / NVRTC builds,
+    aot_loaded > 0 and 0 misses (a cold process beside it loads every
+    kernel library from the cache with 0 builds); rolling_deploy to v2
+    under load, monotone per client; stop_fleet: both survivors exit 75.
+    (c) a causal self-attention block (fused QKV Dense,
+    F.contrib.flash_attention, output Dense; d_model 512, 8 heads, D 64),
+    (2048, 512) f16 items, published and served by a FleetServer
+    (buckets 1, 2, 4): every replayed batch launches mxt_flash_fwd_tc
+    once (device count in a profile of the requests), outputs against the
+    host run of the same version, the attention op at row 5's f16
+    tolerance. (d) make_scan_forward on ResNet-50 at K 4, B 8: one graph
+    replay a call, equal to 4 eager batches within 1e-3 of the largest
+    logit, median ms against 4 CachedOp calls. (e) two_tower.py's
+    serving half (f) fleet_demo.py, under the port's names."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from mxnet_tpu_torch.serving import ModelRegistry
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="mxt_fleet_")
+    bad, row, drill = [], {}, None
+    try:
+        reg = ModelRegistry(os.path.join(tmp, "registry"))
+        gen = torch.Generator().manual_seed(29)
+        images = torch.rand((SF_IMAGES, IMG, IMG, 3), generator=gen).numpy()
+        sig = {"bucket_shapes": [[IMG, IMG, 3]], "dtype": "float32"}
+        refs, nets = {}, {}
+        t = time.perf_counter()
+        for seed, v in ((0, "v1"), (1, "v2")):
+            nets[v] = _sf_resnet(torch, mt, seed)
+            reg.publish(SF_MODEL, net=nets[v], signature=sig,
+                        set_current=v == "v1")
+            reg.publish(SF_DRILL, prefix=reg.resolve(SF_MODEL, v).prefix,
+                        signature=sig, set_current=v == "v1")
+            with mt.autograd.pause():
+                refs[v] = nets[v](mt.nd.from_torch(
+                    torch.from_numpy(images).cuda())).asnumpy()
+        parts = row["part_s"] = {"publish": time.perf_counter() - t}
+        del nets["v2"]
+
+        def part(name, fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            parts[name] = time.perf_counter() - t
+            return out
+
+        drill = part("b_start", _sf_drill_start, reg, tmp)
+        row["a"] = part("a", _sf_hot_swap, torch, mt, np, reg, images, refs,
+                        card, bad)
+        # (a)'s bundle of v2 serves the drill's v2 (the same signatures)
+        reg.attach(SF_DRILL, "v2", "aot.bin",
+                   reg.resolve(SF_MODEL, "v2").aot_path)
+        torch.cuda.empty_cache()
+        part("b_kill", _sf_drill_kill, torch, mt, np, drill, images, refs,
+             bad)
+        row["c"] = part("c", _sf_attention, torch, mt, np, reg, card, bad)
+        torch.cuda.empty_cache()
+        row["d"] = part("d", _sf_scan, torch, mt, np, nets["v1"], images,
+                        card, bad)
+        del nets
+        torch.cuda.empty_cache()
+        row["b"] = part("b_finish", _sf_drill_finish, torch, mt, np, drill,
+                        images, refs, card, bad)
+        row["e_f"] = part("e_f", _sf_recipes, torch, mt, card, bad)
+    finally:
+        if drill is not None:
+            _sf_drill_stop(drill)
+        torch.backends.cudnn.deterministic = prev_det
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "serving_fleet", "card": card,
+          "part_s": row.get("part_s"), "failures": bad})
+    if bad:
+        fail("serving_fleet: " + "; ".join(bad))
+    return row
+
+
 def main():
     try:
         import torch
@@ -9554,13 +10310,18 @@ def main():
         emit({"phase": "wall", "of": name, "seconds": walls[name]})
         return out
 
+    # every source's nvcc starts now; the first phases need only the BN
+    # kernels, and the flash and NVRTC libraries finish beside them (their
+    # first load collects them)
     t0 = time.perf_counter()
-    paths = _build.build()
+    _build.start()
+    paths = _build.build(("fused_bn_act",))
     walls["build"] = time.perf_counter() - t0
     emit({"phase": "build", "seconds": walls["build"],
           "nvcc_s": dict(_build.build_seconds),
           "libraries": {k: os.path.relpath(v, here)
                         for k, v in paths.items()},
+          "building": sorted(_build._running),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
@@ -9674,6 +10435,9 @@ def main():
     # int8 quantization and the symbolic graph (A13, symbol/), after every
     # earlier phase
     a13_phases(torch, mt, card, timed)
+    # the serving fleet (A23), after every earlier phase
+    fleet_serving = timed("serving_fleet", serving_fleet, torch, mt, card)
+    torch.cuda.empty_cache()
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -9692,9 +10456,11 @@ def main():
           "earlier_phases_s": sum(v for k, v in walls.items()
                                   if k not in v2 + gluon + fits + f16
                                   + moe_remat + a19 + a20 + a12 + a10
-                                  + A11_PHASES + A13_PHASES),
+                                  + A11_PHASES + A13_PHASES
+                                  + ("serving_fleet",)),
           "a11_phases_s": sum(walls[k] for k in A11_PHASES),
           "a13_phases_s": sum(walls[k] for k in A13_PHASES),
+          "a23_phases_s": walls["serving_fleet"],
           "a10_phases_s": sum(walls[k] for k in a10),
           "a10_second_half_s": walls["fleet_train"] + walls["mesh_lm"],
           "a12_phases_s": sum(walls[k] for k in a12),
@@ -9825,6 +10591,21 @@ def main():
                       "bound_ms", "bound_by", "library_ms", "tflops")},
         "launches_tp_per_rank_step": mesh["per_rank"][0]["tp"][
             "flash_launches_per_step"],
+        "launches_serving_fleet": {
+            "device_replays": fleet_serving["c"][
+                "device_flash_launches_replays"],
+            "replays": fleet_serving["c"]["replays_profiled"],
+            "device_requests": fleet_serving["c"]["device_flash_launches"],
+            "batches": fleet_serving["c"]["batches"],
+            "wrapper_warmup": fleet_serving["c"][
+                "wrapper_launches_warmup"]["flash_fwd_tc"],
+            "per": "(c), f16 (B, 2048, 8, 64) causal: device launches of "
+                   "mxt_flash_fwd_tc in a profile of replays of the "
+                   "served bucket-4 graph from the main thread, and in the "
+                   "profiled requests (replayed by the server's worker "
+                   "thread; batches dispatched beside it); wrapper "
+                   "launches in the FleetServer's warm-up (eager run and "
+                   "capture of buckets 1, 2, 4)"},
         "per": f"one launch (B {TF_BATCH}, T {TF_T}, H 8, D 64, causal, "
                f"bf16); launches over {TF_K_STEPS} bf16 train steps, all on "
                "the tensor-core route"})
@@ -9882,13 +10663,15 @@ def run_phases(argv):
     """``chip_smoke.py --phases NAME [NAME ...]``: build the kernels and run
     only the named phases of A10's second half (``fleet_train``,
     ``mesh_lm``), of A11 (``sparse_ops``, ``sparse_mf``, ``sparse_dist``,
-    ``recsys_plane``) and of A13 (``int8_ops``, ``int8_resnet50``,
+    ``recsys_plane``), of A23 (``serving_fleet``) and of A13
+    (``int8_ops``, ``int8_resnet50``,
     ``resid8_train``, ``symbol_export``, ``quant_recipes``; after the
     others, in their own order), with their ``wall`` lines and a last
     ``walls`` line. Any failure exits non-zero."""
     phases = {"fleet_train": fleet_train, "mesh_lm": mesh_lm,
               "sparse_ops": sparse_ops_phase, "sparse_mf": sparse_mf,
-              "sparse_dist": sparse_dist, "recsys_plane": recsys_plane}
+              "sparse_dist": sparse_dist, "recsys_plane": recsys_plane,
+              "serving_fleet": serving_fleet}
     phases.update({n: None for n in A13_PHASES})
     unknown = sorted(set(argv) - set(phases))
     if not argv or unknown:

@@ -163,6 +163,33 @@ env.declare("MXTPU_SERVE_QUEUE_DEPTH", int, 256,
             "serving.ModelServer: bounded admission-queue depth; a full "
             "queue sheds load with a typed QueueFull rejection "
             "(backpressure) instead of buffering without bound.")
+env.declare("MXTPU_SERVE_REGISTRY", str, "",
+            "Root directory of the versioned model registry "
+            "(serving.ModelRegistry): registry/<model>/<version>/ holding "
+            "exported artifacts + SHA-256 manifests + an atomic CURRENT "
+            "pointer. Empty = <cwd>/registry.")
+env.declare("MXTPU_COMPILE_CACHE", str, "",
+            "Persistent kernel-build cache directory: "
+            "serving.enable_compile_cache points the nvcc builds "
+            "(ops/_build.py) at it, namespaced by the torch / CUDA / card "
+            "fingerprint, so a replica restart builds nothing. '0'/'off' "
+            "disables.")
+env.declare("MXTPU_FLEET_MIN", int, 1,
+            "serving fleet (serving/autoscale.py): lower bound on live "
+            "replica processes; the autoscaler never drains below it. "
+            ">= 1.")
+env.declare("MXTPU_FLEET_MAX", int, 4,
+            "serving fleet: upper bound on replica processes; sustained "
+            "queue pressure scales up to (never past) it. >= "
+            "MXTPU_FLEET_MIN.")
+env.declare("MXTPU_FLEET_TARGET_QUEUE", int, 16,
+            "serving fleet: per-replica queue-depth target; mean depth "
+            "above it for consecutive autoscaler ticks is scale-up "
+            "pressure (serving.autoscale.decide).")
+env.declare("MXTPU_FLEET_HEARTBEAT_MS", float, 200.0,
+            "serving fleet router: interval between metrics-heartbeat "
+            "polls of each replica (queue depth / p95 / active version "
+            "drive least-loaded routing and the version floor).")
 env.declare("MXTPU_SERVE_REPLAY", str, "",
             "Signature-replay file: when set, ModelServer appends one "
             "JSON line per distinct dispatched (item shape, dtype, padded "

@@ -65,14 +65,21 @@ On the CPU an entry runs the block eagerly: no graph, the same keys,
 cache and counters. ``hybridize(mirror=)`` recomputes the activations in
 the backward graph (``util.mirror_wrapper``; the eager path's remat).
 
-Not ported: ``aot_export`` / ``aot_load`` serve the serving fleet
-(ROADMAP A23) and raise. Nothing falls back: a failed capture raises
+AOT bundles (the serving fleet's cold start, :meth:`CachedOp.aot_export`
+/ :meth:`CachedOp.aot_load`): a CUDA graph is bound to its process, so
+where the JAX package serializes compiled executables the bundle holds
+each warm inference signature (cache key, input and output structure),
+the runtime fingerprint and a format number, and ``aot_load`` captures
+the graphs at load time. :func:`make_scan_forward` runs K stacked batches
+as one graph replay. Nothing falls back: a failed capture raises
 ``MXNetError`` with its cause.
 """
 from __future__ import annotations
 
 import contextlib
 import hashlib
+import os
+import pickle
 import threading
 import time
 import warnings
@@ -86,7 +93,8 @@ from torch.utils import _pytree as pytree
 from .base import MXNetError, env
 
 __all__ = ["CachedOp", "CacheInfo", "SignatureLRU", "trace_rw_for",
-           "inline_scope", "inlining", "on_stream", "capture_graph"]
+           "inline_scope", "inlining", "on_stream", "capture_graph",
+           "make_scan_forward", "scan_forward"]
 
 CacheInfo = namedtuple("CacheInfo",
                        ["hits", "misses", "evictions", "currsize", "maxsize"])
@@ -182,6 +190,17 @@ class SignatureLRU:
             self._cache[key] = val
             self._evict_locked()
             return val
+
+    def insert(self, key, val) -> bool:
+        """Install a prebuilt value (AOT-loaded entries) without counting
+        a hit or a miss; returns False when the key was already resident
+        (the resident entry wins — it may already be warm)."""
+        with self._lock:
+            if key in self._cache:
+                return False
+            self._cache[key] = val
+            self._evict_locked()
+            return True
 
     def _evict_locked(self) -> None:
         bound = self._bound()
@@ -370,7 +389,7 @@ class _Entry:
     """One signature: its variants (card), whether it ran, and the bytes
     and costs it reports."""
     __slots__ = ("variants", "lock", "warm", "labels", "in_bytes",
-                 "out_bytes", "mem_stats", "__weakref__")
+                 "out_bytes", "mem_stats", "call_struct", "__weakref__")
 
     def __init__(self):
         self.variants: Dict[Any, _Variant] = {}
@@ -379,6 +398,9 @@ class _Entry:
         self.labels: Dict[Any, str] = {}
         self.in_bytes = self.out_bytes = 0
         self.mem_stats = None
+        #: (input spec, input constants, output spec) of the first call,
+        #: what an AOT bundle needs to rebuild the call
+        self.call_struct = None
 
 
 class _Call:
@@ -664,6 +686,8 @@ class CachedOp:
         if not entry.warm:
             entry.in_bytes = _nbytes(ins) + _nbytes(self._tensors())
             entry.out_bytes = _nbytes(_tensor_leaves(out))
+            entry.call_struct = (spec, _consts(leaves),
+                                 pytree.tree_flatten(out)[1])
             entry.warm = True
         if notes and vkey[0]:
             eff.pend_backward(lbl)
@@ -772,8 +796,7 @@ class CachedOp:
         tensors = self._tensors()
         var.ptrs = [t.data_ptr() for t in tensors]
         var.n_params = len(self._trained())
-        var.in_consts = [None if isinstance(x, torch.Tensor) else x
-                         for x in leaves]
+        var.in_consts = _consts(leaves)
         var.in_spec = spec
         with on_stream(var.stream):
             self._warm_up(var, ins, training)
@@ -785,6 +808,7 @@ class CachedOp:
         note_compile("graph_capture", var.capture_ms / 1e3, var.label)
         entry.in_bytes = _nbytes(ins) + _nbytes(tensors)
         entry.out_bytes = _nbytes(slot.outs)
+        entry.call_struct = (spec, var.in_consts, var.out_spec)
         entry.warm = True
         entry.mem_stats = None
         return var
@@ -957,18 +981,252 @@ class CachedOp:
                 v.capture_ms for k, e in self._cache.snapshot_items()
                 for v in e.variants.values()}
 
-    # -- the AOT half (the serving fleet) ------------------------------------
+    # -- AOT signature bundles (the serving fleet's cold start) -------------
+    # The JAX package serializes each warm signature's compiled executable;
+    # a CUDA graph is bound to its process and cannot be saved. The bundle
+    # keeps what a new process needs to rebuild the same cache entries:
+    # each warm inference signature's key and its call's input and output
+    # structure, under the runtime fingerprint. aot_load installs them and
+    # captures their graphs before the replica reports ready, so warm-up
+    # and the first requests make ZERO signature-cache misses; the captures
+    # are the cost that stays (mxtpu_compile_total{kind="graph_capture"},
+    # capture_ms()).
+    AOT_FORMAT = 1
+
     def aot_export(self, path: str) -> int:
-        from .ops.registry import NotPortedError
-        raise NotPortedError("CachedOp.aot_export: AOT bundles serve the "
-                             "serving fleet, not ported yet (ROADMAP.md, "
-                             "queue A23)")
+        """Write the warm inference signatures to ``path`` (a pickled
+        bundle: format, fingerprint, and per signature its cache key and
+        the input / output structure of its call). Returns the number of
+        signatures exported. Training signatures (a backward graph) are
+        not exported: AOT bundles are a serving artifact."""
+        from .ops.registry import _trace_time_flags
+        from .serving.aot import runtime_fingerprint
+        flags = _trace_time_flags()
+        records = []
+        for key, entry in self._cache.snapshot_items():
+            if not entry.warm or key[3] or key[4] != flags or \
+                    entry.call_struct is None:
+                continue  # cold, training, or another flag regime
+            spec, consts, out_spec = entry.call_struct
+            records.append({"key": key,
+                            "in_spec": pytree.treespec_dumps(spec),
+                            "in_consts": list(consts),
+                            "out_spec": pytree.treespec_dumps(out_spec)})
+        bundle = {"format": self.AOT_FORMAT,
+                  "fingerprint": runtime_fingerprint(), "entries": records}
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            pickle.dump(bundle, f)
+        os.replace(tmp, path)
+        return len(records)
 
     def aot_load(self, path: str) -> int:
-        from .ops.registry import NotPortedError
-        raise NotPortedError("CachedOp.aot_load: AOT bundles serve the "
-                             "serving fleet, not ported yet (ROADMAP.md, "
-                             "queue A23)")
+        """Install a bundle's signatures as warm cache entries (no hit or
+        miss counted), capturing each one's graph now on the card; returns
+        how many were installed. Zero, with a log line, when the bundle is
+        unreadable or was written by another format or runtime (torch,
+        CUDA, card): warm-up then captures each signature as a miss. An
+        entry that cannot be decoded, or whose parameters or output
+        structure differ from this block's, is skipped with a log line."""
+        from .log import get_logger
+        from .ops.registry import _trace_time_flags
+        from .serving.aot import runtime_fingerprint
+        log = get_logger("mxnet_tpu_torch.cached_op")
+        try:
+            with open(path, "rb") as f:
+                bundle = pickle.load(f)
+        except (OSError, EOFError, pickle.UnpicklingError) as e:
+            log.warning("aot_load: unreadable bundle %s: %s", path, e)
+            return 0
+        if not isinstance(bundle, dict) or \
+                bundle.get("format") != self.AOT_FORMAT:
+            log.warning("aot_load: bundle format %s != %s, skipping",
+                        bundle.get("format") if isinstance(bundle, dict)
+                        else type(bundle).__name__, self.AOT_FORMAT)
+            return 0
+        fp = runtime_fingerprint()
+        if bundle.get("fingerprint") != fp:
+            log.warning("aot_load: fingerprint mismatch (bundle %s, "
+                        "runtime %s) — signatures are captured at warm-up "
+                        "instead", bundle.get("fingerprint"), fp)
+            return 0
+        flags = _trace_time_flags()
+        params = tuple((tuple(t.shape), str(t.dtype))
+                       for t in self._tensors())
+        loaded = 0
+        for rec in bundle.get("entries", ()):
+            try:
+                key = rec["key"]
+                spec = pytree.treespec_loads(rec["in_spec"])
+                out_spec = rec["out_spec"]
+                consts = list(rec["in_consts"])
+                ins = [torch.zeros(tuple(shape), device=torch.device(dev),
+                                   dtype=getattr(torch, dt.split(".")[-1]))
+                       for shape, dt, dev in key[0]]
+            except (KeyError, TypeError, ValueError, AttributeError,
+                    IndexError) as e:
+                log.warning("aot_load: skipping an unreadable entry: %s", e)
+                continue
+            if key[1] != params or key[3] or key[4] != flags:
+                log.warning("aot_load: skipping entry %s: its parameters, "
+                            "mode or flags differ from this block's",
+                            self._entry_digest(key))
+                continue
+            it = iter(ins)
+            leaves = [next(it) if c is None else c for c in consts]
+            if self._install(key, ins, leaves, spec, out_spec, log):
+                loaded += 1
+        return loaded
+
+    def _install(self, key, ins, leaves, spec, out_spec, log) -> bool:
+        """One AOT entry into the cache: on the card its inference graph
+        captured now (under the block's write lock), on the CPU an entry
+        that runs eagerly. False when the output structure differs from
+        the recorded one or the key is resident already."""
+        entry = _Entry()
+        if ins and ins[0].device.type == "cuda":
+            rw = self._trace_rw
+            rw.acquire_write()
+            try:
+                var = self._capture(entry, key, (False,), ins, leaves, spec,
+                                    False)
+            finally:
+                rw.release_write()
+            entry.variants[(False,)] = var
+            got = pytree.treespec_dumps(var.out_spec)
+        else:
+            with torch.no_grad():
+                out = self._run(*pytree.tree_unflatten(leaves, spec))
+            entry.call_struct = (spec, _consts(leaves),
+                                 pytree.tree_flatten(out)[1])
+            got = pytree.treespec_dumps(entry.call_struct[2])
+            entry.in_bytes = _nbytes(ins) + _nbytes(self._tensors())
+            entry.out_bytes = _nbytes(_tensor_leaves(out))
+            entry.warm = True
+        if got != out_spec:
+            log.warning("aot_load: skipping entry %s: output structure %s, "
+                        "bundle %s", self._entry_digest(key), got, out_spec)
+            return False
+        return self._cache.insert(key, entry)
+
+
+def _consts(leaves) -> list:
+    """A call's leaves with each tensor replaced by None."""
+    return [None if isinstance(x, torch.Tensor) else x for x in leaves]
+
+
+def _first_leaf(out) -> torch.Tensor:
+    return out if isinstance(out, torch.Tensor) else _tensor_leaves(out)[0]
+
+
+class _ScanForward:
+    """The callable :func:`make_scan_forward` returns (see there)."""
+
+    def __init__(self, block, training: bool):
+        self.block = block
+        self.training = bool(training)
+        self._rw = trace_rw_for(block)
+        self._lock = threading.Lock()
+        self._graphs: Dict[Any, tuple] = {}
+        #: captures made and graph replays run (card)
+        self.captures = 0
+        self.replays = 0
+
+    def _tensors(self) -> List[torch.Tensor]:
+        """What the graphs read the pointers of."""
+        return list(self.block.parameters()) + list(self.block.buffers())
+
+    def _body(self, xs: torch.Tensor) -> torch.Tensor:
+        """The K forwards, stacked (training mode leaves the buffers as
+        they were: the JAX scan drops the forward's state)."""
+        from . import autograd
+        bufs = list(self.block.buffers()) if self.training else []
+        saved = [b.detach().clone() for b in bufs]
+        mode = autograd.train_mode() if self.training \
+            else autograd.predict_mode()
+        with mode, torch.no_grad(), inline_scope(), \
+                _eff().program_scope():
+            ys = torch.stack([_first_leaf(torch.nn.Module.__call__(
+                self.block, xs[k])) for k in range(xs.shape[0])])
+            for b, s in zip(bufs, saved):
+                b.copy_(s)
+        return ys
+
+    def __call__(self, xs):
+        from .ndarray.ndarray import NDArray
+        wrap = isinstance(xs, NDArray)
+        x = xs._data if wrap else xs
+        if getattr(self.block, "_deferred", None):
+            self.block._finish_deferred(x[0])
+        y = self._graphed(x) if x.device.type == "cuda" else self._body(x)
+        return NDArray(y) if wrap else y
+
+    def _graphed(self, x: torch.Tensor) -> torch.Tensor:
+        key = (tuple(x.shape), str(x.dtype), str(x.device))
+        self._rw.acquire_read()
+        try:
+            with self._lock:
+                ptrs = [t.data_ptr() for t in self._tensors()]
+                g = self._graphs.get(key)
+                if g is None or g[0] != ptrs:
+                    self._graphs.pop(key, None)
+                    g = self._graphs[key] = (ptrs, *self._capture(x))
+                    self.captures += 1
+                _, graph, xs_buf, ys_buf = g
+                xs_buf.copy_(x)
+                graph.replay()
+                self.replays += 1
+                return ys_buf.clone()
+        finally:
+            self._rw.release_read()
+
+    def _capture(self, x: torch.Tensor):
+        """Static input buffer, a warm-up on the graph's stream (cuDNN,
+        the allocator; buffers and the random generators restored), then
+        the capture of the K forwards."""
+        stream = torch.cuda.Stream(x.device)
+        xs_buf = x.detach().clone()
+        gens = _block_generators(self.block)
+        gstates = [g.get_state() for g in gens]
+        rng = torch.cuda.get_rng_state(x.device)
+        with on_stream(stream):
+            self._body(xs_buf)
+        for g, st in zip(gens, gstates):
+            g.set_state(st)
+        torch.cuda.set_rng_state(rng, x.device)
+        graph, ys_buf, secs = capture_graph(
+            lambda: self._body(xs_buf), stream,
+            f"scan forward of {type(self.block).__name__}", gens,
+            capture_error_mode="thread_local")
+        from .telemetry.registry import note_compile
+        note_compile("graph_capture", secs, "scan_forward")
+        return graph, xs_buf, ys_buf
+
+
+def make_scan_forward(block, training: bool = False):
+    """Build a reusable K-batch forward for a block: returns ``fn(xs)``
+    mapping (K, batch, ...) stacked inputs to (K, batch, ...) stacked
+    outputs (the block's first output; NDArray in, NDArray out; a tensor
+    in, a tensor out).
+
+    The inference-side analog of ``SPMDTrainer.run_steps`` (ref: the JAX
+    package's ``lax.scan`` of the compiled forward; the engine's bulk
+    exec of inference graphs, MXNET_EXEC_BULK_EXEC_INFERENCE): on the card
+    the K forwards are ONE CUDA graph, captured once per (K, batch, item)
+    signature and replayed per call (``fn.replays`` counts them,
+    ``fn.captures`` the captures; a rebound parameter captures anew). On
+    the CPU it is a loop of eager forwards. ``training`` runs the
+    forwards in training mode (batch statistics; the block's buffers are
+    left as they were). Random ops draw from the default generators,
+    which a replay advances. Build it ONCE and reuse it.
+    """
+    return _ScanForward(block, training)
+
+
+def scan_forward(block, xs, training: bool = False):
+    """One-shot convenience over :func:`make_scan_forward` (captures per
+    call on the card — hot loops should build the callable once)."""
+    return make_scan_forward(block, training)(xs)
 
 
 def _memory():

@@ -84,9 +84,11 @@ In the port the training events fire (``nan_grad``, ``inf_grad``, ``kill``,
 ``mem_pressure``), ``serve_slow`` fires in ``serving.ModelServer``'s
 workers, once per dispatched batch, and ``kv_hang`` in the kvstore's
 exchange entry (``kvstore._chaos_kv``: the named rank sleeps before its
-first exchange of the step). ``registry_corrupt`` and ``replica_kill``
-parse and keep their plan state, but nothing calls their hooks yet: the
-serving fleet (ROADMAP A23) is not ported.
+first exchange of the step). ``registry_corrupt`` fires in
+``serving.ModelRegistry.publish`` once the version's DONE marker lands
+(``ModelRegistry.resolve`` then quarantines it), and ``replica_kill`` in
+``serving.FleetRouter.submit`` through the kill hook its launcher
+installs, as in the JAX package.
 """
 from __future__ import annotations
 

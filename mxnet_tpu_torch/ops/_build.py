@@ -8,7 +8,9 @@ loaded with ``ctypes``. A source may add flags of its own
 flash-attention source ``libcuda`` for its TMA tensor maps). The
 build happens at first use; the library's file name carries a hash of its
 source and its flags, so an edited source or flag is rebuilt and a
-finished build is reused. Nothing here runs at import time.
+finished build is reused, also across processes when the build
+directory is a shared cache (:func:`set_build_dir`, through
+``serving.enable_compile_cache``). Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import time
 
 from ..base import MXNetError, env
 
-__all__ = ["SOURCES", "build", "load"]
+__all__ = ["SOURCES", "build", "load", "set_build_dir", "start"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -36,6 +38,9 @@ EXTRA_FLAGS = {"rtc": ("-lnvrtc", "-lcuda"),
 
 _lock = threading.Lock()
 _loaded: dict = {}
+#: nvcc runs started and not collected yet: name -> (tmp, path, t0, Popen)
+_running: dict = {}
+_run_lock = threading.Lock()
 #: seconds from the start of each source's last nvcc run in this process
 #: to when build() collected it (the runs overlap)
 build_seconds: dict = {}
@@ -56,6 +61,14 @@ def cuda_home() -> str:
     return os.path.dirname(os.path.dirname(os.path.realpath(_nvcc())))
 
 
+def set_build_dir(path: str) -> None:
+    """Build into, and load from, ``path`` from now on (libraries loaded
+    already stay loaded)."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = path
+
+
 def _lib_path(name: str) -> str:
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
     with open(os.path.join(_CSRC, f"{name}.cu"), "rb") as f:
@@ -63,34 +76,51 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names=SOURCES) -> dict:
-    """Compile every named source not built yet, one ``nvcc`` per source,
-    all started together. Returns ``{name: path of the .so}``."""
+def _start(names) -> None:
+    """Start an nvcc for every named source neither built nor building
+    (under ``_run_lock``)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
-    procs = {}
-    for n, path in paths.items():
-        if os.path.exists(path):
+    for n in names:
+        path = _lib_path(n)
+        if n in _running or os.path.exists(path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         extra = EXTRA_FLAGS.get(n, ())
         # libraries a source links are found at run time in the toolkit
         rpath = ("-Xlinker", "-rpath", "-Xlinker",
                  os.path.join(cuda_home(), "lib64")) if extra else ()
-        procs[n] = (tmp, time.perf_counter(), subprocess.Popen(
+        _running[n] = (tmp, path, time.perf_counter(), subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp,
              os.path.join(_CSRC, f"{n}.cu"), *extra, *rpath],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+
+def start(names=SOURCES) -> None:
+    """Start the builds of the named sources and return at once: a later
+    :func:`build` or :func:`load` of a source waits for its run."""
+    with _run_lock:
+        _start(names)
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every named source not built yet, one ``nvcc`` per source,
+    all started together (collecting any run :func:`start` began).
+    Returns ``{name: path of the .so}``."""
+    with _run_lock:
+        _start(names)
+        runs = {n: _running.pop(n) for n in names if n in _running}
+    paths = {n: _lib_path(n) for n in names}
     failed = []
     from ..telemetry.registry import note_compile
-    for n, (tmp, t0, proc) in procs.items():
+    for n, (tmp, path, t0, proc) in runs.items():
         log, _ = proc.communicate()
         build_seconds[n] = time.perf_counter() - t0
         note_compile("nvcc", build_seconds[n], f"{n}.cu")
         if proc.returncode != 0:
             failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
-        os.replace(tmp, paths[n])
+        os.replace(tmp, path)
+        paths[n] = path
     if failed:
         raise MXNetError("kernel build failed: " + "\n".join(failed))
     return paths

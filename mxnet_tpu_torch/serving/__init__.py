@@ -12,7 +12,23 @@ CUDA graph of the block's ``CachedOp`` on the card:
   deadlines, SIGTERM drain with the resumable exit code.
 - :mod:`.metrics` — ``ServerMetrics``: latency/batch/queue histograms,
   Prometheus text + JSON export, profiler spans per dispatch.
-- :mod:`.aot` — the runtime fingerprint and signature replay.
+- :mod:`.registry` — ``ModelRegistry``: versioned on-disk artifact store
+  (SHA-256 manifests, atomic CURRENT pointer, quarantine + fallback; the
+  JAX package's layout file for file).
+- :mod:`.fleet` — ``FleetServer``/``Fleet``: registry-driven replicas
+  with atomic hot-swap deploys and rolling fleet-wide rollouts.
+- :mod:`.aot` — cold start: the kernel-build cache
+  (``enable_compile_cache``), the runtime fingerprint, signature replay;
+  the AOT signature bundles are ``CachedOp.aot_export`` / ``aot_load``.
+- :mod:`.router` — the process-level fleet: ``ReplicaEndpoint`` (socket
+  front-end of one replica process), ``FleetRouter`` (least-loaded
+  dispatch, retry-on-death, rolling deploy over processes).
+- :mod:`.autoscale` — pure ``decide()`` scaling ladder + the
+  ``Autoscaler`` executor (``MXTPU_FLEET_MIN/MAX/TARGET_QUEUE``).
+- :mod:`.lookup` — the embedding lookup tier over a published
+  ``EmbeddingPlane`` sidecar.
+- :mod:`.serve_fleet` — ``python -m mxnet_tpu_torch.serving.serve_fleet``:
+  the fleet launcher and the replica process.
 
 Quick start::
 
@@ -22,63 +38,35 @@ Quick start::
     probs = fut.result(timeout=1.0)
     print(server.metrics_text())        # Prometheus exposition
 
-Not ported yet, raising ``NotPortedError`` when used: the serving fleet
-(``ModelRegistry``, ``FleetServer`` / ``Fleet``, ``FleetRouter`` and its
-replica processes, ``Autoscaler`` / ``decide``, ``enable_compile_cache``;
-ROADMAP A23, after ``symbol/``) and the embedding lookup fleet
-(``LookupFleet``, ``LookupReplica``, ``publish_embedding``; ROADMAP A23
-too: it publishes through ``ModelRegistry`` and ``net.export`` and loads
-through ``SymbolBlock.imports``).
+Fleet quick start (registry-driven, hot-swappable)::
+
+    reg = serving.ModelRegistry()           # MXTPU_SERVE_REGISTRY
+    v1 = reg.publish("resnet", net=net,
+                     signature={"bucket_shapes": [[224, 224, 3]]})
+    server = serving.FleetServer(reg, "resnet").start()
+    ...
+    v2 = reg.publish("resnet", net=new_net, signature=...)
+    server.publish_aot(version=v2)          # v2 deploys with zero misses
+    server.deploy(v2)                       # warm in bg, atomic flip
+    server.rollback()                       # one-call escape hatch
 """
-from ..ops.registry import NotPortedError
-from .aot import ReplayLog, runtime_fingerprint, warm_from_replay
+from .aot import (ReplayLog, enable_compile_cache,  # noqa: F401
+                  fingerprint_token, runtime_fingerprint, warm_from_replay)
+from .autoscale import Autoscaler, decide  # noqa: F401
 from .batcher import (Batch, BucketTable, DeadlineExceeded,  # noqa: F401
                       NoBucket, PredictionFuture, QueueFull, Request,
                       ServerClosed, ServingError, batch_buckets, pad_rows)
-from .cache import SignatureCache
-from .metrics import ServerMetrics
-from .server import ActiveModel, ModelServer
-
-_FLEET = "the serving fleet, not ported yet (ROADMAP.md, queue A23)"
-_LOOKUP = ("the sparse embedding lookup fleet, not ported yet (ROADMAP.md, "
-           "queue A23)")
-
-
-def _class(name: str, what: str):
-    """A class that raises ``NotPortedError`` when built."""
-    def __init__(self, *_args, **_kwargs):
-        raise NotPortedError(f"serving.{name} is part of {what}")
-    return type(name, (), {"__init__": __init__,
-                           "__doc__": f"Not ported: part of {what}."})
-
-
-def _function(name: str, what: str):
-    """A function that raises ``NotPortedError`` when called."""
-    def fn(*_args, **_kwargs):
-        raise NotPortedError(f"serving.{name} is part of {what}")
-    fn.__name__ = name
-    fn.__doc__ = f"Not ported: part of {what}."
-    return fn
-
-
-ModelRegistry = _class("ModelRegistry", _FLEET)
-ResolvedVersion = _class("ResolvedVersion", _FLEET)
-RegistryCorruptError = _class("RegistryCorruptError", _FLEET)
-FleetServer = _class("FleetServer", _FLEET)
-Fleet = _class("Fleet", _FLEET)
-DeployReport = _class("DeployReport", _FLEET)
-FleetRouter = _class("FleetRouter", _FLEET)
-ReplicaEndpoint = _class("ReplicaEndpoint", _FLEET)
-ReplicaClient = _class("ReplicaClient", _FLEET)
-ReplicaDead = _class("ReplicaDead", _FLEET)
-RouterFuture = _class("RouterFuture", _FLEET)
-Autoscaler = _class("Autoscaler", _FLEET)
-replica_main = _function("replica_main", _FLEET)
-decide = _function("decide", _FLEET)
-enable_compile_cache = _function("enable_compile_cache", _FLEET)
-LookupFleet = _class("LookupFleet", _LOOKUP)
-LookupReplica = _class("LookupReplica", _LOOKUP)
-publish_embedding = _function("publish_embedding", _LOOKUP)
+from .cache import SignatureCache  # noqa: F401
+from .fleet import DeployReport, Fleet, FleetServer  # noqa: F401
+from .lookup import (LookupFleet, LookupReplica,  # noqa: F401
+                     publish_embedding)
+from .metrics import ServerMetrics  # noqa: F401
+from .registry import (ModelRegistry, RegistryCorruptError,  # noqa: F401
+                       ResolvedVersion)
+from .router import (FleetRouter, ReplicaClient,  # noqa: F401
+                     ReplicaDead, ReplicaEndpoint, RouterFuture,
+                     replica_main)
+from .server import ActiveModel, ModelServer  # noqa: F401
 
 __all__ = ["ModelServer", "SignatureCache", "ServerMetrics", "ServingError",
            "QueueFull", "DeadlineExceeded", "NoBucket", "ServerClosed",

@@ -1,30 +1,47 @@
-"""Signature replay for serving (ref: the JAX package's
-``serving/aot.py``, the part ``ModelServer`` uses).
+"""Cold start for serving replicas (ref: the JAX package's
+``serving/aot.py``).
 
-- :func:`runtime_fingerprint`: the runtime a captured program is valid
-  within (torch, CUDA and the card, where the JAX package names jax,
-  jaxlib and the backend).
-- :class:`ReplayLog`: production shape traffic is recorded (one line per
-  distinct signature, ``MXTPU_SERVE_REPLAY``) and :func:`warm_from_replay`
-  prewarms a cache from it — the signatures real traffic exercises, not
-  just the configured closure.
+The JAX package's answer to cold start is three layers that make a new
+replica compile nothing. On the card a compiled XLA executable has two
+counterparts, and only one of them can be kept on disk:
 
-The AOT half (``enable_compile_cache``, ``CachedOp.aot_export`` /
-``aot_load``) serves the serving fleet and is not ported yet (ROADMAP
-A23).
+1. **Persistent kernel-build cache** (:func:`enable_compile_cache`): the
+   hand-written kernels are nvcc builds keyed by a hash of their source
+   and flags (``ops/_build.py``); pointing the build directory at a
+   shared cache directory (namespaced by :func:`fingerprint_token`) makes
+   a fresh replica load what an earlier process built: zero nvcc runs.
+2. **AOT signature bundles** (``CachedOp.aot_export`` / ``aot_load``): a
+   CUDA graph is bound to its process and cannot be saved, so the bundle
+   holds each warm inference signature (its cache key, input and output
+   structure) with the runtime fingerprint and a format number.
+   ``aot_load`` installs those entries and captures their graphs at load
+   time, before the replica reports ready: after it, warm-up and the
+   first requests make zero signature-cache misses. The captures are
+   the cost that stays (counted as ``mxtpu_compile_total{kind=
+   "graph_capture"}`` and timed in the ``DeployReport``).
+3. **Signature replay** (:class:`ReplayLog`): production shape traffic is
+   recorded (one line per distinct signature, ``MXTPU_SERVE_REPLAY``) and
+   :func:`warm_from_replay` prewarms a cache from it — the signatures
+   real traffic exercises, not just the configured closure.
+
+:func:`runtime_fingerprint` names the runtime a bundle is valid within
+(torch, CUDA and the card, where the JAX package names jax, jaxlib and
+the backend).
 """
 from __future__ import annotations
 
 import json
 import os
 import threading
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..base import env
 from ..log import get_logger
 
-__all__ = ["runtime_fingerprint", "ReplayLog", "warm_from_replay"]
+__all__ = ["enable_compile_cache", "fingerprint_token",
+           "runtime_fingerprint", "ReplayLog", "warm_from_replay"]
 
 _LOG = get_logger("mxnet_tpu_torch.serving.aot")
 
@@ -39,6 +56,40 @@ def runtime_fingerprint() -> dict:
             pass
     return {"torch": torch.__version__,
             "cuda": torch.version.cuda or "none", "device": card}
+
+
+def fingerprint_token(fp: Optional[dict] = None) -> str:
+    """Filesystem-safe string form of the fingerprint (cache subdir key)."""
+    fp = fp or runtime_fingerprint()
+    return "-".join(str(fp.get(k, "none")).replace("/", "_").replace(" ", "_")
+                    for k in ("torch", "cuda", "device"))
+
+
+def enable_compile_cache(cache_dir: Optional[str] = None) -> Optional[str]:
+    """Point the kernel builds (``ops/_build.py``) at a persistent cache.
+
+    Resolution order: explicit ``cache_dir`` > ``MXTPU_COMPILE_CACHE`` env.
+    Returns the effective cache directory (``cache_dir`` namespaced by
+    :func:`fingerprint_token`, so another torch, CUDA or card starts a
+    fresh cache instead of colliding), or None when disabled (no dir
+    configured, or ``0`` / ``off``). Every nvcc library is keyed by a hash
+    of its source and flags, so a process that finds it there loads it
+    and builds nothing. An explicit directory is honoured on the CPU
+    too, so the cold-start contract is testable there (no kernel is
+    built on the CPU). NVRTC compiles user kernels of ``mx.rtc`` at run
+    time and is not cached; no serving path calls it.
+    """
+    if cache_dir is None:
+        cache_dir = env.get("MXTPU_COMPILE_CACHE")
+    if not cache_dir or str(cache_dir).lower() in ("0", "off", "disabled",
+                                                   "none"):
+        return None
+    from ..ops import _build
+    effective = os.path.join(str(cache_dir), fingerprint_token())
+    os.makedirs(effective, exist_ok=True)
+    _build.set_build_dir(effective)
+    _LOG.info("persistent kernel-build cache at %s", effective)
+    return effective
 
 
 class ReplayLog:

@@ -24,7 +24,6 @@ from mxnet_tpu.cached_op import CachedOp as JCachedOp
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import convert
 from mxnet_tpu_torch.cached_op import CachedOp as TCachedOp
-from mxnet_tpu_torch.ops.registry import NotPortedError
 
 RS = np.random.RandomState(5)
 
@@ -408,10 +407,26 @@ def test_dropout_draws_a_new_mask_each_call():
     np.testing.assert_array_equal(net(x).asnumpy(), x.asnumpy())
 
 
-def test_aot_half_is_the_serving_fleet():
-    _, tb = _pair(_mlp, (1, 10))
+def test_aot_half_is_the_serving_fleet(tmp_path):
+    """The AOT half serves the serving fleet: the warm inference
+    signatures export (training ones do not) and install in a fresh op
+    over the same architecture with no hit or miss counted; its calls
+    then hit, with the JAX block's outputs (f32 2e-5)."""
+    jb, tb = _pair(_mlp, (1, 10))
     op = TCachedOp(tb)
-    with pytest.raises(NotPortedError, match="A23"):
-        op.aot_export("x.bin")
-    with pytest.raises(NotPortedError, match="A23"):
-        op.aot_load("x.bin")
+    xs = [np.random.RandomState(b).rand(b, 10).astype(np.float32)
+          for b in (1, 3)]
+    for x in xs:
+        op(tmx.nd.array(x, ctx=tmx.cpu()))
+    with tmx.autograd.record():
+        op(tmx.nd.array(xs[0], ctx=tmx.cpu()))
+    path = str(tmp_path / "aot.bin")
+    assert op.aot_export(path) == 2
+    fresh = TCachedOp(tb)
+    assert fresh.aot_load(path) == 2
+    assert fresh.cache_info() == (0, 0, 0, 2, 256)
+    for x in xs:
+        np.testing.assert_allclose(
+            fresh(tmx.nd.array(x, ctx=tmx.cpu())).asnumpy(),
+            jb(jmx.nd.array(x)).asnumpy(), rtol=2e-5, atol=2e-5)
+    assert fresh.cache_info().hits == 2 and fresh.cache_info().misses == 0

@@ -67,7 +67,13 @@ SERVING_FLAGS = {"MXNET_EXEC_BULK_EXEC_INFERENCE": ["0", "1", "", None],
                  "MXTPU_SERVE_MAX_BATCH": ["1", "32", None],
                  "MXTPU_SERVE_MAX_LATENCY_MS": ["0.5", "5", None],
                  "MXTPU_SERVE_QUEUE_DEPTH": ["1", "256", None],
-                 "MXTPU_SERVE_REPLAY": ["replay.jsonl", "", None]}
+                 "MXTPU_SERVE_REPLAY": ["replay.jsonl", "", None],
+                 "MXTPU_SERVE_REGISTRY": ["registry", "", None],
+                 "MXTPU_COMPILE_CACHE": ["cache", "off", "", None],
+                 "MXTPU_FLEET_MIN": ["1", "3", None],
+                 "MXTPU_FLEET_MAX": ["4", "8", None],
+                 "MXTPU_FLEET_TARGET_QUEUE": ["16", "2", None],
+                 "MXTPU_FLEET_HEARTBEAT_MS": ["200", "50.5", None]}
 # backward rematerialisation (util.mirror_wrapper)
 MIRROR_FLAGS = {"MXNET_BACKWARD_DO_MIRROR": ["1", "0", "true", "", None],
                 "MXNET_BACKWARD_MIRROR_POLICY": ["full", "dots", "convs",

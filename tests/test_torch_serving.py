@@ -28,7 +28,6 @@ from mxnet_tpu.serving import metrics as jmetrics
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import convert, serving
 from mxnet_tpu_torch.contrib import chaos
-from mxnet_tpu_torch.ops.registry import NotPortedError
 from mxnet_tpu_torch.serving import (BucketTable, DeadlineExceeded,
                                      ModelServer, NoBucket, QueueFull,
                                      ServerClosed, batch_buckets, pad_rows)
@@ -546,18 +545,19 @@ def test_not_ported_parts_name_their_queue_item(tmp_path):
     # checkpoint is a missing file
     with pytest.raises(OSError):
         ModelServer.load(str(tmp_path / "missing"))
-    for name in ("ModelRegistry", "FleetServer", "Fleet", "FleetRouter",
-                 "Autoscaler", "ReplicaEndpoint"):
-        with pytest.raises(NotPortedError, match="A23"):
-            getattr(serving, name)()
-    for name in ("decide", "replica_main", "enable_compile_cache"):
-        with pytest.raises(NotPortedError, match="A23"):
-            getattr(serving, name)()
-    for name in ("LookupFleet", "LookupReplica"):
-        with pytest.raises(NotPortedError, match="A23"):
-            getattr(serving, name)()
-    with pytest.raises(NotPortedError, match="A23"):
-        serving.publish_embedding()
+    # the serving fleet (A23) is ported: every name is the real one, from
+    # its module (tests/test_torch_serving_fleet.py and
+    # tests/test_torch_fleet_router.py hold them to the JAX package)
+    for name in jmx.serving.__all__:
+        obj = getattr(serving, name)
+        assert obj.__module__.startswith("mxnet_tpu_torch.serving."), name
+    reg = serving.ModelRegistry(str(tmp_path / "registry"))
+    assert reg.models() == [] and reg.current("m") is None
+    assert serving.decide([], min_replicas=1, max_replicas=1,
+                          target_queue=1)["op"] == "none"
+    assert serving.enable_compile_cache("off") is None
+    with pytest.raises(tmx.MXNetError, match="no verified version"):
+        serving.LookupReplica(reg, "m")
     fp = serving.runtime_fingerprint()
     assert sorted(fp) == ["cuda", "device", "torch"]
     assert sorted(serving.__all__) == sorted(jmx.serving.__all__)
