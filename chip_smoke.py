@@ -358,16 +358,24 @@ Phases, each printing JSON lines:
     bytes a step, peak memory against the one-process step, and the
     flash kernel at the tp shape (H 4) with its bound and SDPA's time;
 14l. then the sparse phases (A11) and the int8 / symbol phases (A13),
-    each described in its function's docstring, and last
-    ``serving_fleet`` (A23, see its docstring): the registry, FleetServer
+    each described in its function's docstring, then ``serving_fleet``
+    (A23, see its docstring): the registry, FleetServer
     hot-swap of full-width ResNet-50 under load with the AOT signature
     bundle, FleetRouter over replica processes on the card (a SIGKILL
     with 24 requests in flight, a scale-up with no kernel build and no
     signature miss, a rolling deploy, drain exit 75), the causal
     self-attention model served on the tensor-core flash route,
-    ``make_scan_forward`` and the lookup tier;
+    ``make_scan_forward`` and the lookup tier; and last ``rnn_lm``
+    (A14's recurrent stack, see its docstring): the fused RNN op card
+    against host at the word LM's widths in every mode,
+    ``examples/rnn/word_language_model.py``'s model at its full medium
+    width (vocab 10000, 650 / 650, 2 layers, bptt 35, batch 32, dropout
+    0.5) trained eagerly and as CUDA graph replays, ``mx.rnn`` through
+    the Executor with ``BucketSentenceIter``, the four recurrent recipes
+    and ``gluon.loss.CTCLoss``; it adds no kernel;
 15. the wall seconds of every phase (a ``wall`` line after each, a
-    ``walls`` line with the totals), the ``{"kernels": [...]}`` summary
+    ``walls`` line with the totals, ``rnn_lm``'s under
+    ``a14_rnn_phases_s``), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
     over the 48 call sites, with the v2 step's sums and launches under
     ``v2``, the f32 Gluon step's under ``f32``, the FitLoop's under
@@ -8255,29 +8263,47 @@ def _mf_state(tr, params):
     return out
 
 
+class _AsPort:
+    """``with _AsPort(mt, aliases):`` resolves ``mxnet_tpu`` (and
+    ``aliases``, more of its module names) to the port, for recipes that
+    import it at the top or inside their functions."""
+
+    def __init__(self, mt, aliases):
+        self.names = {"mxnet_tpu": mt, **aliases}
+
+    def __enter__(self):
+        self.saved = {k: sys.modules.get(k) for k in self.names}
+        sys.modules.update(self.names)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def _recipe_module(script):
+    """``script``'s globals, run as a module (not as ``__main__``)."""
+    import runpy
+    here = os.path.dirname(os.path.abspath(__file__))
+    return runpy.run_path(os.path.join(here, script), run_name="recipe")
+
+
 def _run_recipe(mt, script, argv, aliases):
     """Run ``script``'s ``main()`` with ``mxnet_tpu`` (and ``aliases``)
     resolved to the port; returns (main's return, its stdout)."""
     import contextlib
     import io
-    import runpy
     here = os.path.dirname(os.path.abspath(__file__))
-    saved = {k: sys.modules.get(k) for k in ["mxnet_tpu"] + list(aliases)}
-    sys.modules.update({"mxnet_tpu": mt, **aliases})
     argv0 = sys.argv
     buf = io.StringIO()
     try:
         sys.argv = [os.path.join(here, script)] + list(argv)
-        with contextlib.redirect_stdout(buf):
-            g = runpy.run_path(os.path.join(here, script), run_name="recipe")
-            ret = g["main"]()
+        with _AsPort(mt, aliases), contextlib.redirect_stdout(buf):
+            ret = _recipe_module(script)["main"]()
     finally:
         sys.argv = argv0
-        for k, v in saved.items():
-            if v is None:
-                sys.modules.pop(k, None)
-            else:
-                sys.modules[k] = v
     print(buf.getvalue()[-2000:], end="", flush=True)
     return ret, buf.getvalue()
 
@@ -10438,6 +10464,10 @@ def main():
     # the serving fleet (A23), after every earlier phase
     fleet_serving = timed("serving_fleet", serving_fleet, torch, mt, card)
     torch.cuda.empty_cache()
+    # the recurrent stack (A14 slice 1's first half), after every earlier
+    # phase
+    timed("rnn_lm", rnn_lm, torch, mt, card)
+    torch.cuda.empty_cache()
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -10457,10 +10487,11 @@ def main():
                                   if k not in v2 + gluon + fits + f16
                                   + moe_remat + a19 + a20 + a12 + a10
                                   + A11_PHASES + A13_PHASES
-                                  + ("serving_fleet",)),
+                                  + ("serving_fleet", "rnn_lm")),
           "a11_phases_s": sum(walls[k] for k in A11_PHASES),
           "a13_phases_s": sum(walls[k] for k in A13_PHASES),
           "a23_phases_s": walls["serving_fleet"],
+          "a14_rnn_phases_s": walls["rnn_lm"],
           "a10_phases_s": sum(walls[k] for k in a10),
           "a10_second_half_s": walls["fleet_train"] + walls["mesh_lm"],
           "a12_phases_s": sum(walls[k] for k in a12),
@@ -10659,11 +10690,539 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the recurrent stack (A14 slice 1's first half): phase rnn_lm
+# ---------------------------------------------------------------------------
+
+# examples/rnn/word_language_model.py at the medium configuration of the
+# reference's example/rnn/word_lm (Zaremba et al. 2014, medium PTB LSTM)
+LM_VOCAB, LM_EMB, LM_HID, LM_LAYERS = 10000, 650, 650, 2
+LM_BPTT, LM_BATCH, LM_DROPOUT, LM_LR, LM_CLIP = 35, 32, 0.5, 1.0, 0.25
+LM_EAGER_STEPS, LM_REPLAYS, LM_TIMED = 20, 3, 10
+RNN_RECIPES = (("examples/rnn/word_language_model.py",
+                r"epoch \d+: ppl ([0-9.]+)"),
+               ("examples/rnn/bi_lstm_sort.py",
+                r"iter \d+: loss ([0-9.]+)"),
+               ("examples/named_entity_recognition/ner_bilstm.py",
+                r"iter \d+ loss ([0-9.]+)"),
+               ("examples/ctc/lstm_ocr.py", r"iter \d+ ctc-loss ([0-9.]+)"))
+def _rnn_op_case(torch, mt, mode, bid, ctx, gen_seed, dtype=None):
+    """``mx.nd.RNN`` at the LM's widths (T 35, N 32, 650 -> 650, 2 layers)
+    with state_outputs under record(): outputs and the gradients of data,
+    parameters and states, on the host as tensors; inputs drawn in f32
+    from ``gen_seed`` and cast to ``dtype``."""
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+    dtype = dtype or torch.float32
+    g = torch.Generator().manual_seed(gen_seed)
+    d = 2 if bid else 1
+    n_st = LM_LAYERS * d
+    size = rnn_param_size(LM_LAYERS, LM_EMB, LM_HID, bid, mode)
+    scale = LM_HID ** -0.5
+    host = [torch.randn(LM_BPTT, LM_BATCH, LM_EMB, generator=g),
+            (torch.rand(size, generator=g) * 2 - 1) * scale,
+            torch.randn(n_st, LM_BATCH, LM_HID, generator=g) * 0.5]
+    if mode == "lstm":
+        host.append(torch.randn(n_st, LM_BATCH, LM_HID, generator=g) * 0.5)
+    n_out = 3 if mode == "lstm" else 2
+    shapes = [(LM_BPTT, LM_BATCH, d * LM_HID)] + \
+        [(n_st, LM_BATCH, LM_HID)] * (n_out - 1)
+    heads = [torch.randn(s, generator=g) for s in shapes]
+    with ctx:
+        arrs = [mt.nd.from_torch(t.to(ctx.torch_device, dtype))
+                for t in host]
+        for a in arrs:
+            a.attach_grad()
+        with mt.autograd.record():
+            outs = mt.nd.RNN(*arrs, state_size=LM_HID, num_layers=LM_LAYERS,
+                             mode=mode, bidirectional=bid, state_outputs=True)
+        mt.autograd.backward(list(outs), [
+            mt.nd.from_torch(h.to(ctx.torch_device, dtype)) for h in heads])
+        got = [o.tensor.cpu() for o in outs] + \
+            [a.grad.tensor.cpu() for a in arrs]
+    return got
+
+
+def _rnn_lm_model(torch, mt, cls, dropout, ctx, values=None):
+    """The recipe's RNNModel at the LM widths on ``ctx``, Xavier (from
+    ``mx.random.seed``'s seed), or with the tensors ``values`` (in
+    ``collect_params`` order) copied in."""
+    with ctx:
+        model = cls(LM_VOCAB, LM_EMB, LM_HID, LM_LAYERS, dropout=dropout)
+        model.initialize(mt.init.Xavier())
+        if values is not None:
+            with torch.no_grad():
+                for v, p in zip(values, model.collect_params().values()):
+                    p.set_data(mt.nd.from_torch(v))
+    return model
+
+
+def _lm_values(model):
+    return [p.tensor.detach().clone() for p in
+            model.collect_params().values()]
+
+
+def _rnn_lm_step(mt, model, trainer, lossfn, x, y, hidden, train_mode=True):
+    """One step of the recipe's loop: record, the model, the loss,
+    backward, clip_global_norm at 0.25 x batch, SGD. Returns (loss,
+    hidden, logits)."""
+    hidden = [h.detach() for h in hidden]
+    with mt.autograd.record(train_mode=train_mode):
+        out, hidden = model(x, hidden)
+        loss = lossfn(out.reshape((-1, LM_VOCAB)), y)
+    loss.backward()
+    grads = [p.grad() for p in model.collect_params().values()
+             if p.grad_req != "null"]
+    mt.gluon.utils.clip_global_norm(grads, LM_CLIP * LM_BATCH)
+    trainer.step(LM_BATCH)
+    return loss, hidden, out
+
+
+def _lm_corpus(np, n_tokens, seed=0):
+    """The recipe's synthetic Markov corpus (``load_corpus`` without
+    ``--data``) at vocab 10000: each token's successor one of 4."""
+    rs = np.random.RandomState(seed)
+    trans = rs.randint(0, LM_VOCAB, (LM_VOCAB, 4))
+    pick = rs.randint(0, 4, n_tokens)
+    ids = np.zeros(n_tokens + 1, np.int64)
+    for i in range(n_tokens):
+        ids[i + 1] = trans[ids[i], pick[i]]
+    return ids.astype(np.int32)
+
+
+def _rnn_lm_train(torch, mt, card, g, pool):
+    """(b): the word LM on the card against the host (the host's step on
+    ``pool``), trained eagerly, then hybridized."""
+    import numpy as np
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    mt.random.seed(0)
+    ids = _lm_corpus(np, (LM_EAGER_STEPS + LM_TIMED + 8) * LM_BATCH
+                     * LM_BPTT)
+    batches = list(g["batchify"](ids, LM_BATCH, LM_BPTT))
+
+    class LM(g["RNNModel"]):
+        def forward(self, inputs, hidden):
+            return self._imperative_call(inputs, hidden)
+
+    def nd_batch(k, ctx):
+        x, y = batches[k]
+        return (mt.nd.array(x, ctx=ctx, dtype="int32"),
+                mt.nd.array(y.reshape(-1).astype(np.float32), ctx=ctx))
+
+    lossfn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def first_step(model, ctx):
+        """Loss and every gradient of the first batch, dropout off."""
+        with ctx:
+            x, y = nd_batch(0, ctx)
+            hidden = model.begin_state(LM_BATCH)
+            with mt.autograd.record(train_mode=False):
+                out, _ = model(x, hidden)
+                loss = lossfn(out.reshape((-1, LM_VOCAB)), y)
+            loss.backward()
+            return [loss.tensor.cpu()] + [
+                p.grad().tensor.cpu() for p in
+                model.collect_params().values() if p.grad_req != "null"]
+
+    # the first step, card against host from the same weights, dropout off
+    # (predict-mode record); the host's runs on the pool's thread
+    card_m = _rnn_lm_model(torch, mt, LM, LM_DROPOUT, gpu)
+    start = [v.cpu() for v in _lm_values(card_m)]
+    host_first = pool.submit(lambda: first_step(_rnn_lm_model(
+        torch, mt, LM, LM_DROPOUT, cpu, start), cpu))
+    card_first = first_step(card_m, gpu)
+    worst, first_ok = _close_of_max(torch, card_first, host_first.result(),
+                                    1e-3)
+    # 20 eager steps with dropout on
+    trainer = mt.gluon.Trainer(card_m.collect_params(), "sgd",
+                               {"learning_rate": LM_LR}, kvstore=None)
+    hidden = card_m.begin_state(LM_BATCH)
+    losses, step_s = [], []
+    # peaks above what is allocated when the steps start (earlier phases
+    # of the whole run may hold memory)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in range(LM_EAGER_STEPS):
+        x, y = nd_batch(k, gpu)
+        t = time.perf_counter()
+        loss, hidden, _ = _rnn_lm_step(mt, card_m, trainer, lossfn, x, y,
+                                       hidden)
+        losses.append(float(loss.mean().asscalar()))
+        step_s.append(time.perf_counter() - t)
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    falls = float(np.mean(losses[-5:])) < float(np.mean(losses[:5]))
+    eager_prof, eager_wall = _profiled(torch, lambda: _rnn_lm_step(
+        mt, card_m, trainer, lossfn, *nd_batch(0, gpu), hidden))
+    # hybridize(): 3 replayed steps against 3 eager steps, dropout off
+    eager_m = _rnn_lm_model(torch, mt, LM, LM_DROPOUT, gpu,
+                            _lm_values(card_m))
+    hyb = _rnn_lm_model(torch, mt, LM, LM_DROPOUT, gpu, _lm_values(card_m))
+    del card_m, trainer
+    hyb.hybridize()
+    pair = [(m, mt.gluon.Trainer(m.collect_params(), "sgd",
+                                 {"learning_rate": LM_LR}, kvstore=None),
+             m.begin_state(LM_BATCH)) for m in (eager_m, hyb)]
+    bitwise, not_bitwise = True, []
+    for k in range(LM_REPLAYS):
+        res = []
+        for i, (m, tr, hid) in enumerate(pair):
+            loss, hid, out = _rnn_lm_step(mt, m, tr, lossfn,
+                                          *nd_batch(k, gpu), hid,
+                                          train_mode=False)
+            pair[i] = (m, tr, hid)
+            res.append([loss.tensor, out.tensor] + [
+                p.tensor for p in m.collect_params().values()])
+        for j, (a, b) in enumerate(zip(*res)):
+            if not torch.equal(a, b):
+                bitwise = False
+                not_bitwise.append(f"step {k} tensor {j}")
+    info = tuple(hyb._cached_op.cache_info())
+    # dropout on: two replays of one signature draw different masks
+    x, y = nd_batch(1, gpu)
+    hid = [h.detach() for h in pair[1][2]]
+    outs = []
+    for _ in range(3):                 # capture, then two replays
+        with mt.autograd.record():
+            out, _ = hyb(x, hid)
+            loss = lossfn(out.reshape((-1, LM_VOCAB)), y)
+        loss.backward()
+        outs.append(out.tensor.clone())
+    masks_differ = not torch.equal(outs[1], outs[2]) and \
+        not torch.equal(outs[0], outs[1])
+    # the replayed step, dropout on, timed
+    _, tr, hid = pair[1]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    replay_s = []
+    for k in range(LM_TIMED):
+        x, y = nd_batch(LM_EAGER_STEPS + k, gpu)
+        t = time.perf_counter()
+        loss, hid, _ = _rnn_lm_step(mt, hyb, tr, lossfn, x, y, hid)
+        float(loss.mean().asscalar())
+        replay_s.append(time.perf_counter() - t)
+    replay_peak = torch.cuda.max_memory_allocated() - base
+    replay_prof, replay_wall = _profiled(torch, lambda: _rnn_lm_step(
+        mt, hyb, tr, lossfn, *nd_batch(0, gpu), hid))
+    tokens = LM_BATCH * LM_BPTT
+    out = {"first_step_card_vs_host": worst, "first_step_ok": first_ok,
+           "eager_losses": losses, "loss_falls": falls,
+           "eager_ms": 1e3 * float(np.median(step_s[2:])),
+           "eager_tokens_per_s": tokens / float(np.median(step_s[2:])),
+           "eager_peak_bytes_above_start": eager_peak,
+           "replay_bitwise_vs_eager": bitwise,
+           "not_bitwise": not_bitwise[:8], "cache_info": info,
+           "dropout_masks_differ_per_replay": masks_differ,
+           "replay_ms": 1e3 * float(np.median(replay_s)),
+           "replay_tokens_per_s": tokens / float(np.median(replay_s)),
+           "replay_peak_bytes_above_start": replay_peak}
+    for name, prof, wall in (("eager", eager_prof, eager_wall),
+                             ("replay", replay_prof, replay_wall)):
+        kernels = _device_kernels(prof)
+        busy = sum(ms for ms, _ in kernels.values())
+        out[f"{name}_profiled_wall_ms"] = wall
+        out[f"{name}_device_busy_ms"] = busy
+        out[f"{name}_device_idle_share"] = 1.0 - busy / wall if busy \
+            else None
+        out[f"{name}_device_kernel_launches"] = sum(
+            n for _, n in kernels.values())
+        out[f"{name}_top_kernels"] = [
+            [round(ms, 3), n, k[:70]] for k, (ms, n) in sorted(
+                kernels.items(), key=lambda kv: -kv[1][0])[:5]]
+    bad = []
+    if not first_ok:
+        bad.append(f"first step card vs host {worst}")
+    if not falls:
+        bad.append(f"the loss did not fall: {losses}")
+    if not bitwise:
+        bad.append(f"replayed steps not bit for bit: {not_bitwise[:4]}")
+    if info[1] < 1 or info[0] < LM_REPLAYS - 1:
+        bad.append(f"cache_info {info}: the steps did not replay")
+    if not masks_differ:
+        bad.append("two replays drew the same dropout masks")
+    return out, bad
+
+
+def _rnn_legacy(torch, mt):
+    """(c): mx.rnn's FusedRNNCell and an unrolled LSTMCell bound through
+    the Executor on the card and the host; BucketSentenceIter feeding one
+    executor a bucket over three buckets."""
+    import random
+    import numpy as np
+    rows, bad = {}, []
+
+    def bind_run(sym, ctx, shapes, seed):
+        with ctx:
+            ex = sym.simple_bind(ctx, **shapes)
+            g = torch.Generator().manual_seed(seed)
+            for name in sym.list_arguments():
+                arr = ex.arg_dict[name]
+                arr[:] = ((torch.rand(arr.shape, generator=g) * 2 - 1)
+                          * 0.08).numpy()
+            outs = ex.forward(is_train=True)
+            heads = [mt.nd.from_torch(torch.randn(o.shape, generator=g)
+                                      .to(ctx.torch_device)) for o in outs]
+            ex.backward(heads)
+            return [o.tensor.cpu() for o in outs] + [
+                ex.grad_dict[k].tensor.cpu() for k in sorted(ex.grad_dict)
+                if ex.grad_dict[k] is not None]
+
+    fused = mt.rnn.FusedRNNCell(LM_HID, num_layers=LM_LAYERS, mode="lstm",
+                                get_next_state=True, prefix="lm_")
+    f_out, f_states = fused.unroll(LM_BPTT, inputs=mt.sym.var("data"),
+                                   layout="TNC")
+    cell = mt.rnn.LSTMCell(LM_HID, prefix="cell_")
+    c_out, _ = cell.unroll(LM_BPTT, inputs=mt.sym.var("data"),
+                           layout="NTC", merge_outputs=True)
+    for name, sym, shape in (
+            ("fused_rnn_cell", mt.sym.Group([f_out] + f_states),
+             (LM_BPTT, LM_BATCH, LM_EMB)),
+            ("lstm_cell_unrolled", c_out, (LM_BATCH, LM_BPTT, LM_EMB))):
+        card_r = bind_run(sym, mt.gpu(0), {"data": shape}, 7)
+        host_r = bind_run(sym, mt.cpu(), {"data": shape}, 7)
+        worst, ok = _close_of_max(torch, card_r, host_r, 1e-3)
+        rows[name] = {"card_vs_host": worst, "tensors": len(card_r)}
+        if not ok:
+            bad.append(f"{name}: card vs host {worst}")
+    # bucketing: one bound executor a bucket, weights shared
+    rs = np.random.RandomState(3)
+    buckets, width = [10, 20, 35], 200
+    sentences = [list(rs.randint(1, LM_VOCAB, rs.randint(lo, hi + 1)))
+                 for lo, hi in ((5, 10), (11, 20), (21, 35))
+                 for _ in range(2 * LM_BATCH)]
+    random.seed(0)
+    np.random.seed(0)
+    it = mt.rnn.BucketSentenceIter(sentences, LM_BATCH, buckets=buckets,
+                                   invalid_label=0)
+    data = mt.sym.var("data")
+    embed = mt.sym.Embedding(data, input_dim=LM_VOCAB, output_dim=width,
+                             name="embed")
+    out, _ = mt.rnn.FusedRNNCell(width, num_layers=1, mode="lstm",
+                                 prefix="bk_").unroll(0, inputs=embed,
+                                                      layout="NTC")
+    pred = mt.sym.FullyConnected(mt.sym.reshape(out, shape=(-1, width)),
+                                 num_hidden=LM_VOCAB, name="pred")
+    net = mt.sym.SoftmaxOutput(pred, mt.sym.reshape(
+        mt.sym.var("softmax_label"), shape=(-1,)), name="softmax")
+    g = torch.Generator().manual_seed(11)
+    shared, execs, host_execs, losses, worst_b = {}, {}, {}, [], 0.0
+    for b in it:
+        key = b.bucket_key
+        fresh = key not in execs
+        if fresh:
+            for ctx, table in ((mt.gpu(0), execs), (mt.cpu(), host_execs)):
+                with ctx:
+                    table[key] = net.simple_bind(
+                        ctx, data=(LM_BATCH, key),
+                        softmax_label=(LM_BATCH, key))
+                for name, arr in table[key].arg_dict.items():
+                    if name in ("data", "softmax_label"):
+                        continue
+                    if name not in shared:
+                        shared[name] = ((torch.rand(arr.shape, generator=g)
+                                         * 2 - 1) * 0.1).numpy()
+                    arr[:] = shared[name]
+        runs = [execs[key]] + ([host_execs[key]] if fresh else [])
+        res = []
+        for ex in runs:
+            ex.arg_dict["data"][:] = b.data[0].asnumpy()
+            ex.arg_dict["softmax_label"][:] = b.label[0].asnumpy()
+            prob = ex.forward(is_train=True)[0]
+            ex.backward()
+            res.append([prob.tensor.cpu(),
+                        ex.grad_dict["bk_parameters"].tensor.cpu()])
+        lab = b.label[0].asnumpy().reshape(-1).astype(int)
+        p = res[0][0].numpy()
+        losses.append(float(-np.log(p[np.arange(lab.size), lab]
+                                    + 1e-12).mean()))
+        if fresh:
+            w, ok = _close_of_max(torch, res[0], res[1], 1e-3)
+            worst_b = max(worst_b, w)
+            if not ok:
+                bad.append(f"bucket {key}: card vs host {w}")
+    rows["bucketing"] = {"buckets": sorted(execs), "batches": len(losses),
+                         "losses": losses, "card_vs_host": worst_b}
+    if sorted(execs) != buckets or not all(np.isfinite(losses)):
+        bad.append(f"bucketing: {rows['bucketing']}")
+    return rows, bad
+
+
+def _rnn_recipes(mt):
+    """(d): the four recurrent recipes at their defaults; each must exit
+    0 (its main returns) and its loss fall."""
+    import re
+    aliases = {"mxnet_tpu.gluon": mt.gluon}
+    rows, bad = {}, []
+    for script, pattern in RNN_RECIPES:
+        t = time.perf_counter()
+        _, text = _run_recipe(mt, script, [], aliases)
+        vals = [float(v) for v in re.findall(pattern, text)]
+        name = os.path.basename(script)
+        rows[name] = {"seconds": time.perf_counter() - t,
+                      "first": vals[0] if vals else None,
+                      "last": vals[-1] if vals else None,
+                      "printed": len(vals)}
+        if len(vals) < 2 or not vals[-1] < vals[0]:
+            bad.append(f"{name}: the loss did not fall ({vals})")
+    return rows, bad
+
+
+def _rnn_ctc(torch, mt):
+    """(e): gluon.loss.CTCLoss (blank last) card against host at
+    lstm_ocr.py's shapes (batch 32, 20 columns, 10 digits + blank, 1-3
+    labels) and 4x (batch 128, 80 columns, 4-12 labels), with and
+    without label lengths: the NLL and the activations' gradient."""
+    rows, bad = {}, []
+    for name, b, t, lo, hi in (("ocr", 32, 20, 1, 3),
+                               ("ocr_x4", 128, 80, 4, 12)):
+        g = torch.Generator().manual_seed(b)
+        acts = torch.randn(b, t, 11, generator=g)
+        lens = torch.randint(lo, hi + 1, (b,), generator=g)
+        labels = torch.full((b, hi), -1.0)
+        for i in range(b):
+            labels[i, :lens[i]] = torch.randint(0, 10, (int(lens[i]),),
+                                                generator=g).float()
+        for with_lengths in (True, False):
+            res = []
+            for ctx in (mt.gpu(0), mt.cpu()):
+                with ctx:
+                    x = mt.nd.from_torch(acts.to(ctx.torch_device))
+                    x.attach_grad()
+                    extra = (None, mt.nd.from_torch(
+                        lens.float().to(ctx.torch_device))) \
+                        if with_lengths else ()
+                    with mt.autograd.record():
+                        loss = mt.gluon.loss.CTCLoss()(
+                            x, mt.nd.from_torch(
+                                labels.to(ctx.torch_device)), *extra)
+                    loss.backward()
+                    res.append([loss.tensor.cpu(), x.grad.tensor.cpu()])
+            worst, ok = _close_of_max(torch, res[0], res[1], 1e-3)
+            key = f"{name}_{'lengths' if with_lengths else 'packed'}"
+            rows[key] = {"shape": [b, t, 11], "card_vs_host": worst,
+                         "mean_nll": float(res[0][0].detach().mean())}
+            if not ok or not torch.isfinite(res[0][0]).all():
+                bad.append(f"ctc {key}: {rows[key]}")
+    return rows, bad
+
+
+def _rnn_op_gate(torch, cases, card_r, host_r, bad):
+    """(a)'s rows and verdicts. Every tensor within 1e-3 of its largest
+    value, except rnn_relu's gradients in f32: a pre-activation within a
+    rounding step of 0 flips a ReLU between card and host and moves the
+    gradients by percents (``tools/rnn_relu_flip_probe.py`` shows one
+    such flip among the 2.9 million units of the two-way case), so
+    rnn_relu is held whole in f64 and its f32 run by its outputs and
+    final states; its f32 gradient error is reported."""
+    rows = {}
+    for mode, bid, dt in cases:
+        got, want = card_r[(mode, bid, dt)], host_r[(mode, bid, dt)]
+        n_out = 2
+        key = f"{mode}_{'bi' if bid else 'uni'}"
+        if mode == "rnn_relu":
+            key += "_f64" if dt == torch.float64 else "_f32"
+        worst, ok = _close_of_max(torch, got, want, 1e-3)
+        rows[key] = {"card_vs_host": worst, "tensors": len(got),
+                     "dtype": str(dt).replace("torch.", "")}
+        if mode == "rnn_relu" and dt == torch.float32:
+            fwd, ok = _close_of_max(torch, got[:n_out], want[:n_out], 1e-3)
+            rows[key].update({"card_vs_host": fwd,
+                              "gated": "outputs and final states",
+                              "gradients_card_vs_host": worst})
+        if not ok:
+            bad.append(f"(a) {key}: card vs host {rows[key]}")
+    return rows
+
+
+def rnn_lm(torch, mt, card):
+    """The recurrent stack on the card (``--phases rnn_lm``; last in the
+    whole run). (a) ``mx.nd.RNN`` in modes lstm, gru, rnn_tanh and
+    rnn_relu, two layers, one-way and bidirectional, with
+    ``state_outputs``, at the word LM's widths (T 35, N 32, 650 -> 650):
+    outputs, final states and the gradients of data, parameters and
+    states card against host within 1e-3 of each tensor's largest value,
+    in f32, and rnn_relu also in f64, where its gradients are gated
+    (``_rnn_op_gate``); the host runs on a thread beside the card work.
+    (b) ``examples/rnn/word_language_model.py``'s RNNModel at vocab
+    10000, 650 / 650, 2 layers, bptt 35, batch 32, dropout 0.5, SGD lr 1
+    with ``clip_global_norm`` at 0.25 x batch (the reference's medium
+    word LM): the first step card against host (dropout off), 20 eager
+    steps with dropout whose loss falls, then ``hybridize()``: 3 replayed
+    steps bit for bit against 3 eager steps (dropout off) and two replays
+    with different dropout masks; ms a step, tokens/s and peak memory,
+    eager and replayed, and the idle share of one profiled step of each.
+    (c) ``mx.rnn``: a FusedRNNCell and an unrolled LSTMCell symbol bound
+    through the Executor, card against host; BucketSentenceIter feeding
+    one executor a bucket over three buckets. (d) the four recurrent
+    recipes at their defaults with ``mxnet_tpu`` aliased to the port:
+    each returns and its loss falls. (e) ``gluon.loss.CTCLoss`` card
+    against host. The phase adds no kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    walls, bad = {}, []
+    # the host references run on a thread of their own beside the card
+    # work (torch's host kernels release the interpreter lock)
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        t = time.perf_counter()
+        cases = [(mode, bid, torch.float32 if mode != "rnn_relu"
+                  else torch.float64)
+                 for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu")
+                 for bid in (False, True)]
+        cases += [("rnn_relu", bid, torch.float32) for bid in (False, True)]
+        # one seed a (mode, direction): rnn_relu's f32 and f64 runs take
+        # the same inputs
+        seed = {c[:2]: 100 + 2 * k for k, c in enumerate(cases[:8])}
+        host = {c: pool.submit(_rnn_op_case, torch, mt, c[0], c[1],
+                               mt.cpu(), seed[c[:2]], c[2]) for c in cases}
+        card_r = {c: _rnn_op_case(torch, mt, c[0], c[1], mt.gpu(0),
+                                  seed[c[:2]], c[2]) for c in cases}
+        walls["a_card"] = time.perf_counter() - t
+        t = time.perf_counter()
+        # the recipe's RNNModel and batchify; its globals keep the port
+        with _AsPort(mt, {"mxnet_tpu.gluon": mt.gluon}):
+            g = _recipe_module("examples/rnn/word_language_model.py")
+        lm, lm_bad = _rnn_lm_train(torch, mt, card, g, pool)
+        bad += [f"(b) {m}" for m in lm_bad]
+        walls["b"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        op_rows = _rnn_op_gate(torch, cases, card_r,
+                               {c: f.result() for c, f in host.items()},
+                               bad)
+        walls["a_host_wait"] = time.perf_counter() - t
+    finally:
+        pool.shutdown(wait=True)
+    t = time.perf_counter()
+    legacy, legacy_bad = _rnn_legacy(torch, mt)
+    bad += [f"(c) {m}" for m in legacy_bad]
+    walls["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    recipes, recipe_bad = _rnn_recipes(mt)
+    bad += [f"(d) {m}" for m in recipe_bad]
+    walls["d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ctc, ctc_bad = _rnn_ctc(torch, mt)
+    bad += [f"(e) {m}" for m in ctc_bad]
+    walls["e"] = time.perf_counter() - t
+    row = {"phase": "rnn_lm", "card": card, "op": op_rows, "lm": lm,
+           "legacy": legacy, "recipes": recipes, "ctc": ctc,
+           "gate_seconds": walls,
+           "config": {"vocab": LM_VOCAB, "emsize": LM_EMB, "nhid": LM_HID,
+                      "layers": LM_LAYERS, "bptt": LM_BPTT,
+                      "batch": LM_BATCH, "dropout": LM_DROPOUT,
+                      "lr": LM_LR, "clip": LM_CLIP * LM_BATCH}}
+    emit(row)
+    if bad:
+        fail(f"rnn_lm: {bad}")
+    return row
+
+
 def run_phases(argv):
     """``chip_smoke.py --phases NAME [NAME ...]``: build the kernels and run
     only the named phases of A10's second half (``fleet_train``,
     ``mesh_lm``), of A11 (``sparse_ops``, ``sparse_mf``, ``sparse_dist``,
-    ``recsys_plane``), of A23 (``serving_fleet``) and of A13
+    ``recsys_plane``), of A23 (``serving_fleet``), of A14's recurrent
+    stack (``rnn_lm``) and of A13
     (``int8_ops``, ``int8_resnet50``,
     ``resid8_train``, ``symbol_export``, ``quant_recipes``; after the
     others, in their own order), with their ``wall`` lines and a last
@@ -10671,7 +11230,7 @@ def run_phases(argv):
     phases = {"fleet_train": fleet_train, "mesh_lm": mesh_lm,
               "sparse_ops": sparse_ops_phase, "sparse_mf": sparse_mf,
               "sparse_dist": sparse_dist, "recsys_plane": recsys_plane,
-              "serving_fleet": serving_fleet}
+              "serving_fleet": serving_fleet, "rnn_lm": rnn_lm}
     phases.update({n: None for n in A13_PHASES})
     unknown = sorted(set(argv) - set(phases))
     if not argv or unknown:

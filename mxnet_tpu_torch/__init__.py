@@ -13,8 +13,8 @@ from . import (autograd, context, convert, gluon, initializer, kvstore,
                lr_scheduler, models, ndarray, optimizer, ops, parallel,
                random, rtc)
 from . import (cached_op, callback, contrib, fault, fit, image, io, log,
-               megastep, metric, model, monitor, profiler, recordio, serving,
-               symbol, telemetry, util)
+               megastep, metric, model, monitor, profiler, recordio, rnn,
+               serving, symbol, telemetry, util)
 from .base import MXNetError, check
 from .context import Context, cpu, current_context, gpu, num_gpus
 
@@ -32,5 +32,5 @@ __all__ = ["Context", "MXNetError", "autograd", "cached_op", "callback",
            "lr_scheduler", "megastep", "metric", "model", "models", "monitor",
            "nd",
            "ndarray", "num_gpus", "ops", "optimizer", "parallel",
-           "profiler", "random", "recordio", "rtc", "serving", "sym",
+           "profiler", "random", "recordio", "rnn", "rtc", "serving", "sym",
            "symbol", "telemetry", "util"]

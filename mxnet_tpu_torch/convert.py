@@ -14,7 +14,11 @@ as they are. A missing, extra or mis-shaped name raises; a deferred
 parameter (a 0 in its shape) takes the array's extent there and its
 tensor is created from it. Values are written in place into each block's
 tensor (``Parameter.set_data``), so a CUDA graph the trainer captured over
-the net stays valid.
+the net stays valid. A fused RNN layer (``gluon.rnn.RNN`` / ``LSTM`` /
+``GRU``) takes its per-layer parameters by name, or one flat vector under
+``<layer prefix>parameters``: an ``mx.rnn.FusedRNNCell``'s
+``parameters`` argument (rename its prefix with ``prefix``), split by the
+fused op's packing (``ops/rnn_op.py layer_weights``).
 
 ``from_transformer_params(params, config, device=None)`` takes the JAX
 ``models.transformer.init_params`` pytree as numpy arrays and returns the
@@ -58,6 +62,7 @@ def from_mxnet_tpu_params(net, params, prefix=None) -> None:
                                  f"{prefix!r}")
             renamed[net.prefix + k[len(prefix):]] = v
         params = renamed
+    params = _split_fused(net, params)
     ours = net.collect_params()
     missing = sorted(set(ours) - set(params))
     extra = sorted(set(params) - set(ours))
@@ -71,6 +76,40 @@ def from_mxnet_tpu_params(net, params, prefix=None) -> None:
             raise MXNetError(f"parameter {name}: shape {tuple(arr.shape)} "
                              f"does not match {p.shape}")
         p.set_data(arr)
+
+
+def _split_fused(net, params) -> dict:
+    """``params`` with each fused RNN layer's flat ``<prefix>parameters``
+    vector replaced by that layer's per-layer arrays."""
+    from .gluon.rnn.rnn_layer import _RNNLayer
+    from .ops.rnn_op import _GATES, layer_weights, rnn_param_size
+    out = dict(params)
+    for block in net.modules():
+        key = getattr(block, "prefix", "") + "parameters"
+        if not isinstance(block, _RNNLayer) or key not in out:
+            continue
+        flat = np.asarray(out.pop(key), dtype=np.float32).reshape(-1)
+        h, d, n_l, mode = (block._hidden_size, block._dir,
+                           block._num_layers, block._mode)
+        bid = d == 2
+        # the first layer's input width is what the size leaves for it
+        first = d * _GATES[mode] * h
+        rest = rnn_param_size(n_l, h * d, h, bid, mode) - \
+            first * (h * d + h + 2)
+        in_sz = (flat.size - rest) // first - h - 2
+        if in_sz <= 0 or rnn_param_size(n_l, in_sz, h, bid, mode) != \
+                flat.size:
+            raise MXNetError(f"{key}: {flat.size} elements do not pack a "
+                             f"{n_l}-layer {mode} of width {h}")
+        for idx, slots in enumerate(layer_weights(n_l, in_sz, h, bid,
+                                                  mode)):
+            suffix = ["l", "r"][idx % d] + str(idx // d)
+            for k, (off, shape) in zip(("i2h_weight", "h2h_weight",
+                                        "i2h_bias", "h2h_bias"), slots):
+                size = int(np.prod(shape))
+                out[f"{block.prefix}{suffix}_{k}"] = \
+                    flat[off:off + size].reshape(shape)
+    return out
 
 
 def from_transformer_params(params, config, device=None, mesh=None) -> dict:

@@ -131,6 +131,22 @@ class FitResult:
     # from_world/world/rank/members and the checkpoint's resize_to
 
 
+def _moves_gradients(trainer) -> bool:
+    """Whether ``trainer.allreduce_grads`` has gradients to move: a store
+    of several devices or workers, the ZeRO plane, or collectives an
+    overlap scope launched. On one device without a store the call is
+    bookkeeping, and its microseconds are not exposed communication (the
+    step breakdown would round them to a share of 0.0 or 1e-4 by run).
+    A trainer of another kind counts as communicating."""
+    if not hasattr(trainer, "_kv_initialized"):
+        return True
+    if not trainer._kv_initialized:
+        trainer._init_kvstore()
+    return trainer._kvstore is not None or \
+        trainer._overlap_state is not None or \
+        trainer._zero_plane() is not None
+
+
 class FitLoop:
     """Stitches net + trainer + loss + data into a run that survives
     kills, preemptions, NaN steps and corrupt checkpoints.
@@ -316,7 +332,8 @@ class FitLoop:
                 scaled.backward()
         if plan is not None:
             plan.poison_grads(self._trainer._params)
-        with _segment("comm"):
+        with _segment("comm") if _moves_gradients(self._trainer) \
+                else contextlib.nullcontext():
             self._trainer.allreduce_grads()
         with _segment("compute"):
             loss_dev = loss.mean()._data

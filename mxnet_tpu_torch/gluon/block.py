@@ -9,8 +9,9 @@ so a port model built in the same order as a JAX model carries the same
 names (up to the top-level counter).
 
 Calling a block with ``NDArray``s (the imperative loop: ``record()``,
-``net(x)``, ``backward()``) unwraps them, runs ``forward`` on their
-tensors and wraps the outputs; torch records a graph only while
+``net(x)``, ``backward()``), also inside lists (a recurrent block's
+states), unwraps them, runs ``forward`` on their tensors and wraps the
+output tensors; torch records a graph only while
 ``autograd.is_recording()``. Called with tensors (children inside a
 forward, ``functional_call``, the trainer), a block is a plain
 ``nn.Module`` call and pays nothing extra. Layers whose behaviour depends
@@ -77,6 +78,7 @@ import threading
 
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from .. import autograd
 from ..base import MXNetError, check
@@ -133,42 +135,57 @@ def _wrap(x):
     return NDArray(x) if isinstance(x, torch.Tensor) else x
 
 
+def _nested(v) -> bool:
+    return isinstance(v, (list, tuple, dict))
+
+
+def has_ndarray(values) -> bool:
+    """Whether an NDArray is among ``values`` or inside a list, tuple or
+    dict of them (a recurrent block's list of states)."""
+    for v in values:
+        if isinstance(v, NDArray) or (_nested(v) and any(
+                isinstance(x, NDArray) for x in pytree.tree_leaves(v))):
+            return True
+    return False
+
+
 def _unwrap(out):
-    """An output of NDArrays (or a tuple / list of them) as tensors."""
+    """An output of NDArrays (or lists, tuples and dicts of them) as
+    tensors."""
     if isinstance(out, NDArray):
         return out._data
-    if isinstance(out, (tuple, list)):
-        return type(out)(_unwrap(o) for o in out)
-    return out
+    return pytree.tree_map(lambda v: v._data if isinstance(v, NDArray)
+                           else v, out) if _nested(out) else out
 
 
 def ndarray_call(fn, args, kwargs):
     """``fn(*args, **kwargs)`` taking and giving tensors, called with
-    NDArrays: their tensors in, under ``enable_grad`` while
-    ``autograd.record()`` is on and ``no_grad`` otherwise, and the output
-    tensors wrapped as NDArrays (copied where one is a view of an
-    input)."""
-    args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
-    kwargs = {k: v._data if isinstance(v, NDArray) else v
-              for k, v in kwargs.items()}
-    inputs = [t for t in (*args, *kwargs.values())
+    NDArrays (also inside lists of states): their tensors in, under
+    ``enable_grad`` while ``autograd.record()`` is on and ``no_grad``
+    otherwise, and every output tensor wrapped as an NDArray (copied where
+    one is a view of an input)."""
+    args, kwargs = _unwrap((tuple(args), dict(kwargs)))
+    inputs = [t for t in pytree.tree_leaves((args, kwargs))
               if isinstance(t, torch.Tensor)]
     with torch.enable_grad() if autograd.is_recording() \
             else torch.no_grad():
         out = fn(*args, **kwargs)
     if isinstance(out, torch.Tensor):
         return NDArray(_own(out, inputs))
-    return type(out)(NDArray(_own(o, inputs)) for o in out)
+    return pytree.tree_map(lambda v: NDArray(_own(v, inputs))
+                           if isinstance(v, torch.Tensor) else v, out)
 
 
 def _nd_call(fn, args, kwargs):
-    """``fn`` on the tensors as NDArrays, its ``mx.nd`` ops recorded when
-    torch has gradients enabled (the trainers' forward), its NDArray
-    outputs back as tensors."""
+    """``fn`` on the tensors as NDArrays (also inside lists), its ``mx.nd``
+    ops recorded when torch has gradients enabled (the trainers' forward),
+    its NDArray outputs back as tensors."""
     prev = autograd.set_recording(torch.is_grad_enabled())
     try:
-        out = fn(*(_wrap(a) for a in args),
-                 **{k: _wrap(v) for k, v in kwargs.items()})
+        out = fn(*(pytree.tree_map(_wrap, a) if _nested(a) else _wrap(a)
+                   for a in args),
+                 **{k: pytree.tree_map(_wrap, v) if _nested(v) else _wrap(v)
+                    for k, v in kwargs.items()})
     finally:
         autograd.set_recording(prev)
     return _unwrap(out)
@@ -380,7 +397,7 @@ class Block(nn.Module):
         a Symbol out."""
         if any(isinstance(a, Symbol) for a in args):
             return self._symbolic_call(*args)
-        if any(isinstance(a, NDArray) for a in (*args, *kwargs.values())):
+        if has_ndarray((*args, *kwargs.values())):
             return self.forward(*args, **kwargs)
         return _nd_call(self.forward, args, kwargs)
 
@@ -447,12 +464,14 @@ class HybridBlock(Block):
         in, tensors out; Symbols in, a Symbol out."""
         if any(isinstance(a, Symbol) for a in args):
             return self._symbolic_call(*args)
-        if not any(isinstance(a, NDArray) for a in (*args,
-                                                      *kwargs.values())):
-            if self._deferred:
-                self._finish_deferred(*args, **kwargs)
-            return self._tensor_call(*args, **kwargs)
-        return ndarray_call(self, args, kwargs)
+        if has_ndarray((*args, *kwargs.values())):
+            return ndarray_call(self._tensor_path, args, kwargs)
+        return self._tensor_path(*args, **kwargs)
+
+    def _tensor_path(self, *args, **kwargs):
+        if self._deferred:
+            self._finish_deferred(*args, **kwargs)
+        return self._tensor_call(*args, **kwargs)
 
     def _tensor_call(self, *args, **kwargs):
         if self._active:

@@ -1,6 +1,6 @@
 """Gluon contrib (ref: python/mxnet/gluon/contrib/__init__.py). ``data``
-is ported, and of ``nn`` the row-sparse ``SparseEmbedding``; every other
-name of ``nn`` and ``rnn`` raises ``NotPortedError`` (the long tail,
+and ``rnn`` are ported, and of ``nn`` the row-sparse ``SparseEmbedding``;
+every other name of ``nn`` raises ``NotPortedError`` (the long tail,
 ROADMAP A14)."""
 import sys
 import types
@@ -8,7 +8,7 @@ import types
 from ...ops.registry import NotPortedError
 from ..block import Block as _Block
 from ..nn.basic_layers import Embedding as _Embedding
-from . import data
+from . import data, rnn
 
 
 def _not_ported(namespace, queue_of):
@@ -46,9 +46,6 @@ class SparseEmbedding(_Embedding):
 nn = types.ModuleType(f"{__name__}.nn")
 nn.SparseEmbedding = SparseEmbedding
 nn.__getattr__ = _not_ported("nn", lambda attr: "A14")
-rnn = types.ModuleType(f"{__name__}.rnn")
-rnn.__getattr__ = _not_ported("rnn", lambda attr: "A14")
-for _m in (nn, rnn):
-    sys.modules[_m.__name__] = _m
+sys.modules[nn.__name__] = nn
 
 __all__ = ["data", "nn", "rnn"]

@@ -5,8 +5,7 @@ Each loss is a block on tensors: ``loss(pred, label[, sample_weight])``
 returns one value per sample, the mean over every axis but
 ``batch_axis`` (f32 accumulation), after ``sample_weight`` and the
 scalar ``weight``. ``TripletLoss`` sums instead, and
-``CosineEmbeddingLoss`` is per sample already. ``CTCLoss`` waits for the
-CTC op (ROADMAP A14) and raises.
+``CosineEmbeddingLoss`` and ``CTCLoss`` are per sample already.
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ import torch
 
 from ..base import MXNetError
 from ..ops import nn as F
-from ..ops.registry import NotPortedError
+from ..ops.ctc import ctc_loss
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -144,12 +143,34 @@ SoftmaxCELoss = SoftmaxCrossEntropyLoss
 
 
 class CTCLoss(Loss):
-    """Not ported: it needs the CTC op (``ops/ctc.py``, ROADMAP A14)."""
+    """CTC loss over ``ops/ctc.py`` with the blank the LAST class, the
+    reference's Gluon convention (the op's own default is ``first``):
+    ``loss(pred, label, pred_lengths=None, label_lengths=None,
+    sample_weight=None)``, one value per sample. ``layout`` NTC or TNC,
+    ``label_layout`` NT or TN."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  prefix=None):
-        raise NotPortedError("gluon.loss.CTCLoss needs the CTC op, which "
-                             "is not ported yet (see ROADMAP.md, queue A14)")
+        if layout not in ("NTC", "TNC"):
+            raise MXNetError(f"unsupported layout {layout}")
+        if label_layout not in ("NT", "TN"):
+            raise MXNetError(f"unsupported label_layout {label_layout}")
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), prefix=prefix)
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._batch_axis == 1:
+            label = label.transpose(0, 1)
+        lengths = [x for x in (pred_lengths, label_lengths) if x is not None]
+        loss = ctc_loss(pred, label, *lengths,
+                        use_data_lengths=pred_lengths is not None,
+                        use_label_lengths=label_lengths is not None,
+                        blank_label="last")
+        return self._weighted(loss, sample_weight)
 
 
 class KLDivLoss(Loss):

@@ -18,6 +18,7 @@ from ..base import MXNetError
 # importing the op modules registers their ops
 from ..ops import broadcast as _broadcast  # noqa: F401
 from ..ops import contrib_ops as _contrib_ops  # noqa: F401
+from ..ops import ctc as _ctc  # noqa: F401
 from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import flash_attention as _flash_attention  # noqa: F401
 from ..ops import image_ops as _image_ops  # noqa: F401
@@ -31,6 +32,7 @@ from ..ops import parity_ops as _parity_ops  # noqa: F401
 from ..ops import quantization as _quantization  # noqa: F401
 from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
+from ..ops import rnn_op as _rnn_op  # noqa: F401
 from ..ops import sparse_ops as _sparse_ops  # noqa: F401
 from . import register as _register
 from .ndarray import (NDArray, arange, array, concatenate, empty, eye,  # noqa

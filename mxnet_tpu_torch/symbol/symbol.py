@@ -457,6 +457,25 @@ def _embedding_hint(in_shapes, params):
     return {}
 
 
+def _rnn_hint(in_shapes, params):
+    data = in_shapes[0]
+    if data is None:
+        return {}
+    from ..ops.rnn_op import rnn_param_size
+    mode = params.get("mode", "lstm")
+    nl = int(params.get("num_layers", 1))
+    h = int(params.get("state_size", 1))
+    bid = bool(params.get("bidirectional", False))
+    out = {}
+    if len(in_shapes) > 1 and in_shapes[1] is None:
+        out[1] = (rnn_param_size(nl, data[2], h, bid, mode),)
+    state_shape = (nl * (2 if bid else 1), data[1], h)
+    for i in (2, 3):
+        if len(in_shapes) > i and in_shapes[i] is None:
+            out[i] = state_shape
+    return out
+
+
 def _samelike_hint(in_shapes, params):
     known = next((s for s in in_shapes if s is not None), None)
     if known is None:
@@ -466,6 +485,7 @@ def _samelike_hint(in_shapes, params):
 
 PARAM_SHAPE_HINTS: Dict[str, Any] = {
     "FullyConnected": _fc_hint,
+    "RNN": _rnn_hint,
     "Convolution": _conv_hint,
     "Deconvolution": _deconv_hint,
     "BatchNorm": _channel_vec_hint,

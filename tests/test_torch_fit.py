@@ -645,3 +645,15 @@ def test_elastic_world_change_raises(tmp_path, monkeypatch):
                            "members": [0], "resize_to": None}
     assert any(not np.array_equal(w, before[k])
                for k, w in _weights(net).items())
+
+
+def test_one_device_without_a_store_exposes_no_comm_time(tmp_path):
+    """A FitLoop on one device whose trainer has no kvstore moves no
+    gradients: its breakdown charges no time to exposed communication.
+    (The no-op ``allreduce_grads`` took a few microseconds a step, which
+    rounded to an exposed-comm share of 0.0 in one run and 0.0001 in the
+    next, and ``tools/run_compare.py`` read that as a regression.)"""
+    _, trainer, res = _run("port", str(tmp_path / "port"), 1)
+    assert trainer._kvstore is None
+    assert "comm" not in res.step_breakdown["seconds"]
+    assert res.step_breakdown["shares"].get("comm", 0.0) == 0.0

@@ -32,7 +32,6 @@ from mxnet_tpu_torch import initializer as tinit
 from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.parameter import DeferredInitializationError
-from mxnet_tpu_torch.ops.registry import NotPortedError
 
 CPU = mt.cpu()
 FWD = dict(rtol=1e-5, atol=1e-5)
@@ -495,5 +494,28 @@ def test_loss_matches_jax(case):
 
 
 def test_ctc_loss_waits_for_the_ctc_op():
-    with pytest.raises(NotPortedError, match="A14"):
-        tloss.CTCLoss()
+    """The CTC op came with the recurrent stack: ``gluon.loss.CTCLoss``
+    (blank last, NTC, per-sample weights, pred and label lengths) against
+    the JAX package's, loss and the prediction's gradient."""
+    rs = np.random.RandomState(31)
+    acts = rs.randn(3, 9, 6).astype(np.float32)
+    labels = np.array([[0, 1, 2, -1], [3, 3, -1, -1], [4, 0, 1, 2]],
+                      np.float32)
+    plen = np.array([9, 7, 8], np.float32)
+    llen = np.array([3, 2, 4], np.float32)
+    sw = rs.rand(3).astype(np.float32)
+
+    def run(nd_, ag, lmod):
+        x = nd_.array(acts)
+        x.attach_grad()
+        with ag.record():
+            out = lmod.CTCLoss()(x, nd_.array(labels), nd_.array(plen),
+                                 nd_.array(llen), nd_.array(sw))
+        out.backward()
+        return out.asnumpy(), x.grad.asnumpy()
+
+    want = run(nd, autograd, jloss)
+    with CPU:
+        got = run(mt.nd, mt.autograd, tloss)
+    np.testing.assert_allclose(got[0], want[0], err_msg="loss", **FWD)
+    np.testing.assert_allclose(got[1], want[1], err_msg="grad", **GRAD)

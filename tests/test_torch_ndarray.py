@@ -363,12 +363,12 @@ def test_default_context_raises_without_a_card(monkeypatch):
 
 
 def test_names_not_ported_raise():
-    for get in (lambda: tnd.CTCLoss, lambda: tnd.random.no_such_sampler,
+    for get in (lambda: tnd.Proposal, lambda: tnd.random.no_such_sampler,
                 lambda: tnd.linalg.no_such_op, lambda: tnd.op.Correlation,
                 lambda: tnd.contrib.foreach, lambda: tnd._internal._foo):
         with pytest.raises(MXNetError, match="not ported yet"):
             get()
-    assert not hasattr(tnd, "RNN")
+    assert not hasattr(tnd, "PSROIPooling")
     with mt.cpu():
         # sparse storage is ported (tests/test_torch_sparse.py)
         assert tnd.array(A).tostype("row_sparse").stype == "row_sparse"
@@ -376,7 +376,7 @@ def test_names_not_ported_raise():
             with pytest.raises(MXNetError, match="csr requires 2-D"):
                 tnd.array(A).tostype("csr")
         with pytest.raises(MXNetError, match="not ported yet"):
-            tnd.imperative_invoke("CTCLoss", (tnd.array(A),), {})
+            tnd.imperative_invoke("Proposal", (tnd.array(A),), {})
 
 
 @pytest.mark.parametrize("value", ["(2, 3)", "[1, 2]", "True", "0", "None",
