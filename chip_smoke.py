@@ -169,7 +169,7 @@ Phases, each printing JSON lines:
     leaving weights and momenta as they were, a corrupted latest
     checkpoint quarantined and the fallback's replay; ``fit_train``,
     ``gluon_train``'s ResNet-50 v1 NHWC at batch 32 driven by ``FitLoop``
-    over ``DeviceStagingIter(NDArrayIter(256 random images, seed 13))``
+    over ``DeviceStagingIter(NDArrayIter(192 random images, seed 13))``
     for 2 epochs with ``ckpt_every=4`` and asynchronous checkpoints, under
     deterministic cuDNN: step ms against the bare loop on the same net and
     against ``gluon_train``'s, the step breakdown's shares, the
@@ -365,7 +365,7 @@ Phases, each printing JSON lines:
     with 24 requests in flight, a scale-up with no kernel build and no
     signature miss, a rolling deploy, drain exit 75), the causal
     self-attention model served on the tensor-core flash route,
-    ``make_scan_forward`` and the lookup tier; and last ``rnn_lm``
+    ``make_scan_forward`` and the lookup tier; then ``rnn_lm``
     (A14's recurrent stack, see its docstring): the fused RNN op card
     against host at the word LM's widths in every mode,
     ``examples/rnn/word_language_model.py``'s model at its full medium
@@ -373,9 +373,26 @@ Phases, each printing JSON lines:
     0.5) trained eagerly and as CUDA graph replays, ``mx.rnn`` through
     the Executor with ``BucketSentenceIter``, the four recurrent recipes
     and ``gluon.loss.CTCLoss``; it adds no kernel;
+14m. and last A14's symbolic training surface and graph features (each
+    phase's docstring has its gates; no kernel is added, the BN kernels
+    are reached through the Executor): ``module_resnet50``,
+    ``mx.mod.Module`` training the exported full-width ResNet-50 v1 NHWC
+    symbol (a step against a Gluon Trainer step, 48 device launches of
+    each BN kernel in a profiled step, ``Module.fit`` with
+    ``module_checkpoint`` and a bit-for-bit resume, step ms against the
+    Gluon step); ``bucketing_lm``, ``BucketingModule`` at the word LM's
+    widths over four buckets (card against host, one storage per
+    parameter, the loss falling, ms a step a bucket) and the recipes
+    ``examples/rnn/bucketing.py`` and
+    ``examples/image_classification/train_mnist.py`` on the card;
+    ``graph_features``, a foreach LSTM against the fused RNN op,
+    ``mx.nd.contrib`` control flow and a ``Custom`` op in a hybridized
+    block card against host, and ``optimize_for`` on the ResNet-50
+    symbol bit for bit the unpartitioned graph;
 15. the wall seconds of every phase (a ``wall`` line after each, a
     ``walls`` line with the totals, ``rnn_lm``'s under
-    ``a14_rnn_phases_s``), the ``{"kernels": [...]}`` summary
+    ``a14_rnn_phases_s``, the three A14 module phases' under
+    ``a14_module_phases_s``), the ``{"kernels": [...]}`` summary
     (the BN kernels' times are per ResNet-50 v1 training step, the sum
     over the 48 call sites, with the v2 step's sums and launches under
     ``v2``, the f32 Gluon step's under ``f32``, the FitLoop's under
@@ -383,7 +400,8 @@ Phases, each printing JSON lines:
     under ``f16``, the ImageRecordIter-fed steps' under ``data_fed``,
     the small hybridized net's replayed step under ``cached_op`` and a
     rank's profiled step of ``dist_train`` under ``dist_train``, the
-    fleet's under ``fleet_train`` and the dp mesh's under ``mesh_dp``;
+    fleet's under ``fleet_train``, the dp mesh's under ``mesh_dp`` and
+    ``Module.fit``'s wrapper launches under ``module``;
     flash_fwd's (the tensor-core route) per launch at the
     bf16 path's shape and flash_fwd_general's at the default f32 LM's,
     with that LM's launches; the tensor-core row also carries the general
@@ -1046,25 +1064,108 @@ def _family(name):
     return "other"
 
 
-def _profiled(torch, fn):
+_MARK = "spin_kernel"  # the kernel of torch.cuda._sleep
+_MARK_CYCLES, _WARM_CYCLES = 1000, 200_000  # a mark; 0.1 ms of warm-up
+_MARK_MAX_US = 20.0     # a spin kernel shorter than this is a mark
+
+
+def _profiled(torch, fn, marks=False, warm=0):
+    """(profile, wall ms) of one run of ``fn`` after one unprofiled run.
+
+    With ``marks`` a short spin kernel runs just before and just after
+    ``fn``, after ``warm`` spin kernels of 0.1 ms: the first launches of a
+    window have gone unrecorded late in the whole run (a Module step's
+    first ``bn_stats`` and ``bn_apply``, or the leading mark alone), so
+    the warm-up gives the profiler launches to lose. ``_window_whole``
+    says whether the window recorded both marks with every other kernel
+    between them; ``_device_kernels`` leaves the spin kernels out."""
     from torch.profiler import ProfilerActivity, profile
     fn()                         # once unprofiled, so the pools are warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if marks:
+            for _ in range(warm):
+                torch.cuda._sleep(_WARM_CYCLES)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(_MARK_CYCLES)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        if marks:
+            torch.cuda._sleep(_MARK_CYCLES)
+            torch.cuda.synchronize()
     return prof, wall_ms
 
 
+def _spans(prof):
+    """(marks, warm-up spins, other kernels) of a window: device events,
+    each sorted by start."""
+    from torch.autograd import DeviceType
+    dev = sorted((e for e in prof.events() if e.device_type ==
+                  DeviceType.CUDA), key=lambda e: e.time_range.start)
+    spin = [e for e in dev if _MARK in e.name]
+    marks = [e for e in spin if e.time_range.elapsed_us() < _MARK_MAX_US]
+    return (marks, [e for e in spin if e not in marks],
+            [e for e in dev if _MARK not in e.name])
+
+
+def _window_whole(prof):
+    """Whether a ``marks=True`` window recorded both marks, and every
+    other kernel between them."""
+    marks, _, rest = _spans(prof)
+    return len(marks) == 2 and all(
+        marks[0].time_range.end <= e.time_range.start and
+        e.time_range.end <= marks[1].time_range.start for e in rest)
+
+
+def _window_report(prof):
+    """What one profiled window recorded: marks and warm-up spins kept,
+    device kernels against kernel-launch calls on the host (parsed and as
+    kineto returned them), the kernels' span against the host events'
+    (ms from the first host event), the three longest gaps between
+    kernels, and the forward BN kernels in device order (s:
+    ``bn_stats``, a: ``bn_apply``)."""
+    from torch.autograd import DeviceType
+    marks, warm, dev = _spans(prof)
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    t0 = min(e.time_range.start for e in cpu) if cpu else 0.0
+    gaps = sorted(((b.time_range.start - a.time_range.end) / 1e3,
+                   (a.time_range.end - t0) / 1e3, a.name[:40])
+                  for a, b in zip(dev, dev[1:]))[-3:]
+    seq = "".join("s" if _KERNEL_NAMES["bn_stats"] in e.name else "a"
+                  for e in dev if _KERNEL_NAMES["bn_stats"] in e.name
+                  or _KERNEL_NAMES["bn_apply"] in e.name)
+    try:
+        raw = sum(1 for k in prof.profiler.kineto_results.events()
+                  if k.device_type() == DeviceType.CUDA)
+    except Exception as e:        # a report, not a gate
+        raw = repr(e)[:80]
+    return {"marks_ms": [(m.time_range.start - t0) / 1e3 for m in marks],
+            "warm_spins": len(warm), "device_kernels": len(dev),
+            "kineto_device_events": raw,
+            "launch_calls": sum(e.name in ("cudaLaunchKernel",
+                                           "cuLaunchKernel",
+                                           "cudaLaunchKernelExC",
+                                           "cuLaunchKernelEx")
+                                for e in cpu),
+            "host_span_ms": [0.0, (max(e.time_range.end for e in cpu)
+                                   - t0) / 1e3 if cpu else None],
+            "device_span_ms": [(dev[0].time_range.start - t0) / 1e3,
+                               (dev[-1].time_range.end - t0) / 1e3]
+            if dev else None,
+            "longest_gaps_ms": gaps, "forward_bn": seq}
+
+
 def _device_kernels(prof):
-    """{kernel name: [device ms, count]} of one profiled run."""
+    """{kernel name: [device ms, count]} of one profiled run (without the
+    window's marks)."""
     from torch.autograd import DeviceType
     out = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and _MARK not in e.key:
             out[e.key] = [e.self_device_time_total / 1e3, e.count]
     return out
 
@@ -3127,8 +3228,10 @@ def gluon_train(torch, mt, card):
 # the FitLoop path: fit, fault, io staging, chaos, telemetry
 # ---------------------------------------------------------------------------
 
-FIT_IMAGES, FIT_EPOCHS, FIT_CKPT_EVERY, FIT_KILL = 256, 2, 4, 10
+# 192 images (12 steps; 256 and 16 steps before the A14 module phases)
+FIT_IMAGES, FIT_EPOCHS, FIT_CKPT_EVERY, FIT_KILL = 192, 2, 4, 10
 FIT_STEPS = FIT_EPOCHS * FIT_IMAGES // 32
+FIT_EPOCH_STEPS = FIT_IMAGES // 32
 FIT_REF_OPT = {"learning_rate": 0.05, "momentum": 0.9}
 
 
@@ -3295,9 +3398,9 @@ def fit_train(torch, mt, card, gluon_row, tmp):
     "device"), aggregation 4, f32 with TF32 off and deterministic cuDNN;
     DeviceStagingIter(NDArrayIter(FIT_IMAGES random images and labels from
     seed 1, batch 32, shuffled with seed 13)); FitLoop(ckpt_every 4,
-    async_ckpt) for 2 epochs (16 steps). Then the same run killed at step
-    10 (chaos kill@10) and relaunched with fresh objects: it restores
-    ckpt-8 and replays steps 8-15, and its losses, weights, momenta and
+    async_ckpt) for 2 epochs (FIT_STEPS, 12 steps). Then the same run
+    killed at step 10 (chaos kill@10) and relaunched with fresh objects: it
+    restores ckpt-8 and replays steps 8-11, and its losses, weights, momenta and
     running statistics must equal the fault-free run's bit for bit. The
     BN kernels launch 48 times a step (wrapper counts, zeroed just before
     each fit and read just after). Reported: step ms (FitLoop against the
@@ -3423,7 +3526,8 @@ def fit_train(torch, mt, card, gluon_row, tmp):
             loop_for(skip_nonfinite=False))}
     prof, prof_wall = _profiled(
         torch, lambda: loop_for().fit(epochs=1, resume=False))
-    fit_profile = _summary("one FitLoop epoch (8 steps), no checkpoints",
+    fit_profile = _summary(f"one FitLoop epoch ({FIT_EPOCH_STEPS} steps), "
+                           "no checkpoints",
                            _device_kernels(prof), prof_wall, {})
     fit_profile["host_top_ops"] = _host_top(torch, prof)
     emit(fit_profile)
@@ -3433,7 +3537,8 @@ def fit_train(torch, mt, card, gluon_row, tmp):
     variants["no_checkpoints_hybridized"] = epoch_ms(loop_for())
     prof, prof_wall = _profiled(
         torch, lambda: loop_for().fit(epochs=1, resume=False))
-    hyb_profile = _summary("one FitLoop epoch (8 steps), no checkpoints, "
+    hyb_profile = _summary(f"one FitLoop epoch ({FIT_EPOCH_STEPS} steps), "
+                           "no checkpoints, "
                            "the net hybridized (CachedOp graphs)",
                            _device_kernels(prof), prof_wall, {})
     hyb_profile["host_top_ops"] = _host_top(torch, prof)
@@ -3453,9 +3558,9 @@ def fit_train(torch, mt, card, gluon_row, tmp):
         t = time.perf_counter()
         cm.wait()
         wait_ms.append(1e3 * (time.perf_counter() - t))
-    ckpt_bytes = _dir_bytes(os.path.join(dir_a, "ckpt-16"))
+    ckpt_bytes = _dir_bytes(os.path.join(dir_a, f"ckpt-{FIT_STEPS}"))
     t = time.perf_counter()
-    mt.fault.CheckpointManager(dir_a).verify(16)
+    mt.fault.CheckpointManager(dir_a).verify(FIT_STEPS)
     verify_ms = 1e3 * (time.perf_counter() - t)
     t = time.perf_counter()
     restored = mt.fault.CheckpointManager(dir_a).restore_latest(
@@ -3615,7 +3720,7 @@ def megastep_train(torch, mt, card, fit_row, tmp):
     Xavier from seed 0, gluon.Trainer(sgd, lr 0.05, momentum 0.9, kvstore
     "device"), aggregation 4, f32, TF32 off, deterministic cuDNN,
     DeviceStagingIter(NDArrayIter(FIT_IMAGES images and labels from seed
-    1, batch 32, shuffled with seed 13)), 2 epochs (16 steps). Two runs
+    1, batch 32, shuffled with seed 13)), 2 epochs (FIT_STEPS). Two runs
     of each of the megastep and the composed path, from fresh objects:
     without checkpoints (losses, weights, momenta and running statistics
     bit for bit; the BN wrappers launch 48 times each, all in the eager
@@ -3735,7 +3840,8 @@ def megastep_train(torch, mt, card, fit_row, tmp):
         prof, wall = _profiled(torch, lambda: loop_over(net, trainer).fit(
             epochs=1, resume=False))
         profiles[name] = _summary(
-            f"one FitLoop epoch (8 steps), {name}, no checkpoints",
+            f"one FitLoop epoch ({FIT_EPOCH_STEPS} steps), {name}, "
+            "no checkpoints",
             _device_kernels(prof), wall, {})
         profiles[name]["host_top_ops"] = _host_top(torch, prof, 8)
         emit(profiles[name])
@@ -3745,7 +3851,7 @@ def megastep_train(torch, mt, card, fit_row, tmp):
             bare(i)
 
     prof, wall = _profiled(torch, bare_epoch)
-    profiles["bare"] = _summary("the bare loop, 8 steps",
+    profiles["bare"] = _summary(f"the bare loop, {FIT_EPOCH_STEPS} steps",
                                 _device_kernels(prof), wall, {})
     emit(profiles["bare"])
     del net, trainer, loop, xb, yb, prof
@@ -5430,7 +5536,7 @@ def telemetry_planes(torch, mt, card, tmp):
     mx.profiler) on ResNet-50 v1 at published widths, 224x224, f32, batch
     32, TF32 off, deterministic cuDNN: fit_train's FitLoop route
     (get_model("resnet50_v1", layout="NHWC"), hybridized, gluon.Trainer
-    sgd momentum, DeviceStagingIter, 2 epochs = 16 steps), all runs from
+    sgd momentum, DeviceStagingIter, 2 epochs = FIT_STEPS), all runs from
     one start and one data order, loss scale 128 and chaos nan_grad@5:
     (a) planes off, composed; (b) MXTPU_NUMERICS=on,every=2,
     MXTPU_EFFICIENCY=on, MXTPU_RUN_REPORT_DIR, composed, with a
@@ -6414,7 +6520,7 @@ def resnet_server_example(torch, mt):
 # data-parallel training over torch.distributed: dist_train
 # ---------------------------------------------------------------------------
 
-DT_STEPS = 5
+DT_STEPS = 3         # 5 before the A14 module phases
 DT_VARIANTS = ("dist_sync", "zero", "zero_overlap", "compress")
 DT_ENV = {"dist_sync": {},
           "zero": {"MXTPU_ZERO": "1"},
@@ -6425,12 +6531,18 @@ DT_MEGA_WORLD, DT_MEGA_IMAGES = 4, 128
 
 
 def _free_port():
+    """A free port for a coordinator. Each worker's command endpoint
+    binds the coordinator's port (+ the generation under ``launch
+    --supervise``) + 100 + its rank (``kvstore_server._cmd_port``), so
+    the port stays that far below 65535."""
     import socket
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    while True:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        if port + 100 + 64 <= 65535:
+            return port
 
 
 def _dt_batch(torch, mt, step, rank):
@@ -10466,8 +10578,12 @@ def main():
     torch.cuda.empty_cache()
     # the recurrent stack (A14 slice 1's first half), after every earlier
     # phase
-    timed("rnn_lm", rnn_lm, torch, mt, card)
+    rnn_row = timed("rnn_lm", rnn_lm, torch, mt, card)
     torch.cuda.empty_cache()
+    # the symbolic training surface and the graph features (A14 slices 1
+    # and 2), after every earlier phase
+    a14_module_phases(torch, mt, card, timed, gluon_row=gluon_row,
+                      lm_row=rnn_row)
     v2 = ("resnet_v2_reference", "v2_graph", "train_v2", "profile_v2",
           "v2_plain_batchnorm")
     gluon = ("trainer_reference", "optimizer_ops", "gluon_train",
@@ -10487,11 +10603,13 @@ def main():
                                   if k not in v2 + gluon + fits + f16
                                   + moe_remat + a19 + a20 + a12 + a10
                                   + A11_PHASES + A13_PHASES
+                                  + A14_PHASES
                                   + ("serving_fleet", "rnn_lm")),
           "a11_phases_s": sum(walls[k] for k in A11_PHASES),
           "a13_phases_s": sum(walls[k] for k in A13_PHASES),
           "a23_phases_s": walls["serving_fleet"],
           "a14_rnn_phases_s": walls["rnn_lm"],
+          "a14_module_phases_s": sum(walls[k] for k in A14_PHASES),
           "a10_phases_s": sum(walls[k] for k in a10),
           "a10_second_half_s": walls["fleet_train"] + walls["mesh_lm"],
           "a12_phases_s": sum(walls[k] for k in a12),
@@ -10559,11 +10677,13 @@ def main():
                          "launches_per_step": mega_launches[name]
                          / (FIT_IMAGES // GT_BATCH),
                          "per": "device launches in one profiled FitLoop "
-                                "epoch (8 steps) under MXTPU_MEGASTEP=on, "
+                                f"epoch ({FIT_EPOCH_STEPS} steps) under "
+                                "MXTPU_MEGASTEP=on, "
                                 "every step one CUDA graph replay"},
             "planes": {"launches": planes_launches[name],
                        "per": "wrapper launches over telemetry_planes' "
-                              "five 16-step FitLoop runs (the megastep "
+                              f"five {FIT_STEPS}-step FitLoop runs (the "
+                              "megastep "
                               "run's two eager first steps only)"},
             "data_fed": {"launches": fed_launches[name],
                          "per": f"wrapper launches over the {A20_TIMED} "
@@ -10596,7 +10716,17 @@ def main():
                                "SPMDTrainer over {dp: 2} (mesh_lm; rank 1 "
                                "the same), ResNet-50 v1 bf16 batch 64 a "
                                "rank, eager steps, global-batch "
-                               "statistics"}})
+                               "statistics"},
+            "module": {"launches": A14_STATE["module_launches"][name],
+                       "launches_per_step": A14_STATE["module_launches"][
+                           name] / A14_STATE["module_steps"],
+                       "per": "wrapper launches over module_resnet50 (c)'s "
+                              "Module.fit of the exported ResNet-50 v1 "
+                              f"NHWC symbol, f32 batch {MR_BATCH}, "
+                              f"{A14_STATE['module_steps']} steps, counts "
+                              "zeroed just before the fit and read just "
+                              "after (48 device launches in (b)'s "
+                              "profiled step)"}})
     tcr, gnr = flash["tc"], flash["general"]
     kernels.append({
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
@@ -11133,8 +11263,8 @@ def _rnn_op_gate(torch, cases, card_r, host_r, bad):
 
 
 def rnn_lm(torch, mt, card):
-    """The recurrent stack on the card (``--phases rnn_lm``; last in the
-    whole run). (a) ``mx.nd.RNN`` in modes lstm, gru, rnn_tanh and
+    """The recurrent stack on the card (``--phases rnn_lm``; in the whole
+    run before the A14 module phases). (a) ``mx.nd.RNN`` in modes lstm, gru, rnn_tanh and
     rnn_relu, two layers, one-way and bidirectional, with
     ``state_outputs``, at the word LM's widths (T 35, N 32, 650 -> 650):
     outputs, final states and the gradients of data, parameters and
@@ -11217,21 +11347,830 @@ def rnn_lm(torch, mt, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the symbolic training surface and graph features (A14 slices 1 and 2):
+# phases module_resnet50, bucketing_lm, graph_features
+# ---------------------------------------------------------------------------
+
+A14_PHASES = ("module_resnet50", "bucketing_lm", "graph_features")
+A14_STATE = {}      # the exported ResNet-50 files, shared by the phases
+MR_BATCH, MR_IMAGES, MR_EPOCHS, MR_TIMED = 32, 256, 2, 10
+MR_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+MR_TOL = 1e-4
+MR_WARM_SPINS = (200, 800, 3200)   # warm-up spins of each window
+BK_BUCKETS, BK_STEPS, BK_LR, BK_TIMED = (10, 20, 30, 35), 40, 1.0, 5
+BK_TOL = 1e-4
+BK_STATES = ("lstm_state", "lstm_state_cell")
+GF_TOL = 1e-4
+
+
+def _mr_export(torch, mt, tmp):
+    """``resnet50_v1(layout="NHWC", stem_s2d=True)`` at its published
+    widths, Xavier from seed 0, exported with ``HybridBlock.export`` (one
+    inference forward resolves the deferred shapes; no statistic moves):
+    (net, prefix, symbol with a SoftmaxOutput head, arg and aux params as
+    loaded from the files). Made once a process."""
+    if "mr" in A14_STATE:
+        return A14_STATE["mr"]
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    net = resnet50_v1(layout="NHWC", stem_s2d=True)
+    net.initialize(mt.init.Xavier(), generator=mt.random.seed(0))
+    with torch.no_grad():
+        net(torch.zeros((2, IMG, IMG, 3), device=mt.gpu(0).torch_device))
+    prefix = os.path.join(tmp, "resnet50_v1_nhwc")
+    net.export(prefix)
+    body, arg, aux = mt.model.load_checkpoint(prefix, 0)
+    sym = mt.sym.SoftmaxOutput(body, mt.sym.var("softmax_label"),
+                               name="softmax")
+    A14_STATE["mr"] = (net, prefix, sym, arg, aux)
+    return A14_STATE["mr"]
+
+
+def _mr_images(torch, mt, n, seed):
+    """``n`` images and labels from ``seed`` (numpy, host)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, IMG, IMG, 3), dtype=np.float32),
+            rng.integers(0, 1000, n).astype(np.float32))
+
+
+def _mr_module(mt, sym, arg, aux):
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (MR_BATCH, IMG, IMG, 3))],
+             label_shapes=[("softmax_label", (MR_BATCH,))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(MR_OPT))
+    return mod
+
+
+def _mr_state(mod):
+    """The Module's weights and aux states (tensors, copies)."""
+    arg, aux = mod.get_params()
+    return {**{k: v.tensor for k, v in arg.items()},
+            **{k: v.tensor for k, v in aux.items()}}
+
+
+def _mr_step(torch, mod, batch):
+    mod.forward_backward(batch)
+    mod.update()
+
+
+def _mr_worst(torch, got, want):
+    """(worst error as a fraction of each tensor's largest value, the
+    three tensors furthest off) over the names of ``want``."""
+    errs = sorted(((_close_of_max(torch, [got[n]], [want[n]], 1)[0], n)
+                   for n in want), reverse=True)
+    return errs[0][0] if errs else 0.0, [[n, e] for e, n in errs[:3]]
+
+
+def _mr_against_gluon(torch, mt, net, mod, x, y, aux):
+    """(a): one Module step (forward_backward + update) against one Gluon
+    Trainer step on ``net`` from the same weights and batch: outputs
+    (SoftmaxOutput's probabilities against the softmax of the logits),
+    gradients, updated weights and moving statistics; and the BN
+    wrappers' launches in the Module step alone."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    tk.reset_launches()
+    mod.forward_backward(mt.io.DataBatch([x], [y]))
+    out = mod.get_outputs()[0].tensor.clone()
+    grads = {n: mod._exec.grad_dict[n].tensor.clone()
+             for n in mod._param_names}
+    mod.update()
+    torch.cuda.synchronize()
+    launches = dict(tk.launches)
+    state = _mr_state(mod)
+    params = net.collect_params()
+    trainer = mt.gluon.Trainer(params, "sgd", dict(MR_OPT))
+    with mt.autograd.record():
+        logits = net(x)
+        loss = gloss.SoftmaxCrossEntropyLoss()(logits, y)
+    loss.backward()
+    g_grads = {n: params[n].grad().tensor.clone() for n in grads}
+    trainer.step(MR_BATCH)
+    names_aux = [n for n in state if n not in grads]
+    worst, top = {}, {}
+    for what, got, want in (
+            ("outputs", {"out": out},
+             {"out": torch.softmax(logits.tensor.detach(), -1)}),
+            ("gradients", grads, g_grads),
+            ("weights", {n: state[n] for n in grads},
+             {n: params[n].tensor for n in grads}),
+            ("moving_statistics", {n: state[n] for n in names_aux},
+             {n: params[n].tensor for n in names_aux})):
+        worst[what], top[what] = _mr_worst(torch, got, want)
+    moved = sum(int(not torch.equal(aux[n].tensor.to(state[n].device),
+                                    state[n])) for n in names_aux)
+    return worst, top, len(grads), len(names_aux), moved, launches
+
+
+def _median_step_ms(torch, fn, n):
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    times.sort()
+    return 1e3 * times[len(times) // 2]
+
+
+def module_resnet50(torch, mt, card, tmp, gluon_row=None):
+    """``mx.mod.Module`` training the full-width ResNet-50 v1 NHWC symbol
+    (``resnet50_v1(layout="NHWC", stem_s2d=True)``, the net of
+    ``gluon_train``, exported with ``HybridBlock.export``, loaded with
+    ``mx.sym.load``, a ``SoftmaxOutput`` head added), f32 batch 32, TF32
+    off, deterministic cuDNN, SGD lr 0.05 momentum 0.9. (a) one Module
+    step against one Gluon ``Trainer`` step from the same weights and
+    batch: outputs, gradients, updated weights and moving statistics
+    within 1e-4 of each tensor's largest value (the fused BN nodes'
+    moving statistics moved: the JAX executor's fault, repaired). (b) a
+    profiled Module step, in a window that kept both of its marks
+    (``_profiled``): 48 device launches of each BN kernel, and 48
+    wrapper launches. (c) ``Module.fit`` over an ``NDArrayIter`` of 256
+    images from seed 3, 2 epochs, ``callback.module_checkpoint`` every
+    epoch with the optimizer states (wrapper counts zeroed just before
+    the fit and read just after: 48 a step of each); then
+    ``Module.load(prefix, 1, load_optimizer_states=True)`` and one step on
+    epoch 2's first batch: its weights, momenta and moving statistics
+    bit for bit those of the run that was not interrupted; ``score`` and
+    ``predict`` run. (d) median ms of 10 Module steps against 10 eager
+    Gluon Trainer steps on the same net in this call (and
+    ``gluon_train``'s replayed step when it ran in the call), peak
+    memory above the phase's start."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    bad, row = [], {"phase": "module_resnet50", "card": card,
+                    "batch": MR_BATCH, "image": IMG,
+                    "dtype": "float32, TF32 off"}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        net, prefix, sym, arg, aux = _mr_export(torch, mt, tmp)
+        row["export_and_load_s"] = time.perf_counter() - t
+        node_ops = [n.op.name for n in sym._topo() if n.op is not None]
+        row["graph"] = {op: node_ops.count(op) for op in
+                        ("Convolution", "_contrib_fused_bn_relu",
+                         "_contrib_fused_bn_add_relu", "BatchNorm")}
+        X, Y = _mr_images(torch, mt, MR_IMAGES, 3)
+        x = mt.nd.array(X[:MR_BATCH], ctx=mt.gpu(0))
+        y = mt.nd.array(Y[:MR_BATCH], ctx=mt.gpu(0))
+        # (a)
+        t = time.perf_counter()
+        mod = _mr_module(mt, sym, arg, aux)
+        worst, top, n_w, n_aux, moved, step_wrappers = _mr_against_gluon(
+            torch, mt, net, mod, x, y, aux)
+        row["a"] = {"worst_of_max": worst, "furthest": top, "weights": n_w,
+                    "moving_statistics": n_aux,
+                    "moving_statistics_moved": moved,
+                    "module_step_wrapper_launches": step_wrappers,
+                    "seconds": time.perf_counter() - t}
+        if any(v > MR_TOL for v in worst.values()) or moved != n_aux:
+            bad.append(f"(a) Module against Gluon: {row['a']}")
+        if any(step_wrappers.get(k) != 48 for k in KERNELS):
+            bad.append(f"(a) wrapper launches in a Module step: "
+                       f"{step_wrappers}")
+        # (b)
+        # a window that lost a mark lost launches: it is taken again with
+        # a longer warm-up, each window's record kept in the row
+        batch = mt.io.DataBatch([x], [y])
+        windows = []
+        for tries, warm in enumerate(MR_WARM_SPINS, 1):
+            prof, wall = _profiled(torch, lambda: _mr_step(torch, mod, batch),
+                                   marks=True, warm=warm)
+            whole = _window_whole(prof)
+            windows.append(_window_report(prof))
+            if whole:
+                break
+        summary = _summary("one Module step (forward_backward + update), "
+                           "ResNet-50 v1 NHWC f32 b32",
+                           _device_kernels(prof), wall, {})
+        summary["host_top_ops"] = _host_top(torch, prof, 8)
+        emit(summary)
+        row["b"] = {"device_launches": summary["epilogue_device_launches"],
+                    "device_idle_share": summary["device_idle_share"],
+                    "profiled_wall_ms": wall, "windows_taken": tries,
+                    "warm_spins": warm, "window_whole": whole,
+                    "windows": windows}
+        if not whole or any(summary["epilogue_device_launches"][k] != 48
+                            for k in KERNELS):
+            bad.append(f"(b) device launches of a Module step: "
+                       f"{summary['epilogue_device_launches']}, window "
+                       f"whole: {whole} after {tries} window(s)")
+        # (d) before (c) frees the timed Module
+        module_ms = _median_step_ms(torch, lambda: _mr_step(torch, mod,
+                                                           batch), MR_TIMED)
+        from mxnet_tpu_torch.gluon import loss as gloss
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(MR_OPT))
+        lossfn = gloss.SoftmaxCrossEntropyLoss()
+
+        def gluon_step():
+            with mt.autograd.record():
+                loss = lossfn(net(x), y)
+            loss.backward()
+            trainer.step(MR_BATCH)
+        gluon_ms = _median_step_ms(torch, gluon_step, MR_TIMED)
+        row["d"] = {"module_step_ms": module_ms,
+                    "module_img_per_s": MR_BATCH / module_ms * 1e3,
+                    "gluon_eager_step_ms": gluon_ms,
+                    "gluon_train_replayed_step_ms":
+                        gluon_row["step_ms"] if gluon_row else None,
+                    "steps": MR_TIMED}
+        del mod, trainer
+        # (c)
+        t = time.perf_counter()
+        it = mt.io.NDArrayIter(X, Y, batch_size=MR_BATCH)
+        fit_mod = mt.mod.Module(sym, context=mt.gpu(0))
+        ck = os.path.join(tmp, "mr_ckpt")
+        snap = {}
+
+        def after_batch(param):
+            if (param.epoch, param.nbatch) == (1, 0):
+                snap.update({k: v.clone() for k, v in
+                             _mr_state(fit_mod).items()})
+                snap.update({f"mom:{i}": s.tensor.clone() for i, s in
+                             fit_mod._updater.states.items()})
+        tk.reset_launches()
+        fit_mod.fit(it, num_epoch=MR_EPOCHS, optimizer="sgd",
+                    optimizer_params=dict(MR_OPT), arg_params=arg,
+                    aux_params=aux, eval_metric="acc",
+                    batch_end_callback=after_batch,
+                    epoch_end_callback=mt.callback.module_checkpoint(
+                        fit_mod, ck, save_optimizer_states=True))
+        torch.cuda.synchronize()
+        fit_launches = dict(tk.launches)
+        fit_s = time.perf_counter() - t
+        steps = MR_EPOCHS * MR_IMAGES // MR_BATCH
+        score = dict(fit_mod.score(it, "acc", num_batch=2))
+        pred = fit_mod.predict(it, num_batch=2)
+        del fit_mod
+        t = time.perf_counter()
+        back = mt.mod.Module.load(ck, 1, load_optimizer_states=True,
+                                  context=mt.gpu(0))
+        back.bind(data_shapes=it.provide_data,
+                  label_shapes=it.provide_label)
+        back.init_params()
+        back.init_optimizer(optimizer="sgd", optimizer_params=dict(MR_OPT))
+        it.reset()
+        _mr_step(torch, back, next(iter(it)))
+        resumed = {**_mr_state(back),
+                   **{f"mom:{i}": s.tensor for i, s in
+                      back._updater.states.items()}}
+        not_bitwise = [k for k in snap if not torch.equal(resumed[k],
+                                                          snap[k])]
+        row["c"] = {"steps": steps, "fit_s": fit_s,
+                    "wrapper_launches": fit_launches,
+                    "files": sorted(f for f in os.listdir(tmp)
+                                    if f.startswith("mr_ckpt")),
+                    "resume_s": time.perf_counter() - t,
+                    "resumed_tensors": len(snap),
+                    "not_bitwise": not_bitwise[:8],
+                    "score": score, "predict_shape": list(pred.shape)}
+        if any(fit_launches.get(k) != 48 * steps for k in KERNELS):
+            bad.append(f"(c) wrapper launches over Module.fit: "
+                       f"{fit_launches}, want {48 * steps} each")
+        if not snap or not_bitwise or len(resumed) != len(snap):
+            bad.append(f"(c) resume not bit for bit: {not_bitwise[:8]}")
+        if list(pred.shape) != [2 * MR_BATCH, 1000] or \
+                not 0.0 <= score.get("accuracy", -1) <= 1.0 or \
+                not np.isfinite(pred.asnumpy()).all():
+            bad.append(f"(c) score / predict: {score} {pred.shape}")
+        del back, it
+        row["peak_bytes_above_start"] = torch.cuda.max_memory_allocated() \
+            - base
+        A14_STATE["module_launches"] = fit_launches
+        A14_STATE["module_steps"] = steps
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    emit(row)
+    if bad:
+        fail(f"module_resnet50: {bad}")
+    return row
+
+
+def _bk_sentences(np, seed=0):
+    """Sentences of the word LM's synthetic Markov language (each token's
+    successor one of 4; ``_lm_corpus``'s), token ids from 1 (0 pads), 320
+    for each bucket's length range: ten batches of 32 a bucket."""
+    rs = np.random.RandomState(seed)
+    trans = rs.randint(1, LM_VOCAB, (LM_VOCAB, 4))
+    out = []
+    for lo, hi in zip((1,) + BK_BUCKETS[:-1], BK_BUCKETS):
+        for _ in range(10 * LM_BATCH):
+            n = rs.randint(lo + 1, hi + 1)
+            s = [int(rs.randint(1, LM_VOCAB))]
+            for _ in range(n - 1):
+                s.append(int(trans[s[-1], rs.randint(4)]))
+            out.append(s)
+    return out
+
+
+def _bk_sym_gen(mt):
+    """The bucketed word LM: Embedding, a 2-layer LSTM (``sym.RNN``), a
+    FullyConnected to the vocabulary and SoftmaxOutput ignoring the pad
+    label 0 (examples/rnn/bucketing.py's layout at the medium widths)."""
+    S = mt.sym
+
+    def sym_gen(seq_len):
+        embed = S.Embedding(S.var("data"), S.var("embed_weight"),
+                            input_dim=LM_VOCAB, output_dim=LM_EMB,
+                            name="embed")
+        out = S.RNN(S.transpose(embed, axes=(1, 0, 2)),
+                    S.var("lstm_parameters"), S.var(BK_STATES[0]),
+                    S.var(BK_STATES[1]), state_size=LM_HID,
+                    num_layers=LM_LAYERS, mode="lstm", name="lstm")
+        out = S.reshape(S.transpose(out, axes=(1, 0, 2)),
+                        shape=(-1, LM_HID))
+        pred = S.FullyConnected(out, S.var("pred_weight"),
+                                S.var("pred_bias"), num_hidden=LM_VOCAB,
+                                name="pred")
+        label = S.reshape(S.var("softmax_label"), shape=(-1,))
+        return (S.SoftmaxOutput(pred, label, use_ignore=True,
+                                ignore_label=0, name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+def _bk_module(mt, ctx, it, values):
+    """The BucketingModule on ``ctx``, bound at the default bucket, its
+    parameters from ``values`` (numpy), SGD."""
+    bm = mt.mod.BucketingModule(_bk_sym_gen(mt),
+                                default_bucket_key=it.default_bucket_key,
+                                context=ctx, fixed_param_names=BK_STATES)
+    bm.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    bm.init_params(arg_params={k: mt.nd.array(v, ctx=ctx)
+                               for k, v in values.items()})
+    bm.init_optimizer(optimizer="sgd",
+                      optimizer_params={"learning_rate": BK_LR})
+    return bm
+
+
+def _bk_values(np, mt, it):
+    """Seeded starting values of every parameter, by the default bucket's
+    inferred shapes (uniform 0.1; biases and the fixed states zeros)."""
+    rs = np.random.RandomState(1)
+    sym, data_names, label_names = _bk_sym_gen(mt)(it.default_bucket_key)
+    shapes, _, _ = sym.infer_shape(**{d.name: d.shape for d in
+                                      it.provide_data + it.provide_label})
+    return {k: np.zeros(s, np.float32) if k.endswith("bias")
+            or k in BK_STATES else rs.uniform(-0.1, 0.1, s)
+            .astype(np.float32)
+            for k, s in sorted(zip(sym.list_arguments(), shapes))
+            if k not in data_names + label_names}
+
+
+def _bk_nll(np, prob, label):
+    """Mean negative log-likelihood over the non-pad tokens."""
+    p, lab = prob.asnumpy(), label.asnumpy().reshape(-1).astype(int)
+    keep = lab != 0
+    return float(-np.log(p[np.arange(lab.size), lab][keep] + 1e-12).mean())
+
+
+def bucketing_lm(torch, mt, card, tmp, lm_row=None):
+    """``mx.mod.BucketingModule`` over a ``sym_gen`` of ``sym.Embedding``,
+    ``sym.RNN`` (LSTM), ``FullyConnected`` and ``SoftmaxOutput`` at PR
+    23's word-LM widths (vocab 10000, embed 650, hidden 650, 2 layers,
+    batch 32, f32, TF32 off), buckets 10 / 20 / 30 / 35 fed by
+    ``BucketSentenceIter`` over the word LM's synthetic Markov sentences
+    from seed 0, SGD lr 1. (a) each bucket's first forward / backward on
+    the card against the host from the same weights: outputs and every
+    gradient within 1e-4 of each tensor's largest value. (b) the four
+    buckets' executors hold one storage per parameter and gradient
+    (``data_ptr``). (c) 40 steps: the loss falls (the last 8 steps'
+    mean below the first 8's). (d) ms a step and tokens/s per bucket
+    (median of 5) against ``rnn_lm``'s eager step at T 35 when it ran in
+    the call. Then ``examples/rnn/bucketing.py`` at its defaults and
+    ``examples/image_classification/train_mnist.py`` at its defaults on
+    the card (``--ctx gpu``), ``mxnet_tpu`` resolved to the port (in
+    process, as ``_run_recipe`` runs the recipes): each runs to its end,
+    LeNet's final accuracy above 0.9."""
+    import logging
+    import random
+    import re
+    import numpy as np
+    bad, row = [], {"phase": "bucketing_lm", "card": card,
+                    "config": {"vocab": LM_VOCAB, "embed": LM_EMB,
+                               "hidden": LM_HID, "layers": LM_LAYERS,
+                               "batch": LM_BATCH, "buckets": BK_BUCKETS,
+                               "lr": BK_LR}}
+    random.seed(0)
+    np.random.seed(0)
+    it = mt.rnn.BucketSentenceIter(_bk_sentences(np), LM_BATCH,
+                                   buckets=list(BK_BUCKETS),
+                                   invalid_label=0)
+    batches = list(it)
+    first = {}
+    for b in batches:
+        first.setdefault(b.bucket_key, b)
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    values = _bk_values(np, mt, it)
+    with gpu:
+        card_bm = _bk_module(mt, gpu, it, values)
+    with cpu:
+        host_bm = _bk_module(mt, cpu, it, values)
+    # (a)
+    t = time.perf_counter()
+    rows_a = {}
+    for key in BK_BUCKETS:
+        res = []
+        for bm, ctx in ((card_bm, gpu), (host_bm, cpu)):
+            b = first[key]
+            with ctx:
+                bm.forward(mt.io.DataBatch(
+                    [d.as_in_context(ctx) for d in b.data],
+                    [l.as_in_context(ctx) for l in b.label],
+                    bucket_key=key), is_train=True)
+                bm.backward()
+                ex = bm._curr_module._exec
+                res.append([bm.get_outputs()[0].tensor] + [
+                    ex.grad_dict[n].tensor for n in sorted(ex.grad_dict)])
+        worst, ok = _close_of_max(torch, res[0], res[1], BK_TOL)
+        rows_a[key] = {"card_vs_host": worst, "tensors": len(res[0])}
+        if not ok:
+            bad.append(f"(a) bucket {key}: card vs host {worst}")
+    row["a"] = {"buckets": rows_a, "seconds": time.perf_counter() - t}
+    del host_bm
+    # (b)
+    mods = [card_bm._buckets[k] for k in BK_BUCKETS]
+    unshared = [n for n in mods[0]._exec.arg_dict
+                if n not in ("data", "softmax_label") and len(
+                    {m._exec.arg_dict[n].tensor.data_ptr() for m in mods})
+                != 1]
+    unshared += [f"grad:{n}" for n in mods[0]._exec.grad_dict if len(
+        {m._exec.grad_dict[n].tensor.data_ptr() for m in mods}) != 1]
+    row["b"] = {"buckets": sorted(card_bm._buckets),
+                "parameters": len(mods[0]._param_names),
+                "unshared": unshared}
+    if sorted(card_bm._buckets) != list(BK_BUCKETS) or unshared:
+        bad.append(f"(b) storage shared: {row['b']}")
+    # (c)
+    t = time.perf_counter()
+    losses, keys = [], []
+    order = batches * (1 + BK_STEPS // len(batches))
+    for b in order[:BK_STEPS]:
+        card_bm.forward(b, is_train=True)
+        card_bm.backward()
+        card_bm.update()
+        losses.append(_bk_nll(np, card_bm.get_outputs()[0], b.label[0]))
+        keys.append(b.bucket_key)
+    falls = float(np.mean(losses[-8:])) < float(np.mean(losses[:8]))
+    row["c"] = {"steps": BK_STEPS, "losses": losses, "bucket_keys": keys,
+                "loss_falls": falls, "seconds": time.perf_counter() - t}
+    if not (falls and np.isfinite(losses).all()):
+        bad.append(f"(c) the loss did not fall: {losses}")
+    # (d)
+    per = {}
+    for key in BK_BUCKETS:
+        b = first[key]
+
+        def step():
+            card_bm.forward(b, is_train=True)
+            card_bm.backward()
+            card_bm.update()
+        step()
+        ms = _median_step_ms(torch, step, BK_TIMED)
+        per[key] = {"step_ms": ms,
+                    "tokens_per_s": LM_BATCH * key / ms * 1e3}
+    row["d"] = {"per_bucket": per,
+                "rnn_lm_eager_step_ms_t35":
+                    lm_row["lm"]["eager_ms"] if lm_row else None,
+                "rnn_lm_replayed_step_ms_t35":
+                    lm_row["lm"]["replay_ms"] if lm_row else None}
+    del card_bm, mods
+    torch.cuda.empty_cache()
+    # the recipes, on the card
+    level = logging.getLogger().level
+    handlers = list(logging.getLogger().handlers)
+    recipes = {}
+    try:
+        for script, argv, aliases, pattern in (
+                ("examples/rnn/bucketing.py", [],
+                 {"mxnet_tpu.rnn": mt.rnn, "mxnet_tpu.module": mt.module,
+                  "mxnet_tpu.ops": mt.ops,
+                  "mxnet_tpu.ops.rnn_op": mt.ops.rnn_op},
+                 r"bucketing training done"),
+                ("examples/image_classification/train_mnist.py",
+                 ["--ctx", "gpu"],
+                 {"mxnet_tpu.io": mt.io, "mxnet_tpu.module": mt.module},
+                 r"final accuracy: \{'accuracy': ([0-9.]+)\}")):
+            t = time.perf_counter()
+            _, text = _run_recipe(mt, script, argv, aliases)
+            found = re.findall(pattern, text)
+            name = os.path.basename(script)
+            recipes[name] = {"argv": argv, "printed": found,
+                             "seconds": time.perf_counter() - t}
+            if not found or (name == "train_mnist.py"
+                             and not float(found[-1]) > 0.9):
+                bad.append(f"recipe {name}: {found} {text[-300:]}")
+    finally:
+        root = logging.getLogger()
+        root.setLevel(level)
+        root.handlers[:] = handlers
+    row["recipes"] = recipes
+    emit(row)
+    if bad:
+        fail(f"bucketing_lm: {bad}")
+    return row
+
+
+def _gf_lstm_graphs(mt):
+    """(foreach over an LSTM cell, the fused RNN op), one layer at the
+    word LM's widths, with the same weights as separate variables and as
+    the op's flat vector [W, R, bW, bR] (gates i, f, g, o)."""
+    S = mt.sym
+    w, r = S.var("i2h_weight"), S.var("h2h_weight")
+    bw, br = S.var("i2h_bias"), S.var("h2h_bias")
+
+    def body(x, states):
+        h, c = states
+        gates = S.FullyConnected(x, w, bw, num_hidden=4 * LM_HID) + \
+            S.FullyConnected(h, r, br, num_hidden=4 * LM_HID)
+        i, f, g, o = S.split(gates, num_outputs=4, axis=1)
+        c2 = S.sigmoid(f) * c + S.sigmoid(i) * S.tanh(g)
+        h2 = S.sigmoid(o) * S.tanh(c2)
+        return h2, [h2, c2]
+    outs, (h_t, c_t) = S.contrib.foreach(body, S.var("data"),
+                                         [S.var("h0"), S.var("c0")])
+    fused = S.RNN(S.var("data"), S.var("parameters"), S.var("state"),
+                  S.var("state_cell"), state_size=LM_HID, num_layers=1,
+                  mode="lstm", state_outputs=True, name="lstm")
+    return S.Group([outs, h_t, c_t]), fused
+
+
+def _gf_foreach_lstm(torch, mt):
+    """(a): forward and every gradient of the foreach LSTM against the
+    fused RNN op, T 35, N 32, 650 -> 650, on the card."""
+    g = torch.Generator().manual_seed(21)
+
+    def u(*shape):
+        return (torch.rand(shape, generator=g) * 0.16 - 0.08)
+    T, N, H = LM_BPTT, LM_BATCH, LM_HID
+    v = {"data": u(T, N, LM_EMB) * 10, "h0": u(N, H) * 5, "c0": u(N, H) * 5,
+         "i2h_weight": u(4 * H, LM_EMB), "h2h_weight": u(4 * H, H),
+         "i2h_bias": u(4 * H), "h2h_bias": u(4 * H)}
+    heads = [torch.randn(s, generator=g) for s in ((T, N, H), (N, H),
+                                                   (N, H))]
+    loop, fused = _gf_lstm_graphs(mt)
+    gpu = mt.gpu(0)
+
+    def run(sym, args, heads):
+        nd = {k: mt.nd.array(a.numpy(), ctx=gpu) for k, a in args.items()}
+        ex = sym.bind(gpu, nd, args_grad={k: mt.nd.zeros(a.shape, ctx=gpu)
+                                          for k, a in args.items()})
+        outs = [o.tensor.clone() for o in ex.forward(is_train=True)]
+        ex.backward([mt.nd.from_torch(h.to(gpu.torch_device))
+                     for h in heads])
+        return outs, {k: ex.grad_dict[k].tensor for k in args}
+    t = time.perf_counter()
+    lo, lg = run(loop, v, heads)
+    flat = torch.cat([v["i2h_weight"].reshape(-1),
+                      v["h2h_weight"].reshape(-1), v["i2h_bias"],
+                      v["h2h_bias"]])
+    fo, fg = run(fused, {"data": v["data"], "parameters": flat,
+                         "state": v["h0"][None], "state_cell":
+                         v["c0"][None]}, heads[:1] + [h[None] for h in
+                                                       heads[1:]])
+    n = [w.numel() for w in (v["i2h_weight"], v["h2h_weight"],
+                             v["i2h_bias"], v["h2h_bias"])]
+    parts = torch.split(fg["parameters"], n)
+    got = lo + [lg[k] for k in ("data", "h0", "c0", "i2h_weight",
+                                "h2h_weight", "i2h_bias", "h2h_bias")]
+    want = [fo[0], fo[1][0], fo[2][0], fg["data"], fg["state"][0],
+            fg["state_cell"][0]] + [
+        p.reshape(v[k].shape) for p, k in zip(parts, (
+            "i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"))]
+    worst, ok = _close_of_max(torch, got, want, GF_TOL)
+    return {"shape": [T, N, LM_EMB, H], "worst_of_max": worst,
+            "tensors": len(got), "seconds": time.perf_counter() - t}, ok
+
+
+def _gf_nd_cases(torch, mt, ctx):
+    """(b): ``mx.nd.contrib`` foreach / while_loop / cond with their
+    gradients, on ``ctx``."""
+    import numpy as np
+    rs = np.random.RandomState(22)
+    out = []
+    with ctx:
+        x = mt.nd.array(rs.randn(12, 64, 128).astype(np.float32))
+        w = mt.nd.array(rs.randn(128, 128).astype(np.float32) * 0.1)
+        h0 = mt.nd.zeros((64, 128))
+        for a in (x, w):
+            a.attach_grad()
+        with mt.autograd.record():
+            outs, h = mt.nd.contrib.foreach(
+                lambda xt, h: [mt.nd.tanh(xt + mt.nd.dot(h, w))] * 2, x, h0)
+            wl, (i, s) = mt.nd.contrib.while_loop(
+                lambda i, s: i < 5, lambda i, s: (s * 2, [i + 1, s * w[0]]),
+                [mt.nd.array([0.0]), h[0]], max_iterations=8)
+            c = mt.nd.contrib.cond(s.sum() > 0, lambda: s * 3,
+                                   lambda: s - 1)
+            loss = outs.sum() + (wl * wl).sum() + c.sum()
+        loss.backward()
+        out = [outs, h, wl, s, c, x.grad, w.grad]
+    return [o.tensor.detach().cpu() for o in out]
+
+
+def _gf_custom_block(torch, mt, ctx):
+    """(c): a registered Custom op inside a hybridized block, 3 Trainer
+    steps on ``ctx`` from seeded numpy weights: outputs, gradients of the
+    input and the updated weights."""
+    import numpy as np
+    rs = np.random.RandomState(23)
+    with ctx:
+        class Net(mt.gluon.HybridBlock):
+            def __init__(self):
+                super().__init__(prefix="cnet_")
+                self.fc1 = mt.gluon.nn.Dense(256, in_units=128)
+                self.fc2 = mt.gluon.nn.Dense(10, in_units=256)
+
+            def hybrid_forward(self, F, x):
+                h = F.Custom(self.fc1(x), op_type="gf_scaled_sqr",
+                             scale=0.5)
+                return self.fc2(h)
+        net = Net()
+        net.initialize()
+        for p in net.collect_params().values():
+            p.set_data(mt.nd.array(rs.uniform(-0.1, 0.1, p.shape)
+                                   .astype(np.float32)))
+        net.hybridize()
+        tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.05, "momentum": 0.9})
+        res = []
+        for k in range(3):
+            x = mt.nd.array(rs.randn(64, 128).astype(np.float32))
+            x.attach_grad()
+            with mt.autograd.record():
+                y = net(x)
+                loss = (y * y).mean()
+            loss.backward()
+            res += [y.tensor.detach(), x.grad.tensor]
+            tr.step(64)
+        res += [p.tensor for p in net.collect_params().values()]
+        info = tuple(net._cached_op.cache_info())
+    return [r.detach().cpu() for r in res], info
+
+
+def _gf_register_custom(mt):
+    if "gf_scaled_sqr" in mt.operator.get_all_registered():
+        return
+
+    @mt.operator.register("gf_scaled_sqr")
+    class ScaledSqrProp(mt.operator.CustomOpProp):
+        def __init__(self, scale="1.0"):
+            super().__init__(need_top_grad=True)
+            self.scale = float(scale)
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return ScaledSqr(self.scale)
+
+    class ScaledSqr(mt.operator.CustomOp):
+        def __init__(self, scale):
+            self.scale = scale
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        in_data[0] * in_data[0] * self.scale)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0],
+                        2 * self.scale * in_data[0] * out_grad[0])
+
+
+def _gf_partitioned(torch, mt, tmp):
+    """(d): the full-width ResNet-50 symbol and its
+    ``optimize_for("XLA")`` partition, bound on the card from the same
+    weights: a training forward and backward of each on one batch, the
+    outputs, every gradient and the moving statistics bit for bit (the
+    region walks the same ops in the same order, with deterministic
+    cuDNN); the BN wrappers' launches in the partitioned step."""
+    from mxnet_tpu_torch.ops import fused_bn_act as tk
+    _, _, sym, arg, aux = _mr_export(torch, mt, tmp)
+    part = sym.optimize_for("XLA")
+    kinds = sorted({n.op.name for n in part._topo() if n.op is not None})
+    X, Y = _mr_images(torch, mt, MR_BATCH, 4)
+    gpu = mt.gpu(0)
+    res, launches = [], None
+    for s in (sym, part):
+        ex = s.simple_bind(gpu, data=(MR_BATCH, IMG, IMG, 3),
+                           softmax_label=(MR_BATCH,))
+        ex.copy_params_from(arg, aux)
+        tk.reset_launches()
+        out = ex.forward(is_train=True, data=mt.nd.array(X, ctx=gpu),
+                         softmax_label=mt.nd.array(Y, ctx=gpu))[0]
+        ex.backward()
+        torch.cuda.synchronize()
+        launches = dict(tk.launches)
+        res.append([out.tensor.clone()] + [
+            ex.grad_dict[k].tensor.clone() for k in sorted(ex.grad_dict)]
+            + [ex.aux_dict[k].tensor.clone() for k in sorted(ex.aux_dict)])
+        del ex
+    bitwise = len(res[0]) == len(res[1]) and all(
+        torch.equal(a, b) for a, b in zip(*res))
+    worst, _ = _close_of_max(torch, res[1], res[0], 0.0)
+    return {"node_kinds": kinds, "tensors": len(res[0]),
+            "bit_for_bit": bitwise, "worst_of_max": worst,
+            "partitioned_step_wrapper_launches": launches}
+
+
+def graph_features(torch, mt, card, tmp):
+    """The graph features on the card. (a) ``sym.contrib.foreach`` over an
+    LSTM-cell body (FullyConnected, split, sigmoid / tanh) at the word
+    LM's widths (T 35, batch 32, 650 -> 650) against the fused ``RNN`` op
+    with the same weights: outputs, final states and every gradient within
+    1e-4 of each tensor's largest value. (b) ``mx.nd.contrib.foreach`` /
+    ``while_loop`` / ``cond`` under ``record()``: values and gradients
+    card against host within 1e-4. (c) a registered ``Custom`` op inside
+    a hybridized block (its CachedOp captures the op into the graphs), 3
+    Trainer steps: outputs, the input's gradients and the updated weights
+    card against host within 1e-4, the graphs replayed. (d)
+    ``optimize_for("XLA")`` on the full-width ResNet-50 symbol (one
+    ``_subgraph`` region): a training forward and backward bit for bit
+    the unpartitioned graph's (the region walks the same ops in the same
+    order; deterministic cuDNN), 48 wrapper launches of each BN kernel
+    in the partitioned step."""
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    bad, row = [], {"phase": "graph_features", "card": card}
+    try:
+        row["a"], ok = _gf_foreach_lstm(torch, mt)
+        if not ok:
+            bad.append(f"(a) foreach LSTM against the RNN op: {row['a']}")
+        t = time.perf_counter()
+        worst, ok = _close_of_max(torch, _gf_nd_cases(torch, mt, mt.gpu(0)),
+                                  _gf_nd_cases(torch, mt, mt.cpu()), GF_TOL)
+        row["b"] = {"worst_of_max": worst,
+                    "seconds": time.perf_counter() - t}
+        if not ok:
+            bad.append(f"(b) mx.nd.contrib card vs host: {worst}")
+        _gf_register_custom(mt)
+        t = time.perf_counter()
+        (card_r, info), (host_r, _) = (_gf_custom_block(torch, mt, c)
+                                       for c in (mt.gpu(0), mt.cpu()))
+        worst, ok = _close_of_max(torch, card_r, host_r, GF_TOL)
+        row["c"] = {"worst_of_max": worst, "cache_info": info,
+                    "seconds": time.perf_counter() - t}
+        if not ok or info[0] < 2:
+            bad.append(f"(c) Custom op in a hybridized block: {row['c']}")
+        t = time.perf_counter()
+        row["d"] = _gf_partitioned(torch, mt, tmp)
+        row["d"]["seconds"] = time.perf_counter() - t
+        if not row["d"]["bit_for_bit"] or \
+                row["d"]["node_kinds"] != ["_subgraph"] or any(
+                    row["d"]["partitioned_step_wrapper_launches"].get(k)
+                    != 48 for k in KERNELS):
+            bad.append(f"(d) optimize_for: {row['d']}")
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    emit(row)
+    if bad:
+        fail(f"graph_features: {bad}")
+    return row
+
+
+def a14_module_phases(torch, mt, card, timed, names=A14_PHASES,
+                      gluon_row=None, lm_row=None):
+    """The A14 slice 1 and 2 phases, in order, with a scratch
+    directory."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="mxt_a14_")
+    fns = {"module_resnet50": lambda: module_resnet50(torch, mt, card, tmp,
+                                                      gluon_row),
+           "bucketing_lm": lambda: bucketing_lm(torch, mt, card, tmp,
+                                                lm_row),
+           "graph_features": lambda: graph_features(torch, mt, card, tmp)}
+    rows = {}
+    try:
+        for name in names:
+            rows[name] = timed(name, fns[name])
+            torch.cuda.empty_cache()
+    finally:
+        A14_STATE.pop("mr", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
 def run_phases(argv):
     """``chip_smoke.py --phases NAME [NAME ...]``: build the kernels and run
     only the named phases of A10's second half (``fleet_train``,
     ``mesh_lm``), of A11 (``sparse_ops``, ``sparse_mf``, ``sparse_dist``,
     ``recsys_plane``), of A23 (``serving_fleet``), of A14's recurrent
-    stack (``rnn_lm``) and of A13
-    (``int8_ops``, ``int8_resnet50``,
-    ``resid8_train``, ``symbol_export``, ``quant_recipes``; after the
-    others, in their own order), with their ``wall`` lines and a last
+    stack (``rnn_lm``), of A13 (``int8_ops``, ``int8_resnet50``,
+    ``resid8_train``, ``symbol_export``, ``quant_recipes``) and of A14's
+    symbolic training surface (``module_resnet50``, ``bucketing_lm``,
+    ``graph_features``); the A13 and then the A14 ones after the others,
+    each group in its own order, with their ``wall`` lines and a last
     ``walls`` line. Any failure exits non-zero."""
     phases = {"fleet_train": fleet_train, "mesh_lm": mesh_lm,
               "sparse_ops": sparse_ops_phase, "sparse_mf": sparse_mf,
               "sparse_dist": sparse_dist, "recsys_plane": recsys_plane,
               "serving_fleet": serving_fleet, "rnn_lm": rnn_lm}
-    phases.update({n: None for n in A13_PHASES})
+    phases.update({n: None for n in A13_PHASES + A14_PHASES})
     unknown = sorted(set(argv) - set(phases))
     if not argv or unknown:
         fail(f"name phases from {', '.join(phases)} (unknown: {unknown})")
@@ -11246,10 +12185,11 @@ def run_phases(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    walls = {}
+    walls, rows = {}, {}
     t = time.perf_counter()
     _build.build()
     walls["build"] = time.perf_counter() - t
+
     def timed(name, fn, *args):
         t = time.perf_counter()
         out = fn(*args)
@@ -11258,12 +12198,16 @@ def run_phases(argv):
         return out
 
     for name in argv:
-        if name not in A13_PHASES:
-            timed(name, phases[name], torch, mt, card)
+        if name not in A13_PHASES + A14_PHASES:
+            rows[name] = timed(name, phases[name], torch, mt, card)
             torch.cuda.empty_cache()
     a13 = [n for n in argv if n in A13_PHASES]
     if a13:
         a13_phases(torch, mt, card, timed, a13)
+    a14 = [n for n in argv if n in A14_PHASES]
+    if a14:
+        a14_module_phases(torch, mt, card, timed, a14,
+                          lm_row=rows.get("rnn_lm"))
     emit({"phase": "walls", "seconds": walls})
 
 

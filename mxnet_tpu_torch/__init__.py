@@ -15,22 +15,27 @@ from . import (autograd, context, convert, gluon, initializer, kvstore,
 from . import (cached_op, callback, contrib, fault, fit, image, io, log,
                megastep, metric, model, monitor, profiler, recordio, rnn,
                serving, symbol, telemetry, util)
+from . import attribute, module, operator, subgraph
+from .attribute import AttrScope
 from .base import MXNetError, check
-from .context import Context, cpu, current_context, gpu, num_gpus
+from .context import Context, cpu, current_context, gpu, num_gpus, tpu
+from .executor_compat import Executor
+from .monitor import Monitor
 
 init = initializer
 kv = kvstore
+mod = module
 nd = ndarray
 sym = symbol
 
 __version__ = "0.1.0"
 
-__all__ = ["Context", "MXNetError", "autograd", "cached_op", "callback",
-           "check", "context", "contrib", "convert", "cpu",
-           "current_context", "fault", "fit", "gpu", "gluon", "image",
-           "init", "initializer", "io", "kv", "kvstore", "log",
-           "lr_scheduler", "megastep", "metric", "model", "models", "monitor",
-           "nd",
-           "ndarray", "num_gpus", "ops", "optimizer", "parallel",
-           "profiler", "random", "recordio", "rnn", "rtc", "serving", "sym",
-           "symbol", "telemetry", "util"]
+__all__ = ["AttrScope", "Context", "Executor", "MXNetError", "Monitor",
+           "attribute", "autograd", "cached_op", "callback", "check",
+           "context", "contrib", "convert", "cpu", "current_context",
+           "fault", "fit", "gpu", "gluon", "image", "init", "initializer",
+           "io", "kv", "kvstore", "log", "lr_scheduler", "megastep",
+           "metric", "mod", "model", "models", "module", "monitor", "nd",
+           "ndarray", "num_gpus", "operator", "ops", "optimizer",
+           "parallel", "profiler", "random", "recordio", "rnn", "rtc",
+           "serving", "subgraph", "sym", "symbol", "telemetry", "tpu", "util"]

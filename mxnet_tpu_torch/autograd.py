@@ -36,8 +36,15 @@ the buffer is dense.
 
 ``get_symbol`` raises ``NotImplementedError`` with the JAX package's
 words: the eager tape is not traced into a Symbol (``HybridBlock.export``
-is the way to a graph). Not ported: ``capture`` (the free-variable probe
-of ``contrib/control_flow.py``, ROADMAP A14).
+is the way to a graph).
+
+:class:`capture` collects, in order of first use, the NDArrays that ops
+run inside it read and that carry a gradient record (attached variables
+and the outputs of recorded ops), skipping those the captured ops made
+themselves: the free variables of a function (ref: the JAX package's
+``capture``, the probe of its ``contrib/control_flow.py``). The port's
+control flow needs no probe, since torch autograd records the loops
+themselves.
 """
 from __future__ import annotations
 
@@ -51,16 +58,54 @@ from .telemetry import efficiency as _efficiency
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "Function", "grad_ready_scope", "get_symbol"]
+           "backward", "grad", "Function", "grad_ready_scope", "get_symbol",
+           "capture"]
 
 
 class _State(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        self.capture_stack = []
 
 
 _state = _State()
+
+
+class _CaptureScope:
+    """The free NDArrays one :class:`capture` saw (``order``)."""
+
+    def __init__(self):
+        self.order: list = []
+        self._seen = set()
+        self._internal = set()
+
+    def observe(self, inputs, outputs) -> None:
+        for x in inputs:
+            if x._data.requires_grad and id(x) not in self._internal \
+                    and id(x) not in self._seen:
+                self._seen.add(id(x))
+                self.order.append(x)
+        for o in outputs:
+            self._internal.add(id(o))
+
+
+class capture:
+    """Context manager collecting the free variables the ops inside it
+    read (ref: the JAX package's ``autograd.capture``)."""
+
+    def __enter__(self) -> _CaptureScope:
+        scope = _CaptureScope()
+        _state.capture_stack.append(scope)
+        return scope
+
+    def __exit__(self, *a):
+        _state.capture_stack.pop()
+
+
+def _observe_capture(inputs, outputs) -> None:
+    if _state.capture_stack:
+        _state.capture_stack[-1].observe(inputs, outputs)
 
 
 def is_recording() -> bool:

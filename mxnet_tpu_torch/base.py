@@ -110,6 +110,8 @@ env.declare("MXNET_BACKWARD_MIRROR_POLICY", str, "full",
             "Remat policy when mirroring: full (save nothing) | dots "
             "(save matmul results, recompute elementwise ops) | convs "
             "(save convolution and matmul results).")
+env.declare("MXNET_UPDATE_ON_KVSTORE", bool, True,
+            "Run optimizer update inside the kvstore when supported.")
 env.declare("MXTPU_FUSED_EPILOGUE", bool, True,
             "Route the fused conv-epilogue ops (BatchNorm(+add)+ReLU) "
             "through the hand-written CUDA kernels (their plain PyTorch "

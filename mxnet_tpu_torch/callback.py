@@ -1,13 +1,9 @@
 """Training callbacks (ref: python/mxnet/callback.py; a copy of the JAX
-package's ``callback.py``). ``module_checkpoint`` saves through
-``module``, which is not ported yet: it raises ``NotPortedError``
-(ROADMAP A14)."""
+package's ``callback.py``)."""
 from __future__ import annotations
 
 import logging
 import time
-
-from .ops.registry import NotPortedError
 
 __all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
            "module_checkpoint", "ProgressBar"]
@@ -27,9 +23,15 @@ def do_checkpoint(prefix, period=1):
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    """(ref: callback.py module_checkpoint): needs ``module``."""
-    raise NotPortedError("callback.module_checkpoint saves a Module, which "
-                         "is not ported yet (ROADMAP.md, queue A14)")
+    """An epoch-end callback that writes ``mod.save_checkpoint(prefix,
+    iter_no + 1, save_optimizer_states)`` every ``period`` epochs (ref:
+    callback.py module_checkpoint)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

@@ -11,17 +11,21 @@ The port's default context is ``gpu(0)``, not the JAX package's
 the CPU (``with mx.cpu():``, ``ctx=mx.cpu()`` or ``device="cpu"``), and
 without a card the default raises rather than carrying on quietly on the
 host.
+
+``with ctx:`` keeps the context it replaces on a stack of the thread, not
+on the Context object (the JAX package and the reference keep it on the
+object): one Context entered twice, nested or from two threads, then
+restores what each entry replaced.
 """
 from __future__ import annotations
 
 import threading
-from typing import Optional
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
+__all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "num_gpus",
            "default_device", "resolve_device"]
 
 
@@ -47,7 +51,6 @@ class Context:
                 raise MXNetError(f"unknown device type {device_type!r}")
             self.device_typeid = Context.devstr2type[device_type]
             self.device_id = int(device_id)
-        self._old_ctx: Optional[Context] = None
 
     @property
     def device_type(self) -> str:
@@ -76,12 +79,16 @@ class Context:
     __str__ = __repr__
 
     def __enter__(self):
-        self._old_ctx = current_context()
-        Context._default_ctx.value = self
+        tls = Context._default_ctx
+        if not hasattr(tls, "saved"):
+            tls.saved = []
+        tls.saved.append(getattr(tls, "value", None))
+        tls.value = self
         return self
 
     def __exit__(self, ptype, value, trace):
-        Context._default_ctx.value = self._old_ctx
+        tls = Context._default_ctx
+        tls.value = tls.saved.pop()
 
 
 def cpu(device_id: int = 0) -> Context:
@@ -93,6 +100,13 @@ def gpu(device_id: int = 0) -> Context:
     """Card ``device_id`` (MXNet's ``mx.gpu(i)``, ``torch.device("cuda",
     i)``)."""
     return Context("gpu", device_id)
+
+
+def tpu(device_id: int = 0) -> Context:
+    """The JAX package's ``mx.tpu()``: the port has no TPU, so it raises
+    (recipes that list it beside ``mx.gpu`` still import)."""
+    raise MXNetError("mx.tpu(): the port runs on CUDA cards; use "
+                     "mx.gpu(i)")
 
 
 #: the card a distributed rank runs on (``kvstore_server.join_group``)

@@ -34,6 +34,7 @@ from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from ..ops import rnn_op as _rnn_op  # noqa: F401
 from ..ops import sparse_ops as _sparse_ops  # noqa: F401
+from .. import operator as _custom_host  # noqa: F401  (registers Custom)
 from . import register as _register
 from .ndarray import (NDArray, arange, array, concatenate, empty, eye,  # noqa
                       from_torch, full, imperative_invoke, linspace,

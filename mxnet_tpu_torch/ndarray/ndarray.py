@@ -492,6 +492,7 @@ def _apply(fn, nd_inputs: Sequence[NDArray], differentiable: bool = True):
         outs = tuple(_own(o, tensors)
                      for o in _reg.as_tuple_outputs(fn(*tensors)))
     nds = tuple(NDArray(o) for o in outs)
+    autograd._observe_capture(nd_inputs, nds)
     return nds[0] if len(nds) == 1 else nds
 
 

@@ -1,8 +1,10 @@
 """``mx.sym``: the symbolic API (ref: the JAX package's
 ``symbol/__init__.py``; python/mxnet/symbol/__init__.py). A function for
 every registry name, and the Symbol, Executor and JSON load / save.
-``contrib.foreach`` / ``while_loop`` / ``cond`` (symbolic control flow)
-raise ``NotPortedError`` (ROADMAP A14)."""
+``contrib.foreach`` / ``while_loop`` / ``cond`` build control-flow nodes
+(``control_flow.py``); their ops are registered after the namespaces are
+filled, so, as in the JAX package, ``mx.nd`` and ``mx.sym`` have no
+function for them."""
 import sys
 import types
 
@@ -26,16 +28,12 @@ for _n in ("random", "linalg", "contrib", "image", "_internal", "op",
 _register.populate(_this, _submodules)
 
 
-def _control_flow(name):
-    def f(*args, **kwargs):
-        from .symbol import not_ported_node
-        raise not_ported_node(f"_{name}")
-    f.__name__ = name
-    return f
-
-
-for _n in ("foreach", "while_loop", "cond"):
-    setattr(contrib, _n, _control_flow(_n))  # noqa: F821
+# symbolic control flow (ref: control_flow.cc) as sym.contrib.foreach /
+# while_loop / cond, the reference's surface
+from . import control_flow as _cf  # noqa: E402
+contrib.foreach = _cf.foreach  # noqa: F821
+contrib.while_loop = _cf.while_loop  # noqa: F821
+contrib.cond = _cf.cond  # noqa: F821
 
 
 def split_v2(data, indices_or_sections, axis=0, squeeze_axis=False):

@@ -17,8 +17,22 @@ forward records the walk with torch autograd (the aux states are written
 then, as a side effect of the forward, the reference's contract) and
 ``backward`` differentiates that record; head gradients default to ones.
 
-Control-flow and ``_subgraph`` nodes raise ``NotPortedError`` (ROADMAP
-A14).
+The moving statistics of the fused BN ops (``_contrib_fused_bn_relu``,
+``_contrib_fused_bn_add_relu``, the nodes ``HybridBlock.export`` writes
+for ``gluon.nn.FusedBatchNorm*ReLU``) are blended too, as Gluon's fused
+blocks blend them; the JAX package's executor knows only ``BatchNorm``
+and leaves them as they were (ROADMAP, faults of the JAX package).
+
+Control-flow nodes (``control_flow.py``) run eagerly
+(:func:`_lower_control_flow`): ``_foreach`` a Python loop over the data's
+leading axis that stacks the step outputs, ``_while_loop`` a loop that
+reads its predicate on the host each step (one device sync a step) and
+pads the step outputs to ``max_iterations``, ``_cond`` a predicate read
+on the host and the taken branch only. Torch autograd records them like
+any other op. The moving statistics of a BatchNorm inside a body are
+carried from step to step and come out as the node's aux updates. A
+``_subgraph`` node (``subgraph.py``) walks its sub-Symbol inline with the
+enclosing walk's mode and aux states.
 """
 from __future__ import annotations
 
@@ -31,24 +45,33 @@ import torch
 from ..base import MXNetError, check
 from ..context import current_context
 from ..ndarray import ndarray as _nd
-from .symbol import A14_OPS, node_params, not_ported_node
+from .symbol import CONTROL_FLOW_OPS, node_params
 
 __all__ = ["Executor", "eval_symbol", "walk_inputs"]
 
 
-def _bn_aux_update(in_arrays, out_arrays, params):
-    """The moving-statistic blend of a training BatchNorm (ref: the
-    in-op updates of src/operator/nn/batch_norm.cc)."""
-    momentum = float(params.get("momentum", 0.9))
-    if bool(params.get("use_global_stats", False)):
-        return {}
-    _, mean, var = out_arrays
-    mm, mv = in_arrays[3], in_arrays[4]
-    return {3: mm * momentum + mean.detach() * (1 - momentum),
-            4: mv * momentum + var.detach() * (1 - momentum)}
+def _bn_aux_blend(mean_slot: int) -> Callable:
+    """The moving-statistic blend of a training BatchNorm whose moving
+    mean and variance are inputs ``mean_slot`` and ``mean_slot + 1`` (ref:
+    the in-op updates of src/operator/nn/batch_norm.cc; Gluon's
+    ``BatchNorm._update_running_stats``)."""
+    def update(in_arrays, out_arrays, params):
+        momentum = float(params.get("momentum", 0.9))
+        if bool(params.get("use_global_stats", False)):
+            return {}
+        _, mean, var = out_arrays
+        mm, mv = in_arrays[mean_slot], in_arrays[mean_slot + 1]
+        return {mean_slot: mm * momentum + mean.detach() * (1 - momentum),
+                mean_slot + 1: mv * momentum
+                + var.detach() * (1 - momentum)}
+    return update
 
 
-AUX_UPDATERS: Dict[str, Callable] = {"BatchNorm": _bn_aux_update}
+_bn_aux_update = _bn_aux_blend(3)
+AUX_UPDATERS: Dict[str, Callable] = {
+    "BatchNorm": _bn_aux_update,
+    "_contrib_fused_bn_relu": _bn_aux_update,
+    "_contrib_fused_bn_add_relu": _bn_aux_blend(4)}
 _TAKES_TRAINING: Dict[int, bool] = {}
 
 
@@ -61,6 +84,107 @@ def _takes_training(opdef) -> bool:
             v = False
         _TAKES_TRAINING[id(opdef)] = v
     return v
+
+
+def _lower_control_flow(node, ins, is_train, collect_aux=None):
+    """The outputs of a control-flow node (``control_flow.py``) from its
+    inputs, run eagerly (ref: the JAX package's ``_lower_control_flow``,
+    there ``lax.scan`` / ``lax.while_loop`` / ``lax.cond``). The final
+    values of aux states used in a body (BatchNorm moving statistics) go
+    to ``collect_aux``."""
+    sub = node.attrs["__subgraph__"]
+    free_names = node.attrs["__cf_free_names__"]
+    n_out = node.attrs["__cf_n_out__"]
+    # free variables marked aux route through the body walk's aux_map
+    aux_names = set(sub.list_auxiliary_states())
+    if "__cf_else__" in node.attrs:
+        aux_names |= set(node.attrs["__cf_else__"].list_auxiliary_states())
+    aux_free = [n for n in free_names if n in aux_names]
+
+    def split(values):
+        frees = dict(zip(free_names, values))
+        return ({k: v for k, v in frees.items() if k not in aux_names},
+                [frees[n] for n in aux_free])
+
+    def run(body, bound, au):
+        m = dict(frees)
+        m.update(bound)
+        am = dict(zip(aux_free, au))
+        coll = {}
+        res = _walk(body, m, am, is_train,
+                    collect_aux=coll if is_train else None)
+        return res, [coll.get(n, am[n]) for n in aux_free]
+
+    def publish(values):
+        if collect_aux is not None:
+            collect_aux.update(zip(aux_free, values))
+
+    op = node.op.name
+    if op == "_foreach":
+        slice_names = node.attrs["__cf_slice_names__"]
+        state_names = node.attrs["__cf_state_names__"]
+        n_d, n_s = len(slice_names), len(state_names)
+        datas, states = ins[:n_d], list(ins[n_d:n_d + n_s])
+        frees, au = split(ins[n_d + n_s:])
+        steps = datas[0].shape[0]
+        check(steps > 0, f"{node.name}: foreach over an empty axis")
+        stacked = [[] for _ in range(n_out)]
+        for t in range(steps):
+            bound = dict(zip(slice_names, [d[t] for d in datas]))
+            bound.update(zip(state_names, states))
+            res, au = run(sub, bound, au)
+            for acc, o in zip(stacked, res[:n_out]):
+                acc.append(o)
+            states = res[n_out:]
+        publish(au)
+        return [torch.stack(acc) for acc in stacked] + list(states)
+
+    if op == "_while_loop":
+        state_names = node.attrs["__cf_state_names__"]
+        max_iter = node.attrs["__cf_max_iter__"]
+        n_s = len(state_names)
+        vars_ = list(ins[:n_s])
+        frees, au = split(ins[n_s:])
+        steps = []
+        while len(steps) < max_iter:
+            res, new_au = run(sub, dict(zip(state_names, vars_)), au)
+            if not bool(res[0].reshape(())):   # the host reads it
+                break
+            steps.append(res[1:1 + n_out])
+            vars_, au = res[1 + n_out:], new_au
+        publish(au)
+        # step outputs land in max_iterations buffers, zeros after the
+        # last step the predicate allowed (the JAX package's shapes)
+        bufs = []
+        for i, o in enumerate(res[1:1 + n_out]):
+            pad = o.new_zeros((max_iter - len(steps),) + tuple(o.shape))
+            bufs.append(torch.cat([torch.stack([s[i] for s in steps]),
+                                   pad]) if steps else pad)
+        return bufs + list(vars_)
+
+    # _cond: the predicate is read on the host; only the taken branch runs
+    in_names = node.attrs["__cf_in_names__"]
+    n_i = len(in_names)
+    frees, au = split(ins[1 + n_i:])
+    body = sub if bool(ins[0].reshape(())) else node.attrs["__cf_else__"]
+    res, au = run(body, dict(zip(in_names, ins[1:1 + n_i])), au)
+    publish(au)
+    return list(res[:n_out])
+
+
+def _walk_subgraph(node, ins, is_train, collect_aux):
+    """A ``_subgraph`` node inline, in this walk's mode; the aux updates
+    of its region go back under the outer graph's variable names."""
+    sub = node.attrs["__subgraph__"]
+    in_names = tuple(node.attrs["__subgraph_inputs__"])
+    inner = {} if collect_aux is not None else None
+    outs = _walk(sub, dict(zip(in_names, ins)), {}, is_train,
+                 collect_aux=inner)
+    for pname, val in (inner or {}).items():
+        if pname in in_names:
+            pname = node.inputs[in_names.index(pname)][0].name
+        collect_aux[pname] = val
+    return outs
 
 
 def _walk(symbol, arg_map: Dict[str, Any], aux_map: Dict[str, Any],
@@ -78,21 +202,25 @@ def _walk(symbol, arg_map: Dict[str, Any], aux_map: Dict[str, Any],
                 check(name in arg_map, f"missing argument {name}")
                 cache[(id(node), 0)] = arg_map[name]
             continue
-        if node.op.name in A14_OPS:
-            raise not_ported_node(node.op.name)
         ins = [cache[(id(i), k)] for i, k in node.inputs]
-        params = node_params(node)
-        if _takes_training(node.op):
-            params["_training"] = is_train
-        out = node.op.fn(*ins, **params)
-        outs = out if isinstance(out, (tuple, list)) else (out,)
+        if node.op.name in CONTROL_FLOW_OPS:
+            outs = _lower_control_flow(node, ins, is_train,
+                                       collect_aux=collect_aux)
+        elif node.op.name == "_subgraph":
+            outs = _walk_subgraph(node, ins, is_train, collect_aux)
+        else:
+            params = node_params(node)
+            if _takes_training(node.op):
+                params["_training"] = is_train
+            out = node.op.fn(*ins, **params)
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            if is_train and collect_aux is not None and \
+                    node.op.name in AUX_UPDATERS:
+                for slot, val in AUX_UPDATERS[node.op.name](
+                        ins, outs, params).items():
+                    collect_aux[node.inputs[slot][0].name] = val
         for i, o in enumerate(outs):
             cache[(id(node), i)] = o
-        if is_train and collect_aux is not None and \
-                node.op.name in AUX_UPDATERS:
-            for slot, val in AUX_UPDATERS[node.op.name](
-                    ins, outs, params).items():
-                collect_aux[node.inputs[slot][0].name] = val
     return [cache[(id(n), i)] for n, i in symbol._outputs]
 
 

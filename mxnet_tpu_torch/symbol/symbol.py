@@ -15,10 +15,13 @@ no data; an op that needs values runs on zeros on the host), with the
 reference's backfill of unknown parameter shapes from the known ones
 (``PARAM_SHAPE_HINTS``, ref: infer_graph_attr_pass.cc).
 
-Not ported (ROADMAP A14): the attribute scope (``attribute.py``), the
-control-flow nodes (``_foreach``, ``_while_loop``, ``_cond``) and
-partitioned graphs (``_subgraph``, ``optimize_for``), which raise
-``NotPortedError``.
+A control-flow node (``_foreach``, ``_while_loop``, ``_cond``;
+``control_flow.py``) carries its body as a sub-Symbol attribute, which
+``tojson`` writes as an embedded JSON string (``_SUBJSON_MARK``) and
+``load_json`` reads back. ``optimize_for`` partitions the graph into
+``_subgraph`` nodes (``subgraph.py``); a partitioned graph is not
+serialised. ``var`` and ``create`` take the attributes of the open
+``AttrScope``s (``attribute.py``).
 """
 from __future__ import annotations
 
@@ -28,15 +31,20 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as _np
 import torch
 
+from ..attribute import current as _attr_current
 from ..base import MXNetError, check, coerce_param, torch_dtype
 from ..ops import registry as _reg
+
+# attrs value prefix marking an embedded (recursively serialised)
+# sub-Symbol: the control-flow nodes' bodies in save / load
+_SUBJSON_MARK = "__MXTPU_SUBGRAPH_JSON__:"
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
            "new_node_name", "create"]
 
-# the node kinds of the JAX package's symbolic control flow and graph
-# partitioning, which the port does not have yet
-A14_OPS = ("_foreach", "_while_loop", "_cond", "_subgraph")
+# the control-flow node kinds (control_flow.py), which the executor
+# lowers itself
+CONTROL_FLOW_OPS = ("_foreach", "_while_loop", "_cond")
 
 _NAME_COUNTER: Dict[str, int] = {}
 
@@ -64,12 +72,6 @@ def node_params(node) -> Dict[str, Any]:
         if isinstance(params[k], bool):
             params[k] = int(params[k])
     return params
-
-
-def not_ported_node(op_name: str):
-    return _reg.NotPortedError(
-        f"symbol node {op_name!r}: symbolic control flow and partitioned "
-        "graphs are not ported yet (ROADMAP.md, queue A14)")
 
 
 def new_node_name(hint: str) -> str:
@@ -309,17 +311,33 @@ class Symbol:
                            for i, k in node.inputs]
 
     def optimize_for(self, backend: str, **kwargs) -> "Symbol":
-        """Graph partitioning (``subgraph.py``) is ROADMAP A14."""
-        raise not_ported_node("_subgraph")
+        """Partition the graph with the subgraph property registered as
+        ``backend`` (ref: Symbol.optimize_for, ``subgraph.py``)."""
+        from ..subgraph import get_subgraph_property, partition_graph
+        return partition_graph(self,
+                               get_subgraph_property(backend, **kwargs))
 
     # -- serialization ---------------------------------------------------
     def tojson(self) -> str:
+        for n in self._topo():
+            if n.op is not None and n.op.name == "_subgraph":
+                raise MXNetError(
+                    "cannot serialize a partitioned graph: _subgraph "
+                    "nodes are runtime artifacts; save the original "
+                    "symbol and re-run optimize_for after loading")
+
+        def ser_attr(v):
+            # a control-flow node's body, as an embedded JSON string
+            if isinstance(v, Symbol):
+                return _SUBJSON_MARK + v.tojson()
+            return str(v)
+
         nodes = []
         index: Dict[int, int] = {}
         order = self._topo()
         for node in order:
             index[id(node)] = len(nodes)
-            attrs = {k: str(v) for k, v in node.attrs.items()}
+            attrs = {k: ser_attr(v) for k, v in node.attrs.items()}
             if node.is_variable and node.extra.get("aux", False):
                 attrs["__aux__"] = "1"
             nodes.append({
@@ -450,6 +468,24 @@ def _layernorm_hint(in_shapes, params):
             if in_shapes[i] is None}
 
 
+def _fused_bn_hint(first_param):
+    """The fused BN ops (channel axis -1 by default): gamma, beta and the
+    moving statistics from data's channels, ``_contrib_fused_bn_add_relu``'s
+    residual from data (the JAX package has no hint for them, so it cannot
+    bind an exported NHWC ResNet by its data shape)."""
+    def hint(in_shapes, params):
+        data = in_shapes[0]
+        if data is None:
+            return {}
+        c = data[int(params.get("axis", -1)) % len(data)]
+        out = {i: (c,) for i in range(first_param, len(in_shapes))
+               if in_shapes[i] is None}
+        if first_param == 2 and in_shapes[1] is None:
+            out[1] = tuple(data)
+        return out
+    return hint
+
+
 def _embedding_hint(in_shapes, params):
     if len(in_shapes) > 1 and in_shapes[1] is None:
         return {1: (int(params.get("input_dim", 1)),
@@ -490,6 +526,8 @@ PARAM_SHAPE_HINTS: Dict[str, Any] = {
     "Deconvolution": _deconv_hint,
     "BatchNorm": _channel_vec_hint,
     "InstanceNorm": _channel_vec_hint,
+    "_contrib_fused_bn_relu": _fused_bn_hint(1),
+    "_contrib_fused_bn_add_relu": _fused_bn_hint(2),
     "LayerNorm": _layernorm_hint,
     "Embedding": _embedding_hint,
     "SoftmaxOutput": lambda s, p: (
@@ -520,6 +558,77 @@ def _eval_shape(fn, ins, params):
         except Exception as e:          # noqa: BLE001 - retried on the host
             err = e
     raise err
+
+
+# nodes whose body is a sub-Symbol: shapes come from inferring the body
+SUBGRAPH_OPS = CONTROL_FLOW_OPS + ("_subgraph",)
+
+
+def _body_names(node):
+    """``(names, sliced, bodies)``: the body's variable name for each of
+    the node's inputs (None for ``_cond``'s predicate), the inputs the
+    body sees one leading-axis slice of (``_foreach``'s data), and the
+    bodies."""
+    a, op = node.attrs, node.op.name
+    if op == "_subgraph":
+        return list(a["__subgraph_inputs__"]), 0, [a["__subgraph__"]]
+    free = list(a["__cf_free_names__"])
+    if op == "_foreach":
+        sl = list(a["__cf_slice_names__"])
+        return (sl + list(a["__cf_state_names__"]) + free, len(sl),
+                [a["__subgraph__"]])
+    if op == "_while_loop":
+        return list(a["__cf_state_names__"]) + free, 0, [a["__subgraph__"]]
+    return ([None] + list(a["__cf_in_names__"]) + free, 0,
+            [a["__subgraph__"], a["__cf_else__"]])
+
+
+def _body_known(names, sliced, in_avals):
+    known, dts = {}, {}
+    for i, (n, av) in enumerate(zip(names, in_avals)):
+        if n is not None and av is not None:
+            known[n] = av[0][1:] if i < sliced else av[0]
+            dts[n] = av[1]
+    return known, dts
+
+
+def _sub_backfill(node, in_avals):
+    """{input index: (shape, dtype)} for the node's unknown inputs that
+    the bodies' own inference fills (their parameters)."""
+    names, sliced, bodies = _body_names(node)
+    known, dts = _body_known(names, sliced, in_avals)
+    out = {}
+    for body in bodies:
+        sh, ty, ash, aty, _, _ = _infer(body, known, dts, True)
+        for i, n in enumerate(names):
+            if i < sliced or n is None or in_avals[i] is not None \
+                    or i in out:
+                continue
+            if n in sh:
+                out[i] = (sh[n], ty[n])
+            elif n in ash:
+                out[i] = (ash[n], aty[n])
+    return out
+
+
+def _sub_outputs(node, in_avals, partial):
+    """The node's output avals from its body's: ``_foreach`` stacks the
+    step outputs over the data's leading axis, ``_while_loop`` buffers
+    them over ``max_iterations`` after the predicate."""
+    names, sliced, bodies = _body_names(node)
+    known, dts = _body_known(names, sliced, in_avals)
+    _, _, _, _, shp, typ = _infer(bodies[0], known, dts, partial)
+    outs = [None if s is None else (tuple(s), t) for s, t in zip(shp, typ)]
+    op, a = node.op.name, node.attrs
+    if op == "_foreach":
+        n, steps = a["__cf_n_out__"], in_avals[0][0][0]
+        return [None if o is None else ((steps,) + o[0], o[1])
+                for o in outs[:n]] + outs[n:]
+    if op == "_while_loop":
+        n, steps = a["__cf_n_out__"], a["__cf_max_iter__"]
+        return [None if o is None else ((steps,) + o[0], o[1])
+                for o in outs[1:1 + n]] + outs[1 + n:]
+    return outs
 
 
 def _infer(symbol: Symbol, known_shapes, dtypes, partial):
@@ -554,10 +663,18 @@ def _infer(symbol: Symbol, known_shapes, dtypes, partial):
             if aval is not None:
                 record_var(node, aval)
             continue
-        if node.op.name in A14_OPS:
-            raise not_ported_node(node.op.name)
         in_avals = [cache.get((id(i), k)) for i, k in node.inputs]
-        if any(a is None for a in in_avals):
+        nested = node.op.name in SUBGRAPH_OPS
+        if nested and any(a is None for a in in_avals):
+            # the body's own hints fill the node's unknown parameters
+            for idx, aval in _sub_backfill(node, in_avals).items():
+                inp, k = node.inputs[idx]
+                if inp.is_variable and cache.get((id(inp), 0)) is None:
+                    aval = var_aval(inp, assigned_shape=aval[0])
+                    if aval is not None:
+                        record_var(inp, aval)
+            in_avals = [cache.get((id(i), k)) for i, k in node.inputs]
+        elif any(a is None for a in in_avals):
             hint = PARAM_SHAPE_HINTS.get(node.op.name)
             if hint is not None:
                 in_shapes = [a[0] if a is not None else None
@@ -580,13 +697,17 @@ def _infer(symbol: Symbol, known_shapes, dtypes, partial):
                 f"cannot infer shape: inputs {missing} of node "
                 f"{node.name} are unknown")
         try:
-            outs = _eval_shape(node.op.fn, in_avals, node_params(node))
+            outs = _sub_outputs(node, in_avals, partial) if nested else \
+                _eval_shape(node.op.fn, in_avals, node_params(node))
+        except MXNetError:
+            raise
         except Exception as e:          # noqa: BLE001 - named below
             raise MXNetError(
                 f"shape inference failed at {node.name} ({node.op.name}): "
                 f"{e}") from None
         for i, o in enumerate(outs):
-            cache[(id(node), i)] = o
+            if o is not None:
+                cache[(id(node), i)] = o
 
     out_shapes, out_types = [], []
     for node, i in symbol._outputs:
@@ -604,6 +725,9 @@ def var(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
         dtype=None, init=None, stype=None, **kwargs) -> Symbol:
     """A variable (ref: mx.sym.var / Variable)."""
     node = _Node(None, name, {}, [])
+    scope_attrs = _attr_current().get()
+    if scope_attrs:
+        node.extra["attr"] = dict(scope_attrs)
     if shape is not None:
         node.extra["shape"] = tuple(shape)
     if dtype is not None:
@@ -671,6 +795,9 @@ def create(op_name: str, input_syms: Sequence[Symbol], params: Dict[str, Any],
             aux_node.extra["aux"] = True
             inputs.append((aux_node, 0))
     node = _Node(opdef, name, dict(params), inputs)
+    scope_attrs = _attr_current().get()
+    if scope_attrs:
+        node.extra["attr"] = dict(scope_attrs)
     # mark already-supplied aux inputs
     for aux_i in opdef.aux_inputs:
         if aux_i < len(node.inputs):
@@ -686,7 +813,9 @@ def load_json(json_str: str) -> Symbol:
     nodes: List[_Node] = []
     for spec in data["nodes"]:
         raw = spec.get("attrs") or spec.get("param") or {}
-        attrs = {k: coerce_param(v) for k, v in raw.items()}
+        attrs = {k: load_json(v[len(_SUBJSON_MARK):])
+                 if isinstance(v, str) and v.startswith(_SUBJSON_MARK)
+                 else coerce_param(v) for k, v in raw.items()}
         if spec["op"] == "null":
             is_aux = attrs.pop("__aux__", None)
             node = _Node(None, spec["name"], {}, [])
@@ -695,8 +824,6 @@ def load_json(json_str: str) -> Symbol:
             if attrs:
                 node.extra["attr"] = attrs
         else:
-            if spec["op"] in A14_OPS:
-                raise not_ported_node(spec["op"])
             opdef = _reg.get_op(spec["op"])
             inputs = [(nodes[i], k) for i, k, *_ in spec["inputs"]]
             node = _Node(opdef, spec["name"], attrs, inputs)

@@ -89,6 +89,8 @@ SPARSE_FLAGS = {"MXNET_STORAGE_FALLBACK_LOG_VERBOSE": ["0", "1", "", None],
                 "MXTPU_SPARSE_MAX_ROWS": ["1", "16384", None]}
 # int8 training convolutions (ops/resid8.py conv_int8_train)
 QUANT_FLAGS = {"MXNET_CONV_INT8_RANGE": ["8", "2.5", "16.0", None]}
+# Module.update through a kvstore (module/module.py)
+MODULE_FLAGS = {"MXNET_UPDATE_ON_KVSTORE": ["1", "0", "false", "", None]}
 VALUES = ["on", "yes", "2", "1", "true", "0", "false", "False", "", None]
 
 
@@ -125,14 +127,15 @@ def test_declarations_match_jax():
     for name in PORTED + tuple(TRAINER_FLAGS) + tuple(FIT_FLAGS) + \
             tuple(MEGASTEP_FLAGS) + tuple(MIRROR_FLAGS) + \
             tuple(RANDOM_FLAGS) + tuple(DATA_FLAGS) + tuple(SERVING_FLAGS) + \
-            tuple(DIST_FLAGS) + tuple(SPARSE_FLAGS) + tuple(QUANT_FLAGS):
+            tuple(DIST_FLAGS) + tuple(SPARSE_FLAGS) + tuple(QUANT_FLAGS) + \
+            tuple(MODULE_FLAGS):
         assert tbase.env.default_for(name) == jbase.env.default_for(name)
         assert tbase.env._defaults[name][0] is jbase.env._defaults[name][0]
     assert {n for n, *_ in tbase.env.items()} == \
         set(PORTED) | set(TRAINER_FLAGS) | set(FIT_FLAGS) | \
         set(MEGASTEP_FLAGS) | set(MIRROR_FLAGS) | set(RANDOM_FLAGS) | \
         set(DATA_FLAGS) | set(SERVING_FLAGS) | set(DIST_FLAGS) | \
-        set(SPARSE_FLAGS) | set(QUANT_FLAGS)
+        set(SPARSE_FLAGS) | set(QUANT_FLAGS) | set(MODULE_FLAGS)
 
 
 @pytest.mark.parametrize("name,value", [
@@ -143,7 +146,8 @@ def test_sparse_flag_get_matches_jax(monkeypatch, name, value):
 
 
 @pytest.mark.parametrize("name,value", [
-    (n, v) for n, vs in QUANT_FLAGS.items() for v in vs])
+    (n, v) for n, vs in {**QUANT_FLAGS, **MODULE_FLAGS}.items()
+    for v in vs])
 def test_quant_flag_get_matches_jax(monkeypatch, name, value):
     _set(monkeypatch, name, value)
     assert tbase.env.get(name) == jbase.env.get(name)

@@ -8,8 +8,8 @@ with its own NDArrays, with torch tensors and with numpy arrays: ``get``,
 ``reset_local``. ``create`` resolves the same names and aliases, lists
 become composite metrics, and a callable becomes a ``CustomMetric``. The
 callbacks log the JAX package's lines; ``do_checkpoint`` writes the
-symbol checkpoint layout and ``module_checkpoint`` raises
-``NotPortedError`` (A14).
+symbol checkpoint layout and ``module_checkpoint`` saves a module every
+``period`` epochs, as the JAX callback does.
 """
 import logging
 
@@ -24,7 +24,6 @@ from mxnet_tpu import nd as jnd
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import callback as tcb
 from mxnet_tpu_torch import metric as tmetric
-from mxnet_tpu_torch.ops.registry import NotPortedError
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 N, K = 12, 5
@@ -219,7 +218,7 @@ def test_speedometer_lines_match_jax(caplog):
 
 
 def test_checkpoint_callbacks_need_symbol_and_module(tmp_path):
-    # do_checkpoint came with symbol/; module_checkpoint waits for module/
+    # do_checkpoint came with symbol/, module_checkpoint with module/
     cb = tcb.do_checkpoint(str(tmp_path / "m"), period=2)
     with mt.cpu():
         sym = mt.sym.FullyConnected(mt.sym.var("data"), num_hidden=2,
@@ -230,5 +229,20 @@ def test_checkpoint_callbacks_need_symbol_and_module(tmp_path):
     cb(1, sym, arg, {})
     assert (tmp_path / "m-0002.params").exists()
     assert (tmp_path / "m-symbol.json").read_text() == sym.tojson()
-    with pytest.raises(NotPortedError, match="A14"):
-        tcb.module_checkpoint(None, "prefix")
+    saved = []
+
+    class _Mod:
+        def save_checkpoint(self, prefix, epoch, states):
+            saved.append((prefix, epoch, states))
+
+    mcb = tcb.module_checkpoint(_Mod(), "prefix", period=2,
+                                save_optimizer_states=True)
+    jsaved = []
+    jmod = type("_JMod", (), {"save_checkpoint": lambda self, *a:
+                              jsaved.append(a)})()
+    jcb_ = jcb.module_checkpoint(jmod, "prefix", period=2,
+                                 save_optimizer_states=True)
+    for epoch in range(5):
+        mcb(epoch)
+        jcb_(epoch)
+    assert saved == jsaved == [("prefix", 2, True), ("prefix", 4, True)]

@@ -365,7 +365,7 @@ def test_default_context_raises_without_a_card(monkeypatch):
 def test_names_not_ported_raise():
     for get in (lambda: tnd.Proposal, lambda: tnd.random.no_such_sampler,
                 lambda: tnd.linalg.no_such_op, lambda: tnd.op.Correlation,
-                lambda: tnd.contrib.foreach, lambda: tnd._internal._foo):
+                lambda: tnd.contrib.fft, lambda: tnd._internal._foo):
         with pytest.raises(MXNetError, match="not ported yet"):
             get()
     assert not hasattr(tnd, "PSROIPooling")

@@ -15,7 +15,11 @@ from mxnet_tpu.ops import registry as jreg
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import registry as treg
 
-NAMES = sorted(set(treg.list_ops()) & set(jreg.list_ops()))
+# the graph-only ops (symbolic control flow, partitioned regions) are
+# registered after the namespaces are filled in both packages: no mx.nd
+# function has them
+GRAPH_ONLY = {"_foreach", "_while_loop", "_cond", "_subgraph"}
+NAMES = sorted(set(treg.list_ops()) & set(jreg.list_ops()) - GRAPH_ONLY)
 
 
 def _sections(doc):
@@ -23,7 +27,10 @@ def _sections(doc):
 
 
 def test_every_ported_name_is_covered():
-    assert NAMES == sorted(treg.list_ops())
+    assert NAMES == sorted(set(treg.list_ops()) - GRAPH_ONLY)
+    assert GRAPH_ONLY <= set(treg.list_ops()) & set(jreg.list_ops())
+    for name in GRAPH_ONLY:
+        assert not hasattr(mx.nd.op, name) and not hasattr(mt.nd.op, name)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -12,7 +12,8 @@ test_symbol_module.py``'s symbol / executor half).
 - ``calib_graph`` and ``quantize_model`` (naive and entropy, examples
   counted) on an MLP, run through both executors;
 - ``model.save_checkpoint`` / ``load_checkpoint`` across packages;
-- the parts still to port raise naming A14.
+- the parts still to port raise naming A14; a JAX control-flow graph
+  loads and runs.
 """
 import json
 
@@ -273,18 +274,30 @@ def test_checkpoints_across_packages(tmp_path):
 
 
 def test_the_parts_still_to_port_name_a14(tmp_path):
+    # control flow, partitioning and module_checkpoint came with A14's
+    # first two slices (tests/test_torch_control_flow.py,
+    # test_torch_subgraph.py, test_torch_module.py): a JAX foreach graph
+    # loads and runs in the port
     data = jmx.sym.var("data")
     out, _ = jmx.sym.contrib.foreach(lambda x, s: (x * 2, s), data,
                                      [jmx.sym.var("s")])
     (tmp_path / "cf.json").write_text(out.tojson())
-    with pytest.raises(NotPortedError, match="A14"):
-        mt.sym.load(str(tmp_path / "cf.json"))
-    with pytest.raises(NotPortedError, match="A14"):
-        mt.sym.contrib.foreach(lambda x, s: (x, s), mt.sym.var("d"), [])
-    with pytest.raises(NotPortedError, match="A14"):
+    back = mt.sym.load(str(tmp_path / "cf.json"))
+    assert back.list_arguments() == out.list_arguments()
+    x = np.arange(6, dtype=np.float32).reshape(3, 2)
+    got = back.bind(CPU, {"data": mt.nd.array(x, ctx=CPU),
+                          "s": mt.nd.zeros((2,), ctx=CPU)}).forward()
+    np.testing.assert_array_equal(got[0].asnumpy(), 2 * x)
+    with pytest.raises(jmx.base.MXNetError, match="registered"):
+        _mlp(jmx).optimize_for("default")
+    with pytest.raises(mt.MXNetError, match="registered"):
         _mlp(mt).optimize_for("default")
+    assert callable(mt.callback.module_checkpoint(None, "p"))
+    # the long tail's ops still raise naming the queue
     with pytest.raises(NotPortedError, match="A14"):
-        mt.callback.module_checkpoint(None, "p")
+        mt.sym.Correlation
+    with pytest.raises(NotPortedError, match="A14"):
+        mt.nd.contrib.fft
     with pytest.raises(NotImplementedError, match="get_symbol"):
         mt.autograd.get_symbol(mt.nd.ones((1,), ctx=CPU))
     assert isinstance(mt.sym.FullyConnected, type(lambda: 0))
